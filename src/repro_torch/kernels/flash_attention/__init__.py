@@ -1,0 +1,5 @@
+from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
+    flash_attention,
+    flash_attention_bkg,
+)
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: F401
