@@ -12,24 +12,39 @@ failed check raises and ends the run: no phase carries on after an error.
 
 Phases:
   1. device: the card's name and power limit (nvidia-smi); every kernel of the
-     port built from ``src/repro_torch/kernels/**/csrc`` with nvcc.
-  2. kernel vs plain version on the card, tf32 off: the flash attention sweep
-     of tests/test_kernels.py in f32 and bf16, and gemma3-1b's prefill shapes
-     (local and global layers), timed with CUDA events beside the plain
-     version and one PyTorch library call (scaled_dot_product_attention with
-     an explicit boolean mask, a yardstick the port never calls).
-  3. prefill: gemma3-1b at full width (random weights from a seeded
-     torch.Generator), 4 prompts of 1024 tokens through build_prefill_step;
-     the flash kernel must launch once per layer (26 times).
+     port built from ``src/repro_torch/kernels/**/csrc`` with nvcc, all at once.
+  2. kernel vs plain version on the card, tf32 off, each timed with CUDA
+     events beside its plain version and its bound:
+     - flash attention: the sweep of tests/test_kernels.py in f32 and bf16,
+       gemma3-1b's prefill shapes (local and global layers) and
+       recurrentgemma-2b's local layer (G=10, window 2048), each also beside
+       one PyTorch library call (scaled_dot_product_attention with an
+       explicit boolean mask, a yardstick the port never calls);
+     - the RG-LRU scan: test_rglru_kernel's sweep and recurrentgemma-2b's
+       prefill shape;
+     - the wkv6: test_wkv6_kernel's sweep and rwkv6-7b's prefill shape, its
+       output and its final state.
+  Then, for gemma3-1b, recurrentgemma-2b and rwkv6-7b in turn, at full width
+  and depth (random weights from a seeded torch.Generator), each model freed
+  before the next:
+  3. prefill: 4 prompts of 1024 tokens through build_prefill_step; every
+     kernel must launch exactly once per layer of its kind (gemma3-1b: flash
+     26; recurrentgemma-2b: rglru_scan 18, flash 8; rwkv6-7b: wkv6 32).
   4. decode: 8 steps of build_decode_step from the prefill cache.
   5. engine: a full-width ServingEngine answers 4 requests.
-  6. reference: the full-width prefill with the plain attention version in
-     place of the kernel, and the gemma3-1b smoke config on the card against
-     the port on the CPU, agree within the bf16 tolerance.
+  6. reference: the full-width prefill with the path's kernel swapped for its
+     plain version (flash for gemma3-1b, the recurrent kernel for the other
+     two), and the smoke config on the card against the port on the CPU,
+     agree within the bf16 model tolerance.  On the recurrent paths every
+     kernel call of a full-width bf16 prefill is also held against its plain
+     version on the same inputs, and the full-width logits are compared
+     with f32 weights: in bf16 a random 32-layer RWKV stack amplifies
+     rounding-level differences past any useful tolerance.
 Then one JSON line describing each kernel, and last the device line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -38,13 +53,29 @@ from pathlib import Path
 
 SEED = 0
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12        # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
 TOL = {"float32": 3e-5, "bfloat16": 2.5e-2}     # tests/test_kernels.py
+RGLRU_TOL = 2e-5              # tests/test_kernels.py::test_rglru_kernel
+WKV6_TOL = 1e-3               # tests/test_kernels.py::test_wkv6_kernel
 MODEL_TOL = 5e-2              # bf16 model tolerance of the port's tests
 # tests/test_kernels.py:19-26: (BK, S, G, hd, window, softcap)
 SWEEP = [(2, 256, 4, 64, 0, 0.0), (2, 256, 1, 64, 64, 0.0),
          (3, 128, 2, 32, 0, 50.0), (1, 512, 6, 128, 128, 30.0),
          (2, 192, 2, 64, 96, 0.0)]
+RGLRU_SWEEP = [(2, 256, 128), (1, 128, 512), (3, 64, 96)]     # (B, S, C)
+WKV6_SWEEP = [(2, 128, 32), (4, 256, 64), (1, 64, 16), (2, 96, 32)]  # (BH,S,hd)
+B, S = 4, 1024                # prompts and their length on the main paths
+PATHS = {                     # arch -> the kernels its prefill must launch
+    "gemma3-1b": {"flash_attention": 26},
+    "recurrentgemma-2b": {"rglru_scan": 18, "flash_attention": 8},
+    "rwkv6-7b": {"wkv6": 32},
+}
+SWAPPED = {"gemma3-1b": "flash_attention", "recurrentgemma-2b": "rglru_scan",
+           "rwkv6-7b": "wkv6"}     # the kernel phase 6 swaps for its plain version
+RECURRENT = ("recurrentgemma-2b", "rwkv6-7b")
+NO_LIBRARY = ("no single PyTorch call computes the RG-LRU scan or the wkv6 "
+              "recurrence, so their library_ms is null")
 
 
 def check(ok: bool, what: str):
@@ -67,17 +98,35 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(flops: float, peak_flops: float, nbytes: float):
+    """Least time (ms) the card could take, and what bounds it."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def flash_bound(BK, S, G, hd, window):
-    """Least time (ms) the card could take for one causal bf16 flash call,
-    and what bounds it: the operations the allowed (q, kv) pairs need (two
-    products of 2*hd each) at the bf16 tensor-core rate, against q, k, v
-    read once and o written once at the HBM rate."""
+    """One causal bf16 flash call: the operations the allowed (q, kv) pairs
+    need (two products of 2*hd each) at the bf16 tensor-core rate, against
+    q, k, v read once and o written once at the HBM rate."""
     pairs = sum(min(s + 1, window) if window else s + 1 for s in range(S))
     flops = 4 * hd * BK * G * pairs
     nbytes = (2 * BK * S * G * hd + 2 * BK * S * hd) * 2
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return bound(flops, PEAK_BF16_FLOPS, nbytes)
+
+
+def rglru_bound(B, S, C):
+    """a and b read once and h written once in f32, one FMA per element."""
+    return bound(2 * B * S * C, PEAK_F32_FLOPS, 3 * B * S * C * 4)
+
+
+def wkv6_bound(BH, S, hd):
+    """r, k, v, logw read once, y and the final state written once, u read,
+    in f32; per step and head 4 operations per state element (the two FMAs
+    of y, the product k v and the decay FMA) and one exp per key channel."""
+    flops = 4 * BH * S * hd * hd + BH * S * hd
+    nbytes = (5 * BH * S * hd + BH * hd + BH * hd * hd) * 4
+    return bound(flops, PEAK_F32_FLOPS, nbytes)
 
 
 def rel_err(torch, a, b) -> float:
@@ -85,9 +134,407 @@ def rel_err(torch, a, b) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
+def max_excess(torch, got, want, tol) -> float:
+    """max |got - want| - tol * |want|: <= tol passes allclose(atol=rtol=tol)."""
+    return float(((got.float() - want.float()).abs()
+                  - tol * want.float().abs()).max())
+
+
 def cache_leaves(cache):
     return [e[n] for part in ("blocks", "tail") for e in cache[part]
             for n in sorted(e)]
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+def check_flash(torch, F, randn, dev):
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_bkg,
+                                                     flash_attention_ref)
+    sweep_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        worst = 0.0
+        for BK, Sq, G, hd, win, cap in SWEEP:
+            q, k, v = randn((BK, Sq, G, hd), dtype), randn((BK, Sq, hd), dtype), \
+                randn((BK, Sq, hd), dtype)
+            kw = dict(scale=hd ** -0.5, softcap=cap, window=win)
+            o = flash_attention_bkg(q, k, v, **kw)
+            ref = flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (o.float() - ref.float()).abs().max().item()
+            check(o.dtype == dtype and o.shape == q.shape, "kernel output type")
+            check(err <= TOL[dname], f"sweep {dname} {(BK, Sq, G, hd, win, cap)}"
+                                     f" max err {err} > {TOL[dname]}")
+            worst = max(worst, err)
+        sweep_err[dname] = worst
+        print(f"[kernels] flash sweep {dname}: max abs err {worst:.3g} "
+              f"(tol {TOL[dname]})")
+
+    rows = {}
+    gemma3, rgemma = get_config("gemma3-1b"), get_config("recurrentgemma-2b")
+    for label, cfg, win in (("local", gemma3, gemma3.window_size),
+                            ("global", gemma3, 0),
+                            ("recurrentgemma_local", rgemma, rgemma.window_size)):
+        BK, G, hd = B * cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+        q = randn((BK, S, G, hd), torch.bfloat16)
+        k, v = randn((BK, S, hd), torch.bfloat16), randn((BK, S, hd), torch.bfloat16)
+        kw = dict(scale=hd ** -0.5, softcap=0.0, window=win)
+        o = flash_attention_bkg(q, k, v, **kw)
+        ref = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - ref.float()).abs().max().item()
+        check(err <= TOL["bfloat16"], f"{cfg.name} {label} max err {err}")
+        pos = torch.arange(S, device=dev)
+        allow = pos[None, :] <= pos[:, None]
+        if win:
+            allow &= pos[None, :] > pos[:, None] - win
+        qs = q.permute(0, 2, 1, 3)
+        ks = k[:, None].expand(BK, G, S, hd)
+        vs = v[:, None].expand(BK, G, S, hd)
+        lib_err = (F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=allow, scale=kw["scale"]).permute(0, 2, 1, 3)
+            .float() - ref.float()).abs().max().item()
+        bound_ms, bound_by = flash_bound(BK, S, G, hd, win)
+        row = {
+            "shape": f"BK={BK} Sq=Skv={S} G={G} hd={hd} bf16 window={win}",
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: flash_attention_bkg(q, k, v, **kw)),
+            "plain_ms": time_ms(torch, lambda: flash_attention_ref(q, k, v, **kw)),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=allow, scale=kw["scale"])),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        rows[label] = row
+        print(f"[kernels] flash {cfg.name} {label}: {row['shape']}: max abs err "
+              f"{err:.3g}, kernel_ms {row['ms']:.4f}, plain_ms "
+              f"{row['plain_ms']:.4f}, library_ms {row['library_ms']:.4f} "
+              f"(library err {lib_err:.3g}), bound_ms {bound_ms:.5f} "
+              f"({bound_by}), {bound_ms / row['ms']:.1%} of bound")
+    return sweep_err, rows
+
+
+def check_rglru(torch, randn):
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.rglru_scan import rglru_scan_bsc, rglru_scan_ref
+
+    def inputs(shape):
+        return torch.sigmoid(randn(shape, torch.float32)), \
+            randn(shape, torch.float32)
+    sweep = 0.0
+    for shape in RGLRU_SWEEP:
+        a, b = inputs(shape)
+        h, ref = rglru_scan_bsc(a, b), rglru_scan_ref(a, b)
+        torch.cuda.synchronize()
+        check(h.dtype == torch.float32 and h.shape == a.shape, "rglru output")
+        check(max_excess(torch, h, ref, RGLRU_TOL) <= RGLRU_TOL,
+              f"rglru sweep {shape}")
+        sweep = max(sweep, (h - ref).abs().max().item())
+    print(f"[kernels] rglru_scan sweep: max abs err {sweep:.3g} "
+          f"(tol {RGLRU_TOL})")
+    cfg = get_config("recurrentgemma-2b")
+    shape = (B, S, cfg.d_rnn)
+    a, b = inputs(shape)
+    h, ref = rglru_scan_bsc(a, b), rglru_scan_ref(a, b)
+    torch.cuda.synchronize()
+    check(max_excess(torch, h, ref, RGLRU_TOL) <= RGLRU_TOL,
+          f"rglru {cfg.name} prefill shape {shape}")
+    bound_ms, bound_by = rglru_bound(*shape)
+    row = {"shape": f"B={shape[0]} S={shape[1]} C={shape[2]} f32",
+           "max_abs_err": (h - ref).abs().max().item(),
+           "sweep_max_abs_err": sweep,
+           "ms": time_ms(torch, lambda: rglru_scan_bsc(a, b)),
+           "plain_ms": time_ms(torch, lambda: rglru_scan_ref(a, b)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    print(f"[kernels] rglru_scan {cfg.name}: {row['shape']}: max abs err "
+          f"{row['max_abs_err']:.3g}, kernel_ms {row['ms']:.4f}, plain_ms "
+          f"{row['plain_ms']:.4f}, bound_ms {bound_ms:.5f} ({bound_by}), "
+          f"{bound_ms / row['ms']:.1%} of bound")
+    return row
+
+
+def check_wkv6(torch, randn):
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.rwkv6_chunk import wkv6_bh, wkv6_ref
+
+    def inputs(BH, Sq, hd):
+        r, k, v = (randn((BH, Sq, hd), torch.float32) for _ in range(3))
+        logw = torch.clamp(-torch.exp(randn((BH, Sq, hd), torch.float32) * 0.5),
+                           -5.0, -1e-4)
+        return r, k, v, logw, randn((BH, hd), torch.float32) * 0.1
+
+    def compare(ins, what):
+        y, st = wkv6_bh(*ins)
+        y_ref, st_ref = wkv6_ref(*ins)
+        torch.cuda.synchronize()
+        check(y.shape == ins[0].shape and st.shape == st_ref.shape,
+              f"wkv6 output shapes {what}")
+        check(max_excess(torch, y, y_ref, WKV6_TOL) <= WKV6_TOL, f"wkv6 y {what}")
+        check(max_excess(torch, st, st_ref, WKV6_TOL) <= WKV6_TOL,
+              f"wkv6 final state {what}")
+        return (y - y_ref).abs().max().item(), (st - st_ref).abs().max().item()
+    sweep = 0.0
+    for shape in WKV6_SWEEP:
+        sweep = max(sweep, *compare(inputs(*shape), shape))
+    print(f"[kernels] wkv6 sweep (y and final state): max abs err {sweep:.3g} "
+          f"(tol {WKV6_TOL})")
+    cfg = get_config("rwkv6-7b")
+    hd = cfg.rwkv_head_dim
+    shape = (B * cfg.d_model // hd, S, hd)
+    ins = inputs(*shape)
+    y_err, st_err = compare(ins, f"{cfg.name} prefill shape {shape}")
+    bound_ms, bound_by = wkv6_bound(*shape)
+    row = {"shape": f"BH={shape[0]} S={shape[1]} hd={hd} f32",
+           "max_abs_err": max(y_err, st_err), "state_max_abs_err": st_err,
+           "sweep_max_abs_err": sweep,
+           "ms": time_ms(torch, lambda: wkv6_bh(*ins)),
+           "plain_ms": time_ms(torch, lambda: wkv6_ref(*ins), iters=5),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    print(f"[kernels] wkv6 {cfg.name}: {row['shape']}: max abs err y "
+          f"{y_err:.3g}, state {st_err:.3g}, kernel_ms {row['ms']:.4f}, "
+          f"plain_ms {row['plain_ms']:.4f}, bound_ms {bound_ms:.5f} "
+          f"({bound_by}), {bound_ms / row['ms']:.1%} of bound")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phases 3-6: one model's serving path
+# ---------------------------------------------------------------------------
+def recurrent_kernel(arch):
+    """(ops module, name of the kernel wrapper the model-facing wrapper
+    calls, its plain version, tolerance) of a recurrent path's kernel."""
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rwkv6_chunk import ops as wkv6_ops
+    if arch == "recurrentgemma-2b":
+        return rglru_ops, "rglru_scan_bsc", rglru_ops.rglru_scan_ref, RGLRU_TOL
+    return wkv6_ops, "wkv6_bh", wkv6_ops.wkv6_ref, WKV6_TOL
+
+
+def swap_for_plain(arch):
+    """Put the path's kernel's plain version where the model calls the
+    kernel; returns the function that puts the kernel back."""
+    if arch in RECURRENT:
+        mod, name, plain, _ = recurrent_kernel(arch)
+        kernel = getattr(mod, name)
+        setattr(mod, name, plain)
+        return lambda: setattr(mod, name, kernel)
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import attention as attn
+
+    def plain_impl(q, k, v, *, window, softcap, scale):
+        Bq, Sq, K, Gq, hdq = q.shape
+        qf = q.permute(0, 2, 1, 3, 4).reshape(Bq * K, Sq, Gq, hdq)
+        kf = k.permute(0, 2, 1, 3).reshape(Bq * K, -1, hdq)
+        vf = v.permute(0, 2, 1, 3).reshape(Bq * K, -1, hdq)
+        o = flash_attention_ref(qf, kf, vf, scale=scale, softcap=softcap,
+                                window=window)
+        return o.reshape(Bq, K, Sq, Gq, hdq).permute(0, 2, 1, 3, 4)
+    attn.set_attention_impl(plain_impl)
+    return kernels.enable_flash_attention
+
+
+def shadow_with_plain(torch, arch, errs):
+    """Make every call of the path's recurrent kernel also run its plain
+    version on the same inputs and append (max abs err, allclose excess) of
+    each output to ``errs``; returns the function that undoes it."""
+    mod, name, plain, tol = recurrent_kernel(arch)
+    kernel = getattr(mod, name)
+
+    def both(*args):
+        out, want = kernel(*args), plain(*args)
+        for o, w in zip(out if isinstance(out, tuple) else (out,),
+                        want if isinstance(want, tuple) else (want,)):
+            errs.append(((o - w).abs().max().item(),
+                         max_excess(torch, o, w, tol)))
+        return out
+    setattr(mod, name, both)
+    return lambda: setattr(mod, name, kernel)
+
+
+def serve_path(torch, np, dev, arch):
+    """Prefill, decode, engine and reference of one architecture at full
+    width.  Returns the launches its main path made, by kernel."""
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import forward_decode, forward_prefill, init_params
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.steps import build_decode_step, build_prefill_step
+
+    cfg = get_config(arch)
+    want = PATHS[arch]
+    # ---- 3. prefill at full width ------------------------------------------
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[prefill] {arch} full width: {n_params / 1e9:.3f} B params "
+          f"({n_params * 2 / 1e9:.2f} GB bf16), init "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    tokens = torch.tensor(rng.integers(2, cfg.vocab_size, (B, S)),
+                          dtype=torch.int32, device=dev)
+    prefill = build_prefill_step(cfg)
+    prefill(model, {"tokens": tokens})            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+
+    cuda_lib.launches.clear()                     # the main path starts here
+    t0 = time.perf_counter()
+    next_tok, cache = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = dict(cuda_lib.launches)
+    check(prefill_launches == want,
+          f"{arch} prefill launched {prefill_launches}, want {want}")
+    check(next_tok.shape == (B,) and
+          bool(((next_tok >= 0) & (next_tok < cfg.vocab_size)).all()),
+          "prefill next tokens")
+    for j, kind in enumerate(cfg.layer_pattern):
+        if kind in ("local", "global"):
+            L = min(cfg.window_size, S) if kind == "local" else S
+            shape = (cfg.n_superblocks, B, L, cfg.n_kv_heads, cfg.head_dim)
+            got = tuple(cache["blocks"][j]["k"].shape)
+            check(got == shape, f"cache block {j} shape {got}, want {shape}")
+    check(len(cache["tail"]) == cfg.n_tail, "cache tail")
+    check(all(bool(torch.isfinite(t).all()) for t in cache_leaves(cache)),
+          "cache finite")
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
+    print(f"[prefill] {arch} {B}x{S} tokens: {prefill_ms:.1f} ms "
+          f"({B * S / prefill_ms * 1e3:.0f} tok/s), launches "
+          f"{prefill_launches}, peak memory above the weights "
+          f"{peak_gb:.2f} GB")
+
+    # ---- 4. decode from the prefill cache -----------------------------------
+    decode = build_decode_step(cfg)
+    tok = next_tok[:, None]
+    step_ms = []
+    for i in range(8):
+        t0 = time.perf_counter()
+        tok, cache = decode(model, cache, tok, S + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    logits, cache = forward_decode(model, cfg, cache, tok, S + 8)
+    torch.cuda.synchronize()
+    check(logits.shape == (B, 1, cfg.vocab_size) and
+          bool(torch.isfinite(logits).all()), "decode logits finite")
+    med = float(np.median(step_ms))
+    print(f"[decode] {arch} 8 steps at batch {B}: median {med:.2f} ms/step "
+          f"({med / B:.3f} ms/token, {B / med * 1e3:.0f} tok/s); "
+          f"steps ms {[round(t, 2) for t in step_ms]}")
+    del cache, logits
+
+    # ---- 5. engine ------------------------------------------------------------
+    eng = ServingEngine(cfg, model, n_slots=4, max_len=128, device=dev)
+    for i in range(4):
+        prompt = rng.integers(2, cfg.vocab_size, size=int(rng.integers(3, 9)))
+        eng.submit(Request(i, prompt.astype(np.int32), max_new=8))
+    t0 = time.perf_counter()
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    eng_s = time.perf_counter() - t0
+    n_tok = sum(len(r.tokens_out) for r in done)
+    check(sorted(r.req_id for r in done) == [0, 1, 2, 3],
+          "engine completed every request")
+    check(all(1 <= len(r.tokens_out) <= 8 and
+              all(0 <= t < cfg.vocab_size for t in r.tokens_out) for r in done),
+          "engine tokens")
+    main_launches = dict(cuda_lib.launches)
+    check(main_launches == prefill_launches,
+          f"decode and engine launched kernels: {main_launches} after the "
+          f"prefill's {prefill_launches}, want no more")
+    print(f"[engine] {arch} {len(done)} requests, {n_tok} tokens in "
+          f"{eng_s:.2f} s ({n_tok / eng_s:.1f} generated tok/s, prompts fed "
+          f"token by token)")
+    del eng
+
+    # ---- 6. against the plain version -----------------------------------------
+    calls = []
+    restore = shadow_with_plain(torch, arch, calls) if arch in RECURRENT \
+        else (lambda: None)
+    try:
+        kernel_logits, _ = forward_prefill(model, cfg, {"tokens": tokens})
+    finally:
+        restore()
+    if arch in RECURRENT:
+        tol = recurrent_kernel(arch)[3]
+        n_out = 2 if arch == "rwkv6-7b" else 1          # wkv6 also has S_last
+        check(len(calls) == want[SWAPPED[arch]] * n_out,
+              f"{arch}: {len(calls)} kernel outputs compared")
+        worst = max(e for e, _ in calls)
+        check(max(x for _, x in calls) <= tol,
+              f"{arch} full width, kernel vs plain on the same inputs, call "
+              f"by call: max abs err {worst}")
+        print(f"[reference] {arch} full width, each of the "
+              f"{want[SWAPPED[arch]]} {SWAPPED[arch]} calls of a prefill "
+              f"against its plain version on the same inputs: max abs err "
+              f"{worst:.3g} (allclose tol {tol})")
+    restore = swap_for_plain(arch)
+    try:
+        forward_prefill(model, cfg, {"tokens": tokens})        # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_logits, _ = forward_prefill(model, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        restore()
+    full_err = rel_err(torch, kernel_logits, plain_logits)
+    check(bool(torch.isfinite(kernel_logits).all()),
+          f"{arch} full-width logits finite")
+    # a random recurrent stack in bf16 amplifies the kernel's and the plain
+    # version's f32 rounding differences layer by layer (rwkv6-7b: 0.59 after
+    # 32 layers), so the recurrent paths compare their logits in f32 below
+    check(arch in RECURRENT or full_err <= MODEL_TOL,
+          f"{arch} full-width logits, kernel vs plain: relative error "
+          f"{full_err}")
+    checked = "bf16, not checked" if arch in RECURRENT else f"tol {MODEL_TOL}"
+    print(f"[reference] {arch} full width, kernel vs plain {SWAPPED[arch]}: "
+          f"logits relative error {full_err:.3g} ({checked}); prefill with "
+          f"the plain version {plain_prefill_ms:.1f} ms vs {prefill_ms:.1f} ms")
+    del model, kernel_logits, plain_logits
+    if arch in RECURRENT:
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+        model = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+        kernel_logits, _ = forward_prefill(model, cfg32, {"tokens": tokens})
+        restore = swap_for_plain(arch)
+        try:
+            plain_logits, _ = forward_prefill(model, cfg32, {"tokens": tokens})
+        finally:
+            restore()
+        f32_err = rel_err(torch, kernel_logits, plain_logits)
+        check(bool(torch.isfinite(kernel_logits).all()) and f32_err <= MODEL_TOL,
+              f"{arch} full-width f32 logits, kernel vs plain: relative error "
+              f"{f32_err}")
+        print(f"[reference] {arch} full width with f32 weights, kernel vs "
+              f"plain {SWAPPED[arch]}: logits relative error {f32_err:.3g} "
+              f"(tol {MODEL_TOL})")
+        del model, kernel_logits, plain_logits
+
+    small = get_smoke_config(arch)
+    cpu_model = init_params(small, torch.Generator().manual_seed(SEED),
+                            device="cpu")
+    small_tok = torch.tensor(rng.integers(2, small.vocab_size, (2, 64)),
+                             dtype=torch.int32)
+    cl, ccache = forward_prefill(cpu_model, small, {"tokens": small_tok})
+    gl, gcache = forward_prefill(cpu_model.to(dev), small,
+                                 {"tokens": small_tok.to(dev)})
+    torch.cuda.synchronize()
+    small_err = (gl.float().cpu() - cl.float()).abs().max().item()
+    cache_err = max(rel_err(torch, g.cpu(), c)
+                    for g, c in zip(cache_leaves(gcache), cache_leaves(ccache)))
+    check(small_err <= MODEL_TOL and cache_err <= MODEL_TOL,
+          f"{arch} smoke config card vs cpu: logits {small_err}, cache "
+          f"{cache_err}")
+    print(f"[reference] {arch} smoke config, card (kernels) vs CPU (plain): "
+          f"logits max abs err {small_err:.3g}, cache relative error "
+          f"{cache_err:.3g} (tol {MODEL_TOL})")
+    return main_launches
 
 
 def main() -> int:
@@ -101,15 +548,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
 
-    from repro_torch import kernels
-    from repro_torch.configs.base import get_config, get_smoke_config
     from repro_torch.kernels import cuda_lib
-    from repro_torch.kernels.flash_attention import (flash_attention_bkg,
-                                                     flash_attention_ref)
-    from repro_torch.models import attention as attn
-    from repro_torch.models import forward_decode, forward_prefill, init_params
-    from repro_torch.serving.engine import Request, ServingEngine
-    from repro_torch.serving.steps import build_decode_step, build_prefill_step
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -140,202 +579,46 @@ def main() -> int:
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    sweep_err = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[1]
-        worst = 0.0
-        for BK, S, G, hd, win, cap in SWEEP:
-            q, k, v = randn((BK, S, G, hd), dtype), randn((BK, S, hd), dtype), \
-                randn((BK, S, hd), dtype)
-            kw = dict(scale=hd ** -0.5, softcap=cap, window=win)
-            o = flash_attention_bkg(q, k, v, **kw)
-            ref = flash_attention_ref(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err = (o.float() - ref.float()).abs().max().item()
-            check(o.dtype == dtype and o.shape == q.shape, "kernel output type")
-            check(err <= TOL[dname], f"sweep {dname} {(BK, S, G, hd, win, cap)}"
-                                     f" max err {err} > {TOL[dname]}")
-            worst = max(worst, err)
-        sweep_err[dname] = worst
-        print(f"[kernels] sweep {dname}: max abs err {worst:.3g} "
-              f"(tol {TOL[dname]})")
+    flash_sweep, flash_rows = check_flash(torch, F, randn, dev)
+    rglru_row = check_rglru(torch, randn)
+    wkv6_row = check_wkv6(torch, randn)
+    print(f"[kernels] {NO_LIBRARY}")
 
-    cfg = get_config("gemma3-1b")
-    B, S = 4, 1024
-    BK, G, hd = B * cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
-    main_shapes = {}
-    for label, win in (("local", cfg.window_size), ("global", 0)):
-        q = randn((BK, S, G, hd), torch.bfloat16)
-        k, v = randn((BK, S, hd), torch.bfloat16), randn((BK, S, hd), torch.bfloat16)
-        kw = dict(scale=hd ** -0.5, softcap=0.0, window=win)
-        o = flash_attention_bkg(q, k, v, **kw)
-        ref = flash_attention_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = (o.float() - ref.float()).abs().max().item()
-        check(err <= TOL["bfloat16"], f"gemma3 {label} max err {err}")
-        pos = torch.arange(S, device=dev)
-        allow = pos[None, :] <= pos[:, None]
-        if win:
-            allow &= pos[None, :] > pos[:, None] - win
-        qs = q.permute(0, 2, 1, 3)
-        ks = k[:, None].expand(BK, G, S, hd)
-        vs = v[:, None].expand(BK, G, S, hd)
-        lib_err = (F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=allow, scale=kw["scale"]).permute(0, 2, 1, 3)
-            .float() - ref.float()).abs().max().item()
-        bound, bound_by = flash_bound(BK, S, G, hd, win)
-        row = {
-            "shape": f"BK={BK} Sq=Skv={S} G={G} hd={hd} bf16 window={win}",
-            "max_abs_err": err,
-            "ms": time_ms(torch, lambda: flash_attention_bkg(q, k, v, **kw)),
-            "plain_ms": time_ms(torch, lambda: flash_attention_ref(q, k, v, **kw)),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=allow, scale=kw["scale"])),
-            "bound_ms": bound, "bound_by": bound_by,
-        }
-        main_shapes[label] = row
-        print(f"[kernels] gemma3-1b {label}: {row['shape']}: max abs err "
-              f"{err:.3g}, kernel_ms {row['ms']:.4f}, plain_ms "
-              f"{row['plain_ms']:.4f}, library_ms {row['library_ms']:.4f} "
-              f"(library err {lib_err:.3g}), bound_ms {bound:.5f} "
-              f"({bound_by}), {bound / row['ms']:.1%} of bound")
+    # ---- 3-6. the serving paths, one model at a time ---------------------
+    launches = {}
+    for arch in PATHS:
+        launches[arch] = serve_path(torch, np, dev, arch)
+        torch.cuda.empty_cache()
 
-    # ---- 3. prefill at full width ------------------------------------------
-    t0 = time.perf_counter()
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                        device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"[prefill] gemma3-1b full width: {n_params / 1e9:.3f} B params "
-          f"({n_params * 2 / 1e9:.2f} GB bf16), init "
-          f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(SEED)
-    tokens = torch.tensor(rng.integers(2, cfg.vocab_size, (B, S)),
-                          dtype=torch.int32, device=dev)
-    prefill = build_prefill_step(cfg)
-    prefill(model, {"tokens": tokens})            # warm-up
-    torch.cuda.synchronize()
+    def path_launches(name):
+        by_path = {arch: n[name] for arch, n in launches.items() if name in n}
+        return sum(by_path.values()), by_path
 
-    cuda_lib.launches.clear()                     # the main path starts here
-    t0 = time.perf_counter()
-    next_tok, cache = prefill(model, {"tokens": tokens})
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    prefill_launches = cuda_lib.launches["flash_attention"]
-    check(prefill_launches == cfg.n_layers,
-          f"flash kernel launched {prefill_launches} times in one prefill, "
-          f"want {cfg.n_layers}")
-    check(next_tok.shape == (B,) and
-          bool(((next_tok >= 0) & (next_tok < cfg.vocab_size)).all()),
-          "prefill next tokens")
-    leaves = cache_leaves(cache)
-    for j, kind in enumerate(cfg.layer_pattern):
-        L = cfg.window_size if kind == "local" else S
-        want = (cfg.n_superblocks, B, L, cfg.n_kv_heads, hd)
-        check(tuple(cache["blocks"][j]["k"].shape) == want,
-              f"cache block {j} shape {tuple(cache['blocks'][j]['k'].shape)}")
-    check(len(cache["tail"]) == cfg.n_tail, "cache tail")
-    check(all(bool(torch.isfinite(t).all()) for t in leaves), "cache finite")
-    print(f"[prefill] {B}x{S} tokens: {prefill_ms:.1f} ms "
-          f"({B * S / prefill_ms * 1e3:.0f} tok/s), flash launches "
-          f"{prefill_launches}")
-
-    # ---- 4. decode from the prefill cache -----------------------------------
-    decode = build_decode_step(cfg)
-    tok = next_tok[:, None]
-    step_ms = []
-    for i in range(8):
-        t0 = time.perf_counter()
-        tok, cache = decode(model, cache, tok, S + i)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    logits, cache = forward_decode(model, cfg, cache, tok, S + 8)
-    torch.cuda.synchronize()
-    check(logits.shape == (B, 1, cfg.vocab_size) and
-          bool(torch.isfinite(logits).all()), "decode logits finite")
-    med = float(np.median(step_ms))
-    print(f"[decode] 8 steps at batch {B}: median {med:.2f} ms/step "
-          f"({med / B:.3f} ms/token, {B / med * 1e3:.0f} tok/s); "
-          f"steps ms {[round(t, 2) for t in step_ms]}")
-
-    # ---- 5. engine ------------------------------------------------------------
-    eng = ServingEngine(cfg, model, n_slots=4, max_len=128, device=dev)
-    for i in range(4):
-        prompt = rng.integers(2, cfg.vocab_size, size=int(rng.integers(3, 9)))
-        eng.submit(Request(i, prompt.astype(np.int32), max_new=8))
-    t0 = time.perf_counter()
-    done = eng.run_until_done()
-    torch.cuda.synchronize()
-    eng_s = time.perf_counter() - t0
-    n_tok = sum(len(r.tokens_out) for r in done)
-    check(sorted(r.req_id for r in done) == [0, 1, 2, 3],
-          "engine completed every request")
-    check(all(1 <= len(r.tokens_out) <= 8 and
-              all(0 <= t < cfg.vocab_size for t in r.tokens_out) for r in done),
-          "engine tokens")
-    main_launches = cuda_lib.launches["flash_attention"]
-    check(main_launches == prefill_launches,
-          f"decode and engine launched the flash kernel "
-          f"{main_launches - prefill_launches} times, want 0")
-    print(f"[engine] {len(done)} requests, {n_tok} tokens in {eng_s:.2f} s "
-          f"({n_tok / eng_s:.1f} generated tok/s, prompts fed token by token)")
-
-    # ---- 6. against the plain version -----------------------------------------
-    def plain_impl(q, k, v, *, window, softcap, scale):
-        Bq, Sq, K, Gq, hdq = q.shape
-        qf = q.permute(0, 2, 1, 3, 4).reshape(Bq * K, Sq, Gq, hdq)
-        kf = k.permute(0, 2, 1, 3).reshape(Bq * K, -1, hdq)
-        vf = v.permute(0, 2, 1, 3).reshape(Bq * K, -1, hdq)
-        o = flash_attention_ref(qf, kf, vf, scale=scale, softcap=softcap,
-                                window=window)
-        return o.reshape(Bq, K, Sq, Gq, hdq).permute(0, 2, 1, 3, 4)
-
-    kernel_logits, _ = forward_prefill(model, cfg, {"tokens": tokens})
-    attn.set_attention_impl(plain_impl)
-    try:
-        forward_prefill(model, cfg, {"tokens": tokens})        # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        plain_logits, _ = forward_prefill(model, cfg, {"tokens": tokens})
-        torch.cuda.synchronize()
-        plain_prefill_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        kernels.enable_flash_attention()
-    full_err = rel_err(torch, kernel_logits, plain_logits)
-    check(bool(torch.isfinite(kernel_logits).all()) and full_err <= MODEL_TOL,
-          f"full-width logits, kernel vs plain: relative error {full_err}")
-    print(f"[reference] full width, kernel vs plain attention: logits "
-          f"relative error {full_err:.3g} (tol {MODEL_TOL}); prefill with "
-          f"the plain version {plain_prefill_ms:.1f} ms vs {prefill_ms:.1f} ms")
-
-    small = get_smoke_config("gemma3-1b")
-    cpu_model = init_params(small, torch.Generator().manual_seed(SEED),
-                            device="cpu")
-    small_tok = torch.tensor(rng.integers(2, small.vocab_size, (2, 64)),
-                             dtype=torch.int32)
-    cl, ccache = forward_prefill(cpu_model, small, {"tokens": small_tok})
-    gl, gcache = forward_prefill(cpu_model.to(dev), small,
-                                 {"tokens": small_tok.to(dev)})
-    torch.cuda.synchronize()
-    small_err = (gl.float().cpu() - cl.float()).abs().max().item()
-    cache_err = max(rel_err(torch, g.cpu(), c)
-                    for g, c in zip(cache_leaves(gcache), cache_leaves(ccache)))
-    check(small_err <= MODEL_TOL and cache_err <= MODEL_TOL,
-          f"smoke config card vs cpu: logits {small_err}, cache {cache_err}")
-    print(f"[reference] gemma3-1b smoke config, card (kernel) vs CPU (plain): "
-          f"logits max abs err {small_err:.3g}, cache relative error "
-          f"{cache_err:.3g} (tol {MODEL_TOL})")
-
-    g, loc = main_shapes["global"], main_shapes["local"]
+    g = flash_rows["global"]
+    n_flash, flash_by_path = path_launches("flash_attention")
+    n_rglru, rglru_by_path = path_launches("rglru_scan")
+    n_wkv6, wkv6_by_path = path_launches("wkv6")
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:88",
-        "launches": main_launches,
-        "max_abs_err": max(g["max_abs_err"], loc["max_abs_err"]),
+        "launches": n_flash, "launches_by_path": flash_by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows.values()),
         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
-        "shape": g["shape"], "local": loc, "sweep_max_abs_err": sweep_err,
+        "shape": g["shape"], "local": flash_rows["local"],
+        "recurrentgemma_local": flash_rows["recurrentgemma_local"],
+        "sweep_max_abs_err": flash_sweep,
+    }, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:49",
+        "launches": n_rglru, "launches_by_path": rglru_by_path, **rglru_row,
+    }, {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6_chunk/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6_chunk/kernel.py:72",
+        "launches": n_wkv6, "launches_by_path": wkv6_by_path, **wkv6_row,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

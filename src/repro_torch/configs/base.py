@@ -2,8 +2,9 @@
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``ModelConfig`` keeps every field of the reference so that the two dataclasses
-match; the port gives behaviour only to the dense attention fields so far
-(MoE, recurrent and encoder-decoder fields are carried but not acted on).
+match; the port gives behaviour to the attention and recurrent (RG-LRU,
+RWKV-6) fields so far (MoE and encoder-decoder fields are carried but not
+acted on).
 
 Layer stacking: ``layer_pattern`` is the repeating unit of layer kinds (e.g.
 ``("local",)*5 + ("global",)`` for gemma3).  The reference scans over
@@ -20,8 +21,8 @@ from typing import Optional
 # Layer kinds understood by models/transformer.py
 ATTN_GLOBAL = "global"     # full causal attention
 ATTN_LOCAL = "local"       # sliding-window attention
-RGLRU = "rglru"            # Griffin recurrent block (not ported yet)
-RWKV = "rwkv"              # RWKV-6 time-mix block (not ported yet)
+RGLRU = "rglru"            # Griffin recurrent block
+RWKV = "rwkv"              # RWKV-6 time-mix block
 
 
 @dataclass(frozen=True)
@@ -178,8 +179,9 @@ def list_archs() -> list:
     return sorted(_REGISTRY)
 
 
-# The dense attention architectures ported so far, in port order.
-_ARCH_MODULES = ["gemma3_1b", "internlm2_20b", "h2o_danube_1_8b", "gemma2_9b"]
+# The architectures ported so far, in port order.
+_ARCH_MODULES = ["gemma3_1b", "internlm2_20b", "h2o_danube_1_8b", "gemma2_9b",
+                 "recurrentgemma_2b", "rwkv6_7b"]
 
 
 def _load_all():

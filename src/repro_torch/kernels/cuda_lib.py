@@ -24,6 +24,8 @@ from pathlib import Path
 _KERNELS = Path(__file__).resolve().parent
 SOURCES = {
     "flash_attention": _KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+    "rglru_scan": _KERNELS / "rglru_scan" / "csrc" / "rglru_scan.cu",
+    "wkv6": _KERNELS / "rwkv6_chunk" / "csrc" / "wkv6.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.profile [--arch gemma3-1b]
         [--batch 4] [--seq 1024] [--iters 5]
 
+(``--arch`` takes any ported architecture: gemma3-1b, recurrentgemma-2b,
+rwkv6-7b ...)
+
 Builds the full-width model (random weights from a seeded torch.Generator)
 and, for the prefill step and the decode step, prints: the host-clock time
 of a call without the profiler (synchronized), the device time of a call
@@ -19,13 +22,15 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import get_config, list_archs
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
 from repro_torch.serving.steps import build_decode_step, build_prefill_step
 
 # kernel-name fragments -> kind, first match wins
 KINDS = (("flash_fwd_kernel", "flash attention (this port's kernel)"),
+         ("rglru_scan_kernel", "RG-LRU scan (this port's kernel)"),
+         ("wkv6_kernel", "wkv6 (this port's kernel)"),
          ("nvjet", "matmul"), ("gemm", "matmul"), ("gemv", "matmul"),
          ("cutlass", "matmul"), ("xmma", "matmul"), ("sm90", "matmul"),
          ("Memcpy", "copies"), ("Memset", "copies"))
@@ -70,7 +75,7 @@ def measure(name: str, fn, iters: int):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma3-1b")
+    ap.add_argument("--arch", default="gemma3-1b", choices=list_archs())
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--iters", type=int, default=5)

@@ -52,6 +52,19 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (x * (1.0 + scale.float())).to(dt)
 
 
+def group_norm_heads(x, scale, bias, n_heads: int, eps: float = 1e-5):
+    """GroupNorm with one group per head over the last dim (RWKV ``ln_x``),
+    computed in f32 (population variance, as ``jnp.var``)."""
+    dt = x.dtype
+    *lead, d = x.shape
+    x = x.float().reshape(*lead, n_heads, d // n_heads)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    x = x.reshape(*lead, d)
+    return (x * scale.float() + bias.float()).to(dt)
+
+
 def init_norm(d: int, device) -> torch.Tensor:
     return torch.zeros((d,), dtype=torch.float32, device=device)
 

@@ -1,13 +1,17 @@
 """Model assembly: embeddings, the layer stack, the head.
 
 Port of ``repro.models.transformer`` for attention layers (``global`` and
-``local``) with a dense MLP.  The reference scans ``lax.scan`` over
-superblocks of ``cfg.layer_pattern`` and then runs the tail; the port keeps
-one ``Layer`` module per layer in the same order and walks them in a loop.
+``local``) with a dense MLP, Griffin RG-LRU layers (``rglru``: recurrent
+block + MLP) and RWKV-6 layers (``rwkv``: time-mix + channel-mix).  The
+reference scans ``lax.scan`` over superblocks of ``cfg.layer_pattern`` and
+then runs the tail; the port keeps one ``Layer`` module per layer in the same
+order and walks them in a loop.
 
-The KV cache keeps the reference's layout, so that both frameworks hand back
-the same structure: ``{"blocks": tuple over pattern positions of {"k", "v"}
-with a leading superblock axis R, "tail": tuple of {"k", "v"}}``.
+The cache keeps the reference's layout, so that both frameworks hand back
+the same structure: ``{"blocks": tuple over pattern positions of the
+layer's entry with a leading superblock axis R, "tail": tuple of entries}``,
+where an attention entry is ``{"k", "v"}``, an RG-LRU entry ``{"h",
+"conv"}`` and an RWKV entry ``{"state", "tm_x", "cm_x"}``.
 
 Entry points:
     init_params(cfg, generator, device)            -> Transformer
@@ -21,23 +25,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV,
+                                      ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.modules import (MLP, ParamModule, init_mlp, init_norm,
-                                        mlp, normal, pdtype, rms_norm)
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models.modules import (ParamModule, init_mlp, init_norm, mlp,
+                                        normal, pdtype, rms_norm)
 
 
 class Layer(ParamModule):
-    """One attention layer: norms ``ln1``, ``ln2`` (and ``post_ln1``,
-    ``post_ln2`` with post-norms) as parameters, ``attn`` and ``mlp``."""
+    """One layer: norms ``ln1``, ``ln2`` (and ``post_ln1``, ``post_ln2`` on
+    attention layers with post-norms) as parameters, and by kind the
+    reference's sub-blocks: ``attn`` and ``mlp`` (attention), ``rec`` and
+    ``mlp`` (RG-LRU), ``tm`` and ``cm`` (RWKV)."""
 
-    def __init__(self, kind: str, norms: dict, attn_p: attn.Attention,
-                 mlp_p: MLP):
+    def __init__(self, kind: str, norms: dict, blocks: dict):
         super().__init__(norms)
         self.kind = kind
-        self.attn = attn_p
-        self.mlp = mlp_p
+        for name, block in blocks.items():
+            self.add_module(name, block)
 
 
 class Transformer(ParamModule):
@@ -50,12 +58,13 @@ class Transformer(ParamModule):
 
 
 def check_supported(cfg: ModelConfig):
-    """The port covers dense attention stacks so far."""
-    kinds = set(cfg.layer_pattern) - {ATTN_GLOBAL, ATTN_LOCAL}
+    """The port covers dense attention, RG-LRU and RWKV stacks so far."""
+    kinds = set(cfg.layer_pattern) - {ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV}
     if kinds or cfg.moe is not None or cfg.encoder_decoder or cfg.frontend \
             or cfg.kv_quant:
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention layers are ported so far")
+            f"{cfg.name}: only dense attention, RG-LRU and RWKV layers are "
+            f"ported so far")
 
 
 # ---------------------------------------------------------------------------
@@ -64,11 +73,20 @@ def check_supported(cfg: ModelConfig):
 def _init_layer(cfg: ModelConfig, kind: str, generator, device) -> Layer:
     norms = {"ln1": init_norm(cfg.d_model, device),
              "ln2": init_norm(cfg.d_model, device)}
+    if kind == RGLRU:
+        return Layer(kind, norms, {
+            "rec": rglru_mod.init_rglru(cfg, generator, device),
+            "mlp": init_mlp(cfg, generator, device)})
+    if kind == RWKV:
+        return Layer(kind, norms, {
+            "tm": rwkv_mod.init_time_mix(cfg, generator, device),
+            "cm": rwkv_mod.init_channel_mix(cfg, generator, device)})
     if cfg.post_norms:
         norms["post_ln1"] = init_norm(cfg.d_model, device)
         norms["post_ln2"] = init_norm(cfg.d_model, device)
-    return Layer(kind, norms, attn.init_attention(cfg, generator, device),
-                 init_mlp(cfg, generator, device))
+    return Layer(kind, norms, {
+        "attn": attn.init_attention(cfg, generator, device),
+        "mlp": init_mlp(cfg, generator, device)})
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -97,6 +115,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions):
     """Returns (x, cache_entry)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
+    if kind == RGLRU:
+        o, h_last, conv_tail = rglru_mod.rglru_seq(p.rec, h, cfg)
+        x = x + o
+        h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+        return x + mlp(p.mlp, h2, cfg.act), {"h": h_last, "conv": conv_tail}
+    if kind == RWKV:
+        # tm_x and cm_x are the last rows of the ln1 and ln2 outputs (the
+        # mixes' inputs), not of the residual
+        o, st, tm_x = rwkv_mod.time_mix_seq(p.tm, h, cfg)
+        x = x + o
+        h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+        o2, cm_x = rwkv_mod.channel_mix(p.cm, h2)
+        return x + o2, {"state": st, "tm_x": tm_x, "cm_x": cm_x}
     o, (k, v) = attn.attention_seq(p.attn, h, cfg, kind, positions)
     if cfg.post_norms:
         o = rms_norm(o, p.post_ln1, cfg.norm_eps)
@@ -114,6 +145,18 @@ def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions):
 def _layer_decode(p: Layer, x, cfg: ModelConfig, kind: str, cache, pos):
     """x: (B,1,D); updates ``cache`` in place; returns x."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
+    if kind == RGLRU:
+        o, _ = rglru_mod.rglru_decode(p.rec, h, cfg, cache)
+        x = x + o
+        h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+        return x + mlp(p.mlp, h2, cfg.act)
+    if kind == RWKV:
+        o, _ = rwkv_mod.time_mix_decode(p.tm, h, cfg, cache)
+        x = x + o
+        h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+        o2, cm_x = rwkv_mod.channel_mix(p.cm, h2, cache["cm_x"])
+        cache["cm_x"].copy_(cm_x)
+        return x + o2
     o, _ = attn.attention_decode(p.attn, h, cfg, kind, cache, pos)
     if cfg.post_norms:
         o = rms_norm(o, p.post_ln1, cfg.norm_eps)
@@ -198,6 +241,15 @@ def forward_decode(model: Transformer, cfg: ModelConfig, cache, tokens, pos):
     return logits, {"blocks": blocks, "tail": cache["tail"]}
 
 
+def _kind_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
+                dtype, device) -> dict:
+    if kind == RGLRU:
+        return rglru_mod.init_rglru_cache(cfg, batch, dtype, device)
+    if kind == RWKV:
+        return rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device)
+    return attn.init_attn_cache(cfg, kind, batch, seq_len, dtype, device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
     check_supported(cfg)
@@ -205,10 +257,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     R = cfg.n_superblocks
     blocks = []
     for kind in cfg.layer_pattern:
-        one = attn.init_attn_cache(cfg, kind, batch, seq_len, dtype, dev)
+        one = _kind_cache(cfg, kind, batch, seq_len, dtype, dev)
         blocks.append({name: torch.zeros((R,) + tuple(t.shape), dtype=t.dtype,
                                          device=dev) for name, t in one.items()}
                       if R else one)
-    tail = tuple(attn.init_attn_cache(cfg, kind, batch, seq_len, dtype, dev)
+    tail = tuple(_kind_cache(cfg, kind, batch, seq_len, dtype, dev)
                  for kind in cfg.tail_pattern)
     return {"blocks": tuple(blocks), "tail": tail}

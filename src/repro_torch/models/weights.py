@@ -3,8 +3,10 @@
 ``params_from_jax`` takes the JAX package's params pytree with every leaf
 already a numpy array (``jax.tree.map(np.asarray, params)``), so bf16 leaves
 arrive as numpy arrays of the ml_dtypes ``bfloat16`` type.  They go through
-``np.float32``, which is exact, and then to ``torch.bfloat16``.  The stacked
-superblock leaves (leading axis R) are cut into one ``Layer`` per layer.
+``np.float32``, which is exact, and then to ``torch.bfloat16``; f32 leaves
+(the RG-LRU conv and gates, the RWKV mixes, LoRAs, ``u`` and ``w0``) stay
+f32.  The stacked superblock leaves (leading axis R) are cut into one
+``Layer`` per layer.
 """
 from __future__ import annotations
 
@@ -15,9 +17,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.modules import MLP
+from repro_torch.models.rglru import RGLRU
+from repro_torch.models.rwkv import ChannelMix, TimeMix
 from repro_torch.models.transformer import Layer, Transformer, check_supported
 
 _NORMS = ("ln1", "ln2", "post_ln1", "post_ln2")
+# a layer's sub-blocks, by the reference's names
+_BLOCKS = {"attn": Attention, "mlp": MLP, "rec": RGLRU, "tm": TimeMix,
+           "cm": ChannelMix}
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -32,8 +39,8 @@ def _layer(kind: str, tree: dict, take, device) -> Layer:
     def conv(d):
         return {name: to_tensor(take(a), device) for name, a in d.items()}
     norms = conv({n: tree[n] for n in _NORMS if n in tree})
-    return Layer(kind, norms, Attention(conv(tree["attn"])),
-                 MLP(conv(tree["mlp"])))
+    return Layer(kind, norms, {name: cls(conv(tree[name]))
+                               for name, cls in _BLOCKS.items() if name in tree})
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> Transformer:

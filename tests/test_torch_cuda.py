@@ -4,10 +4,12 @@ they run on a card machine that has none:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-The flash attention kernel is held against its plain version on the same
-inputs: 3e-5 in f32 and 2.5e-2 in bf16, the reference's kernel tolerances
-(tests/test_kernels.py), with tf32 off so that the plain f32 version is
-full f32.  The model on the card (kernel) is held against the model on the
+Each kernel is held against its plain version on the same inputs, at the
+reference's kernel tolerances (tests/test_kernels.py): flash attention 3e-5
+in f32 and 2.5e-2 in bf16, the RG-LRU scan 2e-5, the wkv6 1e-3 (its output
+and its final state), with tf32 off so that the plain f32 versions are full
+f32.  Each runs over the reference's sweep, then ragged shapes, then the
+shapes of the serving path at full width.  The model on the card (kernel) is held against the model on the
 CPU (plain version) at the port's bf16 model tolerance, 5e-2: logits
 elementwise, cache leaves in relative norm (see tests/test_torch_model.py).
 """
@@ -20,6 +22,8 @@ from repro_torch.configs.base import get_smoke_config  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bkg, flash_attention_ref)
+from repro_torch.kernels.rglru_scan import rglru_scan_bsc, rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_chunk import wkv6_bh, wkv6_ref  # noqa: E402
 from repro_torch.models import forward_prefill, init_params  # noqa: E402
 
 TOL = {torch.float32: 3e-5, torch.bfloat16: 2.5e-2}
@@ -38,7 +42,18 @@ SHAPES = [
     (2, 257, 257, 2, 256, 64, 50.0),
     (1, 64, 96, 2, 64, 0, 0.0),        # Sq != Skv: top-left causality
     (1, 64, 64, 2, 16, 0, 0.0),        # smoke-config head dim
+    (4, 1024, 1024, 10, 256, 2048, 0.0),   # recurrentgemma-2b's local layer
 ]
+# (B, S, C): test_rglru_kernel's sweep, a ragged shape, recurrentgemma-2b's
+# prefill (4 prompts of 1024, d_rnn 2560)
+RGLRU_SHAPES = [(2, 256, 128), (1, 128, 512), (3, 64, 96), (2, 37, 70),
+                (4, 1024, 2560)]
+# (BH, S, hd): test_wkv6_kernel's sweep, a ragged length, rwkv6-7b's prefill
+# (4 prompts of 1024, 64 heads of 64)
+WKV6_SHAPES = [(2, 128, 32), (4, 256, 64), (1, 64, 16), (2, 96, 32),
+               (3, 37, 64), (256, 1024, 64)]
+KINDS = {"flash_attention": ("global", "local"), "rglru_scan": ("rglru",),
+         "wkv6": ("rwkv",)}
 
 
 @pytest.fixture
@@ -85,6 +100,57 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         flash_attention_bkg(q.transpose(1, 3), k, k, scale=0.25)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,C", RGLRU_SHAPES)
+def test_rglru_kernel_matches_plain(cuda_device, B, S, C):
+    a = torch.sigmoid(_randn((B, S, C), torch.float32, cuda_device, 0))
+    b = _randn((B, S, C), torch.float32, cuda_device, 1)
+    before = cuda_lib.launches["rglru_scan"]
+    h = rglru_scan_bsc(a, b)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["rglru_scan"] == before + 1
+    assert h.dtype == torch.float32 and h.shape == a.shape
+    torch.testing.assert_close(h, rglru_scan_ref(a, b), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,hd", WKV6_SHAPES)
+def test_wkv6_kernel_matches_plain(cuda_device, BH, S, hd):
+    r, k, v = (_randn((BH, S, hd), torch.float32, cuda_device, i)
+               for i in range(3))
+    logw = torch.clamp(-torch.exp(
+        _randn((BH, S, hd), torch.float32, cuda_device, 3) * 0.5), -5.0, -1e-4)
+    u = _randn((BH, hd), torch.float32, cuda_device, 4) * 0.1
+    before = cuda_lib.launches["wkv6"]
+    y, st = wkv6_bh(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["wkv6"] == before + 1
+    assert y.shape == r.shape and st.shape == (BH, hd, hd)
+    y_ref, st_ref = wkv6_ref(r, k, v, logw, u)
+    torch.testing.assert_close(y, y_ref, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(st, st_ref, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_recurrent_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    a = torch.zeros(2, 16, 8, device=cuda_device)
+    with pytest.raises(TypeError):
+        rglru_scan_bsc(a.bfloat16(), a.bfloat16())
+    strided = a.transpose(1, 2).contiguous().transpose(1, 2)    # same shape
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan_bsc(strided, a)
+    x = torch.zeros(2, 16, 32, device=cuda_device)
+    u = torch.zeros(2, 32, device=cuda_device)
+    with pytest.raises(TypeError):
+        wkv6_bh(x.bfloat16(), x, x, x, u)
+    strided = x.transpose(1, 2).contiguous().transpose(1, 2)    # same shape
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6_bh(strided, x, x, x, u)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(2, 16, 48, device=cuda_device)
+        wkv6_bh(big, big, big, big, torch.zeros(2, 48, device=cuda_device))
+
+
 def _leaves(cache):
     return [e[n] for part in ("blocks", "tail") for e in cache[part]
             for n in sorted(e)]
@@ -92,18 +158,21 @@ def _leaves(cache):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["gemma3-1b", "internlm2-20b",
-                                  "h2o-danube-1.8b", "gemma2-9b"])
+                                  "h2o-danube-1.8b", "gemma2-9b",
+                                  "recurrentgemma-2b", "rwkv6-7b"])
 def test_prefill_on_card_matches_cpu(cuda_device, arch):
     cfg = get_smoke_config(arch)
     model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     tok = torch.tensor(np.random.default_rng(0).integers(
         2, cfg.vocab_size, (2, 64)), dtype=torch.int32)
     cl, ccache = forward_prefill(model, cfg, {"tokens": tok})
-    before = cuda_lib.launches["flash_attention"]
+    before = dict(cuda_lib.launches)
     gl, gcache = forward_prefill(model.to(cuda_device), cfg,
                                  {"tokens": tok.to(cuda_device)})
     torch.cuda.synchronize()
-    assert cuda_lib.launches["flash_attention"] == before + cfg.n_layers
+    for name, kinds in KINDS.items():
+        want = sum(kind in kinds for kind in cfg.layer_kinds())
+        assert cuda_lib.launches[name] - before.get(name, 0) == want, name
     np.testing.assert_allclose(gl.float().cpu().numpy(), cl.float().numpy(),
                                atol=MODEL_TOL, rtol=MODEL_TOL)
     for g, c in zip(_leaves(gcache), _leaves(ccache)):

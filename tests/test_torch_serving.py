@@ -72,6 +72,10 @@ def test_engine_matches_jax():
     for _ in range(100):
         if not (je.queue or any(s is not None for s in je.slots)):
             break
+        # admit first (step() would do it itself), so that the requests
+        # of this step are known before it runs, the first step included
+        je._admit()
+        te._admit()
         jslots = list(je.slots)
         je.step()
         te.step()
