@@ -15,11 +15,13 @@ Phases:
      port built from ``src/repro_torch/kernels/**/csrc`` with nvcc, all at once.
   2. kernel vs plain version on the card, tf32 off, each timed with CUDA
      events beside its plain version and its bound:
-     - flash attention: the sweep of tests/test_kernels.py in f32 and bf16,
-       gemma3-1b's prefill shapes (local and global layers) and
-       recurrentgemma-2b's local layer (G=10, window 2048), each also beside
-       one PyTorch library call (scaled_dot_product_attention with an
-       explicit boolean mask, a yardstick the port never calls);
+     - flash attention: the sweep of tests/test_kernels.py in f32 (the
+       CUDA-core kernel) and bf16 (the tensor-core kernel), gemma3-1b's
+       prefill shapes (local and global layers) and recurrentgemma-2b's
+       local layer (G=10, window 2048), each also beside one PyTorch library
+       call (scaled_dot_product_attention with an explicit boolean mask, a
+       yardstick the port never calls) and beside the CUDA-core kernel on
+       the same bf16 inputs (the earlier design);
      - the RG-LRU scan: test_rglru_kernel's sweep and recurrentgemma-2b's
        prefill shape;
      - the wkv6: test_wkv6_kernel's sweep and rwkv6-7b's prefill shape, its
@@ -29,7 +31,8 @@ Phases:
   before the next:
   3. prefill: 4 prompts of 1024 tokens through build_prefill_step; every
      kernel must launch exactly once per layer of its kind (gemma3-1b: flash
-     26; recurrentgemma-2b: rglru_scan 18, flash 8; rwkv6-7b: wkv6 32).
+     26; recurrentgemma-2b: rglru_scan 18, flash 8; rwkv6-7b: wkv6 32), and
+     every flash launch must be the tensor-core kernel's.
   4. decode: 8 steps of build_decode_step from the prefill cache.
   5. engine: a full-width ServingEngine answers 4 requests.
   6. reference: the full-width prefill with the path's kernel swapped for its
@@ -39,7 +42,10 @@ Phases:
      kernel call of a full-width bf16 prefill is also held against its plain
      version on the same inputs, and the full-width logits are compared
      with f32 weights: in bf16 a random 32-layer RWKV stack amplifies
-     rounding-level differences past any useful tolerance.
+     rounding-level differences past any useful tolerance.  recurrentgemma-2b
+     also holds its bf16 logits with flash swapped for its plain version (the
+     tensor-core kernel on, in bf16: f32 weights would route flash to the
+     CUDA-core kernel).
 Then one JSON line describing each kernel, and last the device line.
 """
 from __future__ import annotations
@@ -67,8 +73,10 @@ RGLRU_SWEEP = [(2, 256, 128), (1, 128, 512), (3, 64, 96)]     # (B, S, C)
 WKV6_SWEEP = [(2, 128, 32), (4, 256, 64), (1, 64, 16), (2, 96, 32)]  # (BH,S,hd)
 B, S = 4, 1024                # prompts and their length on the main paths
 PATHS = {                     # arch -> the kernels its prefill must launch
-    "gemma3-1b": {"flash_attention": 26},
-    "recurrentgemma-2b": {"rglru_scan": 18, "flash_attention": 8},
+    "gemma3-1b": {"flash_attention": 26, "flash_attention:wgmma": 26,
+                  "flash_attention:fma": 0},
+    "recurrentgemma-2b": {"rglru_scan": 18, "flash_attention": 8,
+                          "flash_attention:wgmma": 8, "flash_attention:fma": 0},
     "rwkv6-7b": {"wkv6": 32},
 }
 SWAPPED = {"gemma3-1b": "flash_attention", "recurrentgemma-2b": "rglru_scan",
@@ -150,17 +158,30 @@ def cache_leaves(cache):
 # ---------------------------------------------------------------------------
 def check_flash(torch, F, randn, dev):
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.flash_attention import (flash_attention_bkg,
-                                                     flash_attention_ref)
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bkg, flash_attention_ref, flash_attention_wgmma_ref,
+        variant)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fma
+
+    def launch(q, k, v, **kw):
+        """The wrapper's route, checked to launch the variant of the rule."""
+        which = f"flash_attention:{variant(q.dtype, q.shape[-1])}"
+        before = cuda_lib.launches[which]
+        o = flash_attention_bkg(q, k, v, **kw)
+        check(cuda_lib.launches[which] == before + 1, f"{which} launched")
+        return o, which.split(":")[1]
+
     sweep_err = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        worst = 0.0
+        worst, used = 0.0, set()
         for BK, Sq, G, hd, win, cap in SWEEP:
             q, k, v = randn((BK, Sq, G, hd), dtype), randn((BK, Sq, hd), dtype), \
                 randn((BK, Sq, hd), dtype)
             kw = dict(scale=hd ** -0.5, softcap=cap, window=win)
-            o = flash_attention_bkg(q, k, v, **kw)
+            o, which = launch(q, k, v, **kw)
+            used.add(which)
             ref = flash_attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
             err = (o.float() - ref.float()).abs().max().item()
@@ -168,9 +189,11 @@ def check_flash(torch, F, randn, dev):
             check(err <= TOL[dname], f"sweep {dname} {(BK, Sq, G, hd, win, cap)}"
                                      f" max err {err} > {TOL[dname]}")
             worst = max(worst, err)
+        check(used == {"fma" if dtype == torch.float32 else "wgmma"},
+              f"sweep {dname} took {used}")
         sweep_err[dname] = worst
-        print(f"[kernels] flash sweep {dname}: max abs err {worst:.3g} "
-              f"(tol {TOL[dname]})")
+        print(f"[kernels] flash sweep {dname} ({'/'.join(used)} kernel): max abs "
+              f"err {worst:.3g} (tol {TOL[dname]})")
 
     rows = {}
     gemma3, rgemma = get_config("gemma3-1b"), get_config("recurrentgemma-2b")
@@ -181,11 +204,18 @@ def check_flash(torch, F, randn, dev):
         q = randn((BK, S, G, hd), torch.bfloat16)
         k, v = randn((BK, S, hd), torch.bfloat16), randn((BK, S, hd), torch.bfloat16)
         kw = dict(scale=hd ** -0.5, softcap=0.0, window=win)
-        o = flash_attention_bkg(q, k, v, **kw)
+        o, which = launch(q, k, v, **kw)
+        check(which == "wgmma", f"{cfg.name} {label} took the {which} kernel")
         ref = flash_attention_ref(q, k, v, **kw)
+        emu = flash_attention_wgmma_ref(q, k, v, **kw)
+        fma = flash_attention_fma(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (o.float() - ref.float()).abs().max().item()
+        emu_err = (o.float() - emu.float()).abs().max().item()
+        fma_err = (fma.float() - ref.float()).abs().max().item()
         check(err <= TOL["bfloat16"], f"{cfg.name} {label} max err {err}")
+        check(fma_err <= TOL["bfloat16"],
+              f"{cfg.name} {label} CUDA-core kernel max err {fma_err}")
         pos = torch.arange(S, device=dev)
         allow = pos[None, :] <= pos[:, None]
         if win:
@@ -199,19 +229,28 @@ def check_flash(torch, F, randn, dev):
         bound_ms, bound_by = flash_bound(BK, S, G, hd, win)
         row = {
             "shape": f"BK={BK} Sq=Skv={S} G={G} hd={hd} bf16 window={win}",
-            "max_abs_err": err,
+            "variant": which, "max_abs_err": err,
+            "emulation_max_abs_err": emu_err,
             "ms": time_ms(torch, lambda: flash_attention_bkg(q, k, v, **kw)),
             "plain_ms": time_ms(torch, lambda: flash_attention_ref(q, k, v, **kw)),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=allow, scale=kw["scale"])),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+        row["earlier_design"] = {
+            "variant": "fma", "max_abs_err": fma_err,
+            "ms": time_ms(torch, lambda: flash_attention_fma(q, k, v, **kw)),
+        }
         rows[label] = row
-        print(f"[kernels] flash {cfg.name} {label}: {row['shape']}: max abs err "
-              f"{err:.3g}, kernel_ms {row['ms']:.4f}, plain_ms "
+        print(f"[kernels] flash {cfg.name} {label}: {row['shape']}: {which} "
+              f"kernel max abs err {err:.3g} (vs its numerics' plain version "
+              f"{emu_err:.3g}), kernel_ms {row['ms']:.4f}, plain_ms "
               f"{row['plain_ms']:.4f}, library_ms {row['library_ms']:.4f} "
-              f"(library err {lib_err:.3g}), bound_ms {bound_ms:.5f} "
-              f"({bound_by}), {bound_ms / row['ms']:.1%} of bound")
+              f"(library err {lib_err:.3g}), kernel_ms / library_ms "
+              f"{row['ms'] / row['library_ms']:.3f}, bound_ms {bound_ms:.5f} "
+              f"({bound_by}), {bound_ms / row['ms']:.1%} of bound; CUDA-core "
+              f"kernel {row['earlier_design']['ms']:.4f} ms (max abs err "
+              f"{fma_err:.3g})")
     return sweep_err, rows
 
 
@@ -311,10 +350,11 @@ def recurrent_kernel(arch):
     return wkv6_ops, "wkv6_bh", wkv6_ops.wkv6_ref, WKV6_TOL
 
 
-def swap_for_plain(arch):
-    """Put the path's kernel's plain version where the model calls the
-    kernel; returns the function that puts the kernel back."""
-    if arch in RECURRENT:
+def swap_for_plain(arch, kernel=None):
+    """Put the plain version of ``kernel`` (default: the one phase 6 swaps
+    on ``arch``'s path) where the model calls the kernel; returns the
+    function that puts the kernel back."""
+    if (kernel or SWAPPED[arch]) != "flash_attention":
         mod, name, plain, _ = recurrent_kernel(arch)
         kernel = getattr(mod, name)
         setattr(mod, name, plain)
@@ -363,7 +403,7 @@ def serve_path(torch, np, dev, arch):
     from repro_torch.serving.steps import build_decode_step, build_prefill_step
 
     cfg = get_config(arch)
-    want = PATHS[arch]
+    want = {name: n for name, n in PATHS[arch].items() if n}
     # ---- 3. prefill at full width ------------------------------------------
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
@@ -387,9 +427,9 @@ def serve_path(torch, np, dev, arch):
     next_tok, cache = prefill(model, {"tokens": tokens})
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    prefill_launches = dict(cuda_lib.launches)
+    prefill_launches = {name: n for name, n in cuda_lib.launches.items() if n}
     check(prefill_launches == want,
-          f"{arch} prefill launched {prefill_launches}, want {want}")
+          f"{arch} prefill launched {prefill_launches}, want {PATHS[arch]}")
     check(next_tok.shape == (B,) and
           bool(((next_tok >= 0) & (next_tok < cfg.vocab_size)).all()),
           "prefill next tokens")
@@ -442,7 +482,7 @@ def serve_path(torch, np, dev, arch):
     check(all(1 <= len(r.tokens_out) <= 8 and
               all(0 <= t < cfg.vocab_size for t in r.tokens_out) for r in done),
           "engine tokens")
-    main_launches = dict(cuda_lib.launches)
+    main_launches = {name: n for name, n in cuda_lib.launches.items() if n}
     check(main_launches == prefill_launches,
           f"decode and engine launched kernels: {main_launches} after the "
           f"prefill's {prefill_launches}, want no more")
@@ -495,6 +535,20 @@ def serve_path(torch, np, dev, arch):
     print(f"[reference] {arch} full width, kernel vs plain {SWAPPED[arch]}: "
           f"logits relative error {full_err:.3g} ({checked}); prefill with "
           f"the plain version {plain_prefill_ms:.1f} ms vs {prefill_ms:.1f} ms")
+    if "flash_attention" in want and SWAPPED[arch] != "flash_attention":
+        restore = swap_for_plain(arch, "flash_attention")
+        try:
+            flash_plain_logits, _ = forward_prefill(model, cfg,
+                                                    {"tokens": tokens})
+        finally:
+            restore()
+        flash_err = rel_err(torch, kernel_logits, flash_plain_logits)
+        check(flash_err <= MODEL_TOL, f"{arch} full-width bf16 logits, flash "
+              f"kernel vs plain: relative error {flash_err}")
+        print(f"[reference] {arch} full width in bf16, kernel vs plain "
+              f"flash_attention: logits relative error {flash_err:.3g} (tol "
+              f"{MODEL_TOL})")
+        del flash_plain_logits
     del model, kernel_logits, plain_logits
     if arch in RECURRENT:
         torch.cuda.empty_cache()
@@ -566,9 +620,8 @@ def main() -> int:
     print(f"[build] nvcc built {built or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name in cuda_lib.SOURCES:
-        for line in cuda_lib.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        for fn, used, spill in cuda_lib.resources(name):
+            print(f"[build] {name}: {fn}: {used}; {spill}")
 
     # ---- 2. kernel vs plain version --------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -595,18 +648,24 @@ def main() -> int:
         return sum(by_path.values()), by_path
 
     g = flash_rows["global"]
-    n_flash, flash_by_path = path_launches("flash_attention")
+    n_flash, flash_by_path = path_launches("flash_attention:wgmma")
+    check(n_flash == path_launches("flash_attention")[0],
+          "every flash launch of the main paths is the tensor-core kernel's")
     n_rglru, rglru_by_path = path_launches("rglru_scan")
     n_wkv6, wkv6_by_path = path_launches("wkv6")
     print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "name": "flash_attention", "route": "cuda", "variant": g["variant"],
+        "source":
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:88",
         "launches": n_flash, "launches_by_path": flash_by_path,
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows.values()),
         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
-        "shape": g["shape"], "local": flash_rows["local"],
+        "shape": g["shape"], "earlier_design": {
+            **g["earlier_design"], "source":
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"},
+        "local": flash_rows["local"],
         "recurrentgemma_local": flash_rows["recurrentgemma_local"],
         "sweep_max_abs_err": flash_sweep,
     }, {

@@ -17,6 +17,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -24,6 +25,8 @@ from pathlib import Path
 _KERNELS = Path(__file__).resolve().parent
 SOURCES = {
     "flash_attention": _KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_wgmma":
+        _KERNELS / "flash_attention" / "csrc" / "flash_attention_wgmma.cu",
     "rglru_scan": _KERNELS / "rglru_scan" / "csrc" / "rglru_scan.cu",
     "wkv6": _KERNELS / "rwkv6_chunk" / "csrc" / "wkv6.cu",
 }
@@ -52,6 +55,28 @@ def build_log(name: str) -> str:
     """What nvcc (with ``-Xptxas -v``: registers, shared memory, spills)
     printed when the library was built."""
     return library_path(name).with_suffix(".log").read_text()
+
+
+def resources(name: str) -> list:
+    """(kernel function, its ``Used ... registers`` line, its spill line)
+    for each kernel function of the library, from its build log."""
+    found, fn, spill = [], None, ""
+    for line in build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and fn:
+            found.append([fn, line.split(":", 1)[1].strip(), spill])
+            fn = None
+    demangle = shutil.which("c++filt")
+    if demangle and found:
+        names = subprocess.run([demangle], input="\n".join(f[0] for f in found),
+                               capture_output=True, text=True).stdout.split("\n")
+        for f, n in zip(found, names):
+            short = re.search(r"(\w+(<[^>]*>)?)\(", n)    # name<args>(...
+            f[0] = short.group(1) if short else (n or f[0])
+    return [tuple(f) for f in found]
 
 
 def build(names=None) -> list:

@@ -1,4 +1,8 @@
-// Flash attention forward for Hopper (sm_90a), f32 and bf16 inputs.
+// Flash attention forward for Hopper (sm_90a) on the CUDA cores, f32 and bf16
+// inputs.  It takes every call that the tensor-core kernel
+// (flash_attention_wgmma.cu) does not: f32, whose reference tolerance of 3e-5
+// TF32 would break, and bf16 at a head dim that kernel has no instance for
+// (the rule is ops.py::variant).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_bkg, body _flash_kernel).  It computes the same function:
@@ -14,10 +18,9 @@
 // operations: at gemma3-1b's global layer (BK=4, S=1024, G=4, hd=256, bf16)
 // the causal pairs need about 8.6 GFLOP against about 21 MB of q/k/v/o, so
 // the tensor cores (989 TFLOP/s in bf16) would set the bound, not HBM.
-// This first version does not reach the tensor cores: it does its products
-// with f32 FMAs on the CUDA cores (67 TFLOP/s peak) out of shared memory,
-// so its ceiling is the FMA pipe and the shared-memory reads feeding it.
-// wgmma with TMA-fed tiles is the step that moves it towards the bound.
+// This kernel does not reach the tensor cores: it does its products with
+// f32 FMAs on the CUDA cores (67 TFLOP/s peak) out of shared memory, so its
+// ceiling is the FMA pipe and the shared-memory reads feeding it.
 //
 // Design.
 //   * One thread block per (BK row, tile of BM = 64 q rows).  The GQA group
@@ -33,8 +36,9 @@
 //     lives in registers, not in shared memory.
 //   * Q and the K/V tiles are staged in shared memory as f32, rows padded by
 //     4 floats so the float4 reads of a quarter-warp hit distinct banks.  At
-//     hd = 256 that is 130 KB, above the 48 KB default, so the launch raises
-//     the dynamic shared-memory limit with cudaFuncSetAttribute.
+//     hd = 256 that is 130 KB, above the 48 KB default, so the first launch
+//     of each instantiation raises the dynamic shared-memory limit with
+//     cudaFuncSetAttribute.
 //   * q tiles are launched latest first: causal work grows with position, so
 //     the long tiles start early and the short ones fill the tail.
 //   * Ragged edges (rows past Sq * G, KV positions past Skv) are handled in
@@ -236,18 +240,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+constexpr size_t smem_bytes(int hd) {
+  return (size_t)(BM + 2 * BN) * (hd + PAD) * sizeof(float);
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int BK, int Sq, int Skv, int G, int hd, float scale,
                    float softcap, int window, int causal,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)(BM + 2 * BN) * (hd + PAD) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  // The shared-memory limit is raised once per instantiation and device, to
+  // what the largest head dim needs.
+  static unsigned raised = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= 32) return cudaErrorInvalidDevice;
+  if (!(raised >> dev & 1u)) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes(MAX_HD));
+    if (err != cudaSuccess) return err;
+    raised |= 1u << dev;
+  }
   const dim3 grid((Sq * G + BM - 1) / BM, BK);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T><<<grid, THREADS, smem_bytes(hd), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, G, hd, scale,
       softcap, window, causal);

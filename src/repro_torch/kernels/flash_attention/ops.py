@@ -1,9 +1,20 @@
-"""Wrappers of the flash attention kernel.
+"""Wrappers of the flash attention kernels.
 
 ``flash_attention_bkg`` takes the kernel layout, q (BK, Sq, G, hd) and k, v
-(BK, Skv, hd).  On a CUDA tensor it launches ``csrc/flash_attention.cu`` or
-raises; on a CPU tensor it runs the plain version (``ref.py``).  Nothing
-else is on that route: there is no fallback.
+(BK, Skv, hd).  On a CUDA tensor it launches one of two kernels or raises;
+on a CPU tensor it runs the plain version (``ref.py``).  Nothing else is on
+that route: there is no fallback.  Which kernel a CUDA call launches is
+decided by dtype and head dim alone (``variant``):
+
+- ``"wgmma"``: bf16 at a head dim in ``WGMMA_HEAD_DIMS`` goes to the
+  tensor-core kernel, ``csrc/flash_attention_wgmma.cu`` (P rounded to bf16
+  before the P·V product; its plain version is ``flash_attention_wgmma_ref``);
+- ``"fma"``: f32, and bf16 at any other head dim, go to the CUDA-core
+  kernel, ``csrc/flash_attention.cu`` (all f32: TF32 would break the
+  reference's 3e-5 f32 tolerance).
+
+``cuda_lib.launches["flash_attention"]`` counts every launch, and
+``launches["flash_attention:<variant>"]`` the launches of each kernel.
 
 ``flash_attention`` is the model-facing GQA wrapper: it folds (B, S, K, G,
 hd) into the kernel layout (B*K, S, G, hd), as the reference's ``ops.py``
@@ -20,14 +31,29 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 NAME = "flash_attention"
+WGMMA = "flash_attention_wgmma"     # the tensor-core kernel's library
 MAX_HEAD_DIM = 256
+WGMMA_HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # its instances
+
+
+def variant(dtype, hd: int) -> str:
+    """The kernel a CUDA call on ``dtype`` inputs of head dim ``hd``
+    launches: ``"wgmma"`` (tensor cores) for bf16 at a head dim in
+    ``WGMMA_HEAD_DIMS``, else ``"fma"`` (CUDA cores)."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS \
+        else "fma"
 
 
 @functools.cache
-def _kernel():
-    fn = cuda_lib.load(NAME).flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+def _kernel(name: str):
+    if name == NAME:
+        fn = cuda_lib.load(NAME).flash_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+            [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    else:
+        fn = cuda_lib.load(WGMMA).flash_attention_wgmma_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+            [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -68,17 +94,50 @@ def flash_attention_bkg(q, k, v, *, scale: float, softcap: float = 0.0,
                                    window=window, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    launch = flash_attention_wgmma if variant(q.dtype, q.shape[-1]) == "wgmma" \
+        else flash_attention_fma
+    return launch(q, k, v, scale=scale, softcap=softcap, window=window,
+                  causal=causal)
+
+
+def _launched(err: int, which: str):
+    if err:
+        raise RuntimeError(f"flash attention kernel ({which}) launch failed: "
+                           f"cudaError {err}")
+    cuda_lib.launches[NAME] += 1
+    cuda_lib.launches[f"{NAME}:{which}"] += 1
+
+
+def flash_attention_fma(q, k, v, *, scale: float, softcap: float = 0.0,
+                        window: int = 0, causal: bool = True):
+    """Launch the CUDA-core kernel on CUDA tensors (f32 or bf16)."""
     _check(q, k, v)
     BK, Sq, G, hd = q.shape
     o = torch.empty_like(q)
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    BK, Sq, k.shape[1], G, hd, float(scale), float(softcap),
-                    int(window), int(causal), int(q.dtype == torch.bfloat16),
-                    torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"flash attention kernel launch failed: "
-                           f"cudaError {err}")
-    cuda_lib.launches[NAME] += 1
+    err = _kernel(NAME)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        BK, Sq, k.shape[1], G, hd, float(scale),
+                        float(softcap), int(window), int(causal),
+                        int(q.dtype == torch.bfloat16),
+                        torch.cuda.current_stream().cuda_stream)
+    _launched(err, "fma")
+    return o
+
+
+def flash_attention_wgmma(q, k, v, *, scale: float, softcap: float = 0.0,
+                          window: int = 0, causal: bool = True):
+    """Launch the tensor-core kernel on CUDA bf16 tensors whose head dim is
+    in ``WGMMA_HEAD_DIMS``."""
+    _check(q, k, v)
+    BK, Sq, G, hd = q.shape
+    if variant(q.dtype, hd) != "wgmma":
+        raise ValueError(f"the tensor-core flash kernel takes bf16 at head "
+                         f"dims {WGMMA_HEAD_DIMS}, got {q.dtype} at {hd}")
+    o = torch.empty_like(q)
+    err = _kernel(WGMMA)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), BK, Sq, k.shape[1], G, hd, float(scale),
+                         float(softcap), int(window), int(causal),
+                         torch.cuda.current_stream().cuda_stream)
+    _launched(err, "wgmma")
     return o
 
 

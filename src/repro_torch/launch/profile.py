@@ -28,7 +28,8 @@ from repro_torch.models import init_params
 from repro_torch.serving.steps import build_decode_step, build_prefill_step
 
 # kernel-name fragments -> kind, first match wins
-KINDS = (("flash_fwd_kernel", "flash attention (this port's kernel)"),
+KINDS = (("flash_wgmma_kernel", "flash attention (this port's kernel)"),
+         ("flash_fwd_kernel", "flash attention, CUDA cores (this port's kernel)"),
          ("rglru_scan_kernel", "RG-LRU scan (this port's kernel)"),
          ("wkv6_kernel", "wkv6 (this port's kernel)"),
          ("nvjet", "matmul"), ("gemm", "matmul"), ("gemv", "matmul"),

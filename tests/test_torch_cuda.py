@@ -6,7 +6,9 @@ they run on a card machine that has none:
 
 Each kernel is held against its plain version on the same inputs, at the
 reference's kernel tolerances (tests/test_kernels.py): flash attention 3e-5
-in f32 and 2.5e-2 in bf16, the RG-LRU scan 2e-5, the wkv6 1e-3 (its output
+in f32 and 2.5e-2 in bf16 (every bf16 case goes through the tensor-core
+kernel and every f32 case through the CUDA-core one, which the per-variant
+launch counts show), the RG-LRU scan 2e-5, the wkv6 1e-3 (its output
 and its final state), with tf32 off so that the plain f32 versions are full
 f32.  Each runs over the reference's sweep, then ragged shapes, then the
 shapes of the serving path at full width.  The model on the card (kernel) is held against the model on the
@@ -21,7 +23,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.base import get_smoke_config  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_bkg, flash_attention_ref)
+    flash_attention_bkg, flash_attention_ref, variant)
 from repro_torch.kernels.rglru_scan import rglru_scan_bsc, rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_chunk import wkv6_bh, wkv6_ref  # noqa: E402
 from repro_torch.models import forward_prefill, init_params  # noqa: E402
@@ -43,6 +45,14 @@ SHAPES = [
     (1, 64, 96, 2, 64, 0, 0.0),        # Sq != Skv: top-left causality
     (1, 64, 64, 2, 16, 0, 0.0),        # smoke-config head dim
     (4, 1024, 1024, 10, 256, 2048, 0.0),   # recurrentgemma-2b's local layer
+    # ragged at hd 256 and G 10: Sq*G not a multiple of the 128-row tile,
+    # Skv not a multiple of the 64-position KV tile
+    (2, 77, 77, 10, 256, 0, 0.0),
+    (1, 201, 201, 10, 256, 50, 0.0),
+    (2, 90, 150, 10, 256, 0, 30.0),
+    # BK >= 2 with the last row tile of every BK row partial (a row box
+    # past Sq*G must read zeros, not the next BK row)
+    (3, 100, 100, 1, 128, 0, 0.0),
 ]
 # (B, S, C): test_rglru_kernel's sweep, a ragged shape, recurrentgemma-2b's
 # prefill (4 prompts of 1024, d_rnn 2560)
@@ -78,10 +88,15 @@ def test_kernel_matches_plain(cuda_device, BK, Sq, Skv, G, hd, win, cap,
     k = _randn((BK, Skv, hd), dtype, cuda_device, 1)
     v = _randn((BK, Skv, hd), dtype, cuda_device, 2)
     kw = dict(scale=hd ** -0.5, softcap=cap, window=win)
-    before = cuda_lib.launches["flash_attention"]
+    which = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert variant(dtype, hd) == which
+    before = dict(cuda_lib.launches)
     o = flash_attention_bkg(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert cuda_lib.launches["flash_attention"] == before + 1
+    for name, n in (("flash_attention", 1), ("flash_attention:wgmma",
+                                             which == "wgmma"),
+                    ("flash_attention:fma", which == "fma")):
+        assert cuda_lib.launches[name] == before.get(name, 0) + n, name
     assert o.dtype == dtype and o.shape == q.shape
     err = (o.float() - flash_attention_ref(q, k, v, **kw).float()).abs().max()
     assert err.item() <= TOL[dtype]
