@@ -22,17 +22,26 @@ Phases:
        call (scaled_dot_product_attention with an explicit boolean mask, a
        yardstick the port never calls) and beside the CUDA-core kernel on
        the same bf16 inputs (the earlier design);
-     - the RG-LRU scan: test_rglru_kernel's sweep and recurrentgemma-2b's
-       prefill shape;
-     - the wkv6: test_wkv6_kernel's sweep and rwkv6-7b's prefill shape, its
-       output and its final state.
+     - the RG-LRU scan: the channel-group TMA kernel (the wrappers' route)
+       and the earlier one-thread-per-channel kernel, over test_rglru_kernel's
+       sweep, ragged C, a near 1 (also at the prefill shape) and
+       recurrentgemma-2b's prefill shape, against the plain version run in
+       f64;
+     - the wkv6: the chunked tensor-core kernel (the wrappers' route, 3xTF32)
+       and the earlier sequential kernel, over test_wkv6_kernel's sweep, the
+       edges (S = 1, ragged S, logw all -5, all -1e-4, all -40) and
+       rwkv6-7b's prefill shape, output and final state against the plain
+       version run in f64, and the tensor-core kernel against its numerics'
+       plain version (``wkv6_chunk_ref``).
+     Each kept earlier design is timed on the same inputs beside the new one.
   Then, for gemma3-1b, recurrentgemma-2b and rwkv6-7b in turn, at full width
   and depth (random weights from a seeded torch.Generator), each model freed
   before the next:
   3. prefill: 4 prompts of 1024 tokens through build_prefill_step; every
      kernel must launch exactly once per layer of its kind (gemma3-1b: flash
      26; recurrentgemma-2b: rglru_scan 18, flash 8; rwkv6-7b: wkv6 32), and
-     every flash launch must be the tensor-core kernel's.
+     every launch must be the new design's (flash: tensor cores; the scan:
+     channel groups; the wkv6: chunked), never an earlier one's.
   4. decode: 8 steps of build_decode_step from the prefill cache.
   5. engine: a full-width ServingEngine answers 4 requests.
   6. reference: the full-width prefill with the path's kernel swapped for its
@@ -69,15 +78,31 @@ MODEL_TOL = 5e-2              # bf16 model tolerance of the port's tests
 SWEEP = [(2, 256, 4, 64, 0, 0.0), (2, 256, 1, 64, 64, 0.0),
          (3, 128, 2, 32, 0, 50.0), (1, 512, 6, 128, 128, 30.0),
          (2, 192, 2, 64, 96, 0.0)]
-RGLRU_SWEEP = [(2, 256, 128), (1, 128, 512), (3, 64, 96)]     # (B, S, C)
-WKV6_SWEEP = [(2, 128, 32), (4, 256, 64), (1, 64, 16), (2, 96, 32)]  # (BH,S,hd)
+# (B, S, C, a near 1): test_rglru_kernel's sweep, then ragged C (C % 4 != 0;
+# a last group of 4 channels) and a near 1, also at the prefill shape
+RGLRU_SWEEP = [(2, 256, 128, False), (1, 128, 512, False), (3, 64, 96, False),
+               (4, 100, 2562, False), (3, 50, 2564, True), (2, 256, 128, True),
+               (4, 1024, 2560, True)]
+# where the earlier one-thread-per-channel scan misses 2e-5 (a known defect,
+# on no model path): its f32 carry rounds every step, and with a near 1 over
+# 1024 steps nothing decays those roundings
+THREAD_DRIFTS = {(4, 1024, 2560, True)}
+# (BH, S, hd, logw value or None): test_wkv6_kernel's sweep, then the edges
+WKV6_SWEEP = [(2, 128, 32, None), (4, 256, 64, None), (1, 64, 16, None),
+              (2, 96, 32, None), (3, 1, 64, None), (3, 37, 64, None),
+              (4, 512, 64, -5.0), (4, 1024, 64, -1e-4), (2, 64, 32, -40.0)]
+# where the earlier sequential wkv6 kernel misses 1e-3 (a known defect, on no
+# model path): it multiplies the state by the f32-rounded exp(logw) once a
+# step, and at logw = -1e-4 that rounding compounds over 1024 steps
+SEQ_COMPOUNDS = {(4, 1024, 64, -1e-4)}
 B, S = 4, 1024                # prompts and their length on the main paths
 PATHS = {                     # arch -> the kernels its prefill must launch
     "gemma3-1b": {"flash_attention": 26, "flash_attention:wgmma": 26,
                   "flash_attention:fma": 0},
-    "recurrentgemma-2b": {"rglru_scan": 18, "flash_attention": 8,
+    "recurrentgemma-2b": {"rglru_scan": 18, "rglru_scan:grouped": 18,
+                          "rglru_scan:thread": 0, "flash_attention": 8,
                           "flash_attention:wgmma": 8, "flash_attention:fma": 0},
-    "rwkv6-7b": {"wkv6": 32},
+    "rwkv6-7b": {"wkv6": 32, "wkv6:chunk": 32, "wkv6:seq": 0},
 }
 SWAPPED = {"gemma3-1b": "flash_attention", "recurrentgemma-2b": "rglru_scan",
            "rwkv6-7b": "wkv6"}     # the kernel phase 6 swaps for its plain version
@@ -144,8 +169,8 @@ def rel_err(torch, a, b) -> float:
 
 def max_excess(torch, got, want, tol) -> float:
     """max |got - want| - tol * |want|: <= tol passes allclose(atol=rtol=tol)."""
-    return float(((got.float() - want.float()).abs()
-                  - tol * want.float().abs()).max())
+    return float(((got.double() - want.double()).abs()
+                  - tol * want.double().abs()).max())
 
 
 def cache_leaves(cache):
@@ -255,86 +280,157 @@ def check_flash(torch, F, randn, dev):
 
 
 def check_rglru(torch, randn):
+    """The channel-group kernel (the wrapper's route) and the earlier
+    one-thread-per-channel kernel against the plain version run in f64 (in
+    f32 its own rounding drifts past 2e-5 where a is near 1 over 1024
+    steps); returns the row of each at recurrentgemma-2b's prefill shape."""
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.rglru_scan import rglru_scan_bsc, rglru_scan_ref
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_thread
 
-    def inputs(shape):
-        return torch.sigmoid(randn(shape, torch.float32)), \
-            randn(shape, torch.float32)
-    sweep = 0.0
-    for shape in RGLRU_SWEEP:
-        a, b = inputs(shape)
-        h, ref = rglru_scan_bsc(a, b), rglru_scan_ref(a, b)
+    def inputs(shape, near_one=False):
+        x = randn(shape, torch.float32)
+        a = 1 - torch.sigmoid(x) * 1e-3 if near_one else torch.sigmoid(x)
+        return a, randn(shape, torch.float32)
+
+    def compare(a, b, what, thread_held=True):
+        before = dict(cuda_lib.launches)
+        h, h_thread = rglru_scan_bsc(a, b), rglru_scan_thread(a, b)
+        ref = rglru_scan_ref(a.double(), b.double())
         torch.cuda.synchronize()
+        for name, n in (("rglru_scan:grouped", 1), ("rglru_scan:thread", 1)):
+            check(cuda_lib.launches[name] == before.get(name, 0) + n,
+                  f"{name} launched")
         check(h.dtype == torch.float32 and h.shape == a.shape, "rglru output")
-        check(max_excess(torch, h, ref, RGLRU_TOL) <= RGLRU_TOL,
-              f"rglru sweep {shape}")
-        sweep = max(sweep, (h - ref).abs().max().item())
-    print(f"[kernels] rglru_scan sweep: max abs err {sweep:.3g} "
-          f"(tol {RGLRU_TOL})")
+        held = [(h, "grouped")] + [(h_thread, "thread")] * thread_held
+        for got, which in held:
+            check(max_excess(torch, got, ref, RGLRU_TOL) <= RGLRU_TOL,
+                  f"rglru {which} {what}")
+        return tuple((got.double() - ref).abs().max().item()
+                     for got in (h, h_thread))
+    sweep = [0.0, 0.0]
+    for case in RGLRU_SWEEP:
+        held = case not in THREAD_DRIFTS
+        errs = compare(*inputs(case[:3], case[3]), case, held)
+        if not held:
+            print(f"[kernels] rglru_scan sweep {case}: the earlier kernel's "
+                  f"f32 carry drifts (known defect, on no model path): max "
+                  f"abs err {errs[1]:.3g}, not held; grouped {errs[0]:.3g}")
+        sweep = [max(sweep[0], errs[0]), max(sweep[1], errs[1]) if held
+                 else sweep[1]]
+    print(f"[kernels] rglru_scan sweep: max abs err {sweep[0]:.3g} (grouped), "
+          f"{sweep[1]:.3g} (thread, held cases) (tol {RGLRU_TOL}, against "
+          f"the plain version in f64)")
     cfg = get_config("recurrentgemma-2b")
     shape = (B, S, cfg.d_rnn)
     a, b = inputs(shape)
-    h, ref = rglru_scan_bsc(a, b), rglru_scan_ref(a, b)
-    torch.cuda.synchronize()
-    check(max_excess(torch, h, ref, RGLRU_TOL) <= RGLRU_TOL,
-          f"rglru {cfg.name} prefill shape {shape}")
+    err, err_thread = compare(a, b, f"{cfg.name} prefill shape {shape}")
     bound_ms, bound_by = rglru_bound(*shape)
-    row = {"shape": f"B={shape[0]} S={shape[1]} C={shape[2]} f32",
-           "max_abs_err": (h - ref).abs().max().item(),
-           "sweep_max_abs_err": sweep,
-           "ms": time_ms(torch, lambda: rglru_scan_bsc(a, b)),
-           "plain_ms": time_ms(torch, lambda: rglru_scan_ref(a, b)),
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    print(f"[kernels] rglru_scan {cfg.name}: {row['shape']}: max abs err "
-          f"{row['max_abs_err']:.3g}, kernel_ms {row['ms']:.4f}, plain_ms "
-          f"{row['plain_ms']:.4f}, bound_ms {bound_ms:.5f} ({bound_by}), "
-          f"{bound_ms / row['ms']:.1%} of bound")
-    return row
+    common = {"shape": f"B={shape[0]} S={shape[1]} C={shape[2]} f32",
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    plain_ms = time_ms(torch, lambda: rglru_scan_ref(a, b))
+    # the two kernels in turns, new, old, old, new
+    t = [time_ms(torch, lambda f=f: f(a, b)) for f in
+         (rglru_scan_bsc, rglru_scan_thread, rglru_scan_thread, rglru_scan_bsc)]
+    rows = {"grouped": {**common, "max_abs_err": err, "sweep_max_abs_err":
+                        sweep[0], "ms": (t[0] + t[3]) / 2, "plain_ms": plain_ms},
+            "thread": {**common, "max_abs_err": err_thread,
+                       "sweep_max_abs_err": sweep[1], "ms": (t[1] + t[2]) / 2,
+                       "plain_ms": plain_ms}}
+    for which, row in rows.items():
+        print(f"[kernels] rglru_scan ({which}) {cfg.name}: {row['shape']}: max "
+              f"abs err {row['max_abs_err']:.3g}, kernel_ms {row['ms']:.4f}, "
+              f"plain_ms {plain_ms:.4f}, bound_ms {bound_ms:.5f} ({bound_by}), "
+              f"{bound_ms / row['ms']:.1%} of bound")
+    return rows
 
 
 def check_wkv6(torch, randn):
+    """The chunked tensor-core kernel (the wrapper's route) and the earlier
+    sequential kernel against the plain version, run in f64 (in f32 its own
+    rounding, added to a kernel's, passes 1e-3 where y crosses 0 after 1024
+    steps of slow decay); returns the row of each at rwkv6-7b's prefill
+    shape."""
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.rwkv6_chunk import wkv6_bh, wkv6_ref
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.rwkv6_chunk import wkv6_bh, wkv6_chunk_ref, wkv6_ref
+    from repro_torch.kernels.rwkv6_chunk.ops import wkv6_seq
 
-    def inputs(BH, Sq, hd):
+    def inputs(BH, Sq, hd, logw_value=None):
         r, k, v = (randn((BH, Sq, hd), torch.float32) for _ in range(3))
         logw = torch.clamp(-torch.exp(randn((BH, Sq, hd), torch.float32) * 0.5),
                            -5.0, -1e-4)
+        if logw_value is not None:
+            logw = torch.full_like(logw, logw_value)
         return r, k, v, logw, randn((BH, hd), torch.float32) * 0.1
 
     def compare(ins, what):
+        before = dict(cuda_lib.launches)
         y, st = wkv6_bh(*ins)
-        y_ref, st_ref = wkv6_ref(*ins)
+        y_seq, st_seq = wkv6_seq(*ins)
         torch.cuda.synchronize()
+        for name, n in (("wkv6:chunk", 1), ("wkv6:seq", 1)):
+            check(cuda_lib.launches[name] == before.get(name, 0) + n,
+                  f"{name} launched")
+        y_ref, st_ref = wkv6_ref(*(t.double() for t in ins))
         check(y.shape == ins[0].shape and st.shape == st_ref.shape,
               f"wkv6 output shapes {what}")
-        check(max_excess(torch, y, y_ref, WKV6_TOL) <= WKV6_TOL, f"wkv6 y {what}")
-        check(max_excess(torch, st, st_ref, WKV6_TOL) <= WKV6_TOL,
-              f"wkv6 final state {what}")
-        return (y - y_ref).abs().max().item(), (st - st_ref).abs().max().item()
-    sweep = 0.0
-    for shape in WKV6_SWEEP:
-        sweep = max(sweep, *compare(inputs(*shape), shape))
-    print(f"[kernels] wkv6 sweep (y and final state): max abs err {sweep:.3g} "
-          f"(tol {WKV6_TOL})")
+        errs = []
+        for got_y, got_st, which in ((y, st, "chunk"), (y_seq, st_seq, "seq")):
+            errs.append(((got_y.double() - y_ref).abs().max().item(),
+                         (got_st.double() - st_ref).abs().max().item()))
+            if which == "seq" and what in SEQ_COMPOUNDS:
+                print(f"[kernels] wkv6 (seq, the earlier design) at {what}: max "
+                      f"abs err y {errs[-1][0]:.3g}, state {errs[-1][1]:.3g}, "
+                      f"not held to {WKV6_TOL}: it compounds the rounding of "
+                      f"exp(logw) once a step (a known defect, on no model "
+                      f"path)")
+                continue
+            check(max_excess(torch, got_y.double(), y_ref, WKV6_TOL) <= WKV6_TOL,
+                  f"wkv6 {which} y {what}")
+            check(max_excess(torch, got_st.double(), st_ref, WKV6_TOL) <= WKV6_TOL,
+                  f"wkv6 {which} final state {what}")
+        return errs
+    sweep = [0.0, 0.0]
+    for case in WKV6_SWEEP:
+        errs = compare(inputs(*case), case)
+        if case in SEQ_COMPOUNDS:
+            errs[1] = (0.0, 0.0)
+        sweep = [max(x, *e) for x, e in zip(sweep, errs)]
+    print(f"[kernels] wkv6 sweep and edges (y and final state, against the plain "
+          f"version in f64): max abs err {sweep[0]:.3g} (chunk), {sweep[1]:.3g} "
+          f"(seq) (tol {WKV6_TOL})")
     cfg = get_config("rwkv6-7b")
     hd = cfg.rwkv_head_dim
     shape = (B * cfg.d_model // hd, S, hd)
     ins = inputs(*shape)
-    y_err, st_err = compare(ins, f"{cfg.name} prefill shape {shape}")
+    (y_err, st_err), (seq_y_err, seq_st_err) = compare(
+        ins, f"{cfg.name} prefill shape {shape}")
+    y, _ = wkv6_bh(*ins)
+    emu_err = (y - wkv6_chunk_ref(*ins)[0]).abs().max().item()
     bound_ms, bound_by = wkv6_bound(*shape)
-    row = {"shape": f"BH={shape[0]} S={shape[1]} hd={hd} f32",
-           "max_abs_err": max(y_err, st_err), "state_max_abs_err": st_err,
-           "sweep_max_abs_err": sweep,
-           "ms": time_ms(torch, lambda: wkv6_bh(*ins)),
-           "plain_ms": time_ms(torch, lambda: wkv6_ref(*ins), iters=5),
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    print(f"[kernels] wkv6 {cfg.name}: {row['shape']}: max abs err y "
-          f"{y_err:.3g}, state {st_err:.3g}, kernel_ms {row['ms']:.4f}, "
-          f"plain_ms {row['plain_ms']:.4f}, bound_ms {bound_ms:.5f} "
-          f"({bound_by}), {bound_ms / row['ms']:.1%} of bound")
-    return row
+    common = {"shape": f"BH={shape[0]} S={shape[1]} hd={hd} f32",
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    plain_ms = time_ms(torch, lambda: wkv6_ref(*ins), iters=5)
+    t = [time_ms(torch, lambda f=f: f(*ins)) for f in
+         (wkv6_bh, wkv6_seq, wkv6_seq, wkv6_bh)]
+    rows = {"chunk": {**common, "max_abs_err": max(y_err, st_err),
+                      "state_max_abs_err": st_err, "sweep_max_abs_err": sweep[0],
+                      "emulation_max_abs_err": emu_err,
+                      "ms": (t[0] + t[3]) / 2, "plain_ms": plain_ms},
+            "seq": {**common, "max_abs_err": max(seq_y_err, seq_st_err),
+                    "state_max_abs_err": seq_st_err,
+                    "sweep_max_abs_err": sweep[1], "ms": (t[1] + t[2]) / 2,
+                    "plain_ms": plain_ms}}
+    print(f"[kernels] wkv6 (chunk) vs its numerics' plain version "
+          f"(wkv6_chunk_ref, 3xTF32): max abs err {emu_err:.3g}")
+    for which, row in rows.items():
+        print(f"[kernels] wkv6 ({which}) {cfg.name}: {row['shape']}: max abs err "
+              f"{row['max_abs_err']:.3g} (state {row['state_max_abs_err']:.3g}), "
+              f"kernel_ms {row['ms']:.4f}, plain_ms {plain_ms:.4f}, bound_ms "
+              f"{bound_ms:.5f} ({bound_by}), {bound_ms / row['ms']:.1%} of bound")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -633,8 +729,8 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     flash_sweep, flash_rows = check_flash(torch, F, randn, dev)
-    rglru_row = check_rglru(torch, randn)
-    wkv6_row = check_wkv6(torch, randn)
+    rglru_rows = check_rglru(torch, randn)
+    wkv6_rows = check_wkv6(torch, randn)
     print(f"[kernels] {NO_LIBRARY}")
 
     # ---- 3-6. the serving paths, one model at a time ---------------------
@@ -651,8 +747,13 @@ def main() -> int:
     n_flash, flash_by_path = path_launches("flash_attention:wgmma")
     check(n_flash == path_launches("flash_attention")[0],
           "every flash launch of the main paths is the tensor-core kernel's")
-    n_rglru, rglru_by_path = path_launches("rglru_scan")
-    n_wkv6, wkv6_by_path = path_launches("wkv6")
+    n_rglru, rglru_by_path = path_launches("rglru_scan:grouped")
+    check(n_rglru == path_launches("rglru_scan")[0],
+          "every scan launch of the main paths is the channel-group kernel's")
+    n_wkv6, wkv6_by_path = path_launches("wkv6:chunk")
+    check(n_wkv6 == path_launches("wkv6")[0],
+          "every wkv6 launch of the main paths is the tensor-core kernel's")
+    rec = "src/repro_torch/kernels/"
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda", "variant": g["variant"],
         "source":
@@ -669,15 +770,31 @@ def main() -> int:
         "recurrentgemma_local": flash_rows["recurrentgemma_local"],
         "sweep_max_abs_err": flash_sweep,
     }, {
-        "name": "rglru_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "name": "rglru_scan", "route": "cuda", "variant": "grouped",
+        "source": rec + "rglru_scan/csrc/rglru_scan_grouped.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:49",
-        "launches": n_rglru, "launches_by_path": rglru_by_path, **rglru_row,
+        "launches": n_rglru, "launches_by_path": rglru_by_path,
+        **rglru_rows["grouped"],
     }, {
-        "name": "wkv6", "route": "cuda",
-        "source": "src/repro_torch/kernels/rwkv6_chunk/csrc/wkv6.cu",
+        "name": "rglru_scan:thread", "route": "cuda", "variant": "thread",
+        "earlier_design_of": "rglru_scan",
+        "source": rec + "rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:49",
+        "launches": path_launches("rglru_scan:thread")[0],
+        **rglru_rows["thread"],
+    }, {
+        "name": "wkv6", "route": "cuda", "variant": "chunk",
+        "source": rec + "rwkv6_chunk/csrc/wkv6_chunk.cu",
         "replaces": "src/repro/kernels/rwkv6_chunk/kernel.py:72",
-        "launches": n_wkv6, "launches_by_path": wkv6_by_path, **wkv6_row,
+        "launches": n_wkv6, "launches_by_path": wkv6_by_path,
+        **wkv6_rows["chunk"],
+    }, {
+        "name": "wkv6:seq", "route": "cuda", "variant": "seq",
+        "earlier_design_of": "wkv6",
+        "source": rec + "rwkv6_chunk/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6_chunk/kernel.py:72",
+        "launches": path_launches("wkv6:seq")[0],
+        **wkv6_rows["seq"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,10 @@ SOURCES = {
     "flash_attention_wgmma":
         _KERNELS / "flash_attention" / "csrc" / "flash_attention_wgmma.cu",
     "rglru_scan": _KERNELS / "rglru_scan" / "csrc" / "rglru_scan.cu",
+    "rglru_scan_grouped":
+        _KERNELS / "rglru_scan" / "csrc" / "rglru_scan_grouped.cu",
     "wkv6": _KERNELS / "rwkv6_chunk" / "csrc" / "wkv6.cu",
+    "wkv6_chunk": _KERNELS / "rwkv6_chunk" / "csrc" / "wkv6_chunk.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

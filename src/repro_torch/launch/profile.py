@@ -30,8 +30,11 @@ from repro_torch.serving.steps import build_decode_step, build_prefill_step
 # kernel-name fragments -> kind, first match wins
 KINDS = (("flash_wgmma_kernel", "flash attention (this port's kernel)"),
          ("flash_fwd_kernel", "flash attention, CUDA cores (this port's kernel)"),
-         ("rglru_scan_kernel", "RG-LRU scan (this port's kernel)"),
-         ("wkv6_kernel", "wkv6 (this port's kernel)"),
+         ("rglru_scan_grouped_kernel", "RG-LRU scan (this port's kernel)"),
+         ("rglru_scan_kernel",
+          "RG-LRU scan, one thread a channel (this port's kernel)"),
+         ("wkv6_chunk_kernel", "wkv6 (this port's kernel)"),
+         ("wkv6_kernel", "wkv6, sequential (this port's kernel)"),
          ("nvjet", "matmul"), ("gemm", "matmul"), ("gemv", "matmul"),
          ("cutlass", "matmul"), ("xmma", "matmul"), ("sm90", "matmul"),
          ("Memcpy", "copies"), ("Memset", "copies"))

@@ -5,6 +5,11 @@ The scan's plain version is held against the Pallas kernel in interpret mode
 (as tests/test_kernels.py runs it) and against the reference's associative
 scan, over test_rglru_kernel's shapes, at that test's 2e-5: all three round
 the same recurrence in different orders, a few f32 ulps of |h| < ~20.
+The kernels' walk (``rglru_scan_walk_ref``: each channel in order, h
+carried in f64 as the channel-group kernel carries it, rounded to f32 where
+stored) is held the same way, over that sweep, C that no group divides and
+a near 1; an f32 carry is shown to drift past 2e-5 from the recurrence in
+f64 where a is near 1 over 1024 steps, which the f64 carry holds.
 
 The block (rglru_seq, rglru_decode) takes the reference's own parameters
 with the zero-initialised ba, bi and conv_b given random values, so that no
@@ -27,7 +32,8 @@ from repro.kernels.rglru_scan.kernel import rglru_scan_blocked  # noqa: E402
 from repro.kernels.rglru_scan.ref import rglru_scan_ref as jax_scan_ref  # noqa: E402
 from repro.models import rglru as jr  # noqa: E402
 from repro_torch.configs.base import get_smoke_config  # noqa: E402
-from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    plan, rglru_scan, rglru_scan_ref, rglru_scan_walk_ref)
 from repro_torch.models import rglru as tr  # noqa: E402
 from repro_torch.models.weights import to_tensor  # noqa: E402
 
@@ -69,6 +75,67 @@ def test_plain_scan_any_length(S):
         h = a[:, t] * h + b[:, t]
         want[:, t] = h
     _close(rglru_scan_ref(torch.tensor(a), torch.tensor(b)), want, SCAN_TOL)
+
+
+def _gates(B, S, C, seed, near_one=False):
+    rng = np.random.default_rng(seed)
+    if near_one:       # slow decay: |h| grows to ~sqrt(S)
+        a = 1 - rng.uniform(0, 1e-3, (B, S, C))
+    else:
+        a = 1 / (1 + np.exp(-rng.standard_normal((B, S, C))))
+    return a.astype(np.float32), \
+        rng.standard_normal((B, S, C)).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,S,C,bt,bc,near_one", [
+    (2, 256, 128, 64, 64, False), (1, 128, 512, 32, 256, False),
+    (3, 64, 96, 16, 32, False), (2, 256, 128, 64, 64, True),
+    (4, 64, 2560, 64, 256, False),        # recurrentgemma-2b's plan: G = 80
+    (2, 37, 70, None, None, False),       # ragged S and C, C % 4 != 0
+    (4, 33, 2564, None, None, True),      # the last group holds 4 channels
+])
+def test_grouped_walk_matches_pallas(B, S, C, bt, bc, near_one):
+    a, b = _gates(B, S, C, B + S + C, near_one)
+    h = rglru_scan_walk_ref(torch.tensor(a), torch.tensor(b))
+    assert h.dtype == torch.float32 and tuple(h.shape) == (B, S, C)
+    if bt is not None:
+        _close(h, rglru_scan_blocked(jnp.asarray(a), jnp.asarray(b), bt=bt,
+                                     bc=bc), SCAN_TOL, "Pallas kernel")
+    _close(h, jax_scan_ref(jnp.asarray(a), jnp.asarray(b)), SCAN_TOL,
+           "associative scan")
+    _close(h, rglru_scan_ref(torch.tensor(a), torch.tensor(b)), SCAN_TOL,
+           "plain version")
+
+
+@pytest.mark.parametrize("B,C", [(4, 2560), (2, 128), (3, 96), (2, 70),
+                                 (1, 2560), (64, 2560), (4, 2564)])
+def test_grouped_plan(B, C):
+    """Groups of 4..128 channels (a multiple of 4, so TMA boxes stay 16-byte
+    aligned) that fill the 132 SMs of an H100 about once."""
+    G = plan(B, C, 132)
+    assert G % 4 == 0 and 4 <= G <= 128
+    ctas = B * -(-C // G)
+    assert ctas <= 132 or G == 128
+    if (B, C) == (4, 2560):
+        assert (G, ctas) == (80, 128)
+
+
+@pytest.mark.parametrize("carry,holds", [(torch.float64, True),
+                                         (torch.float32, False)])
+def test_f32_carry_misses_at_slow_decay(carry, holds):
+    """a near 1 over recurrentgemma-2b's prompt length, b ~ N(0, 1): |h|
+    grows to ~sqrt(S) and nothing decays the walk's roundings.  The f64
+    carry (the channel-group kernel's) stays within one f32 rounding of the
+    recurrence in f64 and so holds 2e-5; an f32 carry (one f32 FMA a step,
+    the earlier kernel's) drifts past it."""
+    a, b = (torch.tensor(x) for x in _gates(1, 1024, 512, 0, near_one=True))
+    want = rglru_scan_ref(a.double(), b.double())
+    h = rglru_scan_walk_ref(a, b, carry=carry)
+    excess = ((h.double() - want).abs() - SCAN_TOL * want.abs()).max().item()
+    assert (excess <= SCAN_TOL) == holds, excess
+    if holds:      # rounded once: within f32's unit roundoff of |h|
+        assert ((h.double() - want).abs()
+                <= 2.0 ** -24 * want.abs() + 1e-9).all()
 
 
 def _params(dtype, seed=0):

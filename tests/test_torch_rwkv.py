@@ -9,6 +9,12 @@ orders.  Its final state, which the Pallas kernel does not return, is held
 against the reference model's ``wkv_chunked`` state and against a
 sequential numpy loop.
 
+The tensor-core kernel's numerics (``wkv6_chunk_ref``: chunks of 16, the
+in-chunk decays pairwise in f32, the three products with their operands
+rounded as ``cvt.rna.tf32`` rounds them) are held the same way over that
+sweep and the edges (logw all -5, all -1e-4, S = 1, ragged S) in 3xTF32,
+the kernel's choice; the counter-case shows that plain TF32 misses 1e-3.
+
 The blocks take the reference's own parameters with the zero-initialised
 ``mu_x``, ``mu``, ``lnx_b``, ``mu_k`` and ``mu_r`` given random values, so
 that no term is tested only at zero.  Tolerances: f32 1e-4 (summation order
@@ -32,7 +38,9 @@ from repro.kernels.rwkv6_chunk.ref import wkv6_ref as jax_wkv6_ref  # noqa: E402
 from repro.models import modules as jm  # noqa: E402
 from repro.models import rwkv as jr  # noqa: E402
 from repro_torch.configs.base import get_smoke_config  # noqa: E402
-from repro_torch.kernels.rwkv6_chunk import wkv6, wkv6_bh  # noqa: E402
+from repro_torch.kernels.rwkv6_chunk import ops as wkv6_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_chunk import wkv6, wkv6_bh, wkv6_chunk_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_chunk.ref import TC_CHUNK, tf32_round  # noqa: E402
 from repro_torch.models import modules as tm  # noqa: E402
 from repro_torch.models import rwkv as tr  # noqa: E402
 from repro_torch.models.weights import to_tensor  # noqa: E402
@@ -49,13 +57,16 @@ def _close(t, j, tol, what=""):
                                err_msg=what)
 
 
-def _kernel_inputs(BH, S, hd, seed):
-    """test_wkv6_kernel's distributions, drawn with numpy."""
+def _kernel_inputs(BH, S, hd, seed, logw_value=None):
+    """test_wkv6_kernel's distributions, drawn with numpy; ``logw_value``
+    sets every logw to one value instead."""
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((BH, S, hd)).astype(np.float32)
                for _ in range(3))
     logw = np.clip(-np.exp(rng.standard_normal((BH, S, hd)) * 0.5),
                    -5.0, -1e-4).astype(np.float32)
+    if logw_value is not None:
+        logw = np.full_like(logw, logw_value)
     u = (rng.standard_normal((BH, hd)) * 0.1).astype(np.float32)
     return r, k, v, logw, u
 
@@ -90,6 +101,97 @@ def test_plain_wkv6_any_length(S):
     y, st = wkv6_bh(*map(torch.tensor, ins))
     _close(y, jax_wkv6_ref(*map(jnp.asarray, ins)), KERNEL_TOL, "y")
     _close(st, _sequential_state(*ins[1:4]), KERNEL_TOL, "final state")
+
+
+def test_tf32_round_is_cvt_rna():
+    """Bit-exact cvt.rna.tf32.f32: 10 mantissa bits kept, to nearest, ties
+    away from zero, in both signs."""
+    ulp = 2.0 ** -10
+    pairs = [(1.0, 1.0), (1 + ulp / 2, 1 + ulp), (1 + ulp / 2 - 2 ** -23, 1.0),
+             (1 + 1.5 * ulp, 1 + 2 * ulp), (-(1 + ulp / 2), -(1 + ulp)),
+             (0.0, 0.0)]
+    got = tf32_round(torch.tensor([x for x, _ in pairs], dtype=torch.float32))
+    assert got.tolist() == [w for _, w in pairs]
+    x = torch.tensor(np.random.default_rng(0).standard_normal(1000),
+                     dtype=torch.float32)
+    got = tf32_round(x)
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    assert ((got - x).abs() <= x.abs() * 2.0 ** -11).all()
+
+
+# (BH, S, hd, chunk of the Pallas kernel or None, logw value or None):
+# test_wkv6_kernel's sweep, then the edges: logw all -5 (fast decay),
+# all -1e-4 (slow decay, a large state), S = 1, S no chunk divides, and
+# logw far below the model's clamp
+CHUNK_PLAN_CASES = [
+    (2, 128, 32, 32, None), (4, 256, 64, 64, None), (1, 64, 16, 16, None),
+    (2, 96, 32, 32, None), (2, 256, 64, 64, -5.0), (2, 512, 64, 64, -1e-4),
+    (3, 1, 64, None, None), (3, 37, 64, None, None), (2, 37, 16, None, -1e-4),
+    (2, 64, 32, 32, -40.0),       # 640 nats a chunk: no factor may overflow
+]
+
+
+@pytest.mark.parametrize("BH,S,hd,chunk,logw_value", CHUNK_PLAN_CASES)
+def test_chunk_plan_holds_tolerance(BH, S, hd, chunk, logw_value):
+    """The tensor-core kernel's plan (chunks of 16, A pairwise in f32, the
+    three products in 3xTF32 with bit-exact cvt.rna rounding) against the
+    Pallas kernel in interpret mode, the exact sequential oracle and a
+    sequential state, at test_wkv6_kernel's 1e-3."""
+    ins = _kernel_inputs(BH, S, hd, BH * S + hd, logw_value)
+    y, st = wkv6_chunk_ref(*map(torch.tensor, ins), precision="3xtf32")
+    assert tuple(y.shape) == (BH, S, hd) and tuple(st.shape) == (BH, hd, hd)
+    jins = [jnp.asarray(a) for a in ins]
+    if chunk is not None:
+        _close(y, wkv6_chunked(*jins, chunk=chunk), KERNEL_TOL, "Pallas kernel")
+    _close(y, jax_wkv6_ref(*jins), KERNEL_TOL, "sequential oracle")
+    _close(st, _sequential_state(*ins[1:4]), KERNEL_TOL, "final state")
+
+
+@pytest.mark.parametrize("BH,S,hd,logw_value", [
+    (4, 256, 64, None), (2, 512, 64, -1e-4), (2, 256, 64, -5.0),
+])
+def test_chunk_plan_plain_tf32_misses_tolerance(BH, S, hd, logw_value):
+    """The counter-case: the same plan with each operand rounded to TF32
+    once misses 1e-3 where 3xTF32 holds it, so the kernel splits."""
+    ins = _kernel_inputs(BH, S, hd, 7, logw_value)
+    tins = list(map(torch.tensor, ins))
+    want = np.asarray(jax_wkv6_ref(*map(jnp.asarray, ins)), np.float64)
+
+    def excess(y):
+        return float((np.abs(y.double().numpy() - want)
+                      - KERNEL_TOL * np.abs(want)).max())
+    assert excess(wkv6_chunk_ref(*tins, precision="tf32")[0]) > KERNEL_TOL
+    assert excess(wkv6_chunk_ref(*tins, precision="3xtf32")[0]) <= KERNEL_TOL
+    assert excess(wkv6_chunk_ref(*tins, precision="f32")[0]) <= KERNEL_TOL
+
+
+def test_chunk_plan_pads_ragged_tail():
+    """S one past a chunk: the padded steps leave the state as it was."""
+    S = TC_CHUNK + 1
+    ins = list(map(torch.tensor, _kernel_inputs(2, S, 32, 3)))
+    y, st = wkv6_chunk_ref(*ins)
+    y1, st1 = wkv6_chunk_ref(*(t[:, :S - 1] for t in ins[:4]), ins[4])
+    torch.testing.assert_close(y[:, :S - 1], y1, atol=0, rtol=0)
+    _close(st, _sequential_state(*(t.numpy() for t in ins[1:4])), KERNEL_TOL)
+
+
+def test_time_mix_seq_through_chunk_plan_matches_wkv_scan(monkeypatch):
+    """The model path with the tensor-core kernel's plan where the card
+    runs the kernel, against the reference's sequential ``wkv_scan``."""
+    calls = []
+
+    def plan(*args):
+        calls.append(args[0].shape)
+        return wkv6_chunk_ref(*args)
+    monkeypatch.setattr(wkv6_ops, "wkv6_ref", plan)
+    cfg, tcfg = _cfgs("float32")
+    jtm, _, ttm, _ = _params(cfg, seed=2)
+    jx, tx = _x(cfg, (2, 64, cfg.d_model), 10, scale=0.5)
+    jo, jst, _ = jr.wkv_scan(jtm, jx, cfg)
+    to, tst, _ = tr.time_mix_seq(ttm, tx, tcfg)
+    assert len(calls) == 1
+    _close(to, jo, SCAN_TOL, "out")
+    _close(tst, jst, SCAN_TOL, "state")
 
 
 def test_wkv6_wrapper_folds_heads():
