@@ -55,12 +55,30 @@ Phases:
      also holds its bf16 logits with flash swapped for its plain version (the
      tensor-core kernel on, in bf16: f32 weights would route flash to the
      CUDA-core kernel).
+  7. workflow: the flood-disaster workflow (``repro_torch.serverless``),
+     which launches no kernel of the port (its convolutions are cuDNN's),
+     with cuDNN's TF32 at PyTorch's default (the bodies pin their own
+     convolutions to f32): each of its four bodies on the card against the
+     same body on the CPU at 2, 10 and 50 MB (488, 2441 and 4096 frames), the
+     keep mask exact, tensors to 1e-5, the alarm score to 1e-4, every output
+     on the card, each body timed with CUDA events and the host clock (the
+     first call apart), and what the bodies would give without their f32 pin
+     (reported); one databelt instance at 10 MB through the engine on the
+     card and on the CPU with the engine's clock stepped by a fixed amount,
+     whose metrics must be identical; the Scenario front door with real
+     compute on the card over Table 2's grid (sequential, 10 and 50 MB, three
+     strategies) and Fig 13's point (stagger 0.05 s, 2 MB, n = 64), run
+     three times: alone for the end-to-end numbers, with each body and
+     make_payload timed inside the engine for the split of its real compute,
+     and under torch.profiler for the device's idle share.  One JSON line
+     holds it.
 Then one JSON line describing each kernel, and last the device line.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -74,6 +92,11 @@ TOL = {"float32": 3e-5, "bfloat16": 2.5e-2}     # tests/test_kernels.py
 RGLRU_TOL = 2e-5              # tests/test_kernels.py::test_rglru_kernel
 WKV6_TOL = 1e-3               # tests/test_kernels.py::test_wkv6_kernel
 MODEL_TOL = 5e-2              # bf16 model tolerance of the port's tests
+WORKFLOW_TOL = 1e-5           # a flood body's tensors, card vs CPU
+SCORE_TOL = 1e-4              # the alarm score, card vs CPU
+# payload sizes: 488, 2441 and 4096 frames (the reference's cap)
+WORKFLOW_SIZES = (2e6, 10e6, 50e6)
+TABLE2_MB = (10, 50)          # Table 2's smallest and largest input
 # tests/test_kernels.py:19-26: (BK, S, G, hd, window, softcap)
 SWEEP = [(2, 256, 4, 64, 0, 0.0), (2, 256, 1, 64, 64, 0.0),
          (3, 128, 2, 32, 0, 50.0), (1, 512, 6, 128, 128, 30.0),
@@ -83,18 +106,10 @@ SWEEP = [(2, 256, 4, 64, 0, 0.0), (2, 256, 1, 64, 64, 0.0),
 RGLRU_SWEEP = [(2, 256, 128, False), (1, 128, 512, False), (3, 64, 96, False),
                (4, 100, 2562, False), (3, 50, 2564, True), (2, 256, 128, True),
                (4, 1024, 2560, True)]
-# where the earlier one-thread-per-channel scan misses 2e-5 (a known defect,
-# on no model path): its f32 carry rounds every step, and with a near 1 over
-# 1024 steps nothing decays those roundings
-THREAD_DRIFTS = {(4, 1024, 2560, True)}
 # (BH, S, hd, logw value or None): test_wkv6_kernel's sweep, then the edges
 WKV6_SWEEP = [(2, 128, 32, None), (4, 256, 64, None), (1, 64, 16, None),
               (2, 96, 32, None), (3, 1, 64, None), (3, 37, 64, None),
               (4, 512, 64, -5.0), (4, 1024, 64, -1e-4), (2, 64, 32, -40.0)]
-# where the earlier sequential wkv6 kernel misses 1e-3 (a known defect, on no
-# model path): it multiplies the state by the f32-rounded exp(logw) once a
-# step, and at logw = -1e-4 that rounding compounds over 1024 steps
-SEQ_COMPOUNDS = {(4, 1024, 64, -1e-4)}
 B, S = 4, 1024                # prompts and their length on the main paths
 PATHS = {                     # arch -> the kernels its prefill must launch
     "gemma3-1b": {"flash_attention": 26, "flash_attention:wgmma": 26,
@@ -294,7 +309,7 @@ def check_rglru(torch, randn):
         a = 1 - torch.sigmoid(x) * 1e-3 if near_one else torch.sigmoid(x)
         return a, randn(shape, torch.float32)
 
-    def compare(a, b, what, thread_held=True):
+    def compare(a, b, what):
         before = dict(cuda_lib.launches)
         h, h_thread = rglru_scan_bsc(a, b), rglru_scan_thread(a, b)
         ref = rglru_scan_ref(a.double(), b.double())
@@ -303,25 +318,18 @@ def check_rglru(torch, randn):
             check(cuda_lib.launches[name] == before.get(name, 0) + n,
                   f"{name} launched")
         check(h.dtype == torch.float32 and h.shape == a.shape, "rglru output")
-        held = [(h, "grouped")] + [(h_thread, "thread")] * thread_held
-        for got, which in held:
+        for got, which in ((h, "grouped"), (h_thread, "thread")):
             check(max_excess(torch, got, ref, RGLRU_TOL) <= RGLRU_TOL,
                   f"rglru {which} {what}")
         return tuple((got.double() - ref).abs().max().item()
                      for got in (h, h_thread))
     sweep = [0.0, 0.0]
     for case in RGLRU_SWEEP:
-        held = case not in THREAD_DRIFTS
-        errs = compare(*inputs(case[:3], case[3]), case, held)
-        if not held:
-            print(f"[kernels] rglru_scan sweep {case}: the earlier kernel's "
-                  f"f32 carry drifts (known defect, on no model path): max "
-                  f"abs err {errs[1]:.3g}, not held; grouped {errs[0]:.3g}")
-        sweep = [max(sweep[0], errs[0]), max(sweep[1], errs[1]) if held
-                 else sweep[1]]
+        errs = compare(*inputs(case[:3], case[3]), case)
+        sweep = [max(x, e) for x, e in zip(sweep, errs)]
     print(f"[kernels] rglru_scan sweep: max abs err {sweep[0]:.3g} (grouped), "
-          f"{sweep[1]:.3g} (thread, held cases) (tol {RGLRU_TOL}, against "
-          f"the plain version in f64)")
+          f"{sweep[1]:.3g} (thread) (tol {RGLRU_TOL}, against the plain "
+          f"version in f64)")
     cfg = get_config("recurrentgemma-2b")
     shape = (B, S, cfg.d_rnn)
     a, b = inputs(shape)
@@ -380,13 +388,6 @@ def check_wkv6(torch, randn):
         for got_y, got_st, which in ((y, st, "chunk"), (y_seq, st_seq, "seq")):
             errs.append(((got_y.double() - y_ref).abs().max().item(),
                          (got_st.double() - st_ref).abs().max().item()))
-            if which == "seq" and what in SEQ_COMPOUNDS:
-                print(f"[kernels] wkv6 (seq, the earlier design) at {what}: max "
-                      f"abs err y {errs[-1][0]:.3g}, state {errs[-1][1]:.3g}, "
-                      f"not held to {WKV6_TOL}: it compounds the rounding of "
-                      f"exp(logw) once a step (a known defect, on no model "
-                      f"path)")
-                continue
             check(max_excess(torch, got_y.double(), y_ref, WKV6_TOL) <= WKV6_TOL,
                   f"wkv6 {which} y {what}")
             check(max_excess(torch, got_st.double(), st_ref, WKV6_TOL) <= WKV6_TOL,
@@ -395,8 +396,6 @@ def check_wkv6(torch, randn):
     sweep = [0.0, 0.0]
     for case in WKV6_SWEEP:
         errs = compare(inputs(*case), case)
-        if case in SEQ_COMPOUNDS:
-            errs[1] = (0.0, 0.0)
         sweep = [max(x, *e) for x, e in zip(sweep, errs)]
     print(f"[kernels] wkv6 sweep and edges (y and final state, against the plain "
           f"version in f64): max abs err {sweep[0]:.3g} (chunk), {sweep[1]:.3g} "
@@ -687,6 +686,298 @@ def serve_path(torch, np, dev, arch):
     return main_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the Databelt workflow path
+# ---------------------------------------------------------------------------
+class StepClock:
+    """Stands in for the engine's wall clock: each reading steps by a fixed
+    amount, so that two runs of the engine give the same simulated times."""
+
+    def __init__(self, step=0.125):
+        self.t, self.step = 0.0, step
+
+    def perf_counter(self):
+        self.t += self.step
+        return self.t
+
+
+def run_body(torch, fn, args):
+    """One synchronized call: (output, CUDA-event ms, host ms)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def same_outputs(torch, got, want, what):
+    """A body's card output against its CPU output: the keep mask exactly,
+    tensors to WORKFLOW_TOL, the score to SCORE_TOL; every tensor on cuda."""
+    check(sorted(got) == sorted(want), f"{what} keys {sorted(got)}")
+    errs = {}
+    for k, w in want.items():
+        g = got[k]
+        if not torch.is_tensor(w):
+            check(type(g) is type(w), f"{what} {k} type")
+            err = abs(g - w)
+            check(err <= (0 if isinstance(w, bool) else SCORE_TOL),
+                  f"{what} {k}: {g} vs {w}")
+        else:
+            check(g.device.type == "cuda" and g.shape == w.shape,
+                  f"{what} {k} on {g.device}, shape {tuple(g.shape)}")
+            if w.dtype == torch.bool:
+                err = int((g.cpu() != w).sum())
+                check(err == 0, f"{what} {k}: {err} of {w.numel()} differ")
+            else:
+                err = (g.cpu() - w).abs().max().item()
+                check(err <= WORKFLOW_TOL, f"{what} {k} max abs err {err}")
+        errs[k] = err
+    return errs
+
+
+def workflow_path(torch, dev):
+    """The flood workflow's bodies on the card against the CPU, the engine
+    on the card against the engine on the CPU under a stepped clock, and the
+    Scenario front door at Table 2's and Fig 13's sizes with real compute."""
+    from repro_torch.kernels import cuda_lib
+
+    out = {"bodies": [], "engine": {}, "front_door": []}
+    t_phase = time.perf_counter()
+    # the phase runs with cuDNN's TF32 at PyTorch's default (allowed), as in a
+    # user's process: the bodies pin their own convolutions to f32
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        workflow_runs(torch, dev, out)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_before
+    launched = {name: n for name, n in cuda_lib.launches.items() if n}
+    check(not launched, f"the workflow path launched {launched}")
+    out["launches"] = launched
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[workflow] no kernel of the port lies on this path (launches "
+          f"{launched}); phase {out['phase_s']:.1f} s")
+    return out
+
+
+def timed(torch, record, key, fn):
+    """``fn`` with its synchronized host time added to ``record[key]`` (ms)."""
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        record[key] = record.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return res
+    return run
+
+
+def workflow_runs(torch, dev, out):
+    """Phases 7a-7c, each result added to ``out``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.scenario import Scenario, WorkloadSpec
+    from repro_torch.serverless import engine as engine_mod
+    from repro_torch.serverless import workflow as wf
+
+    cuda_lib.launches.clear()                    # the workflow path starts here
+    # ---- 7a. each body on the card against the same body on the CPU --------
+    w_cpu, w_dev = wf.flood_weights("cpu"), wf.flood_weights(dev)
+    precision = torch.backends.cudnn.conv.fp32_precision
+    bodies = (("ingest", wf.ingest_fn, ()), ("detect", wf.detect_fn, (w_dev,)),
+              ("map", wf.map_fn, (w_dev,)), ("alarm", wf.alarm_fn, ()))
+    for size in WORKFLOW_SIZES:
+        inputs = {"ingest": wf.make_payload(size, device="cpu")}
+        frames = len(inputs["ingest"]["frames"])
+        for (name, fn, args), nxt in zip(bodies, ("detect", "map", "alarm",
+                                                  None)):
+            cpu_args = (w_cpu,) if args else ()
+            want = fn(inputs[name], *cpu_args)
+            if nxt:
+                inputs[nxt] = want
+            inp = {k: v.to(dev) for k, v in inputs[name].items()}
+            got, cold_ms, cold_host = run_body(torch, fn, (inp, *args))
+            errs = same_outputs(torch, got, want,
+                                f"{name} at {frames} frames")
+            run_body(torch, fn, (inp, *args))                # warm-up
+            warm = [run_body(torch, fn, (inp, *args))[1:] for _ in range(10)]
+            row = {"body": name, "size_mb": size / 1e6, "frames": frames,
+                   "max_abs_err": errs,
+                   "cold_event_ms": cold_ms, "cold_host_ms": cold_host,
+                   "event_ms": sum(d for d, _ in warm) / len(warm),
+                   "host_ms": sum(h for _, h in warm) / len(warm)}
+            out["bodies"].append(row)
+            print(f"[workflow] {name} at {size / 1e6:g} MB ({frames} frames): "
+                  f"card vs CPU {errs}; device (CUDA events) "
+                  f"{row['event_ms']:.4f} ms, host {row['host_ms']:.4f} ms; "
+                  f"first call {cold_ms:.3f} / {cold_host:.3f} ms")
+    check(torch.backends.cudnn.conv.fp32_precision == precision,
+          "the bodies left the caller's TF32 setting as it was")
+    # what the bodies' f32 pin guards against (reported, not checked): the
+    # convolving bodies without it, cuDNN allowed TF32, at 10 MB
+    inp = {k: v.to(dev) for k, v in wf.make_payload(10e6, device="cpu").items()}
+    pinned = wf.ingest_fn(inp)
+    bare = wf.ingest_fn.__wrapped__(inp)
+    det = wf.detect_fn(pinned, w_dev)["detections"]
+    det_bare = wf.detect_fn.__wrapped__(pinned, w_dev)["detections"]
+    out["tf32_unpinned"] = {
+        "keep_differs": int((bare["keep"] != pinned["keep"]).sum()),
+        "frames": len(pinned["keep"]),
+        "detections_max_abs_diff": (det_bare - det).abs().max().item()}
+    print(f"[workflow] without the f32 pin, cuDNN TF32 allowed, at 10 MB: "
+          f"keep differs in {out['tf32_unpinned']['keep_differs']} of "
+          f"{len(pinned['keep'])} frames, detections by up to "
+          f"{out['tf32_unpinned']['detections_max_abs_diff']:.3g} "
+          f"(not checked: what the pin guards against)")
+
+    # ---- 7b. the engine on the card against the engine on the CPU ----------
+    runs = {}
+    real_clock = engine_mod._time
+    try:
+        for where in ("cpu", dev):
+            engine_mod._time = StepClock()
+            scores = []
+
+            def maker(wid, where=where, scores=scores):
+                flow = wf.flood_workflow(wid, device=where)
+                alarm = flow.fn("alarm")
+                body = alarm.compute
+
+                def compute(payload):
+                    res = body(payload)
+                    scores.append(res["score"])
+                    return res
+                alarm.compute = compute
+                return flow
+            eng = Scenario(strategy="databelt",
+                           real_compute=True).build_engine(device=where)
+            m = eng.run_instance(maker("engine-check"), 10e6)
+            runs[str(where)] = (dataclasses.asdict(m), scores)
+    finally:
+        engine_mod._time = real_clock
+    (cm, cs), (gm, gs) = runs["cpu"], runs[str(dev)]
+    check(cm == gm, f"engine metrics card {gm} vs cpu {cm}")
+    check(len(cs) == len(gs) == 1 and abs(cs[0] - gs[0]) <= SCORE_TOL,
+          f"engine alarm scores card {gs} vs cpu {cs}")
+    out["engine"] = {"metrics": gm, "score_card": gs[0], "score_cpu": cs[0]}
+    print(f"[workflow] engine, databelt at 10 MB, real compute with the "
+          f"clock stepped: card and CPU metrics identical ({gm}); alarm "
+          f"score card {gs[0]:.7f} vs CPU {cs[0]:.7f}")
+
+    # ---- 7c. the front door at real sizes, real compute on the card --------
+    table2 = Scenario(workload=WorkloadSpec(kind="sequential", spacing=120.0),
+                      n=3, real_compute=True).sweep(
+        input_bytes=[mb * 1e6 for mb in TABLE2_MB],
+        strategy=["databelt", "random", "stateless"])
+    fig13 = Scenario(workload=WorkloadSpec(kind="stagger", stagger=0.05),
+                     n=64, input_bytes=2e6, real_compute=True).sweep(
+        strategy=["databelt", "stateless"])
+    cells = [("table2", sc) for sc in table2] + [("fig13", sc) for sc in fig13]
+    # run 1, the path alone (no profiler, nothing wrapped): the end-to-end
+    # numbers.  Real compute per mission is its compute time less that of the
+    # same Scenario with virtual compute, which is deterministic.
+    virtual = {}
+    for label, sc in cells:
+        vms = sc.replace(real_compute=False).run(device="cpu").instances
+        virtual[label, sc.strategy, sc.input_bytes] = \
+            sum(m.compute_time for m in vms) / len(vms)
+
+    def real_ms(label, sc, ms):
+        return (sum(m.compute_time for m in ms) / len(ms) -
+                virtual[label, sc.strategy, sc.input_bytes]) * 1e3
+
+    for label, sc in cells:
+        c0 = time.perf_counter()
+        rep = sc.run(device=dev)
+        wall = time.perf_counter() - c0
+        ms = rep.instances
+        check(len(ms) == sc.n and all(
+            math.isfinite(m.latency) and m.latency > 0 and
+            m.compute_time > 0 for m in ms), f"{label} {sc.strategy} run")
+        mean = lambda f: sum(f(m) for m in ms) / len(ms)
+        row = {"cell": label, "strategy": sc.strategy,
+               "size_mb": sc.input_bytes / 1e6, "n": sc.n,
+               "mean_latency_s": rep.mean_latency,
+               "compute_s": mean(lambda m: m.compute_time),
+               "read_s": mean(lambda m: m.read_time),
+               "write_s": mean(lambda m: m.write_time),
+               "p95_s": rep.p95, "throughput_rps": rep.throughput_rps,
+               "real_compute_ms_per_mission": real_ms(label, sc, ms),
+               "host_wall_s": wall}
+        out["front_door"].append(row)
+        print(f"[workflow] {label} {sc.strategy} {row['size_mb']:g} MB "
+              f"n={sc.n}: mean latency {row['mean_latency_s']:.4f} s "
+              f"(compute {row['compute_s']:.4f}, read "
+              f"{row['read_s']:.4f}, write {row['write_s']:.4f}), p95 "
+              f"{row['p95_s']:.4f} s, {row['throughput_rps']:.4f} rps; real "
+              f"compute {row['real_compute_ms_per_mission']:.4f} ms a "
+              f"mission; host wall {wall:.3f} s")
+
+    # run 2: where the engine's real compute goes.  Each body is timed inside
+    # the engine's span (a synchronize before and after, the host clock), and
+    # so is make_payload (the numpy draw and its pageable copy to the card),
+    # which the engine calls before its clock starts.
+    out["front_door_split"] = []
+    record = {}
+    names = ("ingest_fn", "detect_fn", "map_fn", "alarm_fn")
+    saved = {n: getattr(wf, n) for n in names}
+    saved_payload = engine_mod.make_payload
+    try:
+        for n in names:
+            setattr(wf, n, timed(torch, record, n[:-3], saved[n]))
+        engine_mod.make_payload = timed(torch, record, "payload",
+                                        saved_payload)
+        for label, sc in cells:
+            record.clear()
+            ms = sc.run(device=dev).instances
+            row = {"cell": label, "strategy": sc.strategy,
+                   "size_mb": sc.input_bytes / 1e6,
+                   "real_compute_ms_per_mission": real_ms(label, sc, ms),
+                   **{k: v / sc.n for k, v in record.items()}}
+            row["bodies_ms"] = sum(row[n[:-3]] for n in names)
+            out["front_door_split"].append(row)
+            print(f"[workflow] {label} {sc.strategy} {row['size_mb']:g} MB, a "
+                  f"mission: real compute {row['real_compute_ms_per_mission']:.4f}"
+                  f" ms, of which the bodies {row['bodies_ms']:.4f} ms (ingest "
+                  f"{row['ingest']:.4f}, detect {row['detect']:.4f}, map "
+                  f"{row['map']:.4f}, alarm {row['alarm']:.4f}); make_payload "
+                  f"{row['payload']:.4f} ms, outside the timed compute")
+    finally:
+        for n in names:
+            setattr(wf, n, saved[n])
+        engine_mod.make_payload = saved_payload
+
+    # run 3, under torch.profiler: the device's idle share over the front door
+    profiled = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for label, sc in cells:
+            ms = sc.run(device=dev).instances
+            profiled.append(real_ms(label, sc, ms))
+        torch.cuda.synchronize()
+        front_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    out["front_door_device"] = {
+        "host_s": front_s, "device_busy_s": busy_s,
+        "idle_share": 1 - busy_s / front_s,
+        "real_compute_ms_per_mission": profiled,
+        "top_kernels": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                        for e in top]}
+    print(f"[workflow] front door, {len(cells)} runs under torch.profiler: "
+          f"host {front_s:.3f} s, device busy {busy_s * 1e3:.2f} ms, device "
+          f"idle {1 - busy_s / front_s:.2%}; real compute a mission (ms, "
+          f"profiled) {[round(x, 4) for x in profiled]}; top kernels (ms, "
+          f"launches): {[(k, round(t, 3), n) for k, t, n in out['front_door_device']['top_kernels']]}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -739,6 +1030,9 @@ def main() -> int:
         launches[arch] = serve_path(torch, np, dev, arch)
         torch.cuda.empty_cache()
 
+    # ---- 7. the Databelt workflow path -----------------------------------
+    print(json.dumps({"workflow": workflow_path(torch, dev)}))
+
     def path_launches(name):
         by_path = {arch: n[name] for arch, n in launches.items() if name in n}
         return sum(by_path.values()), by_path
@@ -778,6 +1072,8 @@ def main() -> int:
     }, {
         "name": "rglru_scan:thread", "route": "cuda", "variant": "thread",
         "earlier_design_of": "rglru_scan",
+        "timed_as": "the earlier design as kept, h carried in f64; not the "
+                    "f32 carry it was first timed with",
         "source": rec + "rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:49",
         "launches": path_launches("rglru_scan:thread")[0],
@@ -791,6 +1087,8 @@ def main() -> int:
     }, {
         "name": "wkv6:seq", "route": "cuda", "variant": "seq",
         "earlier_design_of": "wkv6",
+        "timed_as": "the earlier design as kept, state and decay in f64; not "
+                    "the f32 state it was first timed with",
         "source": rec + "rwkv6_chunk/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6_chunk/kernel.py:72",
         "launches": path_launches("wkv6:seq")[0],

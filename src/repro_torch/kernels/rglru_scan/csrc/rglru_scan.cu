@@ -13,7 +13,10 @@
 // 38 us at 3.35 TB/s; the 10.5 MFLOP are nothing.
 //
 // Design.  One thread per (batch, channel) walks t = 0..S-1 with h in a
-// register.  Neighbouring threads take neighbouring channels, so each time
+// register, carried in f64 (one f64 FMA a step) and rounded to f32 only where
+// it is stored: an f32 carry rounds every step, and where a is near 1 nothing
+// decays those roundings (1.05e-4 from the recurrence in f64 at (4, 1024,
+// 2560), over the 2e-5 tolerance), as rglru_scan_grouped.cu does.  Neighbouring threads take neighbouring channels, so each time
 // step's loads and stores of a warp are one coalesced 128-byte line.  The
 // loads of UNROLL time steps are issued together before the FMAs that
 // consume them, so each thread keeps 2 * UNROLL loads in flight instead of
@@ -40,7 +43,7 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int c = blockIdx.x * THREADS + threadIdx.x;
   if (c >= C) return;
   const size_t base = (size_t)blockIdx.y * S * C + c;
-  float carry = 0.f;
+  double carry = 0.0;
   int t = 0;
   for (; t + UNROLL <= S; t += UNROLL) {
     float av[UNROLL], bv[UNROLL];
@@ -52,14 +55,14 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      carry = fmaf(av[u], carry, bv[u]);
-      h[base + (size_t)(t + u) * C] = carry;
+      carry = fma((double)av[u], carry, (double)bv[u]);
+      h[base + (size_t)(t + u) * C] = (float)carry;
     }
   }
   for (; t < S; ++t) {
     const size_t i = base + (size_t)t * C;
-    carry = fmaf(a[i], carry, b[i]);
-    h[i] = carry;
+    carry = fma((double)a[i], carry, (double)b[i]);
+    h[i] = (float)carry;
   }
 }
 

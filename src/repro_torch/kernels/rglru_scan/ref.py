@@ -38,11 +38,11 @@ def rglru_scan_ref(a, b):
 def rglru_scan_walk_ref(a, b, carry=torch.float64):
     """The kernels' walk in plain PyTorch: each channel in order, one
     multiply-add a step, h carried in ``carry`` and rounded to f32 where it
-    is stored.  ``torch.float64`` is the channel-group kernel
-    (``csrc/rglru_scan_grouped.cu``); ``torch.float32`` rounds h every step,
-    as the earlier kernel's f32 FMA does (the product is exact in f64, so
-    each step rounds once, up to a rare double rounding).  Slow: for the CPU
-    tests."""
+    is stored.  ``torch.float64`` is both kernels
+    (``csrc/rglru_scan_grouped.cu``, ``csrc/rglru_scan.cu``);
+    ``torch.float32`` rounds h every step, as an f32 FMA does (the product
+    is exact in f64, so each step rounds once, up to a rare double
+    rounding).  Slow: for the CPU tests."""
     a64, b64 = a.double(), b.double()
     h = torch.zeros_like(a64[:, 0])
     out = torch.empty_like(a)

@@ -16,8 +16,12 @@
 // The sequential form's 4 * BH * S * hd^2 f32 operations (4.3 GFLOP there)
 // take about 0.065 ms at the 67 TFLOP/s CUDA-core rate, so the function is
 // bytes-bound.  This kernel is bound by neither: its state update is an
-// instruction stream of about four FP32 instructions per (t, i, j) issued by
-// only 512 warps, two blocks per SM, so it is issue- and latency-bound.
+// instruction stream of about four f64 instructions per (t, i, j) issued by
+// only 512 warps.  The grid sets the occupancy: 256 blocks of two warps over
+// 132 SMs is about two blocks an SM, where the kernel's resources at hd 64
+// (250 registers a thread, 28.9 KB of shared memory a block) would allow
+// four.  With one warp per scheduler it is latency-bound; whether the f64
+// pipe or the shared-memory broadcasts set that latency is not measured.
 //
 // Design (the classic RWKV CUDA form, not the chunked TPU one).
 //   * One block per bh with hd threads; thread j keeps column j of the
@@ -26,10 +30,16 @@
 //     r, k, v and logw (contiguous rows) with coalesced float4 loads into
 //     shared memory, turning logw into exp(logw) and k into u * k on the
 //     way, then walks the T steps.  Every thread reads the same r_t[i],
-//     k_t[i], w_t[i], (u k_t)[i] (a shared-memory broadcast, as float4s)
-//     and its own v_t[j].
+//     k_t[i], w_t[i], (u k_t)[i] (a shared-memory broadcast, as float4s
+//     and double2s) and its own v_t[j].
 //   * The y sum runs in four partial sums so its FMAs do not form one
 //     dependent chain of hd; the state columns update independently.
+//   * Precision: the state, the decay exp(logw) and u * k are f64, and so
+//     are the y sums; y is rounded to f32 where it is stored.  With the
+//     state in f32 and exp(logw) rounded to f32, the rounding of the decay
+//     compounds once a step: at logw = -1e-4 over 1024 steps y was 0.0225
+//     from the recurrence in f64, over the 1e-3 tolerance.  The f64 FMAs run
+//     at half the f32 rate, in a kernel that was already issue-bound.
 //   * The chunked, tensor-core form (intra-chunk products as matmuls) is
 //     the step that moves it towards the bound; that is later work.
 
@@ -49,8 +59,8 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
   static_assert(HD % 4 == 0, "hd must be a multiple of 4");
   __shared__ __align__(16) float sr[T * HD];
   __shared__ __align__(16) float sk[T * HD];
-  __shared__ __align__(16) float suk[T * HD];
-  __shared__ __align__(16) float sw[T * HD];
+  __shared__ __align__(16) double suk[T * HD];
+  __shared__ __align__(16) double sw[T * HD];
   __shared__ __align__(16) float sv[T * HD];
   __shared__ __align__(16) float su[HD];
 
@@ -58,9 +68,9 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const size_t row = (size_t)blockIdx.x * S * HD;
   su[j] = u[(size_t)blockIdx.x * HD + j];
 
-  float st[HD];
+  double st[HD];
 #pragma unroll
-  for (int i = 0; i < HD; ++i) st[i] = 0.f;
+  for (int i = 0; i < HD; ++i) st[i] = 0.0;
 
   for (int t0 = 0; t0 < S; t0 += T) {
     const int n = min(T, S - t0);
@@ -77,38 +87,47 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
       reinterpret_cast<float4*>(sr)[e] = r4[e];
       reinterpret_cast<float4*>(sv)[e] = v4[e];
       reinterpret_cast<float4*>(sk)[e] = kk;
-      reinterpret_cast<float4*>(suk)[e] =
-          make_float4(uu.x * kk.x, uu.y * kk.y, uu.z * kk.z, uu.w * kk.w);
-      reinterpret_cast<float4*>(sw)[e] =
-          make_float4(expf(ww.x), expf(ww.y), expf(ww.z), expf(ww.w));
+      // products of two f32 values are exact in f64
+      double* uk = suk + 4 * e;
+      uk[0] = (double)uu.x * kk.x;
+      uk[1] = (double)uu.y * kk.y;
+      uk[2] = (double)uu.z * kk.z;
+      uk[3] = (double)uu.w * kk.w;
+      double* w = sw + 4 * e;
+      w[0] = exp((double)ww.x);
+      w[1] = exp((double)ww.y);
+      w[2] = exp((double)ww.z);
+      w[3] = exp((double)ww.w);
     }
     __syncthreads();
     for (int tt = 0; tt < n; ++tt) {
-      const float vj = sv[tt * HD + j];
+      const double vj = sv[tt * HD + j];
       const float4* rr4 = reinterpret_cast<const float4*>(sr + tt * HD);
       const float4* kk4 = reinterpret_cast<const float4*>(sk + tt * HD);
-      const float4* uk4 = reinterpret_cast<const float4*>(suk + tt * HD);
-      const float4* ww4 = reinterpret_cast<const float4*>(sw + tt * HD);
-      float y0 = 0.f, y1 = 0.f, y2 = 0.f, y3 = 0.f;
+      const double2* uk2 = reinterpret_cast<const double2*>(suk + tt * HD);
+      const double2* ww2 = reinterpret_cast<const double2*>(sw + tt * HD);
+      double y0 = 0.0, y1 = 0.0, y2 = 0.0, y3 = 0.0;
 #pragma unroll
       for (int q = 0; q < HD / 4; ++q) {
-        const float4 rr = rr4[q], kk = kk4[q], uk = uk4[q], ww = ww4[q];
+        const float4 rr = rr4[q], kk = kk4[q];
+        const double2 uka = uk2[2 * q], ukb = uk2[2 * q + 1];
+        const double2 wa = ww2[2 * q], wb = ww2[2 * q + 1];
         const int i = 4 * q;
-        y0 = fmaf(rr.x, fmaf(uk.x, vj, st[i + 0]), y0);
-        y1 = fmaf(rr.y, fmaf(uk.y, vj, st[i + 1]), y1);
-        y2 = fmaf(rr.z, fmaf(uk.z, vj, st[i + 2]), y2);
-        y3 = fmaf(rr.w, fmaf(uk.w, vj, st[i + 3]), y3);
-        st[i + 0] = fmaf(ww.x, st[i + 0], kk.x * vj);
-        st[i + 1] = fmaf(ww.y, st[i + 1], kk.y * vj);
-        st[i + 2] = fmaf(ww.z, st[i + 2], kk.z * vj);
-        st[i + 3] = fmaf(ww.w, st[i + 3], kk.w * vj);
+        y0 = fma((double)rr.x, fma(uka.x, vj, st[i + 0]), y0);
+        y1 = fma((double)rr.y, fma(uka.y, vj, st[i + 1]), y1);
+        y2 = fma((double)rr.z, fma(ukb.x, vj, st[i + 2]), y2);
+        y3 = fma((double)rr.w, fma(ukb.y, vj, st[i + 3]), y3);
+        st[i + 0] = fma(wa.x, st[i + 0], (double)kk.x * vj);
+        st[i + 1] = fma(wa.y, st[i + 1], (double)kk.y * vj);
+        st[i + 2] = fma(wb.x, st[i + 2], (double)kk.z * vj);
+        st[i + 3] = fma(wb.y, st[i + 3], (double)kk.w * vj);
       }
-      y[row + (size_t)(t0 + tt) * HD + j] = (y0 + y1) + (y2 + y3);
+      y[row + (size_t)(t0 + tt) * HD + j] = (float)((y0 + y1) + (y2 + y3));
     }
   }
   float* so = s_out + (size_t)blockIdx.x * HD * HD;
 #pragma unroll
-  for (int i = 0; i < HD; ++i) so[i * HD + j] = st[i];
+  for (int i = 0; i < HD; ++i) so[i * HD + j] = (float)st[i];
 }
 
 template <int HD>

@@ -7,6 +7,9 @@ arrive as numpy arrays of the ml_dtypes ``bfloat16`` type.  They go through
 (the RG-LRU conv and gates, the RWKV mixes, LoRAs, ``u`` and ``w0``) stay
 f32.  The stacked superblock leaves (leading axis R) are cut into one
 ``Layer`` per layer.
+
+The flood workflow's convolution weights come across the same way, from
+numpy, through ``repro_torch.serverless.workflow.flood_weights_from_numpy``.
 """
 from __future__ import annotations
 

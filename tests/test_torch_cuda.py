@@ -18,8 +18,15 @@ Each runs over the reference's sweep, then ragged shapes, then the shapes
 of the serving path at full width.  The model on the card (kernel) is held
 against the model on the CPU (plain version) at the port's bf16 model
 tolerance, 5e-2: logits elementwise, cache leaves in relative norm (see
-tests/test_torch_model.py).
+tests/test_torch_model.py).  Each flood-workflow body on the card is held
+against the same body on the CPU, on the same payload and weights: the keep
+mask exactly, tensors to 1e-5 (cuDNN sums in another order; tf32 off), the
+alarm score to 1e-4; again with cuDNN's TF32 left at PyTorch's default, which
+the bodies override for their own convolutions, and through ``launch.flood``
+end to end with the engine's clock stepped.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -34,6 +41,7 @@ from repro_torch.kernels.rglru_scan.ops import rglru_scan_thread  # noqa: E402
 from repro_torch.kernels.rwkv6_chunk import wkv6_bh, wkv6_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_chunk.ops import wkv6_seq  # noqa: E402
 from repro_torch.models import forward_prefill, init_params  # noqa: E402
+from repro_torch.serverless import workflow as wf  # noqa: E402
 
 TOL = {torch.float32: 3e-5, torch.bfloat16: 2.5e-2}
 MODEL_TOL = 5e-2
@@ -69,11 +77,6 @@ RGLRU_SHAPES = [(2, 256, 128, False), (1, 128, 512, False),
                 (3, 64, 96, False), (2, 37, 70, False), (4, 100, 2562, False),
                 (3, 50, 2564, True), (2, 256, 128, True),
                 (4, 1024, 2560, False), (4, 1024, 2560, True)]
-# where the earlier one-thread-per-channel kernel misses 2e-5 (a known
-# defect, not on any model path): its f32 carry rounds every step, and with
-# a near 1 over 1024 steps nothing decays those roundings (the channel-group
-# kernel carries h in f64)
-THREAD_DRIFTS = {(4, 1024, 2560, True)}
 # (BH, S, hd, logw value or None): test_wkv6_kernel's sweep, a ragged
 # length, the edges (S = 1; logw all -5, all -1e-4, all -40: far below the
 # model's clamp, 640 nats a chunk), rwkv6-7b's prefill (4
@@ -83,11 +86,6 @@ WKV6_SHAPES = [(2, 128, 32, None), (4, 256, 64, None), (1, 64, 16, None),
                (2, 33, 16, -1e-4), (4, 512, 64, -5.0), (4, 1024, 64, -1e-4),
                (2, 64, 32, -40.0),
                (256, 1024, 64, None)]
-# where the earlier sequential kernel misses 1e-3 (a known defect, not on any
-# model path): it multiplies the state by the f32-rounded exp(logw) once a
-# step, and at logw = -1e-4 that rounding compounds over 1024 steps to about
-# 0.02 in y (the chunked kernels take exp of the summed logw instead)
-SEQ_COMPOUNDS = {(4, 1024, 64, -1e-4)}
 # the kernel counters a prefill must move, by the layer kinds that launch
 # them (the earlier recurrent designs by none)
 KINDS = {"flash_attention": ("global", "local"), "rglru_scan": ("rglru",),
@@ -100,6 +98,7 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -161,12 +160,13 @@ def test_rglru_kernel_matches_plain(cuda_device, B, S, C, near_one):
         assert cuda_lib.launches[name] == before.get(name, 0) + n, name
     assert h.dtype == torch.float32 and h.shape == a.shape
     ref = rglru_scan_ref(a.double(), b.double())
-    held = [h] if (B, S, C, near_one) in THREAD_DRIFTS else [h, h_thread]
-    for got in held:
+    for got in (h, h_thread):
         torch.testing.assert_close(got.double(), ref, atol=2e-5, rtol=2e-5)
-    # the f64 carry is rounded once, where h is stored: within f32's unit
-    # roundoff of the recurrence (the f64 plain version's own error is ~1e-13)
-    assert ((h.double() - ref).abs() <= 2.0 ** -24 * ref.abs() + 1e-9).all()
+        # both carry h in f64 and round it once, where it is stored: within
+        # f32's unit roundoff of the recurrence (the f64 plain version's own
+        # error is ~1e-13)
+        assert ((got.double() - ref).abs()
+                <= 2.0 ** -24 * ref.abs() + 1e-9).all()
 
 
 @pytest.mark.cuda
@@ -192,10 +192,8 @@ def test_wkv6_kernel_matches_plain(cuda_device, BH, S, hd, logw_value):
     # the plain version in f64: in f32 its own rounding, added to a kernel's,
     # passes 1e-3 where y crosses 0 after 1024 steps of slow decay
     y_ref, st_ref = wkv6_ref(*(t.double() for t in (r, k, v, logw, u)))
-    held = [(y, y_ref), (st, st_ref)]
-    if (BH, S, hd, logw_value) not in SEQ_COMPOUNDS:
-        held += [(y_seq, y_ref), (st_seq, st_ref)]
-    for got, want in held:
+    for got, want in ((y, y_ref), (st, st_ref), (y_seq, y_ref),
+                      (st_seq, st_ref)):
         torch.testing.assert_close(got.double(), want, atol=1e-3, rtol=1e-3)
 
 
@@ -247,3 +245,114 @@ def test_prefill_on_card_matches_cpu(cuda_device, arch):
         g, c = g.float().cpu(), c.float()
         assert (torch.linalg.vector_norm(g - c) /
                 torch.linalg.vector_norm(c)).item() <= MODEL_TOL
+
+
+def _flood_inputs():
+    """Each body's input (the CPU chain's outputs, at 10 MB: 2441 frames)."""
+    payload = wf.make_payload(10e6, device="cpu")
+    w = wf.flood_weights("cpu")
+    ingested = wf.ingest_fn(payload)
+    detected = wf.detect_fn(ingested, w)
+    mapped = wf.map_fn(detected, w)
+    return {"ingest": payload, "detect": ingested, "map": detected,
+            "alarm": mapped}
+
+
+def _same_as_cpu(got, want):
+    """A flood body's card output against its CPU output: the keep mask
+    exactly, tensors to 1e-5, the score to 1e-4, every tensor on the card."""
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        g = got[k]
+        if not torch.is_tensor(w):
+            assert type(g) is type(w)
+            assert g == w if isinstance(w, bool) else abs(g - w) <= 1e-4, k
+            continue
+        assert g.device.type == "cuda" and g.shape == w.shape, k
+        if w.dtype == torch.bool:
+            assert torch.equal(g.cpu(), w), k
+        else:
+            torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-5)
+
+
+def _run_body(body, inp, device):
+    fn = {"ingest": wf.ingest_fn, "detect": wf.detect_fn, "map": wf.map_fn,
+          "alarm": wf.alarm_fn}[body]
+    args = (wf.flood_weights(device),) if body in ("detect", "map") else ()
+    return fn({k: v.to(device) for k, v in inp.items()}, *args)
+
+
+@pytest.fixture
+def torch_default_tf32():
+    """A CUDA device with cuDNN's TF32 at PyTorch's default (allowed), as in
+    a process that never touches the flag; the caller's setting comes back
+    after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = before
+
+
+class _StepClock:
+    """The engine's clock, stepped by a fixed amount at each reading."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self):
+        self.t += 0.125
+        return self.t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["ingest", "detect", "map", "alarm"])
+def test_flood_body_on_card_matches_cpu(cuda_device, body):
+    inp = _flood_inputs()[body]
+    want = _run_body(body, inp, "cpu")
+    got = _run_body(body, inp, cuda_device)
+    torch.cuda.synchronize()
+    _same_as_cpu(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["ingest", "detect", "map", "alarm"])
+def test_flood_body_at_torch_default_tf32_matches_cpu(torch_default_tf32,
+                                                      body):
+    """The bodies pin their convolutions to f32 themselves."""
+    inp = _flood_inputs()[body]
+    want = _run_body(body, inp, "cpu")
+    got = _run_body(body, inp, torch_default_tf32)
+    torch.cuda.synchronize()
+    _same_as_cpu(got, want)
+    assert torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.cuda
+def test_launch_flood_at_torch_default_tf32_matches_cpu(torch_default_tf32,
+                                                        monkeypatch):
+    """``launch.flood`` on the card and on the CPU, the engine's clock
+    stepped: identical metrics, and each body's output the same."""
+    from repro_torch.launch import flood
+    from repro_torch.serverless import engine as engine_mod
+
+    outputs = {"cpu": {}, "cuda": {}}
+    where = ["cpu"]
+    for name in ("ingest_fn", "detect_fn", "map_fn", "alarm_fn"):
+        def record(*args, body=getattr(wf, name), name=name):
+            out = body(*args)
+            outputs[where[0]][name] = out
+            return out
+        monkeypatch.setattr(wf, name, record)
+    metrics = {}
+    for where[0] in ("cpu", "cuda"):
+        monkeypatch.setattr(engine_mod, "_time", _StepClock())
+        metrics[where[0]] = dataclasses.asdict(
+            flood.main(["--device", where[0]]))
+    assert metrics["cuda"] == metrics["cpu"]
+    assert sorted(outputs["cuda"]) == sorted(outputs["cpu"]) == \
+        ["alarm_fn", "detect_fn", "ingest_fn", "map_fn"]
+    for name, want in outputs["cpu"].items():
+        _same_as_cpu(outputs["cuda"][name], want)
+    assert torch.backends.cudnn.allow_tf32

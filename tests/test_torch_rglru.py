@@ -6,8 +6,7 @@ The scan's plain version is held against the Pallas kernel in interpret mode
 scan, over test_rglru_kernel's shapes, at that test's 2e-5: all three round
 the same recurrence in different orders, a few f32 ulps of |h| < ~20.
 The kernels' walk (``rglru_scan_walk_ref``: each channel in order, h
-carried in f64 as the channel-group kernel carries it, rounded to f32 where
-stored) is held the same way, over that sweep, C that no group divides and
+carried in f64 as both kernels carry it, rounded to f32 where stored) is held the same way, over that sweep, C that no group divides and
 a near 1; an f32 carry is shown to drift past 2e-5 from the recurrence in
 f64 where a is near 1 over 1024 steps, which the f64 carry holds.
 
@@ -125,9 +124,9 @@ def test_grouped_plan(B, C):
 def test_f32_carry_misses_at_slow_decay(carry, holds):
     """a near 1 over recurrentgemma-2b's prompt length, b ~ N(0, 1): |h|
     grows to ~sqrt(S) and nothing decays the walk's roundings.  The f64
-    carry (the channel-group kernel's) stays within one f32 rounding of the
-    recurrence in f64 and so holds 2e-5; an f32 carry (one f32 FMA a step,
-    the earlier kernel's) drifts past it."""
+    carry (both kernels') stays within one f32 rounding of the recurrence
+    in f64 and so holds 2e-5; an f32 carry (one f32 FMA a step) drifts past
+    it."""
     a, b = (torch.tensor(x) for x in _gates(1, 1024, 512, 0, near_one=True))
     want = rglru_scan_ref(a.double(), b.double())
     h = rglru_scan_walk_ref(a, b, carry=carry)

@@ -26,9 +26,13 @@ from repro.models import init_params as jax_init  # noqa: E402
 from repro.serving import engine as jeng  # noqa: E402
 from repro.serving import steps as jsteps  # noqa: E402
 from repro_torch.configs.base import get_smoke_config  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import flood, serve  # noqa: E402
 from repro_torch.models import init_cache, init_params  # noqa: E402
 from repro_torch.models.weights import params_from_jax  # noqa: E402
+from repro_torch.scenario import NetworkSpec, Scenario  # noqa: E402
+from repro_torch.serverless.engine import WorkflowEngine  # noqa: E402
+from repro_torch.serverless.workflow import (  # noqa: E402
+    flood_weights, make_payload)
 from repro_torch.serving import engine as teng  # noqa: E402
 from repro_torch.serving import steps as tsteps  # noqa: E402
 
@@ -140,6 +144,12 @@ ENTRY_POINTS = {
     "engine": lambda cfg: teng.ServingEngine(
         cfg, init_params(cfg, torch.Generator(), device="cpu")),
     "launch.serve": lambda cfg: serve.main([]),
+    "workflow_engine": lambda cfg: WorkflowEngine(NetworkSpec().build(),
+                                                  real_compute=True),
+    "make_payload": lambda cfg: make_payload(1e5),
+    "flood_weights": lambda cfg: flood_weights(),
+    "scenario.run": lambda cfg: Scenario(n=1, real_compute=True).run(),
+    "launch.flood": lambda cfg: flood.main([]),
 }
 
 
