@@ -68,11 +68,33 @@ Phases:
      whose metrics must be identical; the Scenario front door with real
      compute on the card over Table 2's grid (sequential, 10 and 50 MB, three
      strategies) and Fig 13's point (stagger 0.05 s, 2 MB, n = 64), run
-     three times: alone for the end-to-end numbers, with each body and
-     make_payload timed inside the engine for the split of its real compute,
+     three times: alone for the end-to-end numbers, with each body (ingest
+     with its copy of the frames to the card) and make_payload (the host
+     draw) timed inside the engine for the split of its real compute,
      and under torch.profiler for the device's idle share.  One JSON line
      holds it.
-Then one JSON line describing each kernel, and last the device line.
+  8. train: h2o-danube-1.8b at full width (24 layers, remat "full", AdamW
+     with f32 master weights, 4 x 2048 tokens from SyntheticTokens, a
+     constant learning rate): the first step's loss and grad norm through the
+     flash kernel against the same with the eager attention the reference
+     trains through (2e-2, 5e-2 relative); 5 steps through build_train_step,
+     each step's time, loss and grad norm (finite), flash launched twice a
+     layer a step (forward and the remat recompute), every parameter with a
+     finite grad, the median step time over steps 2-5, tokens/s, peak
+     memory; one more step under torch.profiler split by kind (flash
+     forward, the eager attention backward, matmul, elementwise, optimizer)
+     with the device's idle share; flash at the training shape beside its
+     plain version.  recurrentgemma-2b and rwkv6-7b at full width and one
+     superblock: the same kernel-vs-plain check on the first step (the scan
+     and flash, the wkv6) and one timed step whose launches are counted.  The
+     smoke configs' train step in f32 on the card against the CPU (loss 1e-4,
+     each grad leaf 1e-3 in relative norm).  One JSON line holds it.
+  Phase 2 also holds each kernel's autograd function (the kernel forward, the
+  plain version's autograd backward) against autograd of the plain version
+  over the kernel's sweep, at the kernel's tolerance.
+Then one JSON line describing each kernel (its launches summed over the
+serving and training paths, each counted from 0 just before its run), and
+last the device line.
 """
 from __future__ import annotations
 
@@ -122,6 +144,13 @@ PATHS = {                     # arch -> the kernels its prefill must launch
 SWAPPED = {"gemma3-1b": "flash_attention", "recurrentgemma-2b": "rglru_scan",
            "rwkv6-7b": "wkv6"}     # the kernel phase 6 swaps for its plain version
 RECURRENT = ("recurrentgemma-2b", "rwkv6-7b")
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5     # h2o-danube-1.8b training
+REC_TRAIN_B, REC_TRAIN_S = 4, 1024            # the recurrent archs' train step
+LR_TRAIN = 1e-4
+TRAIN_TOL = {"loss": 2e-2, "grad_norm": 5e-2}  # kernels vs plain, bf16
+SMOKE_TRAIN_TOL = {"loss": 1e-4, "grad": 1e-3}  # card vs CPU, f32, tf32 off
+KINDS_OF = {"flash_attention": ("local", "global"), "rglru_scan": ("rglru",),
+            "wkv6": ("rwkv",)}
 NO_LIBRARY = ("no single PyTorch call computes the RG-LRU scan or the wkv6 "
               "recurrence, so their library_ms is null")
 
@@ -430,6 +459,91 @@ def check_wkv6(torch, randn):
               f"kernel_ms {row['ms']:.4f}, plain_ms {plain_ms:.4f}, bound_ms "
               f"{bound_ms:.5f} ({bound_by}), {bound_ms / row['ms']:.1%} of bound")
     return rows
+
+
+def grads_of(torch, fn, inputs, cotangents):
+    """(outputs, autograd of fn at detached copies of ``inputs``)."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    return out, torch.autograd.grad(out, leaves, cotangents)
+
+
+def check_grads(torch, randn):
+    """Each kernel's autograd function (forward: the kernel; backward: autograd
+    of the plain version on the saved inputs) against autograd of the plain
+    version alone, over the kernel's sweep, at the kernel's tolerance: flash
+    in the model's layout (B, S, K=1, G, hd) against the eager attention the
+    reference trains through; the scan and the wkv6 (y and final state)
+    against their plain versions in f64.  Returns the worst error by kernel."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+    from repro_torch.kernels.rwkv6_chunk import wkv6, wkv6_ref
+    from repro_torch.models.attention import plain_attention
+
+    def excess(got, want, tol):
+        return max(max_excess(torch, g, w, tol) for g, w in zip(got, want))
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for BK, Sq, G, hd, win, cap in SWEEP:
+            kw = dict(window=win, softcap=cap, scale=hd ** -0.5)
+            ins = (randn((BK, Sq, 1, G, hd), dtype), randn((BK, Sq, 1, hd), dtype),
+                   randn((BK, Sq, 1, hd), dtype))
+            go = (randn((BK, Sq, 1, G, hd), dtype),)
+            before = cuda_lib.launches["flash_attention"]
+            (o,), got = grads_of(torch, lambda *t: flash_attention(*t, **kw),
+                                 ins, go)
+            check(cuda_lib.launches["flash_attention"] == before + 1 and
+                  o.grad_fn is not None, "flash autograd function launched")
+            _, want = grads_of(torch, lambda *t: plain_attention(*t, **kw), ins,
+                               go)
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+            check(excess(got, want, TOL[dname]) <= TOL[dname],
+                  f"flash grads {dname} {(BK, Sq, G, hd, win, cap)}: {err}")
+            worst[f"flash_attention {dname}"] = max(
+                worst.get(f"flash_attention {dname}", 0.0), err)
+    for B_, S_, C, near_one in RGLRU_SWEEP:
+        x = randn((B_, S_, C), torch.float32)
+        a = 1 - torch.sigmoid(x) * 1e-3 if near_one else torch.sigmoid(x)
+        ins, go = (a, randn((B_, S_, C), torch.float32)), \
+            (randn((B_, S_, C), torch.float32),)
+        _, got = grads_of(torch, rglru_scan, ins, go)
+        _, want = grads_of(torch, rglru_scan_ref, [t.double() for t in ins],
+                           [g.double() for g in go])
+        err = max((g.double() - w).abs().max().item() for g, w in zip(got, want))
+        check(excess(got, want, RGLRU_TOL) <= RGLRU_TOL,
+              f"rglru grads {(B_, S_, C, near_one)}: {err}")
+        worst["rglru_scan"] = max(worst.get("rglru_scan", 0.0), err)
+    for BH, S_, hd, logw_value in WKV6_SWEEP:
+        r, k, v = (randn((1, S_, BH, hd), torch.float32) for _ in range(3))
+        logw = torch.clamp(-torch.exp(randn((1, S_, BH, hd), torch.float32) * 0.5),
+                           -5.0, -1e-4)
+        if logw_value is not None:
+            logw = torch.full_like(logw, logw_value)
+        ins = (r, k, v, logw, randn((BH, hd), torch.float32) * 0.1)
+        go = (randn((1, S_, BH, hd), torch.float32),
+              randn((1, BH, hd, hd), torch.float32))
+        _, got = grads_of(torch, wkv6, ins, go)
+
+        def plain(r, k, v, logw, u):
+            y, st = wkv6_ref(*(t[0].transpose(0, 1).contiguous()
+                               for t in (r, k, v, logw)), u)
+            return y.transpose(0, 1)[None], st[None]
+        _, want = grads_of(torch, plain, [t.double() for t in ins],
+                           [g.double() for g in go])
+        err = max((g.double() - w).abs().max().item() for g, w in zip(got, want))
+        check(excess(got, want, WKV6_TOL) <= WKV6_TOL,
+              f"wkv6 grads {(BH, S_, hd, logw_value)}: {err}")
+        worst["wkv6"] = max(worst.get("wkv6", 0.0), err)
+    print(f"[kernels] gradients through each kernel's autograd function against "
+          f"autograd of the plain version, over the sweeps: max abs err "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (tols: flash "
+          f"{TOL}, scan {RGLRU_TOL}, wkv6 {WKV6_TOL})")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -792,7 +906,7 @@ def workflow_runs(torch, dev, out):
     bodies = (("ingest", wf.ingest_fn, ()), ("detect", wf.detect_fn, (w_dev,)),
               ("map", wf.map_fn, (w_dev,)), ("alarm", wf.alarm_fn, ()))
     for size in WORKFLOW_SIZES:
-        inputs = {"ingest": wf.make_payload(size, device="cpu")}
+        inputs = {"ingest": wf.make_payload(size)}
         frames = len(inputs["ingest"]["frames"])
         for (name, fn, args), nxt in zip(bodies, ("detect", "map", "alarm",
                                                   None)):
@@ -800,7 +914,8 @@ def workflow_runs(torch, dev, out):
             want = fn(inputs[name], *cpu_args)
             if nxt:
                 inputs[nxt] = want
-            inp = {k: v.to(dev) for k, v in inputs[name].items()}
+            inp = {k: torch.as_tensor(v).to(dev)
+                   for k, v in inputs[name].items()}
             got, cold_ms, cold_host = run_body(torch, fn, (inp, *args))
             errs = same_outputs(torch, got, want,
                                 f"{name} at {frames} frames")
@@ -820,7 +935,8 @@ def workflow_runs(torch, dev, out):
           "the bodies left the caller's TF32 setting as it was")
     # what the bodies' f32 pin guards against (reported, not checked): the
     # convolving bodies without it, cuDNN allowed TF32, at 10 MB
-    inp = {k: v.to(dev) for k, v in wf.make_payload(10e6, device="cpu").items()}
+    inp = {k: torch.from_numpy(v).to(dev)
+           for k, v in wf.make_payload(10e6).items()}
     pinned = wf.ingest_fn(inp)
     bare = wf.ingest_fn.__wrapped__(inp)
     det = wf.detect_fn(pinned, w_dev)["detections"]
@@ -919,9 +1035,10 @@ def workflow_runs(torch, dev, out):
               f"mission; host wall {wall:.3f} s")
 
     # run 2: where the engine's real compute goes.  Each body is timed inside
-    # the engine's span (a synchronize before and after, the host clock), and
-    # so is make_payload (the numpy draw and its pageable copy to the card),
-    # which the engine calls before its clock starts.
+    # the engine's span (a synchronize before and after, the host clock;
+    # ingest's includes the copy of the frames to the card), and so is
+    # make_payload (the numpy draw on the host), which the engine calls
+    # before its clock starts.
     out["front_door_split"] = []
     record = {}
     names = ("ingest_fn", "detect_fn", "map_fn", "alarm_fn")
@@ -946,7 +1063,8 @@ def workflow_runs(torch, dev, out):
                   f" ms, of which the bodies {row['bodies_ms']:.4f} ms (ingest "
                   f"{row['ingest']:.4f}, detect {row['detect']:.4f}, map "
                   f"{row['map']:.4f}, alarm {row['alarm']:.4f}); make_payload "
-                  f"{row['payload']:.4f} ms, outside the timed compute")
+                  f"{row['payload']:.4f} ms (host draw), outside the timed "
+                  f"compute")
     finally:
         for n in names:
             setattr(wf, n, saved[n])
@@ -976,6 +1094,347 @@ def workflow_runs(torch, dev, out):
           f"idle {1 - busy_s / front_s:.2%}; real compute a mission (ms, "
           f"profiled) {[round(x, 4) for x in profiled]}; top kernels (ms, "
           f"launches): {[(k, round(t, 3), n) for k, t, n in out['front_door_device']['top_kernels']]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the training path
+# ---------------------------------------------------------------------------
+def plain_for_training(kernel):
+    """Put the plain version of ``kernel`` where training calls it (flash: the
+    eager attention hook the reference trains through; a recurrent kernel:
+    its plain version inside the autograd function's forward); returns the
+    function that puts the kernel back."""
+    from repro_torch import kernels
+    from repro_torch.models import attention as attn
+    if kernel == "flash_attention":
+        attn.set_attention_impl(attn.plain_attention)
+        return kernels.enable_flash_attention
+    arch = "recurrentgemma-2b" if kernel == "rglru_scan" else "rwkv6-7b"
+    return swap_for_plain(arch, kernel)
+
+
+def loss_and_grad_norm(torch, tsteps, gnorm, state, cfg, batch):
+    """The first step's loss and global grad norm (what the step reports
+    before its update), from ``state`` without changing it."""
+    model = state["params"]
+    for p in model.parameters():
+        p.grad = None
+    total, metrics = tsteps.loss_fn(model, cfg, batch)
+    total.backward()
+    gn = gnorm({n: p.grad for n, p in model.named_parameters()})
+    out = float(metrics["loss"].detach()), float(gn)
+    for p in model.parameters():
+        p.grad = None
+    return out
+
+
+def kernel_vs_plain_step(torch, tsteps, gnorm, state, cfg, batch, kernels, what):
+    """The first step's loss and grad norm through the kernels and with each of
+    ``kernels`` swapped for its plain version, checked to TRAIN_TOL."""
+    got = loss_and_grad_norm(torch, tsteps, gnorm, state, cfg, batch)
+    restores = [plain_for_training(k) for k in kernels]
+    try:
+        want = loss_and_grad_norm(torch, tsteps, gnorm, state, cfg, batch)
+    finally:
+        for restore in restores:
+            restore()
+    errs = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    check(all(math.isfinite(x) for x in got + want), f"{what} finite")
+    check(errs[0] <= TRAIN_TOL["loss"] and errs[1] <= TRAIN_TOL["grad_norm"],
+          f"{what}, kernel vs plain {kernels}: loss {got[0]} vs {want[0]}, grad "
+          f"norm {got[1]} vs {want[1]}")
+    print(f"[train] {what}, first step from the same state, kernels vs plain "
+          f"{'/'.join(kernels)}: loss {got[0]:.6f} vs {want[0]:.6f} (rel "
+          f"{errs[0]:.3g}, tol {TRAIN_TOL['loss']}), grad norm {got[1]:.6f} vs "
+          f"{want[1]:.6f} (rel {errs[1]:.3g}, tol {TRAIN_TOL['grad_norm']})")
+    return {"loss": got[0], "plain_loss": want[0], "grad_norm": got[1],
+            "plain_grad_norm": want[1], "loss_rel_err": errs[0],
+            "grad_norm_rel_err": errs[1]}
+
+
+def kernel_kind(name: str) -> str:
+    n = name.lower()
+    for key, kind in (("flash", "flash forward"), ("rglru", "RG-LRU scan"),
+                      ("wkv6", "wkv6"), ("memcpy", "copies"),
+                      ("memset", "copies")):
+        if key in n:
+            return kind
+    if any(k in n for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
+                            "sm90_", "sm80_")):
+        return "matmul"
+    return "elementwise"
+
+
+def profile_step(torch, step, state, batch, ranges):
+    """One train step under torch.profiler: device time by kind, the kernels
+    inside each of ``ranges`` (record_function names) counted to that range,
+    and the device's idle share over the step's host time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # the device timeline also holds the record_function ranges projected onto
+    # it (user annotations): only kernels, copies and sets are device work
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA and
+              not getattr(e, "is_user_annotation", False) and
+              e.name not in ranges]
+    # a kernel belongs to a range when it starts inside the range's span on
+    # the device timeline (one stream, and the host waits in backward(), so
+    # no other work lands there)
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == torch.autograd.DeviceType.CUDA and
+             e.name in ranges]
+    split = {}
+    for e in device:
+        t = e.time_range.start
+        kind = next((name for name, a, b in spans if a <= t < b),
+                    kernel_kind(e.name))
+        split[kind] = split.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(split.values())
+    top = {}
+    for e in device:
+        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(top.items(), key=lambda kv: -kv[1])[:10]
+    return {"host_ms": host_ms, "device_ms": busy,
+            "idle_share": 1 - busy / host_ms if host_ms else None,
+            "by_kind_ms": split, "device_events": len(device),
+            "ranges_on_device": sorted({name for name, _, _ in spans}),
+            "top_kernels_ms": [(n[:90], kernel_kind(n), ms) for n, ms in top]}
+
+
+RANGES = ("attention backward (eager)", "rglru_scan backward (plain)",
+          "wkv6 backward (plain)", "optimizer")
+
+
+def print_profile(arch, prof, card):
+    kinds = ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(
+        prof["by_kind_ms"].items(), key=lambda kv: -kv[1]))
+    print(f"[train] {arch} one step under torch.profiler: host "
+          f"{prof['host_ms']:.1f} ms, device busy {prof['device_ms']:.1f} ms, "
+          f"device idle {prof['idle_share']:.2%} ({prof['device_events']} device "
+          f"events; ranges seen on the device {prof['ranges_on_device']}); "
+          f"device time by kind: {kinds}; top kernels (ms): "
+          f"{[(n[:60], k, round(ms, 3)) for n, k, ms in prof['top_kernels_ms']]}"
+          f"; {card}")
+
+
+def train_path(torch, np, dev, card):
+    """Phase 8: h2o-danube-1.8b training at full width (the main path of
+    training), the kernels against their plain versions, recurrentgemma-2b
+    and rwkv6-7b train steps at full width and one superblock, and the smoke
+    configs' train step on the card against the CPU.  Returns the launches
+    of each train run, by kernel, and the phase's numbers."""
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention import (flash_attention_bkg,
+                                                     flash_attention_ref)
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, global_norm
+    from repro_torch.train import steps as tsteps
+
+    out = {"card": card}
+    launches = {}
+
+    def on_dev(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    # ---- 8a. h2o-danube-1.8b at full width ----------------------------------
+    arch = "h2o-danube-1.8b"
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    opt = adamw()
+    state = tsteps.init_train_state(torch.Generator(device=dev).manual_seed(SEED),
+                                    cfg, opt, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    data = SyntheticTokens(cfg, TRAIN_B, TRAIN_S, seed=SEED)
+    batches = [on_dev(data.batch_for_step(i)) for i in range(TRAIN_STEPS + 1)]
+    print(f"[train] {arch} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, hd "
+          f"{cfg.head_dim}, window {cfg.window_size}, remat {cfg.remat}): "
+          f"{n_params / 1e9:.4f} B params, AdamW with f32 master, batch "
+          f"{TRAIN_B} x seq {TRAIN_S}; init {time.perf_counter() - t0:.1f} s; "
+          f"{card}")
+    # 8b. the first step twice from the same state: kernel, then plain
+    out["kernel_vs_plain"] = {arch: kernel_vs_plain_step(
+        torch, tsteps, global_norm, state, cfg, batches[0], ["flash_attention"],
+        f"{arch} full width")}
+    step = tsteps.build_train_step(cfg, opt, tsteps_lr(), grad_accum=1)
+    rows = []
+    cuda_lib.launches.clear()                    # the training path starts here
+    for i in range(TRAIN_STEPS):
+        before = dict(cuda_lib.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        flash = cuda_lib.launches["flash_attention"] - before.get(
+            "flash_attention", 0)
+        rows.append({"step": i + 1, "ms": ms, "loss": loss, "grad_norm": gn,
+                     "lr": float(metrics["lr"]), "flash_launches": flash})
+        check(math.isfinite(loss) and math.isfinite(gn),
+              f"{arch} step {i + 1} loss {loss} grad norm {gn}")
+        print(f"[train] {arch} step {i + 1}: {ms:.1f} ms, loss {loss:.6f}, grad "
+              f"norm {gn:.6f}, lr {rows[-1]['lr']:.3g}, flash launches {flash}")
+    launches["train:" + arch] = {n: c for n, c in cuda_lib.launches.items() if c}
+    want_flash = train_launches(cfg, "flash_attention")
+    check(all(r["flash_launches"] == want_flash for r in rows),
+          f"flash launches per step {[r['flash_launches'] for r in rows]}, want "
+          f"{want_flash} (forward and the remat recompute)")
+    missing = [n for n, p in state["params"].named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    check(not missing, f"{arch} parameters without a finite grad: {missing}")
+    med = float(np.median([r["ms"] for r in rows[1:]]))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    prof = profile_step(torch, step, state, batches[TRAIN_STEPS], RANGES)
+    out[arch] = {"params": n_params, "batch": TRAIN_B, "seq": TRAIN_S,
+                 "steps": rows, "median_ms_steps_2_5": med,
+                 "tokens_per_s": TRAIN_B * TRAIN_S / med * 1e3,
+                 "peak_memory_gb": peak, "profile": prof,
+                 "flash_launches_per_step": want_flash}
+    print(f"[train] {arch}: median {med:.1f} ms/step over steps 2-{TRAIN_STEPS} "
+          f"({TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s), peak memory "
+          f"{peak:.2f} GB (max_memory_allocated), flash launches per step "
+          f"{want_flash}, every parameter has a finite grad; {card}")
+    print_profile(arch, prof, card)
+    # the flash kernel at the training shape, beside its plain version
+    BK, G, hd = TRAIN_B * cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn((BK, TRAIN_S, G, hd), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((BK, TRAIN_S, hd), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(scale=hd ** -0.5, window=cfg.window_size)
+    err = (flash_attention_bkg(q, k, v, **kw).float() -
+           flash_attention_ref(q, k, v, **kw).float()).abs().max().item()
+    check(err <= TOL["bfloat16"], f"flash at the training shape: {err}")
+    bound_ms, bound_by = flash_bound(BK, TRAIN_S, G, hd, cfg.window_size)
+    out["flash_train_shape"] = {
+        "shape": f"BK={BK} Sq=Skv={TRAIN_S} G={G} hd={hd} bf16 window="
+                 f"{cfg.window_size}", "max_abs_err": err,
+        "ms": time_ms(torch, lambda: flash_attention_bkg(q, k, v, **kw)),
+        "plain_ms": time_ms(torch, lambda: flash_attention_ref(q, k, v, **kw),
+                            iters=5),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    f = out["flash_train_shape"]
+    print(f"[train] flash at the training shape {f['shape']}: max abs err "
+          f"{err:.3g}, kernel_ms {f['ms']:.4f}, plain_ms {f['plain_ms']:.4f}, "
+          f"bound_ms {bound_ms:.5f} ({bound_by}), {bound_ms / f['ms']:.1%} of "
+          f"bound; {card}")
+    del state, batches, q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- 8c. recurrentgemma-2b and rwkv6-7b, full width, one superblock -----
+    for arch, kernels in (("recurrentgemma-2b", ["rglru_scan", "flash_attention"]),
+                          ("rwkv6-7b", ["wkv6"])):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=full.pattern_len)
+        torch.cuda.reset_peak_memory_stats(dev)
+        opt = adamw()
+        state = tsteps.init_train_state(
+            torch.Generator(device=dev).manual_seed(SEED), cfg, opt, device=dev)
+        batch = on_dev(SyntheticTokens(cfg, REC_TRAIN_B, REC_TRAIN_S,
+                                       seed=SEED).batch_for_step(0))
+        out["kernel_vs_plain"][arch] = kernel_vs_plain_step(
+            torch, tsteps, global_norm, state, cfg, batch, kernels,
+            f"{arch} full width, {cfg.n_layers} layers")
+        step = tsteps.build_train_step(cfg, opt, tsteps_lr())
+        step(state, batch)                                  # warm-up
+        torch.cuda.synchronize()
+        cuda_lib.launches.clear()              # this path's train step starts
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        ms = (time.perf_counter() - t0) * 1e3
+        launches["train:" + arch] = {n: c for n, c in cuda_lib.launches.items()
+                                     if c}
+        for kernel in kernels:
+            n = train_launches(cfg, kernel)
+            check(launches["train:" + arch].get(kernel, 0) == n,
+                  f"{arch} train step launched {launches['train:' + arch]}, "
+                  f"want {kernel} {n}")
+        missing = [n for n, p in state["params"].named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        check(math.isfinite(loss) and math.isfinite(gn) and not missing,
+              f"{arch} train step: loss {loss}, grad norm {gn}, no grad for "
+              f"{missing}")
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        out[arch] = {"params": n_params, "layers": cfg.n_layers,
+                     "batch": REC_TRAIN_B, "seq": REC_TRAIN_S, "ms": ms,
+                     "loss": loss, "grad_norm": gn,
+                     "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                     "profile": profile_step(torch, step, state, batch, RANGES)}
+        print(f"[train] {arch} full width, {cfg.n_layers} layers "
+              f"({n_params / 1e9:.4f} B params), batch {REC_TRAIN_B} x seq "
+              f"{REC_TRAIN_S}: one step {ms:.1f} ms, loss {loss:.6f}, grad norm "
+              f"{gn:.6f}, launches {launches['train:' + arch]}, peak memory "
+              f"{out[arch]['peak_memory_gb']:.2f} GB; every parameter has a "
+              f"finite grad; {card}")
+        print_profile(arch, out[arch]["profile"], card)
+        del state, batch
+        torch.cuda.empty_cache()
+
+    # ---- 8d. the smoke configs' train step, card against CPU (f32) ----------
+    out["smoke_card_vs_cpu"] = {}
+    for arch in ("h2o-danube-1.8b", "recurrentgemma-2b", "rwkv6-7b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
+        batch = SyntheticTokens(cfg, 2, 64, seed=SEED).batch_for_step(0)
+        res = {}
+        for where in ("cpu", dev):
+            model = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+            state = tsteps.init_train_state(None, cfg, adamw(),
+                                            params=model.to(where))
+            state, metrics = tsteps.build_train_step(cfg, adamw(), tsteps_lr())(
+                state, {k: torch.from_numpy(v).to(where)
+                        for k, v in batch.items()})
+            res[str(where)] = (float(metrics["loss"]), {
+                n: p.grad.cpu() for n, p in state["params"].named_parameters()},
+                {n: p.detach().cpu() for n, p in
+                 state["params"].named_parameters()})
+        (cl, cg, cp), (gl, gg, gp) = res["cpu"], res[str(dev)]
+        loss_err = abs(gl - cl) / abs(cl)
+        grad_err = max(rel_err(torch, gg[n], cg[n]) for n in cg)
+        # AdamW's first step is about lr * sign(g): a grad near 0 may flip
+        param_err = max(((gp[n] - cp[n]).abs() - 2 * LR_TRAIN *
+                         (1 + 0.1 * cp[n].abs())).max().item() for n in cp)
+        check(loss_err <= SMOKE_TRAIN_TOL["loss"] and
+              grad_err <= SMOKE_TRAIN_TOL["grad"] and param_err <= 0,
+              f"{arch} smoke train step card vs CPU: loss {loss_err}, grads "
+              f"{grad_err}, params {param_err}")
+        out["smoke_card_vs_cpu"][arch] = {"loss_rel_err": loss_err,
+                                          "grad_leaf_rel_err": grad_err,
+                                          "param_excess": param_err}
+        print(f"[train] {arch} smoke config in f32, one train step card "
+              f"(kernels) vs CPU (plain): loss rel err {loss_err:.3g} (tol "
+              f"{SMOKE_TRAIN_TOL['loss']}), worst grad leaf rel err "
+              f"{grad_err:.3g} (tol {SMOKE_TRAIN_TOL['grad']}), new params "
+              f"within 2 lr (1 + wd |p|) (worst excess {param_err:.3g})")
+    return launches, out
+
+
+def train_launches(cfg, kernel) -> int:
+    """Launches of ``kernel`` in one train step: once a layer of its kind, and
+    once more in each checkpointed superblock's recompute under remat."""
+    per_block = sum(k in KINDS_OF[kernel] for k in cfg.layer_pattern)
+    tail = sum(k in KINDS_OF[kernel] for k in cfg.tail_pattern)
+    return per_block * cfg.n_superblocks * (1 if cfg.remat == "none" else 2) \
+        + tail
+
+
+def tsteps_lr():
+    """The constant learning rate of the phase's steps: the schedule's
+    warmup starts at 0, which would leave the first step's params as they
+    were."""
+    return lambda step: LR_TRAIN
 
 
 def main() -> int:
@@ -1022,6 +1481,7 @@ def main() -> int:
     flash_sweep, flash_rows = check_flash(torch, F, randn, dev)
     rglru_rows = check_rglru(torch, randn)
     wkv6_rows = check_wkv6(torch, randn)
+    grad_err = check_grads(torch, randn)
     print(f"[kernels] {NO_LIBRARY}")
 
     # ---- 3-6. the serving paths, one model at a time ---------------------
@@ -1032,6 +1492,11 @@ def main() -> int:
 
     # ---- 7. the Databelt workflow path -----------------------------------
     print(json.dumps({"workflow": workflow_path(torch, dev)}))
+
+    # ---- 8. the training path --------------------------------------------
+    train_by_path, train_out = train_path(torch, np, dev, card)
+    launches.update(train_by_path)
+    print(json.dumps({"train": train_out}))
 
     def path_launches(name):
         by_path = {arch: n[name] for arch, n in launches.items() if name in n}
@@ -1062,12 +1527,19 @@ def main() -> int:
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"},
         "local": flash_rows["local"],
         "recurrentgemma_local": flash_rows["recurrentgemma_local"],
+        "train_shape": train_out["flash_train_shape"],
         "sweep_max_abs_err": flash_sweep,
+        "grad_sweep_max_abs_err": {
+            k.split()[1]: v for k, v in grad_err.items()
+            if k.startswith("flash")},
+        "launches_per_train_step": train_out["h2o-danube-1.8b"][
+            "flash_launches_per_step"],
     }, {
         "name": "rglru_scan", "route": "cuda", "variant": "grouped",
         "source": rec + "rglru_scan/csrc/rglru_scan_grouped.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:49",
         "launches": n_rglru, "launches_by_path": rglru_by_path,
+        "grad_sweep_max_abs_err": grad_err["rglru_scan"],
         **rglru_rows["grouped"],
     }, {
         "name": "rglru_scan:thread", "route": "cuda", "variant": "thread",
@@ -1083,6 +1555,7 @@ def main() -> int:
         "source": rec + "rwkv6_chunk/csrc/wkv6_chunk.cu",
         "replaces": "src/repro/kernels/rwkv6_chunk/kernel.py:72",
         "launches": n_wkv6, "launches_by_path": wkv6_by_path,
+        "grad_sweep_max_abs_err": grad_err["wkv6"],
         **wkv6_rows["chunk"],
     }, {
         "name": "wkv6:seq", "route": "cuda", "variant": "seq",

@@ -18,7 +18,13 @@ decided by dtype and head dim alone (``variant``):
 
 ``flash_attention`` is the model-facing GQA wrapper: it folds (B, S, K, G,
 hd) into the kernel layout (B*K, S, G, hd), as the reference's ``ops.py``
-does, and unfolds the result.
+does, and unfolds the result.  On a CUDA tensor it goes through
+``FlashAttention``, an autograd function whose forward launches the kernel
+and whose backward is the gradient of the eager masked attention the
+reference trains through (``models.attention.plain_attention``, its
+``_sdpa``), recomputed from the saved q, k, v: the reference's kernel has
+no VJP, so no backward kernel is owed.  On a CPU tensor it calls the plain
+version directly, which autograd differentiates as it is.
 """
 from __future__ import annotations
 
@@ -141,9 +147,9 @@ def flash_attention_wgmma(q, k, v, *, scale: float, softcap: float = 0.0,
     return o
 
 
-def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
-                    scale: float, causal: bool = True):
-    """q: (B,S,K,G,hd); k,v: (B,Skv,K,hd) -> (B,S,K,G,hd)."""
+def _flash_gqa(q, k, v, *, window: int, softcap: float, scale: float,
+               causal: bool):
+    """Fold (B,S,K,G,hd) into the kernel layout, run the wrapper, unfold."""
     B, Sq, K, G, hd = q.shape
     Skv = k.shape[1]
     qf = q.permute(0, 2, 1, 3, 4).reshape(B * K, Sq, G, hd).contiguous()
@@ -152,3 +158,35 @@ def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
     o = flash_attention_bkg(qf, kf, vf, scale=scale, softcap=softcap,
                             window=window, causal=causal)
     return o.reshape(B, K, Sq, G, hd).permute(0, 2, 1, 3, 4)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: the kernel.  Backward: autograd of the eager attention on
+    the saved inputs (f32 scores of the whole (Sq, Skv) square, a layer at a
+    time), under ``torch.enable_grad`` since backward runs without grad."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, softcap, scale, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(window=window, softcap=softcap, scale=scale,
+                      causal=causal)
+        return _flash_gqa(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad_o):
+        from repro_torch.models.attention import plain_attention
+        qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad(), \
+                torch.profiler.record_function("attention backward (eager)"):
+            grads = torch.autograd.grad(plain_attention(*qkv, **ctx.kw), qkv,
+                                        grad_o)
+        return (*grads, None, None, None, None)
+
+
+def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
+                    scale: float, causal: bool = True):
+    """q: (B,S,K,G,hd); k,v: (B,Skv,K,hd) -> (B,S,K,G,hd)."""
+    if q.device.type == "cpu":
+        return _flash_gqa(q, k, v, window=window, softcap=softcap,
+                          scale=scale, causal=causal)
+    return FlashAttention.apply(q, k, v, window, softcap, scale, causal)

@@ -13,7 +13,13 @@ calls it, it is kept to be timed and checked beside the new one.
 of each kernel.
 
 ``rglru_scan`` is the model-facing wrapper: it casts to f32, as the
-reference's ``ops.py`` does.
+reference's ``ops.py`` does.  On a CUDA tensor it goes through
+``RGLRUScan``, an autograd function whose forward launches the kernel and
+whose backward is autograd of the plain version (``rglru_scan_ref``)
+recomputed from the saved a and b in f64, as the kernel carries h (in f32
+the ladder's gradient drifts past the scan's 2e-5 where a is near 1): the
+reference's kernel has no VJP, so no backward kernel is owed.  On a CPU
+tensor it calls the plain version directly.
 """
 from __future__ import annotations
 
@@ -119,6 +125,28 @@ def rglru_scan_thread(a, b):
     return h
 
 
+class RGLRUScan(torch.autograd.Function):
+    """Forward: the kernel.  Backward: autograd of ``rglru_scan_ref`` in
+    f64, cast back to f32."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return rglru_scan_bsc(a, b)
+
+    @staticmethod
+    def backward(ctx, grad_h):
+        a, b = (t.detach().double().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad(), \
+                torch.profiler.record_function("rglru_scan backward (plain)"):
+            grads = torch.autograd.grad(rglru_scan_ref(a, b), (a, b),
+                                        grad_h.double())
+        return tuple(g.float() for g in grads)
+
+
 def rglru_scan(a, b):
     """a, b: (B, S, C) gates and inputs -> recurrence output h (B, S, C) f32."""
-    return rglru_scan_bsc(a.float().contiguous(), b.float().contiguous())
+    a, b = a.float().contiguous(), b.float().contiguous()
+    if a.device.type == "cpu":
+        return rglru_scan_bsc(a, b)
+    return RGLRUScan.apply(a, b)

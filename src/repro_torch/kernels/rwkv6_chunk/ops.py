@@ -15,7 +15,12 @@ be timed and checked beside the new one.
 
 ``wkv6`` is the model-facing wrapper: it folds (B, S, H, hd) into the kernel
 layout (B*H, S, hd) in f32 and broadcasts u, as the reference's ``ops.py``
-does, and unfolds y to (B, S, H, hd) and the state to (B, H, hd, hd).
+does, and unfolds y to (B, S, H, hd) and the state to (B, H, hd, hd).  On a
+CUDA tensor it goes through ``WKV6``, an autograd function whose forward
+launches the kernel and whose backward is autograd of the plain chunked
+version (``wkv6_ref``) recomputed from the saved inputs in f64, as the
+kernel carries its state: the reference's kernel has no VJP, so no backward
+kernel is owed.  On a CPU tensor it calls the plain version directly.
 """
 from __future__ import annotations
 
@@ -103,6 +108,25 @@ def wkv6_seq(r, k, v, logw, u):
     return _launch(NAME, "seq", r, k, v, logw, u)
 
 
+class WKV6(torch.autograd.Function):
+    """Forward: the kernel.  Backward: autograd of ``wkv6_ref`` (y and the
+    final state) in f64, cast back to f32."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u):
+        ctx.save_for_backward(r, k, v, logw, u)
+        return wkv6_bh(r, k, v, logw, u)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_st):
+        ins = [t.detach().double().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad(), \
+                torch.profiler.record_function("wkv6 backward (plain)"):
+            grads = torch.autograd.grad(wkv6_ref(*ins), ins,
+                                        (grad_y.double(), grad_st.double()))
+        return tuple(g.float() for g in grads)
+
+
 def wkv6(r, k, v, logw, u):
     """r, k, v, logw: (B, S, H, hd); u: (H, hd) ->
     (y (B, S, H, hd) f32, S_last (B, H, hd, hd) f32)."""
@@ -112,6 +136,7 @@ def wkv6(r, k, v, logw, u):
         return t.float().permute(0, 2, 1, 3).reshape(B * H, S, hd).contiguous()
 
     uf = u.float()[None].expand(B, H, hd).reshape(B * H, hd).contiguous()
-    y, st = wkv6_bh(fold(r), fold(k), fold(v), fold(logw), uf)
+    ins = (fold(r), fold(k), fold(v), fold(logw), uf)
+    y, st = wkv6_bh(*ins) if r.device.type == "cpu" else WKV6.apply(*ins)
     return (y.reshape(B, H, S, hd).permute(0, 2, 1, 3),
             st.reshape(B, H, hd, hd))

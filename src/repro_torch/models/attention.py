@@ -10,8 +10,13 @@ cache (``kv_quant``), cross-attention and the prefix/bidirectional masks.
 (``repro_torch.kernels``): on a CUDA tensor it runs the hand-written kernel,
 on a CPU tensor its plain version.  With the hook cleared, ``_sdpa`` is the
 plain path; it keeps the reference's cast of the probabilities to
-``v.dtype`` before the PV product.  Decode attention has no kernel in the
-reference and is plain torch here too.
+``v.dtype`` before the PV product.  ``plain_attention`` is that path under
+the causal (and window) mask at positions 0..S-1, with the hook's
+signature: it is the function the reference trains through (its flash
+kernel has no VJP and its hook is off by default), so it is the backward of
+the flash kernel's autograd function, and setting it as the hook gives the
+plain path.  Decode attention has no kernel in the reference and is plain
+torch here too.
 """
 from __future__ import annotations
 
@@ -91,6 +96,19 @@ def _sdpa(q, k, v, mask, softcap: float, scale: float):
         s = torch.where(mask, s, NEG_INF)
     a = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkd->bskgd", a, v)
+
+
+def plain_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
+                    scale: float, causal: bool = True):
+    """q: (B,Sq,K,G,hd); k,v: (B,Skv,K,hd) -> (B,Sq,K,G,hd): ``_sdpa`` under
+    the causal mask (top-left, with ``window``) at positions 0..S-1, or
+    unmasked when ``causal`` is false."""
+    mask = None
+    if causal:
+        mask = make_mask_fn("causal", window)(
+            torch.arange(q.shape[1], device=q.device),
+            torch.arange(k.shape[1], device=q.device))
+    return _sdpa(q, k, v, mask, softcap, scale)
 
 
 # ---------------------------------------------------------------------------

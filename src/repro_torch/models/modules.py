@@ -30,8 +30,10 @@ class ParamModule(nn.Module):
     """A module whose parameters are the given named tensors.
 
     The modules hold parameters; the functions named after the reference's
-    (``mlp``, ``attention_seq``, ``forward_prefill`` ...) apply them.  The
-    port serves only, so parameters do not require gradients.
+    (``mlp``, ``attention_seq``, ``forward_prefill`` ...) apply them.
+    Parameters are made without ``requires_grad``, so serving builds no
+    autograd graph; ``train.steps.init_train_state`` turns it on for the
+    model it trains (``requires_grad_``).
     """
 
     def __init__(self, params: dict):

@@ -6,8 +6,9 @@ wkv recurrence through the wkv6 wrapper (``repro_torch.kernels.rwkv6_chunk``):
 the hand-written kernel on a CUDA tensor, its plain (chunked) version on a
 CPU tensor.  Decode is the single-step update, in plain torch as in the
 reference, and updates its cache in place.  ``log w`` is clamped to
-[-5, -1e-4] as in the reference.  The exact sequential oracle ``wkv_scan``
-belongs to the training path and is not ported yet.
+[-5, -1e-4] as in the reference.  ``wkv_scan`` is the reference's exact
+sequential oracle, a loop over time in plain torch, which
+``forward_train(seq_exact=True)`` runs.
 
 Recurrence (per head, k/v/r in R^hd):
     y_t = r_t^T (S_{t-1} + diag(u*k_t) v_t^T)
@@ -116,14 +117,43 @@ def _shifted(x, x_prev):
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
-def time_mix_seq(p: TimeMix, x, cfg: ModelConfig):
+def time_mix_seq(p: TimeMix, x, cfg: ModelConfig, state0=None, x_prev=None):
     """x: (B,S,D) -> (out (B,S,D), S_last (B,H,hd,hd) f32, x_last (B,D)),
-    as the reference's ``wkv_chunked`` returns them."""
+    as the reference's ``wkv_chunked`` returns them.
+
+    The kernel starts from a zero state; a ``state0`` (B,H,hd,hd) is carried
+    in outside it: step t sees it decayed by exp(sum of logw before t), and
+    the final state holds it decayed by exp(sum of all logw).
+    """
     B, S, D = x.shape
     hd = cfg.rwkv_head_dim
     H = D // hd
-    r, k, v, g, logw = _projections(p, x, _shifted(x, None), H, hd)
+    r, k, v, g, logw = _projections(p, x, _shifted(x, x_prev), H, hd)
     y, st = wkv6(r, k, v, logw, p.u)
+    if state0 is not None:
+        lp = torch.cumsum(logw, dim=1)                     # (B,S,H,hd)
+        y = y + torch.einsum("bshi,bhij->bshj", r.float() * torch.exp(lp - logw),
+                             state0)
+        st = torch.exp(lp[:, -1])[..., None] * state0 + st
+    return _finish(p, y, g, x.dtype, H), st, x[:, -1].clone()
+
+
+def wkv_scan(p: TimeMix, x, cfg: ModelConfig, state0=None, x_prev=None):
+    """The exact sequential recurrence, one step at a time in f32.  Same
+    arguments and results as ``time_mix_seq``."""
+    B, S, D = x.shape
+    hd = cfg.rwkv_head_dim
+    H = D // hd
+    r, k, v, g, logw = _projections(p, x, _shifted(x, x_prev), H, hd)
+    st = state0 if state0 is not None else torch.zeros(
+        (B, H, hd, hd), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        rt, kt, vt = r[:, t].float(), k[:, t].float(), v[:, t].float()
+        kv = kt[..., :, None] * vt[..., None, :]             # (B,H,hd,hd)
+        ys.append(torch.einsum("bhi,bhij->bhj", rt, st + p.u[:, :, None] * kv))
+        st = torch.exp(logw[:, t])[..., :, None] * st + kv
+    y = torch.stack(ys, dim=1)                               # (B,S,H,hd)
     return _finish(p, y, g, x.dtype, H), st, x[:, -1].clone()
 
 

@@ -13,17 +13,29 @@ layer's entry with a leading superblock axis R, "tail": tuple of entries}``,
 where an attention entry is ``{"k", "v"}``, an RG-LRU entry ``{"h",
 "conv"}`` and an RWKV entry ``{"state", "tm_x", "cm_x"}``.
 
+``forward_train`` runs the same layers without building caches and checkpoints
+each superblock of ``cfg.layer_pattern`` as the reference's ``_remat_wrap``
+does: ``remat="full"`` recomputes the block in backward
+(``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of its weight
+matmuls and recomputes the rest, ``"none"`` keeps everything.  Remat changes
+memory, not values.
+
 Entry points:
     init_params(cfg, generator, device)            -> Transformer
+    forward_train(model, cfg, batch, seq_exact)    -> (logits, aux)
     forward_prefill(model, cfg, batch)             -> (logits, cache)
     forward_decode(model, cfg, cache, tokens, pos) -> (logits, cache)
     init_cache(cfg, batch, seq_len, dtype, device) -> cache
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV,
                                       ModelConfig)
@@ -112,8 +124,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # single-layer application
 # ---------------------------------------------------------------------------
-def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions):
-    """Returns (x, cache_entry)."""
+def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions,
+               want_cache: bool = True, seq_exact: bool = False):
+    """Returns (x, cache_entry); the entry is None without ``want_cache``."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == RGLRU:
         o, h_last, conv_tail = rglru_mod.rglru_seq(p.rec, h, cfg)
@@ -123,7 +136,8 @@ def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions):
     if kind == RWKV:
         # tm_x and cm_x are the last rows of the ln1 and ln2 outputs (the
         # mixes' inputs), not of the residual
-        o, st, tm_x = rwkv_mod.time_mix_seq(p.tm, h, cfg)
+        seq = rwkv_mod.wkv_scan if seq_exact else rwkv_mod.time_mix_seq
+        o, st, tm_x = seq(p.tm, h, cfg)
         x = x + o
         h2 = rms_norm(x, p.ln2, cfg.norm_eps)
         o2, cm_x = rwkv_mod.channel_mix(p.cm, h2)
@@ -137,6 +151,8 @@ def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions):
     if cfg.post_norms:
         f = rms_norm(f, p.post_ln2, cfg.norm_eps)
     x = x + f
+    if not want_cache:
+        return x, None
     if kind == ATTN_LOCAL and cfg.window_size:
         return x, attn.build_ring_cache(k, v, cfg.window_size)
     return x, attn.pack_kv(k, v)
@@ -194,6 +210,44 @@ def _run_stack(model: Transformer, x, cfg: ModelConfig, positions):
     return x, {"blocks": blocks, "tail": tuple(caches[R * P:])}
 
 
+# the matmuls of x with a weight: "dots" keeps their outputs, as the
+# reference's dots_with_no_batch_dims_saveable does (the attention einsums,
+# batched, are recomputed)
+_WEIGHT_MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _save_weight_matmuls(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _WEIGHT_MATMULS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_matmuls))
+
+
+def _train_stack(model: Transformer, x, cfg: ModelConfig, positions,
+                 seq_exact: bool):
+    """Superblocks under ``_remat_wrap``, then the tail, without caches."""
+    def block_fn(x, *block):
+        for layer in block:
+            x, _ = _layer_seq(layer, x, cfg, layer.kind, positions,
+                              want_cache=False, seq_exact=seq_exact)
+        return x
+
+    fn = _remat_wrap(block_fn, cfg)
+    R, P = cfg.n_superblocks, cfg.pattern_len
+    layers = list(model.layers)
+    for r in range(R):
+        x = fn(x, *layers[r * P:(r + 1) * P])
+    return block_fn(x, *layers[R * P:])
+
+
 def _embed(model: Transformer, cfg: ModelConfig, tokens):
     x = F.embedding(tokens, model.embed)
     if cfg.embedding_scale:
@@ -215,6 +269,20 @@ def _unembed(model: Transformer, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+def forward_train(model: Transformer, cfg: ModelConfig, batch,
+                  seq_exact: bool = False):
+    """batch["tokens"]: (B,S) integer -> (logits (B,S,V), aux).  ``aux`` (the
+    MoE load-balance loss) is an f32 zero: no ported config has MoE.
+    ``seq_exact`` runs RWKV layers through ``wkv_scan``."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed(model, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = _train_stack(model, x, cfg, positions, seq_exact)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _unembed(model, cfg, x), aux
+
+
 def forward_prefill(model: Transformer, cfg: ModelConfig, batch):
     """batch["tokens"]: (B,S) integer -> (last-position logits (B,1,V),
     cache)."""

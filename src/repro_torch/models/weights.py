@@ -1,4 +1,4 @@
-"""Import the reference's parameters into the port's modules.
+"""Carry parameters between the reference's pytree and the port's modules.
 
 ``params_from_jax`` takes the JAX package's params pytree with every leaf
 already a numpy array (``jax.tree.map(np.asarray, params)``), so bf16 leaves
@@ -8,6 +8,11 @@ arrive as numpy arrays of the ml_dtypes ``bfloat16`` type.  They go through
 f32.  The stacked superblock leaves (leading axis R) are cut into one
 ``Layer`` per layer.
 
+``params_to_numpy`` is the inverse: it turns the port's parameters, or any
+dict of tensors keyed by their names (grads, AdamW's ``m``, ``v`` and
+``master``), into the reference's layout, superblocks stacked on axis 0 and
+then ``tail``, every leaf a numpy array (bf16 widened to f32, exactly).
+
 The flood workflow's convolution weights come across the same way, from
 numpy, through ``repro_torch.serverless.workflow.flood_weights_from_numpy``.
 """
@@ -15,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -61,3 +67,39 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> Transformer:
     top = {name: to_tensor(tree[name], dev)
            for name in ("embed", "final_norm", "lm_head") if name in tree}
     return Transformer(top, layers)
+
+
+def _numpy(leaf):
+    if isinstance(leaf, dict):
+        return {k: _numpy(v) for k, v in leaf.items()}
+    t = leaf.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def params_to_numpy(tree, cfg: ModelConfig) -> dict:
+    """``tree``: a ``Transformer`` or a dict keyed by its parameter names
+    (``layers.<i>.<block>.<name>``, ``embed``, ...) whose leaves are tensors
+    or dicts of tensors -> the reference's params pytree of numpy leaves."""
+    named = dict(tree.named_parameters()) if isinstance(tree, nn.Module) \
+        else tree
+    out, layers = {}, {}
+    for name, leaf in named.items():
+        parts = name.split(".")
+        if parts[0] != "layers":
+            out[name] = _numpy(leaf)
+            continue
+        d = layers.setdefault(int(parts[1]), {})
+        for key in parts[2:-1]:
+            d = d.setdefault(key, {})
+        d[parts[-1]] = _numpy(leaf)
+    R, P = cfg.n_superblocks, cfg.pattern_len
+    out["blocks"] = tuple(_stack([layers[r * P + j] for r in range(R)])
+                          for j in range(P)) if R else ()
+    out["tail"] = tuple(layers[i] for i in range(R * P, len(layers)))
+    return out

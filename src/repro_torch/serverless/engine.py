@@ -127,9 +127,10 @@ class WorkflowEngine:
         region-locality term; it only takes effect on multi-region
         topologies (several cloud nodes), so single-region runs are
         bit-identical to the pre-region engine.  ``device`` is where the
-        real-compute payloads and bodies run (resolved, and CUDA required
-        when asked for, only when ``real_compute`` is on: a virtual run
-        touches no device)."""
+        real-compute bodies run, whose work the clock waits for (resolved,
+        and CUDA required when asked for, only when ``real_compute`` is on:
+        a virtual run touches no device).  The input payload stays on the
+        host, as the reference's; the bodies move it."""
         if mode not in MODES:
             raise ValueError(f"unknown engine mode {mode!r}; choose one "
                              f"of {MODES}")
@@ -552,9 +553,7 @@ class WorkflowEngine:
         run.keys["__input__"] = src_key
         run.sizes["__input__"] = input_bytes
         if self.real_compute:
-            # differs from repro/serverless/engine.py:542: on the device
-            run.payloads["__input__"] = make_payload(input_bytes,
-                                                     device=self.device)
+            run.payloads["__input__"] = make_payload(input_bytes)
 
         if not linear:
             yield from self._dag_run(kernel, run, gg, rec, root, lane)

@@ -238,12 +238,12 @@ def _f32_convolutions(body):
     values near its 20th percentile lie about 1e-3 apart at 2441 frames, so
     the keep mask could leave the reference's."""
     @functools.wraps(body)
-    def run(*args):
+    def run(*args, **kw):
         conv = torch.backends.cudnn.conv
         before = conv.fp32_precision
         conv.fp32_precision = "ieee"
         try:
-            return body(*args)
+            return body(*args, **kw)
         finally:
             conv.fp32_precision = before
     return run
@@ -278,9 +278,11 @@ def flood_weights_from_numpy(w1, w2, w_map, device="cuda"
 
 
 @_f32_convolutions
-def ingest_fn(payload):
-    """Filter blurry frames: variance-of-Laplacian threshold."""
-    frames = payload["frames"]                    # (N, H, W)
+def ingest_fn(payload, device=None):
+    """Filter blurry frames: variance-of-Laplacian threshold.  The frames
+    (numpy or a tensor) are moved to ``device`` first (default: where they
+    are), inside the body as the reference's jnp ops move them."""
+    frames = torch.as_tensor(payload["frames"], device=device)  # (N, H, W)
     k = frames.new_tensor(LAPLACIAN)[None, None]
     # convolve2d(mode="same") is a true convolution; the Laplacian is
     # symmetric, so F.conv2d's cross-correlation with pad 1 is the same
@@ -325,9 +327,14 @@ def alarm_fn(payload):
 def flood_workflow(workflow_id: str = "flood", *, device="cuda",
                    weights: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Workflow:
-    """The flood DAG with its bodies bound to ``weights`` (default:
-    ``flood_weights(device)``, resolved at the first real call, so that a
-    virtual run touches no device)."""
+    """The flood DAG with its bodies bound to ``device`` and ``weights``
+    (default: ``flood_weights(device)``), both resolved at the first real
+    call, so that a virtual run touches no device.  Ingest takes the host
+    payload and moves its frames to ``device``; the SAR tiles stay on the
+    host, as Map never sees them (ingest does not pass them on)."""
+    def ingest(payload):
+        return ingest_fn(payload, resolve_device(device))
+
     def weighted(body):
         def compute(payload):
             return body(payload, weights if weights is not None
@@ -337,7 +344,7 @@ def flood_workflow(workflow_id: str = "flood", *, device="cuda",
     mk = lambda name: FunctionDemand(name, cpu=1.0, mem=256e6, power=5.0,
                                      t_exc=2.0)
     fns = [
-        ServerlessFunction("ingest", ingest_fn, out_ratio=0.9,
+        ServerlessFunction("ingest", ingest, out_ratio=0.9,
                            demand=mk("ingest")),
         ServerlessFunction("detect", weighted(detect_fn), out_ratio=0.5,
                            demand=mk("detect")),
@@ -364,17 +371,15 @@ def chain_workflow(workflow_id: str, depth: int = 3,
     return Workflow(workflow_id, fns, edges)
 
 
-def make_payload(size_bytes: float, with_sar: bool = True, *,
-                 device="cuda") -> dict:
-    """Synthetic drone video payload of roughly ``size_bytes``: the
-    reference's numpy arrays, moved to ``device``."""
-    dev = resolve_device(device)
+def make_payload(size_bytes: float, with_sar: bool = True) -> dict:
+    """Synthetic drone video payload of roughly ``size_bytes``: numpy
+    arrays on the host, as the reference's.  Ingest moves the frames to its
+    device inside its body."""
     n = max(int(size_bytes / (32 * 32 * 4)), 4)
     n = min(n, 4096)
     rng = np.random.default_rng(0)
     frames = rng.normal(size=(n, 32, 32)).astype(np.float32)
-    payload = {"frames": torch.from_numpy(frames).to(dev)}
+    payload = {"frames": frames}
     if with_sar:
-        sar = rng.normal(size=(8, 64, 64)).astype(np.float32)
-        payload["sar"] = torch.from_numpy(sar).to(dev)
+        payload["sar"] = rng.normal(size=(8, 64, 64)).astype(np.float32)
     return payload

@@ -249,7 +249,7 @@ def test_prefill_on_card_matches_cpu(cuda_device, arch):
 
 def _flood_inputs():
     """Each body's input (the CPU chain's outputs, at 10 MB: 2441 frames)."""
-    payload = wf.make_payload(10e6, device="cpu")
+    payload = wf.make_payload(10e6)
     w = wf.flood_weights("cpu")
     ingested = wf.ingest_fn(payload)
     detected = wf.detect_fn(ingested, w)
@@ -279,7 +279,8 @@ def _run_body(body, inp, device):
     fn = {"ingest": wf.ingest_fn, "detect": wf.detect_fn, "map": wf.map_fn,
           "alarm": wf.alarm_fn}[body]
     args = (wf.flood_weights(device),) if body in ("detect", "map") else ()
-    return fn({k: v.to(device) for k, v in inp.items()}, *args)
+    return fn({k: torch.as_tensor(v).to(device) for k, v in inp.items()},
+              *args)
 
 
 @pytest.fixture
@@ -356,3 +357,155 @@ def test_launch_flood_at_torch_default_tf32_matches_cpu(torch_default_tf32,
     for name, want in outputs["cpu"].items():
         _same_as_cpu(outputs["cuda"][name], want)
     assert torch.backends.cudnn.allow_tf32
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels' autograd functions and a train step on the card
+# ---------------------------------------------------------------------------
+ARCHS = ["gemma3-1b", "internlm2-20b", "h2o-danube-1.8b", "gemma2-9b",
+         "recurrentgemma-2b", "rwkv6-7b"]
+# (B, S, K, G, hd, window, softcap) in the model's layout: the danube head
+# dim with a window, the smoke head dim with a softcap, recurrentgemma's G
+FLASH_GRAD_SHAPES = [(2, 128, 2, 2, 64, 0, 0.0), (1, 100, 2, 4, 80, 32, 0.0),
+                     (2, 64, 1, 4, 16, 0, 50.0), (1, 77, 1, 10, 256, 50, 0.0)]
+
+
+def _grads(fn, inputs, cotangents):
+    """Autograd of fn at detached copies of ``inputs`` against cotangents."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    return out, torch.autograd.grad(out, leaves, cotangents)
+
+
+def _assert_grads_close(got, want, tol):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,K,G,hd,win,cap", FLASH_GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_function_grads_match_plain(cuda_device, B, S, K, G,
+                                                    hd, win, cap, dtype):
+    """The forward launches the kernel once; the grads are autograd of the
+    eager attention the reference trains through."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import plain_attention
+    kw = dict(window=win, softcap=cap, scale=hd ** -0.5)
+    ins = (_randn((B, S, K, G, hd), dtype, cuda_device, 0),
+           _randn((B, S, K, hd), dtype, cuda_device, 1),
+           _randn((B, S, K, hd), dtype, cuda_device, 2))
+    go = (_randn((B, S, K, G, hd), dtype, cuda_device, 3),)
+    before = cuda_lib.launches["flash_attention"]
+    (o,), got = _grads(lambda *t: flash_attention(*t, **kw), ins, go)
+    assert cuda_lib.launches["flash_attention"] == before + 1
+    assert o.grad_fn is not None
+    (ref,), want = _grads(lambda *t: plain_attention(*t, **kw), ins, go)
+    torch.testing.assert_close(o.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    _assert_grads_close(got, want, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,C,near_one", RGLRU_SHAPES[:6])
+def test_rglru_function_grads_match_plain(cuda_device, B, S, C, near_one):
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    x = _randn((B, S, C), torch.float32, cuda_device, 0)
+    a = 1 - torch.sigmoid(x) * 1e-3 if near_one else torch.sigmoid(x)
+    b = _randn((B, S, C), torch.float32, cuda_device, 1)
+    go = (_randn((B, S, C), torch.float32, cuda_device, 2),)
+    before = cuda_lib.launches["rglru_scan:grouped"]
+    (h,), got = _grads(rglru_scan, (a, b), go)
+    assert cuda_lib.launches["rglru_scan:grouped"] == before + 1
+    (_,), want = _grads(lambda a, b: rglru_scan_ref(a.double(), b.double()),
+                        (a, b), (go[0].double(),))
+    _assert_grads_close(got, want, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd", [(2, 128, 2, 32), (1, 96, 4, 64),
+                                      (2, 37, 3, 16), (1, 64, 2, 64)])
+def test_wkv6_function_grads_match_plain(cuda_device, B, S, H, hd):
+    """Grads of y and of the final state, through the model-facing wrapper."""
+    from repro_torch.kernels.rwkv6_chunk import wkv6
+    from repro_torch.kernels.rwkv6_chunk.ref import wkv6_ref
+    r, k, v = (_randn((B, S, H, hd), torch.float32, cuda_device, i)
+               for i in range(3))
+    logw = torch.clamp(-torch.exp(_randn((B, S, H, hd), torch.float32,
+                                         cuda_device, 3) * 0.5), -5.0, -1e-4)
+    u = _randn((H, hd), torch.float32, cuda_device, 4) * 0.1
+    go = (_randn((B, S, H, hd), torch.float32, cuda_device, 5),
+          _randn((B, H, hd, hd), torch.float32, cuda_device, 6))
+    before = cuda_lib.launches["wkv6:chunk"]
+    _, got = _grads(wkv6, (r, k, v, logw, u), go)
+    assert cuda_lib.launches["wkv6:chunk"] == before + 1
+
+    def plain(r, k, v, logw, u):
+        fold = lambda t: t.permute(0, 2, 1, 3).reshape(B * H, S, hd)
+        y, st = wkv6_ref(fold(r), fold(k), fold(v), fold(logw),
+                         u[None].expand(B, H, hd).reshape(B * H, hd))
+        return (y.reshape(B, H, S, hd).permute(0, 2, 1, 3),
+                st.reshape(B, H, hd, hd))
+    _, want = _grads(plain, tuple(t.double() for t in (r, k, v, logw, u)),
+                     tuple(g.double() for g in go))
+    _assert_grads_close(got, want, 1e-3)
+
+
+def _train_batch(cfg, device, B=2, S=64):
+    from repro_torch.data import SyntheticTokens
+    return {k: torch.from_numpy(v).to(device) for k, v in
+            SyntheticTokens(cfg, B, S, seed=0).batch_for_step(0).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_on_card_gives_every_parameter_a_grad(cuda_device, arch):
+    """Through the kernels, no parameter's grad is lost: each kernel's
+    autograd function carries the gradient past the kernel's ctypes call."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_train_step, init_train_state
+    cfg = get_smoke_config(arch)
+    state = init_train_state(torch.Generator(device=cuda_device).manual_seed(0),
+                             cfg, adamw(), device=cuda_device)
+    before = dict(cuda_lib.launches)
+    state, metrics = build_train_step(cfg, adamw(), lambda s: 1e-3)(
+        state, _train_batch(cfg, cuda_device))
+    torch.cuda.synchronize()
+    for name, kinds in KINDS.items():
+        n = sum(kind in kinds for kind in cfg.layer_kinds())
+        assert (cuda_lib.launches[name] - before.get(name, 0) > 0) == (n > 0), \
+            name
+    assert np.isfinite(float(metrics["loss"]))
+    for name, p in state["params"].named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "recurrentgemma-2b",
+                                  "rwkv6-7b"])
+def test_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One f32 train step from the same weights and batch on the card
+    (kernels) and on the CPU (plain versions): the loss to 1e-4 relative,
+    each grad leaf to 1e-3 in relative norm, tf32 off."""
+    import dataclasses
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_train_step, init_train_state
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        state = init_train_state(None, cfg, adamw(), params=model.to(dev))
+        state, metrics = build_train_step(cfg, adamw(max_grad_norm=1e9),
+                                          lambda s: 1e-3)(
+            state, _train_batch(cfg, dev))
+        out[str(dev)] = (float(metrics["loss"]),
+                         {n: p.grad.cpu() for n, p in
+                          state["params"].named_parameters()})
+    (cl, cg), (gl, gg) = out["cpu"], out[str(cuda_device)]
+    assert abs(gl - cl) <= 1e-4 * abs(cl)
+    for n, c in cg.items():
+        err = (torch.linalg.vector_norm(gg[n] - c) /
+               torch.linalg.vector_norm(c)).item()
+        assert err <= 1e-3, (n, err)

@@ -338,3 +338,44 @@ def test_channel_mix_matches_jax(dtype):
     jo, _ = jr.channel_mix(jcm, jxs, jlast)
     to, _ = tr.channel_mix(tcm, txs, tlast)
     _close(to, jo, TOL[dtype], "decode")
+
+
+def _carry(cfg, seed):
+    """A state (B,H,hd,hd) f32 and a previous input (B,D) to start from."""
+    rng = np.random.default_rng(seed)
+    H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    st = (rng.standard_normal((2, H, hd, hd)) * 0.5).astype(np.float32)
+    xp = (rng.standard_normal((2, cfg.d_model)) * 0.5).astype(np.float32)
+    return jnp.asarray(st), torch.tensor(st), \
+        jnp.asarray(xp, cfg.param_dtype), \
+        torch.tensor(xp).to(getattr(torch, cfg.param_dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_time_mix_seq_with_state0_and_x_prev_matches_wkv_chunked(dtype):
+    """The reference's optional ``state0`` and ``x_prev``: the port carries
+    the state in outside the kernel, decayed by the cumulative logw."""
+    cfg, tcfg = _cfgs(dtype)
+    jtm, _, ttm, _ = _params(cfg, seed=4)
+    jx, tx = _x(cfg, (2, 48, cfg.d_model), 12, scale=0.5)
+    jst0, tst0, jxp, txp = _carry(cfg, 13)
+    jo, jst, jlast = jr.wkv_chunked(jtm, jx, cfg, state0=jst0, x_prev=jxp)
+    to, tst, tlast = tr.time_mix_seq(ttm, tx, tcfg, state0=tst0, x_prev=txp)
+    _close(to, jo, TOL[dtype], "out")
+    _close(tst, jst, TOL[dtype], "state")
+    _close(tlast, jlast, 0.0, "x_last")
+
+
+@pytest.mark.parametrize("carry", [False, True])
+def test_wkv_scan_matches_reference_wkv_scan(carry):
+    """The exact sequential oracle, from zero and from a given state and
+    previous input."""
+    cfg, tcfg = _cfgs("float32")
+    jtm, _, ttm, _ = _params(cfg, seed=5)
+    jx, tx = _x(cfg, (2, 40, cfg.d_model), 14, scale=0.5)
+    jst0, tst0, jxp, txp = _carry(cfg, 15) if carry else (None,) * 4
+    jo, jst, jlast = jr.wkv_scan(jtm, jx, cfg, state0=jst0, x_prev=jxp)
+    to, tst, tlast = tr.wkv_scan(ttm, tx, tcfg, state0=tst0, x_prev=txp)
+    _close(to, jo, TOL["float32"], "out")
+    _close(tst, jst, TOL["float32"], "state")
+    _close(tlast, jlast, 0.0, "x_last")

@@ -26,13 +26,18 @@ from repro.models import init_params as jax_init  # noqa: E402
 from repro.serving import engine as jeng  # noqa: E402
 from repro.serving import steps as jsteps  # noqa: E402
 from repro_torch.configs.base import get_smoke_config  # noqa: E402
+from repro_torch.examples import elastic_restart, train_small  # noqa: E402
 from repro_torch.launch import flood, serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train.loop import TrainLoop  # noqa: E402
+from repro_torch.train.steps import init_train_state  # noqa: E402
 from repro_torch.models import init_cache, init_params  # noqa: E402
 from repro_torch.models.weights import params_from_jax  # noqa: E402
 from repro_torch.scenario import NetworkSpec, Scenario  # noqa: E402
 from repro_torch.serverless.engine import WorkflowEngine  # noqa: E402
 from repro_torch.serverless.workflow import (  # noqa: E402
-    flood_weights, make_payload)
+    flood_weights, flood_workflow, make_payload)
 from repro_torch.serving import engine as teng  # noqa: E402
 from repro_torch.serving import steps as tsteps  # noqa: E402
 
@@ -146,10 +151,17 @@ ENTRY_POINTS = {
     "launch.serve": lambda cfg: serve.main([]),
     "workflow_engine": lambda cfg: WorkflowEngine(NetworkSpec().build(),
                                                   real_compute=True),
-    "make_payload": lambda cfg: make_payload(1e5),
+    # the payload stays on the host; the flood workflow's ingest moves it
+    "make_payload": lambda cfg: flood_workflow().fn("ingest").compute(
+        make_payload(1e5)),
     "flood_weights": lambda cfg: flood_weights(),
     "scenario.run": lambda cfg: Scenario(n=1, real_compute=True).run(),
     "launch.flood": lambda cfg: flood.main([]),
+    "init_train_state": lambda cfg: init_train_state(None, cfg, adamw()),
+    "train_loop": lambda cfg: TrainLoop(cfg, adamw(), batch=2, seq=16),
+    "launch.train": lambda cfg: launch_train.main([]),
+    "examples.train_small": lambda cfg: train_small.main([]),
+    "examples.elastic_restart": lambda cfg: elastic_restart.main([]),
 }
 
 

@@ -148,7 +148,7 @@ def test_bodies_convolve_in_f32_and_restore_the_caller_setting(
     conv.fp32_precision = caller
     try:
         w = twf.flood_weights("cpu")
-        out = twf.ingest_fn(twf.make_payload(2e4, device="cpu"))
+        out = twf.ingest_fn(twf.make_payload(2e4))
         out = twf.map_fn(twf.detect_fn(out, w), w)
         assert conv.fp32_precision == caller
     finally:
@@ -157,12 +157,52 @@ def test_bodies_convolve_in_f32_and_restore_the_caller_setting(
 
 
 def test_make_payload_matches_reference():
+    """Both payloads are numpy arrays on the host, equal bit for bit."""
     for size, sar in ((1e3, True), (2e6, False), (50e6, True)):
         j = jwf.make_payload(size, sar)
-        t = twf.make_payload(size, sar, device="cpu")
+        t = twf.make_payload(size, sar)
         assert sorted(t) == sorted(j)
         for k in j:
-            np.testing.assert_array_equal(t[k].numpy(), j[k])
+            assert isinstance(t[k], np.ndarray) and t[k].dtype == j[k].dtype
+            np.testing.assert_array_equal(t[k], j[k])
+
+
+def test_ingest_moves_frames_inside_the_engine_clock(monkeypatch):
+    """The engine hands ingest the host payload; the frames first become a
+    tensor on the workflow's device inside ingest's body, between the two
+    clock readings of its compute span, as the reference's ingest moves its
+    numpy input to the device inside its body."""
+    events = []
+
+    class Clock:
+        t = 0.0
+
+        def perf_counter(self):
+            events.append("clock")
+            self.t += 0.125
+            return self.t
+
+    real_ingest = twf.ingest_fn
+
+    def ingest(payload, device=None):
+        events.append(("in", type(payload["frames"]).__name__,
+                       type(payload.get("sar")).__name__))
+        out = real_ingest(payload, device)
+        events.append(("out", type(out["frames"]).__name__,
+                       out["frames"].device.type))
+        return out
+
+    monkeypatch.setattr(teng, "_time", Clock())
+    monkeypatch.setattr(twf, "ingest_fn", ingest)
+    eng = tsc.Scenario(strategy="databelt", real_compute=True).build_engine(
+        device="cpu")
+    eng.run_instance(twf.flood_workflow("c1", device="cpu",
+                                        weights=twf.flood_weights("cpu")),
+                     0.5e6)
+    i = events.index(("in", "ndarray", "ndarray"))
+    assert events[i - 1] == "clock"
+    assert events[i + 1] == ("out", "Tensor", "cpu")
+    assert events[i + 2] == "clock"
 
 
 # ---------------------------------------------------------------------------
