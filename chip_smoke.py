@@ -73,7 +73,18 @@ Phases:
      draw) timed inside the engine for the split of its real compute,
      and under torch.profiler for the device's idle share.  One JSON line
      holds it.
-  8. train: h2o-danube-1.8b at full width (24 layers, remat "full", AdamW
+  8. frontdoor: ``python -m repro_torch.analysis src/repro_torch --strict``,
+     ``--replay-smoke`` and ``--race-smoke`` (virtual specs), each exiting 0;
+     ``Scenario.verify_races(device="cuda")`` on Fig 13's point with real
+     compute (stagger 0.05 s, 2 MB, n = 64, databelt), which must be
+     race-clean with every flood body run on the card once a mission;
+     ``verify_replay(device="cuda")`` on the same spec, whose outcome is
+     printed and not checked (real compute folds wall time into simulated
+     time); the twins of examples/serve_pipeline.py on the card (8 requests
+     answered; prompts are fed through decode, so no kernel launches) and
+     examples/quickstart.py (virtual).  Each step's host time, beside the
+     card's name and power limit, goes into one JSON line.
+  9. train: h2o-danube-1.8b at full width (24 layers, remat "full", AdamW
      with f32 master weights, 4 x 2048 tokens from SyntheticTokens, a
      constant learning rate): the first step's loss and grad norm through the
      flash kernel against the same with the eager attention the reference
@@ -93,12 +104,15 @@ Phases:
   plain version's autograd backward) against autograd of the plain version
   over the kernel's sweep, at the kernel's tolerance.
 Then one JSON line describing each kernel (its launches summed over the
-serving and training paths, each counted from 0 just before its run), and
+serving paths, serve_pipeline and the training paths, each counted from 0
+just before its run), and
 last the device line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import subprocess
@@ -1097,7 +1111,118 @@ def workflow_runs(torch, dev, out):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the training path
+# phase 8: the Databelt front door's last pieces
+# ---------------------------------------------------------------------------
+def frontdoor_path(torch, dev, card):
+    """The lint over the port, both sanitizer smokes, the race and replay
+    sanitizers on Fig 13's point with real compute on the card, and the
+    twins of the quickstart and serve_pipeline examples; each step timed on
+    the host clock."""
+    from repro_torch.analysis.__main__ import main as lint
+    from repro_torch.examples import quickstart, serve_pipeline
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.scenario import Scenario, WorkloadSpec
+    from repro_torch.serverless import workflow as wf
+
+    out = {"card": card, "steps": {}}
+
+    def step(name, fn, *args):
+        """``fn(*args)`` timed, its stdout captured and printed after."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*args)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        text = buf.getvalue()
+        out["steps"][name] = {"host_s": host_s, "out": text.strip()[-600:]}
+        print(f"[frontdoor] {name}: host {host_s:.3f} s ({card})"
+              + "".join(f"\n[frontdoor]   {line}"
+                        for line in text.strip().splitlines()))
+        return res, out["steps"][name]
+
+    root = Path(__file__).resolve().parent
+    rc, _ = step("lint", lint, [str(root / "src" / "repro_torch"), "--strict"])
+    check(rc == 0, "python -m repro_torch.analysis src/repro_torch --strict")
+    rc, _ = step("replay_smoke", lint, ["--replay-smoke"])
+    check(rc == 0, "python -m repro_torch.analysis --replay-smoke")
+    rc, _ = step("race_smoke", lint, ["--race-smoke"])
+    check(rc == 0, "python -m repro_torch.analysis --race-smoke")
+
+    # Fig 13's point with real compute: a concurrent spec, so the race
+    # sanitizer has processes to order (a sequential one is rejected).  The
+    # sanitizer is passive, so this is the mission workload [workflow] times.
+    fig13 = Scenario(workload=WorkloadSpec(kind="stagger", stagger=0.05),
+                     n=64, input_bytes=2e6, strategy="databelt",
+                     real_compute=True)
+    calls = {}
+    names = ("ingest_fn", "detect_fn", "map_fn", "alarm_fn")
+    saved = {n: getattr(wf, n) for n in names}
+
+    def counted(name, body):
+        def run(payload, *args):
+            res = body(payload, *args)
+            calls[name] = calls.get(name, 0) + 1
+            if name == "ingest_fn":
+                check(res["frames"].device.type == "cuda",
+                      f"ingest's frames on {res['frames'].device}")
+            return res
+        return run
+    try:
+        for n in names:
+            setattr(wf, n, counted(n, saved[n]))
+        races, row = step("verify_races", lambda: fig13.verify_races(
+            device=dev))
+        check(races.ok, f"Fig 13 with real compute: {races.describe()}")
+        check(calls == {n: fig13.n for n in names},
+              f"every flood body ran on the card once a mission: {calls}")
+        row.update(events=races.events_processed, body_calls=dict(calls))
+        calls.clear()
+        replay, row = step("verify_replay", lambda: fig13.verify_replay(
+            device=dev))
+        check(calls == {n: 2 * fig13.n for n in names},
+              f"both replays ran every body: {calls}")
+    finally:
+        for n in names:
+            setattr(wf, n, saved[n])
+    d = replay.divergence
+    # an observation, not a gate: real compute folds the bodies' wall time
+    # into simulated time, so two runs of one spec need not replay
+    row.update(ok=replay.ok, events_a=replay.events_a,
+               events_b=replay.events_b, metrics_match=replay.metrics_match,
+               describe=replay.describe(),
+               divergence=None if d is None else {
+                   "index": d.index, "label_a": d.label_a,
+                   "label_b": d.label_b, "time_a": d.time_a,
+                   "time_b": d.time_b})
+    print(f"[frontdoor] verify_replay on Fig 13 with real compute "
+          f"(observed, not checked): {replay.describe()}")
+
+    # the serving example: its engine feeds prompts token by token through
+    # decode, whose attention is plain torch (the reference's is a jnp
+    # einsum): no kernel of the port lies on this path, as in [engine]
+    cuda_lib.launches.clear()
+    done, row = step("serve_pipeline", serve_pipeline.main,
+                     ["--device", "cuda"])
+    launched = {name: n for name, n in cuda_lib.launches.items() if n}
+    serve_launches = {name: cuda_lib.launches.get(name, 0)
+                      for name in PATHS["gemma3-1b"]}
+    check(sorted(r.req_id for r in done) == list(range(8)) and all(
+        1 <= len(r.tokens_out) <= 12 for r in done),
+        "serve_pipeline answered its 8 requests")
+    check(not launched, f"serve_pipeline launched {launched}")
+    row.update(tokens=sum(len(r.tokens_out) for r in done),
+               launches=launched)
+    reports, row = step("quickstart", quickstart.main)
+    check([r.system for r in reports] == ["databelt", "random", "stateless"]
+          and all(math.isfinite(r.mean_latency) for r in reports),
+          "quickstart's virtual sweep")
+    return out, serve_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the training path
 # ---------------------------------------------------------------------------
 def plain_for_training(kernel):
     """Put the plain version of ``kernel`` where training calls it (flash: the
@@ -1224,7 +1349,7 @@ def print_profile(arch, prof, card):
 
 
 def train_path(torch, np, dev, card):
-    """Phase 8: h2o-danube-1.8b training at full width (the main path of
+    """Phase 9: h2o-danube-1.8b training at full width (the main path of
     training), the kernels against their plain versions, recurrentgemma-2b
     and rwkv6-7b train steps at full width and one superblock, and the smoke
     configs' train step on the card against the CPU.  Returns the launches
@@ -1493,7 +1618,11 @@ def main() -> int:
     # ---- 7. the Databelt workflow path -----------------------------------
     print(json.dumps({"workflow": workflow_path(torch, dev)}))
 
-    # ---- 8. the training path --------------------------------------------
+    # ---- 8. the front door's last pieces ---------------------------------
+    frontdoor, launches["serve_pipeline"] = frontdoor_path(torch, dev, card)
+    print(json.dumps({"frontdoor": frontdoor}))
+
+    # ---- 9. the training path --------------------------------------------
     train_by_path, train_out = train_path(torch, np, dev, card)
     launches.update(train_by_path)
     print(json.dumps({"train": train_out}))

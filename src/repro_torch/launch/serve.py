@@ -35,6 +35,7 @@ def main(argv=None):
     eng = ServingEngine(cfg, model, n_slots=args.slots, max_len=args.max_len,
                         device=device)
     rng = np.random.default_rng(0)
+    # repro: allow(DB001): the launcher reports real serving throughput
     t0 = time.perf_counter()
     for i in range(args.requests):
         prompt = rng.integers(2, cfg.vocab_size,
@@ -44,7 +45,7 @@ def main(argv=None):
     done = eng.run_until_done()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
+    dt = time.perf_counter() - t0   # repro: allow(DB001): as above
     toks = sum(len(r.tokens_out) for r in done)
     print(f"{len(done)} requests, {toks} tokens, {dt:.1f}s "
           f"({toks/dt:.1f} tok/s) on {device}")

@@ -349,8 +349,32 @@ class Scenario:
                 trace=recorder, race_detect=self.race_detect)
         return ScenarioReport(scenario=self, rep=rep)
 
-    # repro/scenario/spec.py:344-365 (verify_replay, verify_races) are left
-    # out: they run repro.analysis, which the port does not have yet
+    # differs from repro/scenario/spec.py:344: the device of real compute
+    def verify_replay(self, *, device="cuda"):
+        """Runtime replay sanitizer: run this spec twice with tracing on
+        and diff the event traces.  Returns a
+        ``repro_torch.analysis.replay.ReplayCheck`` whose ``divergence`` (if
+        any) localizes the *first* event where the two runs disagree —
+        time, label, payload digest — which is usually within a few
+        events of the nondeterministic read itself.  ``device`` is where
+        a ``real_compute`` spec runs its bodies; a virtual spec touches no
+        device."""
+        from repro_torch.analysis.replay import verify_scenario
+        # differs from repro/scenario/spec.py:352: the device goes on
+        return verify_scenario(self, device=device)
+
+    # differs from repro/scenario/spec.py:354: the device of real compute
+    def verify_races(self, *, device="cuda"):
+        """Runtime race sanitizer: run this spec once with
+        ``race_detect=True`` and return a
+        ``repro_torch.analysis.races.RaceCheck``.  Each finding localizes a
+        pair of conflicting same-timestamp accesses that no
+        spawn/wake/acquire-release happens-before edge orders — the
+        interleavings whose outcome rests on the event heap's ``seq``
+        tie-break alone.  ``device`` is as for ``verify_replay``."""
+        from repro_torch.analysis.races import verify_scenario_races
+        # differs from repro/scenario/spec.py:363: the device goes on
+        return verify_scenario_races(self, device=device)
 
     # -- serialization ---------------------------------------------------
     @property

@@ -26,7 +26,8 @@ from repro.models import init_params as jax_init  # noqa: E402
 from repro.serving import engine as jeng  # noqa: E402
 from repro.serving import steps as jsteps  # noqa: E402
 from repro_torch.configs.base import get_smoke_config  # noqa: E402
-from repro_torch.examples import elastic_restart, train_small  # noqa: E402
+from repro_torch.examples import (elastic_restart, serve_pipeline,  # noqa: E402
+                                  train_small)
 from repro_torch.launch import flood, serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -34,7 +35,7 @@ from repro_torch.train.loop import TrainLoop  # noqa: E402
 from repro_torch.train.steps import init_train_state  # noqa: E402
 from repro_torch.models import init_cache, init_params  # noqa: E402
 from repro_torch.models.weights import params_from_jax  # noqa: E402
-from repro_torch.scenario import NetworkSpec, Scenario  # noqa: E402
+from repro_torch.scenario import NetworkSpec, Scenario, WorkloadSpec  # noqa: E402
 from repro_torch.serverless.engine import WorkflowEngine  # noqa: E402
 from repro_torch.serverless.workflow import (  # noqa: E402
     flood_weights, flood_workflow, make_payload)
@@ -142,6 +143,23 @@ def test_launch_serve_on_cpu(capsys):
     assert "3 requests" in capsys.readouterr().out
 
 
+def test_serve_pipeline_on_cpu(capsys):
+    """The twin of examples/serve_pipeline.py: its 8 requests, drawn from the
+    reference's seeded numpy prompts, each finish with max_new tokens."""
+    done = serve_pipeline.main(["--device", "cpu"])
+    cfg = get_smoke_config(ARCH)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=rng.integers(3, 8))
+               for _ in range(8)]
+    assert sorted(r.req_id for r in done) == list(range(8))
+    for r in done:
+        assert r.prompt.tolist() == prompts[r.req_id].tolist()
+        assert len(r.tokens_out) == 12
+        assert all(0 <= t < cfg.vocab_size for t in r.tokens_out)
+    out = capsys.readouterr().out
+    assert "completed 8 requests, 96 tokens" in out and "on cpu" in out
+
+
 ENTRY_POINTS = {
     "init_params": lambda cfg: init_params(cfg, torch.Generator()),
     "init_cache": lambda cfg: init_cache(cfg, 1, 8),
@@ -162,6 +180,14 @@ ENTRY_POINTS = {
     "launch.train": lambda cfg: launch_train.main([]),
     "examples.train_small": lambda cfg: train_small.main([]),
     "examples.elastic_restart": lambda cfg: elastic_restart.main([]),
+    "examples.serve_pipeline": lambda cfg: serve_pipeline.main([]),
+    "scenario.verify_replay": lambda cfg: Scenario(
+        n=1, real_compute=True).verify_replay(),
+    "scenario.verify_races": lambda cfg: Scenario(
+        workload=WorkloadSpec(kind="stagger"), n=2,
+        real_compute=True).verify_races(),
+    # examples.quickstart is left out: its sweep is virtual and takes no
+    # device
 }
 
 

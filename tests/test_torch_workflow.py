@@ -394,3 +394,18 @@ def test_launch_flood_on_cpu(capsys):
     assert m.latency > 0 and m.compute_time > 0
     out = capsys.readouterr().out
     assert "function placement" in out and "on cpu" in out
+
+
+def test_quickstart_prints_the_reference_output(capsys):
+    """The twin of examples/quickstart.py: a virtual sweep, so its stdout is
+    the reference's character for character."""
+    import runpy
+    from pathlib import Path
+
+    from repro_torch.examples import quickstart
+    reports = quickstart.main()
+    got = capsys.readouterr().out
+    runpy.run_path(str(Path(__file__).resolve().parents[1] / "examples" /
+                       "quickstart.py"), run_name="__main__")
+    assert got == capsys.readouterr().out
+    assert [r.system for r in reports] == ["databelt", "random", "stateless"]
