@@ -17,8 +17,10 @@ Phases:
      events beside its plain version and its bound:
      - flash attention: the sweep of tests/test_kernels.py in f32 (the
        CUDA-core kernel) and bf16 (the tensor-core kernel), gemma3-1b's
-       prefill shapes (local and global layers) and recurrentgemma-2b's
-       local layer (G=10, window 2048), each also beside one PyTorch library
+       prefill shapes (local and global layers), recurrentgemma-2b's
+       local layer (G=10, window 2048), qwen3-moe's (G=16, hd 128),
+       arctic's (G=7, hd 128) and whisper's decoder (G=1, hd 64, 256
+       positions), each also beside one PyTorch library
        call (scaled_dot_product_attention with an explicit boolean mask, a
        yardstick the port never calls) and beside the CUDA-core kernel on
        the same bf16 inputs (the earlier design);
@@ -34,27 +36,43 @@ Phases:
        version run in f64, and the tensor-core kernel against its numerics'
        plain version (``wkv6_chunk_ref``).
      Each kept earlier design is timed on the same inputs beside the new one.
-  Then, for gemma3-1b, recurrentgemma-2b and rwkv6-7b in turn, at full width
-  and depth (random weights from a seeded torch.Generator), each model freed
-  before the next:
-  3. prefill: 4 prompts of 1024 tokens through build_prefill_step; every
-     kernel must launch exactly once per layer of its kind (gemma3-1b: flash
-     26; recurrentgemma-2b: rglru_scan 18, flash 8; rwkv6-7b: wkv6 32), and
-     every launch must be the new design's (flash: tensor cores; the scan:
-     channel groups; the wkv6: chunked), never an earlier one's.
+  Then, for gemma3-1b, recurrentgemma-2b, rwkv6-7b, qwen3-moe-235b-a22b,
+  arctic-480b, whisper-small and paligemma-3b in turn, at full width (random
+  weights from a seeded torch.Generator) and full depth, except the MoE
+  configs, cut to 8 and 2 layers (``DEPTH``), each model freed before the
+  next:
+  3. prefill: 4 x 1024 positions from models.io.make_batch (whisper: 1024
+     frames and 256 decoder tokens; paligemma: 256 patches and 768 tokens)
+     through build_prefill_step; every kernel must launch exactly once per
+     layer that runs it (gemma3-1b: flash 26; recurrentgemma-2b: rglru_scan
+     18, flash 8; rwkv6-7b: wkv6 32; qwen3-moe: flash 8; arctic: flash 2;
+     whisper: flash 12, its decoder's causal self-attention; paligemma: none,
+     its prefix-LM mask runs the plain path as in the reference), and every
+     launch must be the new design's (flash: tensor cores; the scan: channel
+     groups; the wkv6: chunked), never an earlier one's.
   4. decode: 8 steps of build_decode_step from the prefill cache.
   5. engine: a full-width ServingEngine answers 4 requests.
   6. reference: the full-width prefill with the path's kernel swapped for its
-     plain version (flash for gemma3-1b, the recurrent kernel for the other
-     two), and the smoke config on the card against the port on the CPU,
-     agree within the bf16 model tolerance.  On the recurrent paths every
+     plain version (flash, or the recurrent kernel on the recurrent paths),
+     and the smoke config on the card against the port on the CPU, agree
+     within the bf16 model tolerance.  On the recurrent and MoE paths every
      kernel call of a full-width bf16 prefill is also held against its plain
-     version on the same inputs, and the full-width logits are compared
-     with f32 weights: in bf16 a random 32-layer RWKV stack amplifies
-     rounding-level differences past any useful tolerance.  recurrentgemma-2b
-     also holds its bf16 logits with flash swapped for its plain version (the
-     tensor-core kernel on, in bf16: f32 weights would route flash to the
-     CUDA-core kernel).
+     version on the same inputs.  The recurrent paths compare their
+     full-width logits with f32 weights: in bf16 a random 32-layer RWKV
+     stack amplifies rounding-level differences past any useful tolerance.
+     The MoE paths count the (layer, token) routes that differ between the
+     kernel and the plain run and gate the bf16 logits where none does, else
+     compare with f32 weights at 4 and 1 layers (``F32_DEPTH``; the flash
+     kernel is then the CUDA-core one), and their smoke configs card vs CPU
+     in f32: in bf16 a router's near-tie, moved by rounding, picks another
+     expert.  recurrentgemma-2b also holds its bf16 logits with flash
+     swapped for its plain version (the tensor-core kernel on, in bf16: f32
+     weights would route flash to the CUDA-core kernel).
+  Then the int8 KV cache: gemma3-1b at full width with ``kv_quant=True``
+  beside the bf16 cache on the same weights: prefill launches, 8 decode
+  steps each (timed), logits within 0.5 of the bf16 cache's (the reference's
+  bound), and the smoke config's prefill and decode card vs CPU.  One JSON
+  line holds the serving numbers.
   7. workflow: the flood-disaster workflow (``repro_torch.serverless``),
      which launches no kernel of the port (its convolutions are cuDNN's),
      with cuDNN's TF32 at PyTorch's default (the bodies pin their own
@@ -104,9 +122,8 @@ Phases:
   plain version's autograd backward) against autograd of the plain version
   over the kernel's sweep, at the kernel's tolerance.
 Then one JSON line describing each kernel (its launches summed over the
-serving paths, serve_pipeline and the training paths, each counted from 0
-just before its run), and
-last the device line.
+serving paths, the int8 cache's included, serve_pipeline and the training
+paths, each counted from 0 just before its run), and last the device line.
 """
 from __future__ import annotations
 
@@ -154,10 +171,30 @@ PATHS = {                     # arch -> the kernels its prefill must launch
                           "rglru_scan:thread": 0, "flash_attention": 8,
                           "flash_attention:wgmma": 8, "flash_attention:fma": 0},
     "rwkv6-7b": {"wkv6": 32, "wkv6:chunk": 32, "wkv6:seq": 0},
+    # causal self-attention only: whisper's encoder (bidirectional), its
+    # cross-attention and paligemma's prefix-LM mask run the plain path, as
+    # in the reference
+    "qwen3-moe-235b-a22b": {"flash_attention": 8, "flash_attention:wgmma": 8,
+                            "flash_attention:fma": 0},
+    "arctic-480b": {"flash_attention": 2, "flash_attention:wgmma": 2,
+                    "flash_attention:fma": 0},
+    "whisper-small": {"flash_attention": 12, "flash_attention:wgmma": 12,
+                      "flash_attention:fma": 0},
+    "paligemma-3b": {"flash_attention": 0, "flash_attention:wgmma": 0,
+                     "flash_attention:fma": 0},
 }
+# depth cuts at full width: qwen3-moe's 94 layers (2.49 B params each) and
+# arctic's 35 (13.6 B each) do not fit one card; their f32 gate (phase 6)
+# holds half as many layers again, as f32 weights take twice the bytes
+DEPTH = {"qwen3-moe-235b-a22b": 8, "arctic-480b": 2}
+F32_DEPTH = {"qwen3-moe-235b-a22b": 4, "arctic-480b": 1}
 SWAPPED = {"gemma3-1b": "flash_attention", "recurrentgemma-2b": "rglru_scan",
-           "rwkv6-7b": "wkv6"}     # the kernel phase 6 swaps for its plain version
+           "rwkv6-7b": "wkv6", "qwen3-moe-235b-a22b": "flash_attention",
+           "arctic-480b": "flash_attention", "whisper-small": "flash_attention"}
+# the kernel phase 6 swaps for its plain version (paligemma's path has none)
 RECURRENT = ("recurrentgemma-2b", "rwkv6-7b")
+MOE = ("qwen3-moe-235b-a22b", "arctic-480b")
+KV_QUANT_BOUND = 0.5          # tests/test_smoke_archs.py::test_kv_quant_decode_parity
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5     # h2o-danube-1.8b training
 REC_TRAIN_B, REC_TRAIN_S = 4, 1024            # the recurrent archs' train step
 LR_TRAIN = 1e-4
@@ -280,12 +317,19 @@ def check_flash(torch, F, randn, dev):
 
     rows = {}
     gemma3, rgemma = get_config("gemma3-1b"), get_config("recurrentgemma-2b")
-    for label, cfg, win in (("local", gemma3, gemma3.window_size),
-                            ("global", gemma3, 0),
-                            ("recurrentgemma_local", rgemma, rgemma.window_size)):
+    qwen3, arctic = get_config("qwen3-moe-235b-a22b"), get_config("arctic-480b")
+    whisper = get_config("whisper-small")
+    # (label, config, window, positions): each path's prefill shape;
+    # whisper's decoder attends over its S // 4 tokens
+    for label, cfg, win, Sq in (
+            ("local", gemma3, gemma3.window_size, S), ("global", gemma3, 0, S),
+            ("recurrentgemma_local", rgemma, rgemma.window_size, S),
+            ("qwen3_moe", qwen3, 0, S), ("arctic", arctic, 0, S),
+            ("whisper_decoder", whisper, 0, S // whisper.dec_len_ratio)):
         BK, G, hd = B * cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
-        q = randn((BK, S, G, hd), torch.bfloat16)
-        k, v = randn((BK, S, hd), torch.bfloat16), randn((BK, S, hd), torch.bfloat16)
+        q = randn((BK, Sq, G, hd), torch.bfloat16)
+        k, v = randn((BK, Sq, hd), torch.bfloat16), randn((BK, Sq, hd),
+                                                          torch.bfloat16)
         kw = dict(scale=hd ** -0.5, softcap=0.0, window=win)
         o, which = launch(q, k, v, **kw)
         check(which == "wgmma", f"{cfg.name} {label} took the {which} kernel")
@@ -299,19 +343,19 @@ def check_flash(torch, F, randn, dev):
         check(err <= TOL["bfloat16"], f"{cfg.name} {label} max err {err}")
         check(fma_err <= TOL["bfloat16"],
               f"{cfg.name} {label} CUDA-core kernel max err {fma_err}")
-        pos = torch.arange(S, device=dev)
+        pos = torch.arange(Sq, device=dev)
         allow = pos[None, :] <= pos[:, None]
         if win:
             allow &= pos[None, :] > pos[:, None] - win
         qs = q.permute(0, 2, 1, 3)
-        ks = k[:, None].expand(BK, G, S, hd)
-        vs = v[:, None].expand(BK, G, S, hd)
+        ks = k[:, None].expand(BK, G, Sq, hd)
+        vs = v[:, None].expand(BK, G, Sq, hd)
         lib_err = (F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=allow, scale=kw["scale"]).permute(0, 2, 1, 3)
             .float() - ref.float()).abs().max().item()
-        bound_ms, bound_by = flash_bound(BK, S, G, hd, win)
+        bound_ms, bound_by = flash_bound(BK, Sq, G, hd, win)
         row = {
-            "shape": f"BK={BK} Sq=Skv={S} G={G} hd={hd} bf16 window={win}",
+            "shape": f"BK={BK} Sq=Skv={Sq} G={G} hd={hd} bf16 window={win}",
             "variant": which, "max_abs_err": err,
             "emulation_max_abs_err": emu_err,
             "ms": time_ms(torch, lambda: flash_attention_bkg(q, k, v, **kw)),
@@ -573,6 +617,19 @@ def recurrent_kernel(arch):
     return wkv6_ops, "wkv6_bh", wkv6_ops.wkv6_ref, WKV6_TOL
 
 
+def plain_flash(q, k, v, *, window, softcap, scale):
+    """The flash hook's plain version (``flash_attention_ref``, P·V in f32
+    as the kernels) in the model's layout."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    Bq, Sq, K, Gq, hdq = q.shape
+    qf = q.permute(0, 2, 1, 3, 4).reshape(Bq * K, Sq, Gq, hdq)
+    kf = k.permute(0, 2, 1, 3).reshape(Bq * K, -1, hdq)
+    vf = v.permute(0, 2, 1, 3).reshape(Bq * K, -1, hdq)
+    o = flash_attention_ref(qf, kf, vf, scale=scale, softcap=softcap,
+                            window=window)
+    return o.reshape(Bq, K, Sq, Gq, hdq).permute(0, 2, 1, 3, 4)
+
+
 def swap_for_plain(arch, kernel=None):
     """Put the plain version of ``kernel`` (default: the one phase 6 swaps
     on ``arch``'s path) where the model calls the kernel; returns the
@@ -583,25 +640,29 @@ def swap_for_plain(arch, kernel=None):
         setattr(mod, name, plain)
         return lambda: setattr(mod, name, kernel)
     from repro_torch import kernels
-    from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.models import attention as attn
-
-    def plain_impl(q, k, v, *, window, softcap, scale):
-        Bq, Sq, K, Gq, hdq = q.shape
-        qf = q.permute(0, 2, 1, 3, 4).reshape(Bq * K, Sq, Gq, hdq)
-        kf = k.permute(0, 2, 1, 3).reshape(Bq * K, -1, hdq)
-        vf = v.permute(0, 2, 1, 3).reshape(Bq * K, -1, hdq)
-        o = flash_attention_ref(qf, kf, vf, scale=scale, softcap=softcap,
-                                window=window)
-        return o.reshape(Bq, K, Sq, Gq, hdq).permute(0, 2, 1, 3, 4)
-    attn.set_attention_impl(plain_impl)
+    attn.set_attention_impl(plain_flash)
     return kernels.enable_flash_attention
 
 
 def shadow_with_plain(torch, arch, errs):
-    """Make every call of the path's recurrent kernel also run its plain
-    version on the same inputs and append (max abs err, allclose excess) of
-    each output to ``errs``; returns the function that undoes it."""
+    """Make every call of the path's kernel (the one phase 6 swaps) also run
+    its plain version on the same inputs and append (max abs err, allclose
+    excess) of each output to ``errs``; returns the function that undoes
+    it."""
+    if SWAPPED[arch] == "flash_attention":
+        from repro_torch import kernels
+        from repro_torch.models import attention as attn
+
+        def flash_both(q, k, v, **kw):
+            o, w = kernels.flash_attention(q, k, v, **kw), plain_flash(
+                q, k, v, **kw)
+            tol = TOL[str(q.dtype).split(".")[1]]
+            errs.append(((o.float() - w.float()).abs().max().item(),
+                         max_excess(torch, o, w, tol)))
+            return o
+        attn.set_attention_impl(flash_both)
+        return kernels.enable_flash_attention
     mod, name, plain, tol = recurrent_kernel(arch)
     kernel = getattr(mod, name)
 
@@ -616,38 +677,81 @@ def shadow_with_plain(torch, arch, errs):
     return lambda: setattr(mod, name, kernel)
 
 
+@contextlib.contextmanager
+def recorded_routes(out):
+    """Append each MoE routing's expert set (its indices sorted, (T, k)) to
+    ``out``, call by call, for the block's duration."""
+    from repro_torch.models import moe
+    route = moe._route
+
+    def recording(x, router, k):
+        r = route(x, router, k)
+        out.append(r[1].sort(dim=1).values)
+        return r
+    moe._route = recording
+    try:
+        yield out
+    finally:
+        moe._route = route
+
+
+def differing_routes(a, b) -> int:
+    """The (layer, token) routes whose expert sets differ between two runs."""
+    check(len(a) == len(b), f"{len(a)} vs {len(b)} routings")
+    return sum(int((x != y).any(dim=1).sum()) for x, y in zip(a, b))
+
+
+def path_config(arch):
+    """The full-width config of a path, at its depth (``DEPTH``)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if arch in DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH[arch])
+    return cfg
+
+
+def decode_start(cfg, batch) -> int:
+    """The position right after a prefill of ``batch`` (the length of its
+    self-attention cache)."""
+    n = batch["tokens"].shape[1]
+    return n + cfg.n_prefix_tokens if cfg.frontend == "vision" else n
+
+
 def serve_path(torch, np, dev, arch):
     """Prefill, decode, engine and reference of one architecture at full
-    width.  Returns the launches its main path made, by kernel."""
-    from repro_torch.configs.base import get_config, get_smoke_config
+    width.  Returns the launches its main path made, by kernel, and a row
+    of its numbers."""
+    from repro_torch.configs.base import get_smoke_config
     from repro_torch.kernels import cuda_lib
     from repro_torch.models import forward_decode, forward_prefill, init_params
+    from repro_torch.models.io import make_batch
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.steps import build_decode_step, build_prefill_step
 
-    cfg = get_config(arch)
+    cfg = path_config(arch)
     want = {name: n for name, n in PATHS[arch].items() if n}
+    row = {"layers": cfg.n_layers}
     # ---- 3. prefill at full width ------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                         device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[prefill] {arch} full width: {n_params / 1e9:.3f} B params "
-          f"({n_params * 2 / 1e9:.2f} GB bf16), init "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[prefill] {arch} full width, {cfg.n_layers} layers: "
+          f"{n_params / 1e9:.3f} B params ({n_params * 2 / 1e9:.2f} GB bf16), "
+          f"init {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
-    tokens = torch.tensor(rng.integers(2, cfg.vocab_size, (B, S)),
-                          dtype=torch.int32, device=dev)
+    batch = make_batch(cfg, torch.Generator(device=dev).manual_seed(SEED), B, S)
+    n_pos = decode_start(cfg, batch)
     prefill = build_prefill_step(cfg)
-    prefill(model, {"tokens": tokens})            # warm-up
+    prefill(model, batch)                         # warm-up
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
 
     cuda_lib.launches.clear()                     # the main path starts here
     t0 = time.perf_counter()
-    next_tok, cache = prefill(model, {"tokens": tokens})
+    next_tok, cache = prefill(model, batch)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = {name: n for name, n in cuda_lib.launches.items() if n}
@@ -658,17 +762,23 @@ def serve_path(torch, np, dev, arch):
           "prefill next tokens")
     for j, kind in enumerate(cfg.layer_pattern):
         if kind in ("local", "global"):
-            L = min(cfg.window_size, S) if kind == "local" else S
+            L = min(cfg.window_size, n_pos) if kind == "local" else n_pos
             shape = (cfg.n_superblocks, B, L, cfg.n_kv_heads, cfg.head_dim)
             got = tuple(cache["blocks"][j]["k"].shape)
             check(got == shape, f"cache block {j} shape {got}, want {shape}")
+            if cfg.encoder_decoder:
+                shape = (cfg.n_superblocks, B, S, cfg.n_kv_heads, cfg.head_dim)
+                got = tuple(cache["blocks"][j]["ck"].shape)
+                check(got == shape, f"cross cache {j} shape {got}, want {shape}")
     check(len(cache["tail"]) == cfg.n_tail, "cache tail")
     check(all(bool(torch.isfinite(t).all()) for t in cache_leaves(cache)),
           "cache finite")
     peak_gb = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
-    print(f"[prefill] {arch} {B}x{S} tokens: {prefill_ms:.1f} ms "
-          f"({B * S / prefill_ms * 1e3:.0f} tok/s), launches "
-          f"{prefill_launches}, peak memory above the weights "
+    row.update(prefill_ms=prefill_ms, prefill_launches=prefill_launches,
+               n_params=n_params)
+    print(f"[prefill] {arch} {B}x{S} positions ({sorted(batch)}): "
+          f"{prefill_ms:.1f} ms ({B * S / prefill_ms * 1e3:.0f} positions/s), "
+          f"launches {prefill_launches}, peak memory above the weights "
           f"{peak_gb:.2f} GB")
 
     # ---- 4. decode from the prefill cache -----------------------------------
@@ -677,14 +787,15 @@ def serve_path(torch, np, dev, arch):
     step_ms = []
     for i in range(8):
         t0 = time.perf_counter()
-        tok, cache = decode(model, cache, tok, S + i)
+        tok, cache = decode(model, cache, tok, n_pos + i)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    logits, cache = forward_decode(model, cfg, cache, tok, S + 8)
+    logits, cache = forward_decode(model, cfg, cache, tok, n_pos + 8)
     torch.cuda.synchronize()
     check(logits.shape == (B, 1, cfg.vocab_size) and
           bool(torch.isfinite(logits).all()), "decode logits finite")
     med = float(np.median(step_ms))
+    row["decode_ms"] = med
     print(f"[decode] {arch} 8 steps at batch {B}: median {med:.2f} ms/step "
           f"({med / B:.3f} ms/token, {B / med * 1e3:.0f} tok/s); "
           f"steps ms {[round(t, 2) for t in step_ms]}")
@@ -709,60 +820,126 @@ def serve_path(torch, np, dev, arch):
     check(main_launches == prefill_launches,
           f"decode and engine launched kernels: {main_launches} after the "
           f"prefill's {prefill_launches}, want no more")
+    row["engine_tok_s"] = n_tok / eng_s
     print(f"[engine] {arch} {len(done)} requests, {n_tok} tokens in "
           f"{eng_s:.2f} s ({n_tok / eng_s:.1f} generated tok/s, prompts fed "
           f"token by token)")
     del eng
 
     # ---- 6. against the plain version -----------------------------------------
-    calls = []
-    restore = shadow_with_plain(torch, arch, calls) if arch in RECURRENT \
+    if arch not in SWAPPED:
+        kernel_logits, _ = forward_prefill(model, cfg, batch)
+        check(bool(torch.isfinite(kernel_logits).all()),
+              f"{arch} full-width logits finite")
+        print(f"[reference] {arch}: no kernel of the port lies on this path "
+              f"(prefix-LM attention is the plain path, as in the reference)")
+        del model, kernel_logits
+    else:
+        reference_full_width(torch, dev, arch, cfg, model, batch, want, row)
+        del model
+    row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"[reference] {arch}: peak memory of the phase "
+          f"{row['peak_gb']:.2f} GB")
+
+    small = get_smoke_config(arch)
+    if arch in MOE:
+        # in bf16 a near-tie in a router's top-k, moved by rounding, picks
+        # another expert for that token (tests/test_torch_moe.py): compare
+        # the two devices in f32, where the card's flash is its CUDA-core
+        # kernel and tf32 is off
+        small = dataclasses.replace(small, param_dtype="float32")
+    cpu_model = init_params(small, torch.Generator().manual_seed(SEED),
+                            device="cpu")
+    small_batch = make_batch(small, torch.Generator().manual_seed(SEED), 2, 64)
+    cl, ccache = forward_prefill(cpu_model, small, small_batch)
+    gl, gcache = forward_prefill(cpu_model.to(dev), small,
+                                 {k: v.to(dev) for k, v in small_batch.items()})
+    torch.cuda.synchronize()
+    small_err = (gl.float().cpu() - cl.float()).abs().max().item()
+    cache_err = max(rel_err(torch, g.cpu(), c)
+                    for g, c in zip(cache_leaves(gcache), cache_leaves(ccache)))
+    check(small_err <= MODEL_TOL and cache_err <= MODEL_TOL,
+          f"{arch} smoke config card vs cpu: logits {small_err}, cache "
+          f"{cache_err}")
+    print(f"[reference] {arch} smoke config ({small.param_dtype}), card "
+          f"(kernels) vs CPU (plain): logits max abs err {small_err:.3g}, "
+          f"cache relative error {cache_err:.3g} (tol {MODEL_TOL})")
+    return main_launches, row
+
+
+def reference_full_width(torch, dev, arch, cfg, model, batch, want, row):
+    """Phase 6 at full width: the prefill with the path's kernel against the
+    same with its plain version.  The recurrent and MoE paths also hold each
+    kernel call of the bf16 prefill against its plain version on the same
+    inputs; the MoE paths count the routes that differ between the two runs
+    and, where any does, gate the logits with f32 weights (a random bf16
+    stack amplifies rounding, and a router's near-tie picks another expert
+    for a token)."""
+    from repro_torch.models import forward_prefill, init_params
+    kernel = SWAPPED[arch]
+    calls, routes = [], {"kernel": [], "plain": []}
+    shadow = arch in RECURRENT or arch in MOE
+    restore = shadow_with_plain(torch, arch, calls) if shadow \
         else (lambda: None)
     try:
-        kernel_logits, _ = forward_prefill(model, cfg, {"tokens": tokens})
+        with recorded_routes(routes["kernel"]):
+            kernel_logits, _ = forward_prefill(model, cfg, batch)
     finally:
         restore()
-    if arch in RECURRENT:
-        tol = recurrent_kernel(arch)[3]
+    if shadow:
+        tol = TOL["bfloat16"] if kernel == "flash_attention" \
+            else recurrent_kernel(arch)[3]
         n_out = 2 if arch == "rwkv6-7b" else 1          # wkv6 also has S_last
-        check(len(calls) == want[SWAPPED[arch]] * n_out,
+        check(len(calls) == want[kernel] * n_out,
               f"{arch}: {len(calls)} kernel outputs compared")
         worst = max(e for e, _ in calls)
         check(max(x for _, x in calls) <= tol,
               f"{arch} full width, kernel vs plain on the same inputs, call "
               f"by call: max abs err {worst}")
-        print(f"[reference] {arch} full width, each of the "
-              f"{want[SWAPPED[arch]]} {SWAPPED[arch]} calls of a prefill "
-              f"against its plain version on the same inputs: max abs err "
-              f"{worst:.3g} (allclose tol {tol})")
+        row["calls_max_abs_err"] = worst
+        print(f"[reference] {arch} full width, each of the {want[kernel]} "
+              f"{kernel} calls of a prefill against its plain version on the "
+              f"same inputs: max abs err {worst:.3g} (allclose tol {tol})")
     restore = swap_for_plain(arch)
     try:
-        forward_prefill(model, cfg, {"tokens": tokens})        # warm-up
+        forward_prefill(model, cfg, batch)                     # warm-up
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        plain_logits, _ = forward_prefill(model, cfg, {"tokens": tokens})
-        torch.cuda.synchronize()
-        plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+        routes["plain"].clear()
+        with recorded_routes(routes["plain"]):
+            t0 = time.perf_counter()
+            plain_logits, _ = forward_prefill(model, cfg, batch)
+            torch.cuda.synchronize()
+            plain_prefill_ms = (time.perf_counter() - t0) * 1e3
     finally:
         restore()
     full_err = rel_err(torch, kernel_logits, plain_logits)
     check(bool(torch.isfinite(kernel_logits).all()),
           f"{arch} full-width logits finite")
+    flips = differing_routes(routes["kernel"], routes["plain"])
     # a random recurrent stack in bf16 amplifies the kernel's and the plain
     # version's f32 rounding differences layer by layer (rwkv6-7b: 0.59 after
-    # 32 layers), so the recurrent paths compare their logits in f32 below
-    check(arch in RECURRENT or full_err <= MODEL_TOL,
+    # 32 layers), so the recurrent paths compare their logits in f32 below;
+    # so do the MoE paths where a route differs
+    gate_f32 = arch in RECURRENT or flips > 0
+    check(gate_f32 or full_err <= MODEL_TOL,
           f"{arch} full-width logits, kernel vs plain: relative error "
           f"{full_err}")
-    checked = "bf16, not checked" if arch in RECURRENT else f"tol {MODEL_TOL}"
-    print(f"[reference] {arch} full width, kernel vs plain {SWAPPED[arch]}: "
+    checked = "bf16, not checked" if gate_f32 else f"tol {MODEL_TOL}"
+    row.update(bf16_logits_rel_err=full_err,
+               plain_prefill_ms=plain_prefill_ms)
+    if arch in MOE:
+        rows = sum(r.shape[0] for r in routes["kernel"])
+        row.update(differing_routes=flips, routes=rows)
+        print(f"[reference] {arch} full width in bf16, kernel vs plain "
+              f"{kernel}: {flips} of {rows} (layer, token) routes differ")
+    print(f"[reference] {arch} full width, kernel vs plain {kernel}: "
           f"logits relative error {full_err:.3g} ({checked}); prefill with "
-          f"the plain version {plain_prefill_ms:.1f} ms vs {prefill_ms:.1f} ms")
-    if "flash_attention" in want and SWAPPED[arch] != "flash_attention":
+          f"the plain version {plain_prefill_ms:.1f} ms vs "
+          f"{row['prefill_ms']:.1f} ms")
+    if "flash_attention" in want and kernel != "flash_attention":
         restore = swap_for_plain(arch, "flash_attention")
         try:
-            flash_plain_logits, _ = forward_prefill(model, cfg,
-                                                    {"tokens": tokens})
+            flash_plain_logits, _ = forward_prefill(model, cfg, batch)
         finally:
             restore()
         flash_err = rel_err(torch, kernel_logits, flash_plain_logits)
@@ -772,46 +949,139 @@ def serve_path(torch, np, dev, arch):
               f"flash_attention: logits relative error {flash_err:.3g} (tol "
               f"{MODEL_TOL})")
         del flash_plain_logits
-    del model, kernel_logits, plain_logits
-    if arch in RECURRENT:
-        torch.cuda.empty_cache()
-        cfg32 = dataclasses.replace(cfg, param_dtype="float32")
-        model = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED),
-                            device=dev)
-        kernel_logits, _ = forward_prefill(model, cfg32, {"tokens": tokens})
-        restore = swap_for_plain(arch)
-        try:
-            plain_logits, _ = forward_prefill(model, cfg32, {"tokens": tokens})
-        finally:
-            restore()
-        f32_err = rel_err(torch, kernel_logits, plain_logits)
-        check(bool(torch.isfinite(kernel_logits).all()) and f32_err <= MODEL_TOL,
-              f"{arch} full-width f32 logits, kernel vs plain: relative error "
-              f"{f32_err}")
-        print(f"[reference] {arch} full width with f32 weights, kernel vs "
-              f"plain {SWAPPED[arch]}: logits relative error {f32_err:.3g} "
-              f"(tol {MODEL_TOL})")
-        del model, kernel_logits, plain_logits
+    del kernel_logits, plain_logits
+    if not gate_f32:
+        row["gate"] = "bf16 logits"
+        return
+    model.to("meta")             # free the bf16 weights before the f32 ones
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    if arch in F32_DEPTH:
+        cfg32 = dataclasses.replace(cfg32, n_layers=F32_DEPTH[arch])
+    model32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev)
+    routes = {"kernel": [], "plain": []}
+    with recorded_routes(routes["kernel"]):
+        kernel_logits, _ = forward_prefill(model32, cfg32, batch)
+    restore = swap_for_plain(arch)
+    try:
+        with recorded_routes(routes["plain"]):
+            plain_logits, _ = forward_prefill(model32, cfg32, batch)
+    finally:
+        restore()
+    f32_err = rel_err(torch, kernel_logits, plain_logits)
+    check(bool(torch.isfinite(kernel_logits).all()) and f32_err <= MODEL_TOL,
+          f"{arch} full-width f32 logits, kernel vs plain: relative error "
+          f"{f32_err}")
+    row.update(gate=f"f32 weights, {cfg32.n_layers} layers",
+               f32_logits_rel_err=f32_err)
+    if arch in MOE:
+        row["f32_differing_routes"] = differing_routes(routes["kernel"],
+                                                       routes["plain"])
+        print(f"[reference] {arch} with f32 weights: "
+              f"{row['f32_differing_routes']} (layer, token) routes differ")
+    print(f"[reference] {arch} full width with f32 weights "
+          f"({cfg32.n_layers} layers), kernel vs plain {kernel}: logits "
+          f"relative error {f32_err:.3g} (tol {MODEL_TOL}); branch taken: "
+          f"{row['gate']}")
+    del model32, kernel_logits, plain_logits
 
-    small = get_smoke_config(arch)
+
+def kv_quant_path(torch, np, dev):
+    """gemma3-1b at full width with the int8 KV cache (``kv_quant=True``)
+    beside the bf16 cache, on the same weights and prompts: the prefill's
+    launches, 8 decode steps from each cache (teacher-forced with the bf16
+    run's tokens, each step timed), the int8 run's logits within the
+    reference's bound of the bf16 run's (tests/test_smoke_archs.py::
+    test_kv_quant_decode_parity); then the smoke config's prefill and 8
+    decode steps with the int8 cache, card vs CPU.  Returns the launches of
+    the int8 run and a row of its numbers."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import forward_decode, forward_prefill, init_params
+    from repro_torch.models.io import make_batch
+
+    arch = "gemma3-1b"
+    cfg = path_config(arch)
+    cfgq = dataclasses.replace(cfg, kv_quant=True)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    batch = make_batch(cfg, torch.Generator(device=dev).manual_seed(SEED), B, S)
+    runs, toks, launches = {}, [], {}
+    for name, c in (("bf16", cfg), ("int8", cfgq)):
+        forward_prefill(model, c, batch)                   # warm-up
+        torch.cuda.synchronize()
+        cuda_lib.launches.clear()
+        logits, cache = forward_prefill(model, c, batch)
+        launches[name] = {k: n for k, n in cuda_lib.launches.items() if n}
+        check(launches[name] == {k: n for k, n in PATHS[arch].items() if n},
+              f"{arch} {name} cache prefill launched {launches[name]}")
+        entry = cache["blocks"][0]
+        if name == "int8":
+            check(entry["k"].dtype == torch.int8 and
+                  entry["ksc"].dtype == torch.float32,
+                  f"int8 cache leaves {[(k, t.dtype) for k, t in entry.items()]}")
+        cache_mb = sum(t.numel() * t.element_size()
+                       for t in cache_leaves(cache)) / 1e6
+        out, step_ms = [logits.float()], []
+        for i in range(8):
+            if name == "bf16":
+                toks.append(torch.argmax(out[-1][:, -1], dim=-1)[:, None]
+                            .to(torch.int32))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = forward_decode(model, c, cache, toks[i], S + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits.float())
+        runs[name] = {"logits": out, "decode_ms": float(np.median(step_ms)),
+                      "cache_mb": cache_mb}
+        del cache
+    err = max((a - b).abs().max().item()
+              for a, b in zip(runs["int8"]["logits"], runs["bf16"]["logits"]))
+    check(err < KV_QUANT_BOUND and all(bool(torch.isfinite(t).all())
+                                       for t in runs["int8"]["logits"]),
+          f"{arch} int8 cache vs bf16 cache: logits max abs {err}")
+    row = {"int8_vs_bf16_logits_max_abs": err,
+           **{f"{n}_decode_ms": r["decode_ms"] for n, r in runs.items()},
+           **{f"{n}_cache_mb": r["cache_mb"] for n, r in runs.items()}}
+    print(f"[kv_quant] {arch} full width, 8 decode steps at batch {B} after a "
+          f"{B}x{S} prefill: median {runs['int8']['decode_ms']:.2f} ms/step "
+          f"with the int8 cache ({runs['int8']['cache_mb']:.1f} MB) vs "
+          f"{runs['bf16']['decode_ms']:.2f} ms/step with the bf16 cache "
+          f"({runs['bf16']['cache_mb']:.1f} MB); logits max abs diff {err:.3g} "
+          f"(bound {KV_QUANT_BOUND})")
+    del model, runs
+
+    small = dataclasses.replace(get_smoke_config(arch), kv_quant=True)
     cpu_model = init_params(small, torch.Generator().manual_seed(SEED),
                             device="cpu")
-    small_tok = torch.tensor(rng.integers(2, small.vocab_size, (2, 64)),
-                             dtype=torch.int32)
-    cl, ccache = forward_prefill(cpu_model, small, {"tokens": small_tok})
-    gl, gcache = forward_prefill(cpu_model.to(dev), small,
-                                 {"tokens": small_tok.to(dev)})
-    torch.cuda.synchronize()
-    small_err = (gl.float().cpu() - cl.float()).abs().max().item()
-    cache_err = max(rel_err(torch, g.cpu(), c)
-                    for g, c in zip(cache_leaves(gcache), cache_leaves(ccache)))
+    small_batch = make_batch(small, torch.Generator().manual_seed(SEED), 2, 64)
+    nxt = torch.randint(2, small.vocab_size, (8, 2, 1), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(SEED))
+    got = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        m = cpu_model.to(d)                     # the CPU run first, then moved
+        logits, cache = forward_prefill(
+            m, small, {k: v.to(d) for k, v in small_batch.items()})
+        out = [logits]
+        for i in range(8):
+            logits, cache = forward_decode(m, small, cache, nxt[i].to(d), 64 + i)
+            out.append(logits)
+        got[where] = ([t.float().cpu() for t in out],
+                      [t.cpu() for t in cache_leaves(cache)])
+    small_err = max((a - b).abs().max().item()
+                    for a, b in zip(got["card"][0], got["cpu"][0]))
+    cache_err = max(rel_err(torch, a, b)
+                    for a, b in zip(got["card"][1], got["cpu"][1]))
     check(small_err <= MODEL_TOL and cache_err <= MODEL_TOL,
-          f"{arch} smoke config card vs cpu: logits {small_err}, cache "
-          f"{cache_err}")
-    print(f"[reference] {arch} smoke config, card (kernels) vs CPU (plain): "
-          f"logits max abs err {small_err:.3g}, cache relative error "
-          f"{cache_err:.3g} (tol {MODEL_TOL})")
-    return main_launches
+          f"{arch} int8 cache smoke config card vs cpu: logits {small_err}, "
+          f"cache {cache_err}")
+    row.update(smoke_logits_max_abs_err=small_err, smoke_cache_rel_err=cache_err)
+    print(f"[kv_quant] {arch} smoke config with the int8 cache, prefill and 8 "
+          f"decode steps, card vs CPU: logits max abs err {small_err:.3g}, "
+          f"cache relative error {cache_err:.3g} (tol {MODEL_TOL})")
+    return launches["int8"], row
 
 
 # ---------------------------------------------------------------------------
@@ -1611,9 +1881,14 @@ def main() -> int:
 
     # ---- 3-6. the serving paths, one model at a time ---------------------
     launches = {}
+    serving = {}
     for arch in PATHS:
-        launches[arch] = serve_path(torch, np, dev, arch)
+        launches[arch], serving[arch] = serve_path(torch, np, dev, arch)
         torch.cuda.empty_cache()
+    launches["gemma3-1b kv_quant"], serving["gemma3-1b kv_quant"] = \
+        kv_quant_path(torch, np, dev)
+    torch.cuda.empty_cache()
+    print(json.dumps({"serving": serving}))
 
     # ---- 7. the Databelt workflow path -----------------------------------
     print(json.dumps({"workflow": workflow_path(torch, dev)}))
@@ -1628,7 +1903,8 @@ def main() -> int:
     print(json.dumps({"train": train_out}))
 
     def path_launches(name):
-        by_path = {arch: n[name] for arch, n in launches.items() if name in n}
+        by_path = {arch: n.get(name, 0) for arch, n in launches.items()
+                   if name in n or name in PATHS.get(arch, ())}
         return sum(by_path.values()), by_path
 
     g = flash_rows["global"]
@@ -1654,8 +1930,7 @@ def main() -> int:
         "shape": g["shape"], "earlier_design": {
             **g["earlier_design"], "source":
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"},
-        "local": flash_rows["local"],
-        "recurrentgemma_local": flash_rows["recurrentgemma_local"],
+        **{label: r for label, r in flash_rows.items() if label != "global"},
         "train_shape": train_out["flash_train_shape"],
         "sweep_max_abs_err": flash_sweep,
         "grad_sweep_max_abs_err": {

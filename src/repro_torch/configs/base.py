@@ -2,9 +2,9 @@
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``ModelConfig`` keeps every field of the reference so that the two dataclasses
-match; the port gives behaviour to the attention and recurrent (RG-LRU,
-RWKV-6) fields so far (MoE and encoder-decoder fields are carried but not
-acted on).
+match.  ``ShapeConfig`` and ``LM_SHAPES`` are the reference's input shapes,
+which ``models.io`` takes.  The registry holds all ten of the reference's
+architectures.
 
 Layer stacking: ``layer_pattern`` is the repeating unit of layer kinds (e.g.
 ``("local",)*5 + ("global",)`` for gemma3).  The reference scans over
@@ -123,6 +123,26 @@ class ModelConfig:
         return kinds
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                 # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+LM_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -179,9 +199,10 @@ def list_archs() -> list:
     return sorted(_REGISTRY)
 
 
-# The architectures ported so far, in port order.
+# The architectures, in port order.
 _ARCH_MODULES = ["gemma3_1b", "internlm2_20b", "h2o_danube_1_8b", "gemma2_9b",
-                 "recurrentgemma_2b", "rwkv6_7b"]
+                 "recurrentgemma_2b", "rwkv6_7b", "qwen3_moe_235b_a22b",
+                 "arctic_480b", "whisper_small", "paligemma_3b"]
 
 
 def _load_all():

@@ -3,11 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.profile [--arch gemma3-1b]
         [--batch 4] [--seq 1024] [--iters 5]
 
-(``--arch`` takes any ported architecture: gemma3-1b, recurrentgemma-2b,
-rwkv6-7b ...)
+(``--arch`` takes any of the ten architectures: gemma3-1b,
+recurrentgemma-2b, rwkv6-7b, qwen3-moe-235b-a22b ...; ``--layers`` cuts the
+depth, for the MoE configs whose full depth does not fit one card)
 
-Builds the full-width model (random weights from a seeded torch.Generator)
-and, for the prefill step and the decode step, prints: the host-clock time
+Builds the full-width model (random weights from a seeded torch.Generator),
+takes its prefill batch from ``models.io.make_batch`` (whisper: ``--seq``
+frames and ``--seq // 4`` decoder tokens; paligemma: 256 patches and the
+rest tokens) and, for the prefill step and the decode step right after it,
+prints: the host-clock time
 of a call without the profiler (synchronized), the device time of a call
 (the sum of its kernels' times in a ``torch.profiler`` trace; kernels run on
 one stream and do not overlap), the device's idle share (1 - device/host),
@@ -16,15 +20,16 @@ the device time by kind of kernel, and the kernels that took the most.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
-import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.base import get_config, list_archs
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
+from repro_torch.models.io import make_batch
 from repro_torch.serving.steps import build_decode_step, build_prefill_step
 
 # kernel-name fragments -> kind, first match wins
@@ -85,6 +90,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: full depth)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
@@ -92,18 +99,19 @@ def main(argv=None):
         raise RuntimeError("profiling measures the card; it needs cuda")
 
     cfg = get_config(args.arch)
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                        device=dev)
-    tokens = torch.tensor(np.random.default_rng(0).integers(
-        2, cfg.vocab_size, (args.batch, args.seq)), dtype=torch.int32,
-        device=dev)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = init_params(cfg, gen, device=dev)
+    batch = make_batch(cfg, gen, args.batch, args.seq)
+    pos = args.seq // cfg.dec_len_ratio if cfg.encoder_decoder else args.seq
     prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
-    nxt, cache = prefill(model, {"tokens": tokens})
+    nxt, cache = prefill(model, batch)
     tok = nxt[:, None]
-    measure(f"prefill {args.batch}x{args.seq}",
-            lambda: prefill(model, {"tokens": tokens}), args.iters)
+    measure(f"prefill {args.batch}x{args.seq}", lambda: prefill(model, batch),
+            args.iters)
     measure(f"decode batch {args.batch}",
-            lambda: decode(model, cache, tok, args.seq), args.iters)
+            lambda: decode(model, cache, tok, pos), args.iters)
 
 
 if __name__ == "__main__":

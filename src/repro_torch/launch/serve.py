@@ -1,11 +1,14 @@
 """Serving launcher: ``PYTHONPATH=src python -m repro_torch.launch.serve
---arch <id> [--requests N] [--slots K] [--full] [--device cuda|cpu]`` —
-continuous-batching engine over the reduced config, or over the full config
-with ``--full``.  Weights are random, drawn from a seeded torch.Generator.
+--arch <id> [--requests N] [--slots K] [--full [--layers L]]
+[--device cuda|cpu]`` — continuous-batching engine over the reduced config,
+or over the full config with ``--full`` (``--layers`` cuts its depth: the
+MoE configs at full depth do not fit one card).  Weights are random, drawn
+from a seeded torch.Generator.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -25,11 +28,15 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--full", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="with --full, this many layers (0: full depth)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    if args.full and args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(0)
     model = init_params(cfg, gen, device=device)
     eng = ServingEngine(cfg, model, n_slots=args.slots, max_len=args.max_len,

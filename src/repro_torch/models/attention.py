@@ -1,12 +1,18 @@
-"""GQA attention: the full-sequence path (prefill) and the decode path.
+"""GQA attention: the full-sequence path (prefill, encoder, cross-attention)
+and the decode path.
 
-Port of the main-path part of ``repro.models.attention``: causal and
-sliding-window masks, logit softcap, qk-norm, the local/global rope theta,
-the decode path over a plain or ring KV cache.  Not ported yet: the int8 KV
-cache (``kv_quant``), cross-attention and the prefix/bidirectional masks.
+Port of ``repro.models.attention``: causal, sliding-window, prefix-LM
+(paligemma) and bidirectional (whisper's encoder) masks, logit softcap,
+qk-norm, the local/global rope theta (no rope on encoder-decoder configs),
+cross-attention (``kv_override`` in ``attention_seq``, ``cross=True`` in
+``attention_decode`` over the ``ck``/``cv`` caches), and the decode path
+over a plain, ring or int8 (``cfg.kv_quant``: per-(token, head) absmax
+scales ``ksc``/``vsc``) KV cache.
 
 ``attention_seq`` hands causal attention to the hook set by
-``set_attention_impl``.  By default the hook is the flash attention wrapper
+``set_attention_impl``, as the reference does, and only causal attention:
+prefix and bidirectional masks and cross-attention run the plain ``_sdpa``
+in both packages.  By default the hook is the flash attention wrapper
 (``repro_torch.kernels``): on a CUDA tensor it runs the hand-written kernel,
 on a CPU tensor its plain version.  With the hook cleared, ``_sdpa`` is the
 plain path; it keeps the reference's cast of the probabilities to
@@ -48,7 +54,9 @@ class Attention(ParamModule):
 
 
 def init_attention(cfg: ModelConfig, generator: torch.Generator,
-                   device) -> Attention:
+                   device, cross: bool = False) -> Attention:
+    """Self-attention, or with ``cross`` the cross-attention of an
+    encoder-decoder's decoder (no qk-norm)."""
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = pdtype(cfg)
     p = {
@@ -57,7 +65,7 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
         "wv": normal(generator, (d, k * hd), d ** -0.5, dt, device),
         "wo": normal(generator, (h * hd, d), (h * hd) ** -0.5, dt, device),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = init_norm(hd, device)
         p["k_norm"] = init_norm(hd, device)
     return Attention(p)
@@ -72,14 +80,19 @@ def _theta(cfg: ModelConfig, kind: str) -> float:
 # ---------------------------------------------------------------------------
 # masking: mask(q_pos, kv_pos) -> bool allow
 # ---------------------------------------------------------------------------
-def make_mask_fn(mode: str = "causal", window: int = 0):
-    if mode != "causal":
-        raise NotImplementedError(f"mask mode {mode!r} is not ported yet")
-
+def make_mask_fn(mode: str = "causal", window: int = 0, prefix_len: int = 0):
+    """``mode``: ``"bidir"`` (every pair), ``"prefix"`` (causal, and every
+    query sees the first ``prefix_len`` positions), else causal."""
     def fn(q_pos, kv_pos):
         q = q_pos[:, None]
         kv = kv_pos[None, :]
-        allow = kv <= q
+        if mode == "bidir":
+            allow = torch.ones(torch.broadcast_shapes(q.shape, kv.shape),
+                               dtype=torch.bool, device=q.device)
+        elif mode == "prefix":
+            allow = (kv <= q) | (kv < prefix_len)
+        else:  # causal
+            allow = kv <= q
         if window:
             allow &= kv > q - window
         allow &= kv >= 0
@@ -114,9 +127,18 @@ def plain_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
 # ---------------------------------------------------------------------------
 # full-sequence attention (prefill)
 # ---------------------------------------------------------------------------
+def _first_row(pos):
+    return pos[0] if pos.dim() > 1 else pos
+
+
 def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
-                  mask_mode: str = "causal"):
-    """x: (B,S,D) -> (B,S,D); also returns (k, v) for cache building."""
+                  mask_mode: str = "causal", prefix_len: int = 0,
+                  kv_override=None):
+    """x: (B,S,D) -> (B,S,D); also returns (k, v) for cache building.
+
+    ``kv_override=(k_src, kv_positions)`` switches to cross-attention
+    (whisper's decoder): K/V are projected from the encoder output.
+    """
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
@@ -124,13 +146,16 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
     theta = _theta(cfg, kind)
 
     q = (x @ p.wq).reshape(B, S, H, hd)
-    k = (x @ p.wk).reshape(B, S, K, hd)
-    v = (x @ p.wv).reshape(B, S, K, hd)
+    kv_src, kv_pos = (x, positions) if kv_override is None else kv_override
+    Skv = kv_src.shape[1]
+    k = (kv_src @ p.wk).reshape(B, Skv, K, hd)
+    v = (kv_src @ p.wv).reshape(B, Skv, K, hd)
     if hasattr(p, "q_norm"):
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    q = rope(q, positions, theta)
-    k = rope(k, positions, theta)
+    if not cfg.encoder_decoder:
+        q = rope(q, positions, theta)
+        k = rope(k, kv_pos, theta)
 
     q = q.reshape(B, S, K, G, hd)
     scale = hd ** -0.5
@@ -138,8 +163,8 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
         o = _ATTN_IMPL(q, k, v, window=window, softcap=cfg.attn_logit_softcap,
                        scale=scale)
     else:
-        pos = positions[0] if positions.dim() > 1 else positions
-        mask = make_mask_fn(mask_mode, window)(pos, pos)
+        mask = make_mask_fn(mask_mode, window, prefix_len)(
+            _first_row(positions), _first_row(kv_pos))
         o = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, scale)
     o = o.reshape(B, S, H * hd)
     return o @ p.wo, (k, v)
@@ -149,19 +174,51 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
 # decode (single new token against a cache)
 # ---------------------------------------------------------------------------
 def init_attn_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
-                    dtype=torch.bfloat16, device="cuda") -> dict:
+                    dtype=torch.bfloat16, device="cuda",
+                    cross_len: int = 0) -> dict:
+    """Zero caches: ``ck``/``cv`` of ``cross_len`` encoder positions with
+    ``cross_len``; else ``k``/``v`` (a ring of the window on local layers),
+    int8 with f32 scales ``ksc``/``vsc`` under ``cfg.kv_quant``."""
     K, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+    if cross_len:
+        return {"ck": zeros((batch, cross_len, K, hd), dtype),
+                "cv": zeros((batch, cross_len, K, hd), dtype)}
     L = min(cfg.window_size, seq_len) if kind == ATTN_LOCAL else seq_len
-    return {"k": torch.zeros((batch, L, K, hd), dtype=dtype, device=device),
-            "v": torch.zeros((batch, L, K, hd), dtype=dtype, device=device)}
+    if cfg.kv_quant:
+        return {"k": zeros((batch, L, K, hd), torch.int8),
+                "v": zeros((batch, L, K, hd), torch.int8),
+                "ksc": zeros((batch, L, K), torch.float32),
+                "vsc": zeros((batch, L, K), torch.float32)}
+    return {"k": zeros((batch, L, K, hd), dtype),
+            "v": zeros((batch, L, K, hd), dtype)}
+
+
+def _kv_quantize(t):
+    """(B,S,K,hd) -> int8 values + (B,S,K) f32 scales.  ``torch.round``
+    rounds half to even, as ``jnp.round`` does, and the division is the
+    reference's f32 one, so the int8 values are the reference's."""
+    t = t.float()
+    sc = torch.clamp(t.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(t / sc[..., None]), -127, 127).to(torch.int8)
+    return q, sc
+
+
+def _kv_dequantize(q, sc, dtype=torch.bfloat16):
+    return (q.float() * sc[..., None]).to(dtype)
 
 
 def attention_decode(p: Attention, x, cfg: ModelConfig, kind: str,
-                     cache: dict, pos: int):
-    """x: (B,1,D); cache holds K/V; pos: the current position.
+                     cache: dict, pos: int, prefix_len: int = 0,
+                     cross: bool = False):
+    """x: (B,1,D); cache holds K/V (or, with ``cross``, the encoder's
+    ``ck``/``cv``); pos: the current position.
 
     Writes the new token's K/V into ``cache`` in place (the reference returns
-    an updated copy) and returns (out (B,1,D), cache).
+    an updated copy) and returns (out (B,1,D), cache).  A cross-attention
+    call writes nothing.
     """
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -170,14 +227,24 @@ def attention_decode(p: Attention, x, cfg: ModelConfig, kind: str,
     scale = hd ** -0.5
 
     q = (x @ p.wq).reshape(B, 1, H, hd)
-    kn = (x @ p.wk).reshape(B, 1, K, hd)
-    vn = (x @ p.wv).reshape(B, 1, K, hd)
     if hasattr(p, "q_norm"):
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
+    if cross:
+        k, v = cache["ck"], cache["cv"]
+        s = torch.einsum("bskgd,btkd->bkgst",
+                         q.reshape(B, 1, K, G, hd).float(), k.float()) * scale
+        a = torch.softmax(s, dim=-1).to(v.dtype)
+        o = torch.einsum("bkgst,btkd->bskgd", a, v).reshape(B, 1, H * hd)
+        return o @ p.wo, cache
+
+    kn = (x @ p.wk).reshape(B, 1, K, hd)
+    vn = (x @ p.wv).reshape(B, 1, K, hd)
+    if hasattr(p, "k_norm"):
         kn = rms_norm(kn, p.k_norm, cfg.norm_eps)
-    posv = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
-    q = rope(q, posv, theta)
-    kn = rope(kn, posv, theta)
+    if not cfg.encoder_decoder:
+        posv = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+        q = rope(q, posv, theta)
+        kn = rope(kn, posv, theta)
 
     L = cache["k"].shape[1]
     ring = kind == ATTN_LOCAL and cfg.window_size and L <= cfg.window_size
@@ -185,9 +252,17 @@ def attention_decode(p: Attention, x, cfg: ModelConfig, kind: str,
     # start index into range: decoding at pos >= L on a plain cache (right
     # after a prefill of L tokens) overwrites the last slot.  Mirror that.
     idx = pos % L if ring else min(max(pos, 0), L - 1)
-    cache["k"][:, idx] = kn[:, 0]
-    cache["v"][:, idx] = vn[:, 0]
-    k, v = cache["k"], cache["v"]
+    if "ksc" in cache:
+        for name, t in (("k", kn), ("v", vn)):
+            tq, tsc = _kv_quantize(t)
+            cache[name][:, idx] = tq[:, 0]
+            cache[name + "sc"][:, idx] = tsc[:, 0]
+        k = _kv_dequantize(cache["k"], cache["ksc"], x.dtype)
+        v = _kv_dequantize(cache["v"], cache["vsc"], x.dtype)
+    else:
+        cache["k"][:, idx] = kn[:, 0]
+        cache["v"][:, idx] = vn[:, 0]
+        k, v = cache["k"], cache["v"]
 
     slot = torch.arange(L, device=x.device)
     if ring:
@@ -198,6 +273,8 @@ def attention_decode(p: Attention, x, cfg: ModelConfig, kind: str,
         allow = kv_pos <= pos
         if kind == ATTN_LOCAL:
             allow &= kv_pos > pos - cfg.window_size
+        if prefix_len:
+            allow |= kv_pos < prefix_len
 
     s = torch.einsum("bskgd,btkd->bkgst", q.reshape(B, 1, K, G, hd).float(),
                      k.float()) * scale
@@ -209,7 +286,7 @@ def attention_decode(p: Attention, x, cfg: ModelConfig, kind: str,
     return o @ p.wo, cache
 
 
-def build_ring_cache(k_full, v_full, window: int) -> dict:
+def build_ring_cache(k_full, v_full, window: int, quant: bool = False) -> dict:
     """Convert full prefill K/V (B,S,K,hd) into the decode ring layout."""
     S = k_full.shape[1]
     if S > window:
@@ -218,8 +295,12 @@ def build_ring_cache(k_full, v_full, window: int) -> dict:
         pos = (S - 1) - torch.remainder(idx - slot, window)
         k_full = k_full.index_select(1, pos)
         v_full = v_full.index_select(1, pos)
-    return pack_kv(k_full, v_full)
+    return pack_kv(k_full, v_full, quant)
 
 
-def pack_kv(k, v) -> dict:
-    return {"k": k, "v": v}
+def pack_kv(k, v, quant: bool = False) -> dict:
+    if not quant:
+        return {"k": k, "v": v}
+    kq, ks = _kv_quantize(k)
+    vq, vs = _kv_quantize(v)
+    return {"k": kq, "v": vq, "ksc": ks, "vsc": vs}

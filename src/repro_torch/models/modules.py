@@ -7,6 +7,7 @@ imported from the reference (``models.weights``) build the same modules.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -88,6 +89,17 @@ def rope(x, positions, theta: float):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos_emb(seq_len: int, d: int, dtype=torch.float32,
+                       device="cpu") -> torch.Tensor:
+    """(seq_len, d) sin | cos table, computed in numpy float64 and then
+    cast, as the reference computes it."""
+    pos = np.arange(seq_len)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10_000.0, 2 * i / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb).to(device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,25 @@
 """Model assembly: embeddings, the layer stack, the head.
 
-Port of ``repro.models.transformer`` for attention layers (``global`` and
-``local``) with a dense MLP, Griffin RG-LRU layers (``rglru``: recurrent
-block + MLP) and RWKV-6 layers (``rwkv``: time-mix + channel-mix).  The
-reference scans ``lax.scan`` over superblocks of ``cfg.layer_pattern`` and
-then runs the tail; the port keeps one ``Layer`` module per layer in the same
-order and walks them in a loop.
+Port of ``repro.models.transformer`` for all ten of the reference's
+architectures: attention layers (``global`` and ``local``) with a dense MLP
+or a mixture of experts (``models.moe``), Griffin RG-LRU layers (``rglru``:
+recurrent block + MLP), RWKV-6 layers (``rwkv``: time-mix + channel-mix),
+whisper's encoder-decoder (a bidirectional encoder over precomputed frame
+embeddings through ``frontend_proj``, and decoder layers with
+cross-attention, ``ln_x`` and ``xattn``; sinusoidal positions, no rope) and
+paligemma's vision prefix (precomputed patch embeddings through
+``frontend_proj``, prepended under a prefix-LM mask).  The reference scans
+``lax.scan`` over superblocks of ``cfg.layer_pattern`` and then runs the
+tail; the port keeps one ``Layer`` module per layer in the same order and
+walks them in a loop.
 
 The cache keeps the reference's layout, so that both frameworks hand back
 the same structure: ``{"blocks": tuple over pattern positions of the
 layer's entry with a leading superblock axis R, "tail": tuple of entries}``,
-where an attention entry is ``{"k", "v"}``, an RG-LRU entry ``{"h",
-"conv"}`` and an RWKV entry ``{"state", "tm_x", "cm_x"}``.
+where an attention entry is ``{"k", "v"}`` (int8 ``k``, ``v`` with f32
+``ksc``, ``vsc`` under ``cfg.kv_quant``; with the encoder's ``ck``, ``cv``
+on an encoder-decoder), an RG-LRU entry ``{"h", "conv"}`` and an RWKV entry
+``{"state", "tm_x", "cm_x"}``.
 
 ``forward_train`` runs the same layers without building caches and checkpoints
 each superblock of ``cfg.layer_pattern`` as the reference's ``_remat_wrap``
@@ -26,6 +34,9 @@ Entry points:
     forward_prefill(model, cfg, batch)             -> (logits, cache)
     forward_decode(model, cfg, cache, tokens, pos) -> (logits, cache)
     init_cache(cfg, batch, seq_len, dtype, device) -> cache
+
+``batch`` is the reference's (``models.io.make_batch``): ``tokens``, and
+``frames`` (whisper) or ``patches`` (paligemma).
 """
 from __future__ import annotations
 
@@ -41,17 +52,21 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV,
                                       ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.modules import (ParamModule, init_mlp, init_norm, mlp,
-                                        normal, pdtype, rms_norm)
+                                        normal, pdtype, rms_norm,
+                                        sinusoidal_pos_emb)
 
 
 class Layer(ParamModule):
     """One layer: norms ``ln1``, ``ln2`` (and ``post_ln1``, ``post_ln2`` on
-    attention layers with post-norms) as parameters, and by kind the
-    reference's sub-blocks: ``attn`` and ``mlp`` (attention), ``rec`` and
-    ``mlp`` (RG-LRU), ``tm`` and ``cm`` (RWKV)."""
+    attention layers with post-norms, ``ln_x`` on decoder layers with
+    cross-attention) as parameters, and by kind the reference's sub-blocks:
+    ``attn`` and ``mlp`` or ``moe`` (attention; ``xattn`` with
+    cross-attention), ``rec`` and ``mlp`` (RG-LRU), ``tm`` and ``cm``
+    (RWKV)."""
 
     def __init__(self, kind: str, norms: dict, blocks: dict):
         super().__init__(norms)
@@ -61,28 +76,29 @@ class Layer(ParamModule):
 
 
 class Transformer(ParamModule):
-    """``embed``, ``final_norm`` (and ``lm_head`` when untied) and the
-    layers, in order."""
+    """``embed``, ``final_norm`` (and ``lm_head`` when untied,
+    ``frontend_proj`` with a frontend, ``enc_norm`` with an encoder), the
+    layers, in order, and an encoder-decoder's encoder layers
+    ``enc_blocks``."""
 
-    def __init__(self, params: dict, layers: list):
+    def __init__(self, params: dict, layers: list, enc_blocks: list = ()):
         super().__init__(params)
         self.layers = nn.ModuleList(layers)
+        if enc_blocks:
+            self.enc_blocks = nn.ModuleList(enc_blocks)
 
 
 def check_supported(cfg: ModelConfig):
-    """The port covers dense attention, RG-LRU and RWKV stacks so far."""
     kinds = set(cfg.layer_pattern) - {ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV}
-    if kinds or cfg.moe is not None or cfg.encoder_decoder or cfg.frontend \
-            or cfg.kv_quant:
-        raise NotImplementedError(
-            f"{cfg.name}: only dense attention, RG-LRU and RWKV layers are "
-            f"ported so far")
+    if kinds:
+        raise NotImplementedError(f"{cfg.name}: unknown layer kinds {kinds}")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _init_layer(cfg: ModelConfig, kind: str, generator, device) -> Layer:
+def _init_layer(cfg: ModelConfig, kind: str, generator, device,
+                cross: bool = False) -> Layer:
     norms = {"ln1": init_norm(cfg.d_model, device),
              "ln2": init_norm(cfg.d_model, device)}
     if kind == RGLRU:
@@ -96,9 +112,16 @@ def _init_layer(cfg: ModelConfig, kind: str, generator, device) -> Layer:
     if cfg.post_norms:
         norms["post_ln1"] = init_norm(cfg.d_model, device)
         norms["post_ln2"] = init_norm(cfg.d_model, device)
-    return Layer(kind, norms, {
-        "attn": attn.init_attention(cfg, generator, device),
-        "mlp": init_mlp(cfg, generator, device)})
+    blocks = {"attn": attn.init_attention(cfg, generator, device)}
+    if cfg.moe is not None:
+        blocks["moe"] = moe_mod.init_moe(cfg, generator, device)
+    else:
+        blocks["mlp"] = init_mlp(cfg, generator, device)
+    if cross:
+        norms["ln_x"] = init_norm(cfg.d_model, device)
+        blocks["xattn"] = attn.init_attention(cfg, generator, device,
+                                              cross=True)
+    return Layer(kind, norms, blocks)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -116,23 +139,35 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(generator, (cfg.vocab_size, cfg.d_model),
                                    0.02, dt, dev)
-    layers = [_init_layer(cfg, kind, generator, dev)
+    layers = [_init_layer(cfg, kind, generator, dev, cfg.encoder_decoder)
               for kind in cfg.layer_kinds()]
-    return Transformer(params, layers)
+    enc_blocks = []
+    if cfg.encoder_decoder:
+        enc_blocks = [_init_layer(cfg, ATTN_GLOBAL, generator, dev)
+                      for _ in range(cfg.n_enc_layers)]
+        params["enc_norm"] = init_norm(cfg.d_model, dev)
+    if cfg.frontend:
+        params["frontend_proj"] = normal(
+            generator, (cfg.d_model, cfg.d_model), cfg.d_model ** -0.5, dt,
+            dev)
+    return Transformer(params, layers, enc_blocks)
 
 
 # ---------------------------------------------------------------------------
 # single-layer application
 # ---------------------------------------------------------------------------
 def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions,
+               mask_mode: str = "causal", prefix_len: int = 0, enc_out=None,
                want_cache: bool = True, seq_exact: bool = False):
-    """Returns (x, cache_entry); the entry is None without ``want_cache``."""
+    """Returns (x, aux, cache_entry): ``aux`` is the MoE load-balance loss
+    (0.0 without MoE); the entry is None without ``want_cache``."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == RGLRU:
         o, h_last, conv_tail = rglru_mod.rglru_seq(p.rec, h, cfg)
         x = x + o
         h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-        return x + mlp(p.mlp, h2, cfg.act), {"h": h_last, "conv": conv_tail}
+        return x + mlp(p.mlp, h2, cfg.act), 0.0, {"h": h_last,
+                                                  "conv": conv_tail}
     if kind == RWKV:
         # tm_x and cm_x are the last rows of the ln1 and ln2 outputs (the
         # mixes' inputs), not of the residual
@@ -141,24 +176,40 @@ def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions,
         x = x + o
         h2 = rms_norm(x, p.ln2, cfg.norm_eps)
         o2, cm_x = rwkv_mod.channel_mix(p.cm, h2)
-        return x + o2, {"state": st, "tm_x": tm_x, "cm_x": cm_x}
-    o, (k, v) = attn.attention_seq(p.attn, h, cfg, kind, positions)
+        return x + o2, 0.0, {"state": st, "tm_x": tm_x, "cm_x": cm_x}
+    cache = {}
+    o, (k, v) = attn.attention_seq(p.attn, h, cfg, kind, positions, mask_mode,
+                                   prefix_len)
     if cfg.post_norms:
         o = rms_norm(o, p.post_ln1, cfg.norm_eps)
     x = x + o
+    if hasattr(p, "xattn"):           # whisper's decoder: cross-attention
+        hx = rms_norm(x, p.ln_x, cfg.norm_eps)
+        ox, (ck, cv) = attn.attention_seq(p.xattn, hx, cfg, ATTN_GLOBAL,
+                                          positions, "bidir",
+                                          kv_override=enc_out)
+        x = x + ox
+        cache = {"ck": ck, "cv": cv}
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    f = mlp(p.mlp, h2, cfg.act)
+    aux = 0.0
+    if hasattr(p, "moe"):
+        f, aux = moe_mod.moe_layer(p.moe, h2, cfg)
+    else:
+        f = mlp(p.mlp, h2, cfg.act)
     if cfg.post_norms:
         f = rms_norm(f, p.post_ln2, cfg.norm_eps)
     x = x + f
     if not want_cache:
-        return x, None
+        return x, aux, None
     if kind == ATTN_LOCAL and cfg.window_size:
-        return x, attn.build_ring_cache(k, v, cfg.window_size)
-    return x, attn.pack_kv(k, v)
+        cache.update(attn.build_ring_cache(k, v, cfg.window_size, cfg.kv_quant))
+    else:
+        cache.update(attn.pack_kv(k, v, cfg.kv_quant))
+    return x, aux, cache
 
 
-def _layer_decode(p: Layer, x, cfg: ModelConfig, kind: str, cache, pos):
+def _layer_decode(p: Layer, x, cfg: ModelConfig, kind: str, cache, pos,
+                  prefix_len: int = 0):
     """x: (B,1,D); updates ``cache`` in place; returns x."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == RGLRU:
@@ -173,12 +224,20 @@ def _layer_decode(p: Layer, x, cfg: ModelConfig, kind: str, cache, pos):
         o2, cm_x = rwkv_mod.channel_mix(p.cm, h2, cache["cm_x"])
         cache["cm_x"].copy_(cm_x)
         return x + o2
-    o, _ = attn.attention_decode(p.attn, h, cfg, kind, cache, pos)
+    o, _ = attn.attention_decode(p.attn, h, cfg, kind, cache, pos, prefix_len)
     if cfg.post_norms:
         o = rms_norm(o, p.post_ln1, cfg.norm_eps)
     x = x + o
+    if hasattr(p, "xattn"):
+        hx = rms_norm(x, p.ln_x, cfg.norm_eps)
+        ox, _ = attn.attention_decode(p.xattn, hx, cfg, ATTN_GLOBAL, cache,
+                                      pos, cross=True)
+        x = x + ox
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    f = mlp(p.mlp, h2, cfg.act)
+    if hasattr(p, "moe"):
+        f, _ = moe_mod.moe_layer(p.moe, h2, cfg)
+    else:
+        f = mlp(p.mlp, h2, cfg.act)
     if cfg.post_norms:
         f = rms_norm(f, p.post_ln2, cfg.norm_eps)
     return x + f
@@ -196,11 +255,13 @@ def _layer_cache(cache: dict, cfg: ModelConfig, i: int) -> dict:
     return cache["tail"][i - R * P]
 
 
-def _run_stack(model: Transformer, x, cfg: ModelConfig, positions):
+def _run_stack(model: Transformer, x, cfg: ModelConfig, positions,
+               mask_mode: str, prefix_len: int, enc_out):
     """All layers in order. Returns (x, cache)."""
     caches = []
     for layer in model.layers:
-        x, c = _layer_seq(layer, x, cfg, layer.kind, positions)
+        x, _, c = _layer_seq(layer, x, cfg, layer.kind, positions, mask_mode,
+                             prefix_len, enc_out)
         caches.append(c)
     R, P = cfg.n_superblocks, cfg.pattern_len
     blocks = tuple(
@@ -232,20 +293,27 @@ def _remat_wrap(fn, cfg: ModelConfig):
 
 
 def _train_stack(model: Transformer, x, cfg: ModelConfig, positions,
-                 seq_exact: bool):
-    """Superblocks under ``_remat_wrap``, then the tail, without caches."""
+                 mask_mode: str, prefix_len: int, enc_out, seq_exact: bool):
+    """Superblocks under ``_remat_wrap``, then the tail, without caches.
+    Returns (x, the sum of the layers' aux losses)."""
     def block_fn(x, *block):
+        aux = 0.0
         for layer in block:
-            x, _ = _layer_seq(layer, x, cfg, layer.kind, positions,
-                              want_cache=False, seq_exact=seq_exact)
-        return x
+            x, a, _ = _layer_seq(layer, x, cfg, layer.kind, positions,
+                                 mask_mode, prefix_len, enc_out,
+                                 want_cache=False, seq_exact=seq_exact)
+            aux = aux + a
+        return x, aux
 
     fn = _remat_wrap(block_fn, cfg)
     R, P = cfg.n_superblocks, cfg.pattern_len
     layers = list(model.layers)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(R):
-        x = fn(x, *layers[r * P:(r + 1) * P])
-    return block_fn(x, *layers[R * P:])
+        x, a = fn(x, *layers[r * P:(r + 1) * P])
+        aux = aux + a
+    x, a = block_fn(x, *layers[R * P:])
+    return x, aux + a
 
 
 def _embed(model: Transformer, cfg: ModelConfig, tokens):
@@ -266,32 +334,71 @@ def _unembed(model: Transformer, cfg: ModelConfig, x):
     return logits
 
 
+def _encode(model: Transformer, cfg: ModelConfig, frames):
+    """Whisper's encoder over precomputed frame embeddings (B,S,D) ->
+    (encoder output, its positions)."""
+    B, S, D = frames.shape
+    x = frames.to(pdtype(cfg)) @ model.frontend_proj
+    x = x + sinusoidal_pos_emb(S, D, x.dtype, x.device)[None]
+    pos = torch.arange(S, device=x.device).expand(B, S)
+    for layer in model.enc_blocks:
+        x, _, _ = _layer_seq(layer, x, cfg, ATTN_GLOBAL, pos, "bidir",
+                             want_cache=False)
+    return rms_norm(x, model.enc_norm, cfg.norm_eps), pos
+
+
+def _prep_inputs(model: Transformer, cfg: ModelConfig, batch):
+    """Embedding and the frontend stubs -> (x, positions, mask_mode,
+    prefix_len, enc_out)."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    enc_out = None
+    mask_mode, prefix_len = "causal", 0
+    if cfg.encoder_decoder:
+        enc_out = _encode(model, cfg, batch["frames"])
+        x = _embed(model, cfg, tokens)
+        x = x + sinusoidal_pos_emb(tokens.shape[1], cfg.d_model, x.dtype,
+                                   x.device)[None]
+    elif cfg.frontend == "vision":
+        patches = batch["patches"].to(pdtype(cfg)) @ model.frontend_proj
+        x = torch.cat([patches, _embed(model, cfg, tokens)], dim=1)
+        mask_mode, prefix_len = "prefix", cfg.n_prefix_tokens
+    else:
+        x = _embed(model, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device).expand(B, -1)
+    return x, positions, mask_mode, prefix_len, enc_out
+
+
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
 def forward_train(model: Transformer, cfg: ModelConfig, batch,
                   seq_exact: bool = False):
-    """batch["tokens"]: (B,S) integer -> (logits (B,S,V), aux).  ``aux`` (the
-    MoE load-balance loss) is an f32 zero: no ported config has MoE.
-    ``seq_exact`` runs RWKV layers through ``wkv_scan``."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = _embed(model, cfg, tokens)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = _train_stack(model, x, cfg, positions, seq_exact)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    """-> (logits (B,S,V), aux): ``aux`` is the f32 sum of the MoE layers'
+    load-balance losses (zero without MoE).  ``seq_exact`` runs RWKV layers
+    through ``wkv_scan``."""
+    x, positions, mask_mode, prefix_len, enc_out = _prep_inputs(model, cfg,
+                                                                batch)
+    x, aux = _train_stack(model, x, cfg, positions, mask_mode, prefix_len,
+                          enc_out, seq_exact)
     return _unembed(model, cfg, x), aux
 
 
 def forward_prefill(model: Transformer, cfg: ModelConfig, batch):
-    """batch["tokens"]: (B,S) integer -> (last-position logits (B,1,V),
-    cache)."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = _embed(model, cfg, tokens)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x, cache = _run_stack(model, x, cfg, positions)
+    """-> (last-position logits (B,1,V), cache)."""
+    x, positions, mask_mode, prefix_len, enc_out = _prep_inputs(model, cfg,
+                                                                batch)
+    x, cache = _run_stack(model, x, cfg, positions, mask_mode, prefix_len,
+                          enc_out)
     return _unembed(model, cfg, x[:, -1:]), cache
+
+
+def _sin_at(pos: int, d: int, dtype, device):
+    """Whisper's decoder position embedding at ``pos``, in f32 then cast, as
+    the reference computes it."""
+    i = torch.arange(d // 2, device=device)
+    ang = float(pos) / torch.pow(10_000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None].to(dtype)
 
 
 def forward_decode(model: Transformer, cfg: ModelConfig, cache, tokens, pos):
@@ -301,34 +408,45 @@ def forward_decode(model: Transformer, cfg: ModelConfig, cache, tokens, pos):
     """
     pos = int(pos)
     x = _embed(model, cfg, tokens)
+    if cfg.encoder_decoder:
+        x = x + _sin_at(pos, cfg.d_model, x.dtype, x.device)
     for i, layer in enumerate(model.layers):
         x = _layer_decode(layer, x, cfg, layer.kind, _layer_cache(cache, cfg, i),
-                          pos)
+                          pos, cfg.n_prefix_tokens)
     logits = _unembed(model, cfg, x)
     blocks = cache["blocks"] if cfg.n_superblocks else ()
     return logits, {"blocks": blocks, "tail": cache["tail"]}
 
 
 def _kind_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
-                dtype, device) -> dict:
+                dtype, device, cross_len: int) -> dict:
     if kind == RGLRU:
         return rglru_mod.init_rglru_cache(cfg, batch, dtype, device)
     if kind == RWKV:
         return rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device)
-    return attn.init_attn_cache(cfg, kind, batch, seq_len, dtype, device)
+    c = attn.init_attn_cache(cfg, kind, batch, seq_len, dtype, device)
+    if cfg.encoder_decoder:
+        c.update(attn.init_attn_cache(cfg, kind, batch, seq_len, dtype, device,
+                                      cross_len=cross_len))
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
+    """Zero caches.  An encoder-decoder's decoder gets ``seq_len //
+    dec_len_ratio`` slots and cross caches of ``seq_len`` encoder positions,
+    as in the reference."""
     check_supported(cfg)
     dev = resolve_device(device)
+    cross_len = seq_len if cfg.encoder_decoder else 0
+    dec_len = seq_len // cfg.dec_len_ratio if cfg.encoder_decoder else seq_len
     R = cfg.n_superblocks
     blocks = []
     for kind in cfg.layer_pattern:
-        one = _kind_cache(cfg, kind, batch, seq_len, dtype, dev)
+        one = _kind_cache(cfg, kind, batch, dec_len, dtype, dev, cross_len)
         blocks.append({name: torch.zeros((R,) + tuple(t.shape), dtype=t.dtype,
                                          device=dev) for name, t in one.items()}
                       if R else one)
-    tail = tuple(_kind_cache(cfg, kind, batch, seq_len, dtype, dev)
+    tail = tuple(_kind_cache(cfg, kind, batch, dec_len, dtype, dev, cross_len)
                  for kind in cfg.tail_pattern)
     return {"blocks": tuple(blocks), "tail": tail}

@@ -143,6 +143,20 @@ def test_launch_serve_on_cpu(capsys):
     assert "3 requests" in capsys.readouterr().out
 
 
+NEW_ARCHS = ["qwen3-moe-235b-a22b", "arctic-480b", "whisper-small",
+             "paligemma-3b"]
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_launch_serve_new_archs_on_cpu(arch, capsys):
+    """The MoE, encoder-decoder and vision archs through the launcher."""
+    done = serve.main(["--arch", arch, "--device", "cpu", "--requests", "2",
+                       "--max-new", "3"])
+    assert sorted(r.req_id for r in done) == [0, 1]
+    assert all(1 <= len(r.tokens_out) <= 3 for r in done)
+    assert "2 requests" in capsys.readouterr().out
+
+
 def test_serve_pipeline_on_cpu(capsys):
     """The twin of examples/serve_pipeline.py: its 8 requests, drawn from the
     reference's seeded numpy prompts, each finish with max_new tokens."""
@@ -198,6 +212,29 @@ def test_default_device_is_cuda(entry):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         ENTRY_POINTS[entry](get_smoke_config(ARCH))
+
+
+ARCH_ENTRY_POINTS = {
+    "init_params": lambda arch: init_params(get_smoke_config(arch),
+                                            torch.Generator()),
+    "init_cache": lambda arch: init_cache(get_smoke_config(arch), 1, 8),
+    "params_from_jax": lambda arch: params_from_jax({}, get_smoke_config(arch)),
+    "engine": lambda arch: teng.ServingEngine(
+        get_smoke_config(arch), init_params(get_smoke_config(arch),
+                                            torch.Generator(), device="cpu")),
+    "launch.serve": lambda arch: serve.main(["--arch", arch]),
+}
+
+
+@pytest.mark.parametrize("entry", ARCH_ENTRY_POINTS)
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_default_device_is_cuda_for_new_archs(arch, entry):
+    """The MoE, encoder-decoder and vision archs' entry points default to
+    CUDA and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ARCH_ENTRY_POINTS[entry](arch)
 
 
 FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro"}
