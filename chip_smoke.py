@@ -116,8 +116,28 @@ Phases:
      plain version.  recurrentgemma-2b and rwkv6-7b at full width and one
      superblock: the same kernel-vs-plain check on the first step (the scan
      and flash, the wkv6) and one timed step whose launches are counted.  The
-     smoke configs' train step in f32 on the card against the CPU (loss 1e-4,
-     each grad leaf 1e-3 in relative norm).  One JSON line holds it.
+     ``[train_moe]``: qwen3-moe-235b-a22b (4 layers) and arctic-480b (1 layer),
+     both with Adafactor over the stacked leaves and the MoE aux in the loss,
+     whisper-small and paligemma-3b (AdamW, full depth), full width, 4 x 1024
+     positions from models.io.make_batch: the first step through flash
+     against the eager attention (2e-2, 5e-2 relative; with MoE layers the
+     plain run takes the kernel run's routes and the routes it would have
+     changed are counted), a warm-up step, one timed step (time, positions/s,
+     loss, aux, grad norm, flash launches counted from 0: 8, 2, 24, 0), peak
+     memory under 75 GB, one profiled step (the idle share).  The smoke
+     configs' train step of all seven trained archs in f32 on the card
+     against the CPU (loss 1e-4, each grad leaf 1e-3 in relative norm; new
+     params: AdamW's within 2 lr (1 + wd |p|), Adafactor's steps to 1e-3).
+     One JSON line holds it.
+  10. distributed: one NCCL rank (a FileStore in a temp dir, no network) and
+     a 1 x 1 mesh from launch.mesh.make_mesh; moe_sharded on one full-width
+     qwen3-moe-235b-a22b layer against moe_dense, f32 (to 1e-5) and bf16
+     (the routes that differ), prefill (4 x 1024 tokens) and decode (4),
+     the bf16 dispatches timed with CUDA events; compressed_psum on a grad
+     tree against its formula; pipeline_apply with one stage against the
+     sequential stack (2e-5).  With two or more cards one NCCL rank a card
+     runs the sharded parity too; with one, a line says it was not run.
+     The group is destroyed at the phase's end.  One JSON line holds it.
   Phase 2 also holds each kernel's autograd function (the kernel forward, the
   plain version's autograd backward) against autograd of the plain version
   over the kernel's sweep, at the kernel's tolerance.
@@ -129,6 +149,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -198,6 +219,14 @@ KV_QUANT_BOUND = 0.5          # tests/test_smoke_archs.py::test_kv_quant_decode_
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5     # h2o-danube-1.8b training
 REC_TRAIN_B, REC_TRAIN_S = 4, 1024            # the recurrent archs' train step
 LR_TRAIN = 1e-4
+# [train_moe]: the MoE, whisper and paligemma configs at full width, one
+# timed step each at 4 x 1024 positions; the MoE configs at the depth one
+# card holds (0: full depth), each step's peak held under PEAK_GB_LIMIT
+TRAIN_MOE_DEPTH = {"qwen3-moe-235b-a22b": 4, "arctic-480b": 1,
+                   "whisper-small": 0, "paligemma-3b": 0}
+TRAIN_MOE_B, TRAIN_MOE_S = 4, 1024
+PEAK_GB_LIMIT = 75.0
+DIST_F32_TOL = 1e-5           # moe_sharded vs moe_dense in f32, relative
 TRAIN_TOL = {"loss": 2e-2, "grad_norm": 5e-2}  # kernels vs plain, bf16
 SMOKE_TRAIN_TOL = {"loss": 1e-4, "grad": 1e-3}  # card vs CPU, f32, tf32 off
 KINDS_OF = {"flash_attention": ("local", "global"), "rglru_scan": ("rglru",),
@@ -1523,13 +1552,55 @@ def loss_and_grad_norm(torch, tsteps, gnorm, state, cfg, batch):
     return out
 
 
+@contextlib.contextmanager
+def routes_pinned(torch, want, stats):
+    """Within the block each MoE routing takes the expert sets ``want``
+    recorded call by call (``recorded_routes``), its gates its own
+    probabilities there, normalised (tests/test_torch_moe.py's
+    ``pinned_routes``).  ``stats`` counts the (call, token) routes where it
+    would have picked other experts and the largest (p_k - p_w) / p_k over
+    them (p_k its k-th largest probability, p_w its probability of the
+    pinned set's weakest expert)."""
+    from repro_torch.models import moe
+    route, calls = moe._route, iter(want)
+
+    def pinned(x, router, k):
+        gate, idx, probs = route(x, router, k)
+        w = next(calls)
+        flip = (idx.sort(dim=1).values != w).any(dim=1)
+        stats["routes"] += idx.shape[0]
+        if bool(flip.any()):
+            pd = probs.detach()
+            pk = pd.gather(1, idx[:, -1:])[flip, 0]
+            pw = pd.gather(1, w).min(dim=1).values[flip]
+            stats["differing_routes"] += int(flip.sum())
+            stats["near_tie_gap"] = max(stats["near_tie_gap"],
+                                        float(((pk - pw) / pk).max()))
+        g = torch.gather(probs, 1, w)
+        return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), w, probs
+    moe._route = pinned
+    try:
+        yield stats
+    finally:
+        moe._route = route
+
+
 def kernel_vs_plain_step(torch, tsteps, gnorm, state, cfg, batch, kernels, what):
     """The first step's loss and grad norm through the kernels and with each of
-    ``kernels`` swapped for its plain version, checked to TRAIN_TOL."""
-    got = loss_and_grad_norm(torch, tsteps, gnorm, state, cfg, batch)
+    ``kernels`` swapped for its plain version, checked to TRAIN_TOL.  With
+    MoE layers the plain run takes the kernel run's routes, so that a
+    router's near-tie moved by rounding does not pick other experts, and the
+    routes it would have picked otherwise are counted."""
+    routes = []
+    stats = {"routes": 0, "differing_routes": 0, "near_tie_gap": 0.0}
+    moe = cfg.moe is not None
+    with recorded_routes(routes) if moe else contextlib.nullcontext():
+        got = loss_and_grad_norm(torch, tsteps, gnorm, state, cfg, batch)
     restores = [plain_for_training(k) for k in kernels]
     try:
-        want = loss_and_grad_norm(torch, tsteps, gnorm, state, cfg, batch)
+        with routes_pinned(torch, routes, stats) if moe \
+                else contextlib.nullcontext():
+            want = loss_and_grad_norm(torch, tsteps, gnorm, state, cfg, batch)
     finally:
         for restore in restores:
             restore()
@@ -1538,13 +1609,21 @@ def kernel_vs_plain_step(torch, tsteps, gnorm, state, cfg, batch, kernels, what)
     check(errs[0] <= TRAIN_TOL["loss"] and errs[1] <= TRAIN_TOL["grad_norm"],
           f"{what}, kernel vs plain {kernels}: loss {got[0]} vs {want[0]}, grad "
           f"norm {got[1]} vs {want[1]}")
+    pinned = (f"; the plain run on the kernel run's routes: "
+              f"{stats['differing_routes']} of {stats['routes']} (call, token) "
+              f"routes would differ, largest near-tie gap "
+              f"{stats['near_tie_gap']:.3g}") if moe else ""
     print(f"[train] {what}, first step from the same state, kernels vs plain "
           f"{'/'.join(kernels)}: loss {got[0]:.6f} vs {want[0]:.6f} (rel "
           f"{errs[0]:.3g}, tol {TRAIN_TOL['loss']}), grad norm {got[1]:.6f} vs "
-          f"{want[1]:.6f} (rel {errs[1]:.3g}, tol {TRAIN_TOL['grad_norm']})")
-    return {"loss": got[0], "plain_loss": want[0], "grad_norm": got[1],
-            "plain_grad_norm": want[1], "loss_rel_err": errs[0],
-            "grad_norm_rel_err": errs[1]}
+          f"{want[1]:.6f} (rel {errs[1]:.3g}, tol {TRAIN_TOL['grad_norm']})"
+          f"{pinned}")
+    out = {"loss": got[0], "plain_loss": want[0], "grad_norm": got[1],
+           "plain_grad_norm": want[1], "loss_rel_err": errs[0],
+           "grad_norm_rel_err": errs[1]}
+    if moe:
+        out.update(stats)
+    return out
 
 
 def kernel_kind(name: str) -> str:
@@ -1630,7 +1709,7 @@ def train_path(torch, np, dev, card):
     from repro_torch.kernels.flash_attention import (flash_attention_bkg,
                                                      flash_attention_ref)
     from repro_torch.models import init_params
-    from repro_torch.optim import adamw, global_norm
+    from repro_torch.optim import adamw, global_norm, make_optimizer
     from repro_torch.train import steps as tsteps
 
     out = {"card": card}
@@ -1778,17 +1857,22 @@ def train_path(torch, np, dev, card):
         del state, batch
         torch.cuda.empty_cache()
 
-    # ---- 8d. the smoke configs' train step, card against CPU (f32) ----------
+    # ---- 8d. [train_moe]: the MoE, whisper and paligemma configs ----------
+    out["train_moe"] = train_moe_path(torch, np, dev, card, launches)
+
+    # ---- 8e. the smoke configs' train step, card against CPU (f32) ----------
     out["smoke_card_vs_cpu"] = {}
-    for arch in ("h2o-danube-1.8b", "recurrentgemma-2b", "rwkv6-7b"):
+    for arch in ("h2o-danube-1.8b", "recurrentgemma-2b", "rwkv6-7b",
+                 *TRAIN_MOE_DEPTH):
         cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
         batch = SyntheticTokens(cfg, 2, 64, seed=SEED).batch_for_step(0)
         res = {}
         for where in ("cpu", dev):
             model = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
-            state = tsteps.init_train_state(None, cfg, adamw(),
+            opt = make_optimizer(cfg.optimizer, cfg=cfg)
+            state = tsteps.init_train_state(None, cfg, opt,
                                             params=model.to(where))
-            state, metrics = tsteps.build_train_step(cfg, adamw(), tsteps_lr())(
+            state, metrics = tsteps.build_train_step(cfg, opt, tsteps_lr())(
                 state, {k: torch.from_numpy(v).to(where)
                         for k, v in batch.items()})
             res[str(where)] = (float(metrics["loss"]), {
@@ -1798,9 +1882,20 @@ def train_path(torch, np, dev, card):
         (cl, cg, cp), (gl, gg, gp) = res["cpu"], res[str(dev)]
         loss_err = abs(gl - cl) / abs(cl)
         grad_err = max(rel_err(torch, gg[n], cg[n]) for n in cg)
-        # AdamW's first step is about lr * sign(g): a grad near 0 may flip
-        param_err = max(((gp[n] - cp[n]).abs() - 2 * LR_TRAIN *
-                         (1 + 0.1 * cp[n].abs())).max().item() for n in cp)
+        if cfg.optimizer == "adamw":
+            # AdamW's first step is about lr * sign(g): a grad near 0 may flip
+            param_err = max(((gp[n] - cp[n]).abs() - 2 * LR_TRAIN *
+                             (1 + 0.1 * cp[n].abs())).max().item() for n in cp)
+        else:
+            # Adafactor's step is continuous in the grads: each parameter's
+            # step (new - old) to the grads' tolerance in relative norm
+            old = {n: p.detach().float() for n, p in init_params(
+                cfg, torch.Generator().manual_seed(SEED),
+                "cpu").named_parameters()}
+            param_err = max(
+                float(torch.linalg.vector_norm(gp[n] - cp[n]) / max(
+                    float(torch.linalg.vector_norm(cp[n] - old[n])), 1e-30))
+                for n in cp) - SMOKE_TRAIN_TOL["grad"]
         check(loss_err <= SMOKE_TRAIN_TOL["loss"] and
               grad_err <= SMOKE_TRAIN_TOL["grad"] and param_err <= 0,
               f"{arch} smoke train step card vs CPU: loss {loss_err}, grads "
@@ -1808,12 +1903,363 @@ def train_path(torch, np, dev, card):
         out["smoke_card_vs_cpu"][arch] = {"loss_rel_err": loss_err,
                                           "grad_leaf_rel_err": grad_err,
                                           "param_excess": param_err}
-        print(f"[train] {arch} smoke config in f32, one train step card "
-              f"(kernels) vs CPU (plain): loss rel err {loss_err:.3g} (tol "
-              f"{SMOKE_TRAIN_TOL['loss']}), worst grad leaf rel err "
-              f"{grad_err:.3g} (tol {SMOKE_TRAIN_TOL['grad']}), new params "
-              f"within 2 lr (1 + wd |p|) (worst excess {param_err:.3g})")
+        bound_text = "within 2 lr (1 + wd |p|)" if cfg.optimizer == "adamw" \
+            else f"steps to {SMOKE_TRAIN_TOL['grad']} in relative norm"
+        print(f"[train] {arch} smoke config in f32 ({cfg.optimizer}), one "
+              f"train step card (kernels) vs CPU (plain): loss rel err "
+              f"{loss_err:.3g} (tol {SMOKE_TRAIN_TOL['loss']}), worst grad "
+              f"leaf rel err {grad_err:.3g} (tol {SMOKE_TRAIN_TOL['grad']}), "
+              f"new params {bound_text} (worst excess {param_err:.3g})")
     return launches, out
+
+
+def train_moe_path(torch, np, dev, card, launches):
+    """[train_moe]: one train step at full width of qwen3-moe-235b-a22b and
+    arctic-480b (Adafactor over the stacked leaves, the MoE aux in the loss;
+    cut to the depth one card holds), whisper-small and paligemma-3b (AdamW,
+    full depth), 4 x 1024 positions from models.io.make_batch: the first
+    step through the kernels against the plain versions, a warm-up step,
+    the timed step (its launches counted from 0) and a profiled step.
+    Returns the rows."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models.io import make_batch
+    from repro_torch.optim import global_norm, make_optimizer
+    from repro_torch.train import steps as tsteps
+
+    rows = {}
+    for arch, depth in TRAIN_MOE_DEPTH.items():
+        cfg = get_config(arch)
+        if depth:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        # earlier phases' models may sit in reference cycles (autograd,
+        # checkpointing) until the cyclic collector runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        opt = make_optimizer(cfg.optimizer, cfg=cfg)
+        state = tsteps.init_train_state(
+            torch.Generator(device=dev).manual_seed(SEED), cfg, opt,
+            device=dev)
+        batch = make_batch(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           TRAIN_MOE_B, TRAIN_MOE_S)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        print(f"[train_moe] {arch} full width, {cfg.n_layers} layers "
+              f"({n_params / 1e9:.4f} B params, {cfg.optimizer}, remat "
+              f"{cfg.remat}), batch {TRAIN_MOE_B} x {TRAIN_MOE_S} positions "
+              f"({', '.join(f'{k} {tuple(v.shape)}' for k, v in batch.items())}"
+              f"); {held:.2f} GB held before its init; init "
+              f"{time.perf_counter() - t0:.1f} s; {card}")
+        kernels = ["flash_attention"]
+        row = {"layers": cfg.n_layers, "params": n_params,
+               "optimizer": cfg.optimizer, "held_before_init_gb": held,
+               "kernel_vs_plain": kernel_vs_plain_step(
+                   torch, tsteps, global_norm, state, cfg, batch, kernels,
+                   f"{arch} full width, {cfg.n_layers} layers")}
+        peaks = {"init and kernel vs plain": torch.cuda.max_memory_allocated(
+            dev) / 1e9}
+        step = tsteps.build_train_step(cfg, opt, tsteps_lr())
+        torch.cuda.reset_peak_memory_stats(dev)
+        step(state, batch)                                  # warm-up
+        torch.cuda.synchronize()
+        peaks["warm-up step"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_lib.launches.clear()              # this path's train step starts
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        aux = float(metrics["aux"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        # the train step's peak, from just before it to its end
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        launches["train:" + arch] = {n: c for n, c in cuda_lib.launches.items()
+                                     if c}
+        # causal self-attention runs flash: not paligemma's prefix-LM mask,
+        # nor whisper's encoder or cross-attention (as in the reference)
+        want = 0 if cfg.n_prefix_tokens else train_launches(cfg,
+                                                            "flash_attention")
+        got = launches["train:" + arch].get("flash_attention", 0)
+        check(got == want and launches["train:" + arch].get(
+            "flash_attention:wgmma", 0) == want,
+            f"{arch} train step launched {launches['train:' + arch]}, want "
+            f"flash {want} (tensor-core kernel)")
+        missing = [n for n, p in state["params"].named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        check(math.isfinite(loss) and math.isfinite(gn) and
+              math.isfinite(aux) and not missing,
+              f"{arch} train step: loss {loss}, aux {aux}, grad norm {gn}, no "
+              f"finite grad for {missing}")
+        check((aux > 0) == (cfg.moe is not None), f"{arch} aux {aux}")
+        check(peak <= PEAK_GB_LIMIT, f"{arch} train step peak {peak:.2f} GB "
+              f"(other peaks {peaks})")
+        prof = profile_step(torch, step, state, batch, RANGES)
+        row.update(ms=ms, positions_per_s=TRAIN_MOE_B * TRAIN_MOE_S / ms * 1e3,
+                   loss=loss, aux=aux, grad_norm=gn, peak_memory_gb=peak,
+                   other_peaks_gb=peaks, flash_launches_per_step=got,
+                   profile=prof)
+        rows[arch] = row
+        print(f"[train_moe] {arch}: step {ms:.1f} ms "
+              f"({row['positions_per_s']:.0f} positions/s), loss {loss:.6f}, "
+              f"aux {aux:.6f}, grad norm {gn:.6f}, flash launches per step "
+              f"{got}, the step's peak memory {peak:.2f} GB "
+              f"(max_memory_allocated, limit {PEAK_GB_LIMIT}; "
+              f"{', '.join(f'{k} {v:.2f} GB' for k, v in peaks.items())}), "
+              f"device idle {prof['idle_share']:.2%} over "
+              f"the profiled step; every parameter has a finite grad; {card}")
+        print_profile(arch, prof, card)
+        del state, batch, opt, step
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the distribution layer
+# ---------------------------------------------------------------------------
+def init_group(dev, world: int, rank: int, store: str):
+    """A process group from a FileStore (no network): NCCL on the card,
+    gloo on the CPU."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+
+
+def moe_parity(torch, mesh, cfg, p, x, decode):
+    """``moe_sharded`` on this rank's blocks of the full ``p`` and ``x``
+    (gathered back to full) against ``moe_dense`` on the full tensors.
+    Returns ({y_rel_err, aux_abs_err, differing_routes, routes, tokens}, a
+    function that runs the sharded call again, for timing)."""
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import context
+    from repro_torch.distributed.layouts import choose_layout
+    from repro_torch.models import moe
+    rules = choose_layout(cfg, LM_SHAPES["train_4k"], mesh)
+    wg = rules.spec(("experts", None, "moe_ff"))
+    wd = rules.spec(("experts", "moe_ff", None))
+    local = moe.MoE({"router": p.router,
+                     "w_gate": context.local_shard(p.w_gate, wg, mesh),
+                     "w_up": context.local_shard(p.w_up, wg, mesh),
+                     "w_down": context.local_shard(p.w_down, wd, mesh)})
+    sp = not decode and rules.rules["act_seq"] == rules.moe_axis and \
+        cfg.n_heads % context.axis_sizes(mesh)[rules.moe_axis] == 0
+    spec = rules.spec(("batch", "act_seq" if sp else "seq", None))
+    xl = context.local_shard(x, spec, mesh)
+
+    def sharded():
+        with context.use_rules(rules):
+            return moe.moe_layer(local, xl, cfg, decode=decode)
+    routes = {"sharded": [], "dense": []}
+    with recorded_routes(routes["sharded"]):
+        y, aux = sharded()
+    for d, axes in enumerate(spec):
+        if axes:
+            y = coll.all_gather(y, axes, d, mesh)
+    with recorded_routes(routes["dense"]):
+        yd, auxd = moe.moe_dense(p, x, cfg)
+    return {"y_rel_err": rel_err(torch, y, yd),
+            "aux_abs_err": abs(float(aux) - float(auxd)),
+            "differing_routes": differing_routes(routes["sharded"],
+                                                 routes["dense"]),
+            "routes": sum(r.shape[0] for r in routes["dense"]),
+            "tokens": x.shape[0] * x.shape[1]}, sharded
+
+
+def multi_card_rank(rank: int, n: int, store: str, device_type: str,
+                    arch: str, smoke: bool):
+    """One rank of the multi-card MoE parity: a (1, n) mesh, experts over
+    ``model``; f32, against moe_dense, to DIST_F32_TOL (rank 0 prints)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.moe import init_moe
+    dev = torch.device(device_type, rank) if device_type == "cuda" \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(dev, n, rank, store)
+    import torch.distributed as dist
+    try:
+        cfg = (get_smoke_config if smoke else get_config)(arch)
+        cfg = dataclasses.replace(cfg, param_dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        p = init_moe(cfg, gen, dev)
+        x = torch.randn((B, 64 if smoke else S, cfg.d_model), generator=gen,
+                        device=dev)
+        mesh = make_mesh((1, n), ("data", "model"), device=dev.type)
+        for decode in (False, True):
+            row, _ = moe_parity(torch, mesh, cfg, p,
+                                x[:, :1] if decode else x, decode)
+            what = "decode" if decode else "prefill"
+            check(row["y_rel_err"] <= DIST_F32_TOL and
+                  row["aux_abs_err"] <= DIST_F32_TOL,
+                  f"{n} ranks, {arch} moe_sharded vs moe_dense ({what}): "
+                  f"{row}")
+            if rank == 0:
+                print(f"[distributed] {n} {dev.type} ranks, (1, {n}) mesh, "
+                      f"{arch} one MoE layer in f32, {what}: moe_sharded vs "
+                      f"moe_dense relative error {row['y_rel_err']:.3g}, aux "
+                      f"diff {row['aux_abs_err']:.3g} (tol {DIST_F32_TOL}), "
+                      f"{row['differing_routes']} of {row['routes']} routes "
+                      f"differ", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_multi_card(torch, n: int, arch: str, smoke: bool, device_type: str,
+                     limit_s: float = 300.0):
+    """Runs ``multi_card_rank`` on n processes (one a card) under a time
+    limit; a rank's failure or the limit fails the phase."""
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.start_processes(multi_card_rank, args=(
+            n, str(Path(d) / "store"), device_type, arch, smoke), nprocs=n,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + limit_s
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+                check(time.monotonic() < deadline,
+                      f"multi-card parity did not finish in {limit_s} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join()
+
+
+def distributed_path(torch, np, dev, card):
+    """Phase 10: the port's distribution layer on the card.  One NCCL rank
+    (world size 1, a FileStore in a temp dir, a 1 x 1 mesh from
+    launch.mesh.make_mesh): moe_sharded on one qwen3-moe-235b-a22b layer at
+    full width against moe_dense (f32 to DIST_F32_TOL, bf16 by the routes
+    that differ), prefill (4 x 1024 tokens) and decode (4 tokens), both
+    dispatches timed with CUDA events; compressed_psum against its formula
+    on a grad tree; pipeline_apply with one stage against the sequential
+    stack.  With two or more cards, one NCCL rank a card runs the sharded
+    MoE parity too.  Returns the phase's numbers."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     dequantize_int8,
+                                                     quantize_int8)
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+
+    arch = "qwen3-moe-235b-a22b"
+    out = {"card": card, "arch": arch}
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    init_group(dev, 1, 0, str(Path(tmp.name) / "store"))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev.type)
+        print(f"[distributed] {dist.get_backend()} group of "
+              f"{dist.get_world_size()} rank from a FileStore, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}; {card}")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_config(arch), param_dtype=dtype)
+            p = moe.init_moe(cfg, gen, dev)
+            x = torch.randn((B, S, cfg.d_model), generator=gen,
+                            device=dev).to(getattr(torch, dtype))
+            for decode in (False, True):
+                xi = x[:, :1] if decode else x
+                what = "decode" if decode else "prefill"
+                row, sharded = moe_parity(torch, mesh, cfg, p, xi, decode)
+                if dtype == "float32":
+                    check(row["y_rel_err"] <= DIST_F32_TOL and
+                          row["aux_abs_err"] <= DIST_F32_TOL,
+                          f"{arch} f32 {what}: moe_sharded vs moe_dense {row}")
+                    timing = ""
+                else:
+                    row.update(
+                        sharded_ms=time_ms(torch, sharded, iters=10),
+                        dense_ms=time_ms(torch, lambda: moe.moe_dense(
+                            p, xi, cfg), iters=10))
+                    timing = (f"; sharded {row['sharded_ms']:.3f} ms vs dense "
+                              f"{row['dense_ms']:.3f} ms (CUDA events, 10 "
+                              f"calls)")
+                out[f"{dtype} {what}"] = row
+                tol = f" (tol {DIST_F32_TOL})" if dtype == "float32" else ""
+                print(f"[distributed] {arch} one MoE layer at full width, "
+                      f"{dtype}, {what} ({row['tokens']} tokens): moe_sharded "
+                      f"vs moe_dense relative error {row['y_rel_err']:.3g}"
+                      f"{tol}, aux diff {row['aux_abs_err']:.3g}, "
+                      f"{row['differing_routes']} of {row['routes']} routes "
+                      f"differ{timing}; {card}")
+            del p, x
+            torch.cuda.empty_cache()
+
+        # compressed_psum on a grad tree: one qwen3-moe attention layer's
+        cfg = get_config(arch)
+        hq, hk = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        tree = {n: torch.randn(shape, generator=gen, device=dev)
+                for n, shape in (("wq", (cfg.d_model, hq)),
+                                 ("wk", (cfg.d_model, hk)),
+                                 ("wv", (cfg.d_model, hk)),
+                                 ("wo", (hq, cfg.d_model)),
+                                 ("ln1", (cfg.d_model,)))}
+        group = mesh.get_group("data")
+        for n, g in tree.items():
+            res = torch.randn(g.shape, generator=gen, device=dev) * 1e-3
+            mean, new_res = compressed_psum(g, group, res)
+            q, scale = quantize_int8(g + res)
+            deq = dequantize_int8(q, scale)
+            # one rank: the int32 sum is q, the summed scale is the scale
+            # and the rank count is 1
+            check(torch.equal(mean, deq) and
+                  torch.equal(new_res, g + res - deq),
+                  f"compressed_psum on {n}")
+        out["compressed_psum"] = {"leaves": {n: list(t.shape)
+                                             for n, t in tree.items()},
+                                  "exact": True}
+        shapes = ", ".join(f"{n} {tuple(t.shape)}" for n, t in tree.items())
+        print(f"[distributed] compressed_psum over the data axis (1 rank) on "
+              f"a grad tree ({shapes}): mean equals q * scale and the "
+              f"residual g + r - q * scale, exactly")
+        del tree
+
+        # pipeline_apply with one stage against the sequential stack
+        pmesh = make_mesh((1,), ("pp",), device=dev.type)
+        w = torch.randn((8, 256, 256), generator=gen, device=dev) * 0.06
+        xp = torch.randn((8, 256), generator=gen, device=dev)
+
+        def stage_fn(ws, h):
+            for wi in ws:
+                h = torch.tanh(h @ wi)
+            return h
+        got = pipeline_apply(w, xp, stage_fn, pmesh, "pp", microbatches=4)
+        err = (got - stage_fn(w, xp)).abs().max().item()
+        check(err <= 2e-5, f"pipeline_apply one stage: {err}")
+        out["pipeline_one_stage_max_abs_err"] = err
+        print(f"[distributed] pipeline_apply, one stage of 8 layers, 4 "
+              f"microbatches: max abs err {err:.3g} against the sequential "
+              f"stack (tol 2e-5)")
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        spawn_multi_card(torch, n, arch, False, "cuda")
+        out["multi_card"] = f"{n} NCCL ranks, one a card: parity checked"
+    else:
+        out["multi_card"] = (f"not run: {n} card on this machine, and NCCL "
+                             f"takes one rank a card")
+        print(f"[distributed] multi-card NCCL parity not run: this machine "
+              f"has {n} card (NCCL takes one rank a card; the multi-rank "
+              f"parity runs on gloo in tests/test_torch_distributed.py)")
+    return out
 
 
 def train_launches(cfg, kernel) -> int:
@@ -1902,6 +2348,9 @@ def main() -> int:
     launches.update(train_by_path)
     print(json.dumps({"train": train_out}))
 
+    # ---- 10. the distribution layer --------------------------------------
+    print(json.dumps({"distributed": distributed_path(torch, np, dev, card)}))
+
     def path_launches(name):
         by_path = {arch: n.get(name, 0) for arch, n in launches.items()
                    if name in n or name in PATHS.get(arch, ())}
@@ -1936,8 +2385,11 @@ def main() -> int:
         "grad_sweep_max_abs_err": {
             k.split()[1]: v for k, v in grad_err.items()
             if k.startswith("flash")},
-        "launches_per_train_step": train_out["h2o-danube-1.8b"][
-            "flash_launches_per_step"],
+        "launches_per_train_step": {
+            "h2o-danube-1.8b": train_out["h2o-danube-1.8b"][
+                "flash_launches_per_step"],
+            **{a: r["flash_launches_per_step"]
+               for a, r in train_out["train_moe"].items()}},
     }, {
         "name": "rglru_scan", "route": "cuda", "variant": "grouped",
         "source": rec + "rglru_scan/csrc/rglru_scan_grouped.cu",

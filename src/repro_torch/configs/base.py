@@ -2,8 +2,8 @@
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``ModelConfig`` keeps every field of the reference so that the two dataclasses
-match.  ``ShapeConfig`` and ``LM_SHAPES`` are the reference's input shapes,
-which ``models.io`` takes.  The registry holds all ten of the reference's
+match.  ``ShapeConfig``, ``LM_SHAPES`` and ``shapes_for`` are the reference's input
+shapes, which ``models.io`` and ``distributed.layouts`` take.  The registry holds all ten of the reference's
 architectures.
 
 Layer stacking: ``layer_pattern`` is the repeating unit of layer kinds (e.g.
@@ -141,6 +141,21 @@ LM_SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
 }
+
+# Pure full-attention archs skip long_500k, as in the reference.
+LONG_CONTEXT_OK = {
+    "gemma3-1b", "gemma2-9b", "h2o-danube-1.8b", "recurrentgemma-2b",
+    "rwkv6-7b",
+}
+
+
+def shapes_for(arch: str) -> list:
+    out = []
+    for s in LM_SHAPES.values():
+        if s.name == "long_500k" and arch not in LONG_CONTEXT_OK:
+            continue
+        out.append(s)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,65 @@
+"""Mesh builders (functions — importing never touches devices).  Port of
+``repro.launch.mesh``.
+
+``make_mesh`` is ``init_device_mesh`` over the process group the caller
+has initialised (``torch.distributed.init_process_group``; one card gives
+a group of one).  ``make_production_mesh`` returns an ``AbstractMesh``,
+the names and sizes of the reference's production mesh with no devices
+behind them: 256 or 512 ranks cannot be built here, and what reads it
+(``distributed.layouts.choose_layout``, ``opt_pspecs``, a dry-run's
+layout) needs only the shape.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+
+
+@dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes, read as a DeviceMesh's are."""
+    mesh_dim_names: tuple
+    shape: tuple
+
+    def size(self, mesh_dim=None) -> int:
+        if mesh_dim is not None:
+            return self.shape[mesh_dim]
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
+              device="cuda"):
+    """A DeviceMesh of ``axis_shapes`` named ``axis_names`` over the
+    current process group, whose size it must equal, on ``device``'s type
+    (``"cpu"`` for gloo)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialised process group "
+                           "(torch.distributed.init_process_group)")
+    return init_device_mesh(dev.type, tuple(axis_shapes),
+                            mesh_dim_names=tuple(axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """Single pod: 16x16 = 256 ranks.  Multi-pod: 2 pods = 512."""
+    if multi_pod:
+        return AbstractMesh(("pod", "data", "model"), (2, 16, 16))
+    return AbstractMesh(("data", "model"), (16, 16))
+
+
+def make_local_mesh(data: int = 2, model: int = 4, *, device="cuda"):
+    """A small mesh over the process group: (data, model), or (1, world
+    size) where the group has fewer ranks than that."""
+    resolve_device(device)
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if data * model > n:
+        data, model = 1, n
+    return make_mesh((data, model), ("data", "model"), device=device)

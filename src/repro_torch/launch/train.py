@@ -1,14 +1,20 @@
 """Training launcher: ``PYTHONPATH=src python -m repro_torch.launch.train
---arch <id> [--steps N] [--full] [--ckpt DIR] [--device cuda|cpu]``.
+--arch <id> [--steps N] [--full [--layers L]] [--ckpt DIR]
+[--device cuda|cpu]``.
 
 The reduced config of the same family by default, the full config with
 ``--full`` (h2o-danube-1.8b, the default arch, trains at full width on one
-80 GB card: ``--full --steps 5 --batch 4 --seq 2048``).  Weights are random,
-drawn on the device from a seeded torch.Generator.
+80 GB card: ``--full --steps 5 --batch 4 --seq 2048``); ``--layers`` cuts
+the full config's depth (the MoE configs at full depth do not fit one card:
+qwen3-moe-235b-a22b trains at ``--layers 4``, arctic-480b at ``--layers
+1``).  The optimizer is the config's (Adafactor for the MoE configs, AdamW
+otherwise).  Weights are random, drawn on the device from a seeded
+torch.Generator.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
@@ -29,11 +35,15 @@ def main(argv=None):
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--full", action="store_true",
                     help="use the full production config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="with --full, this many layers (0: full depth)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
-    opt = make_optimizer(cfg.optimizer)
+    if args.full and args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    opt = make_optimizer(cfg.optimizer, cfg=cfg)
     loop = TrainLoop(cfg, opt, batch=args.batch, seq=args.seq, lr=args.lr,
                      ckpt_dir=args.ckpt or None,
                      grad_accum=args.grad_accum, device=args.device)

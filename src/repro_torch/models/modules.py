@@ -21,7 +21,11 @@ def pdtype(cfg: ModelConfig) -> torch.dtype:
 
 def normal(generator: torch.Generator, shape, scale: float, dtype,
            device) -> torch.Tensor:
-    """``scale * N(0, 1)`` drawn on the generator's device, then moved."""
+    """``scale * N(0, 1)`` drawn on the generator's device, then moved.  On
+    the meta device nothing is drawn (shapes only; ``generator`` may be
+    None)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32) * scale
     return t.to(device=device, dtype=dtype)

@@ -31,10 +31,21 @@ parameter dtype: the f32 transient of a draw is one expert's
 (``modules.normal`` draws in f32; arctic's ``w_gate`` in f32 would be 17.9
 GB).
 
-``moe_layer`` is ``moe_dense``, as the reference's is without a device mesh.
-The sharded path (``moe_sharded``, expert parallelism over a mesh) is not
-ported: ``moe_layer`` raises where a multi-process group is initialised
-rather than run the dense path on each rank.
+``moe_sharded`` is the reference's expert parallelism: experts over the
+``model`` mesh axis, their ff dim over ``data`` (ZeRO-3).  Where the
+reference's ``shard_map`` hands its body each rank's block of the inputs
+by their in_specs, the port's ``moe_sharded`` takes and returns those
+blocks (``distributed.context.local_shard`` cuts them): ``x`` by
+``in_spec``, the experts' weights by ``("experts", None, "moe_ff")`` and
+``("experts", "moe_ff", None)``, the router whole; ``y`` comes back by
+``out_spec``, ``aux`` the same on every rank.  Its collectives run over the
+mesh's process groups (``distributed.collectives``).  Both paths dispatch
+through ``_dispatch``: the dense path is the sharded one with every expert
+local.
+
+``moe_layer`` takes ``moe_sharded`` while sharding rules are active
+(``distributed.context.use_rules``) and ``moe_dense`` otherwise, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -44,6 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import context
 from repro_torch.models.modules import (MLP, ParamModule, activation, mlp,
                                         normal, pdtype)
 
@@ -109,43 +122,55 @@ def _capacity(T: int, k: int, E: int, cf: float) -> int:
     return min(c, T)
 
 
-def _expert_ffn(bufs, p: MoE, act):
-    h = torch.bmm(bufs, p.w_gate)
-    u = torch.bmm(bufs, p.w_up)
-    return torch.bmm(act(h) * u, p.w_down)
+def _expert_ffn(bufs, w_gate, w_up, w_down, act):
+    h = torch.bmm(bufs, w_gate)
+    u = torch.bmm(bufs, w_up)
+    return torch.bmm(act(h) * u, w_down)
+
+
+def _dispatch(xf, gate, idx, C: int, e0: int, e_loc: int, n_experts: int):
+    """Sort-based dispatch of the tokens ``xf`` (T, D) to the local experts
+    ``e0 .. e0 + e_loc``.  Returns (buf (e_loc, C, D), combine(out_buf) ->
+    (T, D))."""
+    T, k = idx.shape
+    dev = xf.device
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(n_experts, device=dev))
+    slot = torch.arange(T * k, device=dev) - starts[sorted_e]
+    keep = (slot < C) & (sorted_e >= e0) & (sorted_e < e0 + e_loc)
+    tok = order // k
+    e_kept, s_kept = sorted_e[keep] - e0, slot[keep]
+
+    buf = xf.new_zeros((e_loc, C, xf.shape[1]))
+    buf[e_kept, s_kept] = xf[tok[keep]]
+
+    def combine(out_buf):
+        # dropped and other ranks' slots read 0 (the reference's fill)
+        contrib = out_buf.new_zeros((T * k, out_buf.shape[-1]))
+        contrib[keep] = out_buf[e_kept, s_kept]
+        w = gate.reshape(-1)[order][:, None] * keep[:, None]
+        vals = (contrib * w).to(xf.dtype)           # in the sorted order
+        # back to (token, slot), then each token's slots by ascending expert
+        per_tok = torch.empty_like(vals)
+        per_tok[order] = vals
+        rank = torch.argsort(idx, dim=1, stable=True)
+        per_tok = torch.gather(per_tok.reshape(T, k, -1), 1,
+                               rank[..., None].expand(T, k, per_tok.shape[-1]))
+        y = per_tok[:, 0]
+        for j in range(1, k):
+            y = y + per_tok[:, j]
+        return y
+
+    return buf, combine
 
 
 def _dispatch_group(p: MoE, xg, gate_g, idx_g, C: int, act):
-    """One capacity group: xg (Tg, D), gate_g and idx_g (Tg, k) -> (Tg, D)."""
-    Tg, k = idx_g.shape
+    """One capacity group on every expert: xg (Tg, D) -> (Tg, D)."""
     E = p.w_gate.shape[0]
-    dev = xg.device
-    flat_e = idx_g.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    starts = torch.searchsorted(sorted_e, torch.arange(E, device=dev))
-    slot = torch.arange(Tg * k, device=dev) - starts[sorted_e]
-    keep = slot < C
-    tok = order // k
-    e_kept, s_kept = sorted_e[keep], slot[keep]
-
-    buf = xg.new_zeros((E, C, xg.shape[1]))
-    buf[e_kept, s_kept] = xg[tok[keep]]
-    out_buf = _expert_ffn(buf, p, act)
-    contrib = out_buf.new_zeros((Tg * k, out_buf.shape[-1]))
-    contrib[keep] = out_buf[e_kept, s_kept]
-    w = gate_g.reshape(-1)[order][:, None] * keep[:, None]
-    vals = (contrib * w).to(xg.dtype)              # in the sorted order
-    # back to (token, slot), then each token's slots by ascending expert
-    per_tok = torch.empty_like(vals)
-    per_tok[order] = vals
-    rank = torch.argsort(idx_g, dim=1, stable=True)
-    per_tok = torch.gather(per_tok.reshape(Tg, k, -1), 1,
-                           rank[..., None].expand(Tg, k, per_tok.shape[-1]))
-    y = per_tok[:, 0]
-    for j in range(1, k):
-        y = y + per_tok[:, j]
-    return y
+    buf, combine = _dispatch(xg, gate_g, idx_g, C, 0, E, E)
+    return combine(_expert_ffn(buf, p.w_gate, p.w_up, p.w_down, act))
 
 
 def moe_dense(p: MoE, x, cfg: ModelConfig, groups: int = 1):
@@ -170,12 +195,78 @@ def moe_dense(p: MoE, x, cfg: ModelConfig, groups: int = 1):
     return y, _aux_loss(probs, idx, m.n_experts)
 
 
-def moe_layer(p: MoE, x, cfg: ModelConfig):
-    """The MoE of a layer: ``moe_dense``, as in the reference without a
-    mesh (the reference's ``decode`` flag picks a sharded layout only)."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "moe_sharded (expert parallelism across processes) is not ported; "
-            "moe_layer runs the dense path in one process only")
+def moe_sharded(p: MoE, x, cfg: ModelConfig, decode: bool = False):
+    """Expert parallelism over ``model`` with expert-ff FSDP over ``data``,
+    on this rank's blocks (module docstring).
+
+    * train/prefill: tokens stay data-sharded; each rank all-gathers its
+      local experts' ff-shards over ``data`` (ZeRO-3 weight gather) and
+      processes all its tokens for its experts; outputs are summed over
+      ``model`` (reduce-scattered over the sequence where the heads divide
+      the axis: the sequence-parallel boundary).
+    * decode: tokens are tiny — all-gather *tokens* over data instead, keep
+      weights fully sharded (2D expert TP: experts x ff-shard),
+      reduce-scatter the partial FFN outputs back, sum over ``model``.
+    """
+    rules = context.current()
+    if rules is None:
+        return moe_dense(p, x, cfg)
+    m = cfg.moe
+    mesh = rules.mesh
+    sizes = context.axis_sizes(mesh)
+    ep_axis = rules.moe_axis
+    ep = sizes[ep_axis]
+    fsdp_axis = rules.rules.get("moe_ff")
+    if m.n_experts % ep != 0:
+        return moe_dense(p, x, cfg)
+    da = tuple(a for a in (rules.rules.get("batch") or ()) if a in sizes)
+    # the reference's sequence-parallel boundary, gated on head
+    # divisibility as there (repro/models/moe.py:195-208)
+    sp = (not decode and rules.rules.get("act_seq") == ep_axis
+          and cfg.n_heads % ep == 0)
+    act = activation(cfg.act)
+    k_top = m.experts_per_token
+    e_loc = m.n_experts // ep
+    e0 = mesh.get_local_rank(ep_axis) * e_loc
+    wg, wu, wd = p.w_gate, p.w_up, p.w_down
+
+    B, S, D = x.shape
+    xl = x
+    if decode and da:
+        # 2D-TP: gather tokens over the data axes, partial-ff FFN
+        xf = coll.all_gather(xl.reshape(B * S, D), da, 0, mesh)
+    else:
+        if sp:
+            xl = coll.all_gather(xl, ep_axis, 1, mesh)
+            S = xl.shape[1]
+        xf = xl.reshape(B * S, D)
+        if fsdp_axis:
+            # ZeRO-3: reassemble this rank's expert ff-shards
+            wg = coll.all_gather(wg, fsdp_axis, 2, mesh)
+            wu = coll.all_gather(wu, fsdp_axis, 2, mesh)
+            wd = coll.all_gather(wd, fsdp_axis, 1, mesh)
+    T = xf.shape[0]
+    gate, idx, probs = _route(xf, p.router, k_top)
+    C = _capacity(T, k_top, m.n_experts, m.capacity_factor)
+    buf, combine = _dispatch(xf, gate, idx, C, e0, e_loc, m.n_experts)
+    y = combine(_expert_ffn(buf, wg, wu, wd, act))
+    if decode and da:
+        y = coll.reduce_scatter(y, da, 0, mesh)
+        y = coll.all_reduce(y, ep_axis, mesh).reshape(B, S, D)
+    elif sp:
+        y = coll.reduce_scatter(y.reshape(B, S, D), ep_axis, 1, mesh)
+    else:
+        y = coll.all_reduce(y, ep_axis, mesh).reshape(B, S, D)
+    aux = _aux_loss(probs, idx, m.n_experts)
+    aux = coll.all_reduce(aux, mesh.mesh_dim_names, mesh) / mesh.size()
+    if hasattr(p, "dense"):
+        y = y + mlp(p.dense, x, cfg.act)
+    return y, aux
+
+
+def moe_layer(p: MoE, x, cfg: ModelConfig, decode: bool = False):
+    """The MoE of a layer: ``moe_sharded`` under active sharding rules,
+    ``moe_dense`` otherwise, as the reference's."""
+    if context.current() is not None:
+        return moe_sharded(p, x, cfg, decode=decode)
     return moe_dense(p, x, cfg)

@@ -235,7 +235,7 @@ def _layer_decode(p: Layer, x, cfg: ModelConfig, kind: str, cache, pos,
         x = x + ox
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
     if hasattr(p, "moe"):
-        f, _ = moe_mod.moe_layer(p.moe, h2, cfg)
+        f, _ = moe_mod.moe_layer(p.moe, h2, cfg, decode=True)
     else:
         f = mlp(p.mlp, h2, cfg.act)
     if cfg.post_norms:

@@ -3,24 +3,34 @@
 * ``adamw``     — f32 m/v (+ optional f32 master weights), decoupled decay.
 * ``adafactor`` — factored second moment (f32 row/col vectors).
 
-Params, grads and state are dicts keyed by parameter name
-(``dict(model.named_parameters())``); the state mirrors the reference's
-tree leaf by leaf (``models.weights.params_to_numpy`` stacks it into the
-reference's layout).  ``update(grads, state, params, lr)`` returns
-``(params, state, grad_norm)`` as the reference's does, but writes the new
-values into the given tensors in place (under ``torch.no_grad``) and returns
-the same dicts: JAX builds new arrays, the port keeps one copy of each.
-Each update is the reference's arithmetic per tensor, in the same dtypes
-(the bf16 grad times a Python scalar stays bf16, as a weakly typed scalar
-leaves it in JAX), so ``torch.optim.AdamW`` (no master copy, decay applied
-in another order) is not used.
+Params and grads are dicts keyed by parameter name
+(``dict(model.named_parameters())``).  ``update(grads, state, params, lr)``
+returns ``(params, state, grad_norm)`` as the reference's does, but writes
+the new values into the given tensors in place (under ``torch.no_grad``)
+and returns the same dicts: JAX builds new arrays, the port keeps one copy
+of each.  Each update is the reference's arithmetic in the same dtypes (the
+bf16 grad times a Python scalar stays bf16, as a weakly typed scalar leaves
+it in JAX), so ``torch.optim.AdamW`` (no master copy, decay applied in
+another order) is not used.
 
-The reference factors Adafactor's second moment over the last two dims of
-each leaf of its tree, whose superblock leaves are stacked (R, ...) layer
-tensors; the port factors each layer's own tensor.  The two agree wherever
-a layer tensor has 2 or more dims and its update's RMS clip does not bind,
-and differ for stacked 1-dim leaves (norms, biases), which the reference
-factors across layers.  No ported config trains with Adafactor.
+AdamW is elementwise: its state mirrors the params, name for name
+(``models.weights.params_to_numpy`` stacks it into the reference's tree).
+
+Adafactor works on the reference's tree, whose superblock leaves stack the
+R layers' tensors as ``(R, ...)``: given the model's config,
+``models.weights.stacked_view`` groups the port's per-layer tensors into
+those leaves, and the state ``vs`` is keyed by leaf key
+(``blocks/0/attn/wq``) with the reference's shapes (``weights.reference_tree``
+gives its ``opt["vs"]``).  So, as in the reference, a leaf of 2 or more
+stacked dims is factored over its last two dims (a stacked norm ``(R, D)``
+gets ``vr (R,)`` and ``vc (D,)``: a 1-dim layer tensor is factored across
+the layers), a 1-dim leaf keeps a full ``v``, and the update's RMS clip
+spans the whole leaf.  Without a config every name is a leaf of its own.
+The update runs in two passes over chunks of the leading axes that are not
+factored (the layers, then the experts) so that no f32 temporary spans a
+whole leaf: arctic-480b's stacked ``w_gate`` is 4.5e9 elements a layer.
+The first pass updates the moments and sums the squared update, the second
+applies the update clipped by the leaf's RMS.
 """
 from __future__ import annotations
 
@@ -29,6 +39,9 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import weights
 
 
 @dataclass(frozen=True)
@@ -49,9 +62,16 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
     return lr
 
 
+_CHUNK = 1 << 28  # elements of a chunk's f32 temporaries (1 GiB)
+
+
 def global_norm(tree: dict):
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+    """The f32 norm of every leaf together, summed over chunks of ``_CHUNK``
+    elements: an f32 copy of a whole leaf (arctic-480b's expert grads, 4.5e9
+    elements) does not fit beside the params and grads."""
+    return torch.sqrt(sum(torch.sum(torch.square(c.float()))
+                          for x in tree.values()
+                          for c in x.reshape(-1).split(_CHUNK)))
 
 
 def clip_by_global_norm(grads: dict, max_norm: float):
@@ -119,22 +139,75 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 # ---------------------------------------------------------------------------
 # Adafactor (factored second moment, no momentum, no master copy)
 # ---------------------------------------------------------------------------
+def _chunks(n: int, per: int) -> list:
+    """Slices of range(n), each of at most ``per`` rows' worth (>= 1 row)."""
+    step = max(1, min(n, _CHUNK // max(per, 1)))
+    return [slice(a, min(a + step, n)) for a in range(0, n, step)]
+
+
 def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0,
               decay_pow: float = 0.8, weight_decay: float = 0.0,
-              max_grad_norm: float = 1.0) -> Optimizer:
-    def factored(p):
-        return p.dim() >= 2
+              max_grad_norm: float = 1.0,
+              cfg: ModelConfig | None = None) -> Optimizer:
+    """``cfg``: the config of the model trained, whose stacked view groups
+    its tensors into the reference's leaves (module docstring)."""
+    def leaves(named: dict) -> dict:
+        return weights.stacked_view(named, cfg)
 
     def init(params: dict) -> dict:
-        def st(p):
+        vs = {}
+        for key, names in leaves(params).items():
+            p = params[names[0]]
+            shape = ((len(names),) if weights.is_stacked(key) else ()) + \
+                tuple(p.shape)
             f32 = dict(dtype=torch.float32, device=p.device)
-            if factored(p):
-                return {"vr": torch.zeros(p.shape[:-1], **f32),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
-            return {"v": torch.zeros(p.shape, **f32)}
-        return {"vs": {n: st(p) for n, p in params.items()},
+            if len(shape) >= 2:
+                vs[key] = {"vr": torch.zeros(shape[:-1], **f32),
+                           "vc": torch.zeros(shape[:-2] + shape[-1:], **f32)}
+            else:
+                vs[key] = {"v": torch.zeros(shape, **f32)}
+        return {"vs": vs,
                 "count": torch.zeros((), dtype=torch.int32,
                                      device=next(iter(params.values())).device)}
+
+    def moments(g, s, beta):
+        """Updates the chunk's moments in place; returns its update u (f32)."""
+        g2 = torch.square(g).add_(eps)
+        if "v" in s:
+            s["v"].copy_(beta * s["v"] + (1 - beta) * g2.float())
+        else:
+            # .float(): beta is a strongly typed f32 in the reference, which
+            # promotes the bf16 means to f32 (a 0-d tensor would not)
+            s["vr"].copy_(beta * s["vr"] + (1 - beta) * g2.mean(-1).float())
+            s["vc"].copy_(beta * s["vc"] + (1 - beta) * g2.mean(-2).float())
+        return unclipped(g, s)
+
+    def unclipped(g, s):
+        if "v" in s:
+            return g * torch.rsqrt(s["v"])
+        denom = s["vr"].mean(-1, keepdim=True)
+        u = g * torch.rsqrt(s["vr"] / torch.clamp(denom, min=eps))[..., None]
+        return u.mul_(torch.rsqrt(s["vc"])[..., None, :])
+
+    def pieces(key, names, grads, params, s):
+        """(g, p, state views) chunks of the leaf; a leaf whose layer
+        tensors have fewer than 2 dims is stacked whole (norms, biases:
+        small) and written back by the caller."""
+        ps = [params[n] for n in names]
+        if ps[0].dim() < 2:
+            return [(weights.stack(key, [grads[n] for n in names]),
+                     weights.stack(key, ps), s)]
+        out = []
+        for r, n in enumerate(names):
+            sr = {k: v[r] for k, v in s.items()} if weights.is_stacked(key) \
+                else s
+            g, p = grads[n], params[n]
+            if p.dim() == 2:
+                out.append((g, p, sr))
+                continue
+            for sl in _chunks(p.shape[0], p[0].numel()):
+                out.append((g[sl], p[sl], {k: v[sl] for k, v in sr.items()}))
+        return out
 
     @torch.no_grad()
     def update(grads: dict, st: dict, params: dict, lr):
@@ -142,33 +215,40 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0,
         grads, gn = clip_by_global_norm(grads, max_grad_norm)
         st["count"] += 1
         beta = 1.0 - st["count"].float() ** -decay_pow
-        for n, p in params.items():
-            g, s = grads[n], st["vs"][n]
-            g2 = torch.square(g) + eps
-            if factored(p):
-                # .float(): beta is a strongly typed f32 in the reference,
-                # which promotes the bf16 means to f32 (a 0-d tensor would not)
-                s["vr"].copy_(beta * s["vr"] + (1 - beta) * g2.mean(-1).float())
-                s["vc"].copy_(beta * s["vc"] + (1 - beta) * g2.mean(-2).float())
-                denom = s["vr"].mean(-1, keepdim=True)
-                u = g * torch.rsqrt(s["vr"] / torch.clamp(denom, min=eps))[
-                    ..., None] * torch.rsqrt(s["vc"])[..., None, :]
-            else:
-                s["v"].copy_(beta * s["v"] + (1 - beta) * g2.float())
-                u = g * torch.rsqrt(s["v"])
-            # update clipping (RMS)
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
-            u = u / torch.clamp(rms / clip_thresh, min=1.0)
-            pf = p.float()
-            p.copy_(pf - lr * (u + weight_decay * pf))
+        for key, names in leaves(params).items():
+            s = st["vs"][key]
+            chunks = pieces(key, names, grads, params, s)
+            # pass 1: the moments and the leaf's mean squared update
+            sq, n = 0.0, 0
+            for g, _, sc in chunks:
+                u = moments(g, sc, beta)
+                sq = sq + torch.sum(torch.square(u), dtype=torch.float64)
+                n += u.numel()
+            # update clipping (RMS), over the whole leaf
+            rms = torch.sqrt((sq / n).float() + 1e-12)
+            clip = torch.clamp(rms / clip_thresh, min=1.0)
+            # pass 2: apply, in place where the arithmetic is the same
+            for g, p, sc in chunks:
+                u = unclipped(g, sc).div_(clip)
+                pf = p.float()
+                if weight_decay:
+                    u.add_(weight_decay * pf)
+                p.copy_(pf.sub_(u.mul_(lr)))
+            if params[names[0]].dim() < 2 and weights.is_stacked(key):
+                for name, new in zip(names, weights.unstack(key,
+                                                            chunks[0][1])):
+                    params[name].copy_(new)
         return params, st, gn
 
     return Optimizer("adafactor", init, update)
 
 
-def make_optimizer(name: str, **kw) -> Optimizer:
+def make_optimizer(name: str, cfg: ModelConfig | None = None,
+                   **kw) -> Optimizer:
+    """``cfg``: the model's config, which Adafactor needs to see the
+    reference's stacked leaves (AdamW is elementwise and takes none)."""
     if name == "adamw":
         return adamw(**kw)
     if name == "adafactor":
-        return adafactor(**kw)
+        return adafactor(cfg=cfg, **kw)
     raise ValueError(name)

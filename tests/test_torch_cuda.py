@@ -23,7 +23,9 @@ against the same body on the CPU, on the same payload and weights: the keep
 mask exactly, tensors to 1e-5 (cuDNN sums in another order; tf32 off), the
 alarm score to 1e-4; again with cuDNN's TF32 left at PyTorch's default, which
 the bodies override for their own convolutions, and through ``launch.flood``
-end to end with the engine's clock stepped.
+end to end with the engine's clock stepped.  Adafactor's chunked two-pass
+update on the card is held against the CPU (1e-5), and ``moe_layer`` under
+sharding rules on one NCCL rank against ``moe_dense`` (bit for bit).
 """
 import dataclasses
 
@@ -503,7 +505,9 @@ def test_train_step_on_card_gives_every_parameter_a_grad(cuda_device, arch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "recurrentgemma-2b",
-                                  "rwkv6-7b"])
+                                  "rwkv6-7b", "qwen3-moe-235b-a22b",
+                                  "arctic-480b", "whisper-small",
+                                  "paligemma-3b"])
 def test_train_step_on_card_matches_cpu(cuda_device, arch):
     """One f32 train step from the same weights and batch on the card
     (kernels) and on the CPU (plain versions): the loss to 1e-4 relative,
@@ -528,3 +532,69 @@ def test_train_step_on_card_matches_cpu(cuda_device, arch):
         err = (torch.linalg.vector_norm(gg[n] - c) /
                torch.linalg.vector_norm(c)).item()
         assert err <= 1e-3, (n, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b"])
+def test_adafactor_on_card_matches_cpu(cuda_device, arch, monkeypatch):
+    """Two Adafactor updates over the stacked view, cut into chunks of a few
+    experts (so both passes run chunk by chunk), on the card and on the CPU
+    from the same f32 weights and grads: new weights and state to 1e-5
+    relative (elementwise, or the leaf's largest element near zero)."""
+    from repro_torch.optim import adafactor, optimizers
+    monkeypatch.setattr(optimizers, "_CHUNK", 3 * 64 * 64)
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        params = {n: p.to(dev) for n, p in model.named_parameters()}
+        opt = adafactor(clip_thresh=0.1, cfg=cfg)
+        st = opt.init(params)
+        gen = torch.Generator().manual_seed(1)
+        for _ in range(2):
+            grads = {n: torch.randn(p.shape, generator=gen).to(dev)
+                     for n, p in params.items()}
+            params, st, _ = opt.update(grads, st, params, 0.01)
+        out[str(dev)] = ({n: p.cpu() for n, p in params.items()},
+                         {f"{k}/{n}": t.cpu() for k, s in st["vs"].items()
+                          for n, t in s.items()})
+    (cp, cs), (gp, gs) = out["cpu"], out[str(cuda_device)]
+    for name, c in list(cp.items()) + list(cs.items()):
+        g = gp[name] if name in gp else gs[name]
+        torch.testing.assert_close(g, c, rtol=1e-5,
+                                   atol=1e-5 * float(c.abs().max()),
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decode", [False, True])
+def test_moe_sharded_on_one_nccl_rank_matches_dense(cuda_device, tmp_path,
+                                                    decode):
+    """moe_layer under sharding rules on a 1 x 1 mesh over one NCCL rank
+    takes moe_sharded, whose collectives are identities there: the same
+    values as moe_dense, bit for bit, in f32."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.distributed import context
+    from repro_torch.distributed.layouts import choose_layout
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-235b-a22b"),
+                              param_dtype="float32")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = moe.init_moe(cfg, gen, cuda_device)
+    x = torch.randn((2, 1 if decode else 64, cfg.d_model), generator=gen,
+                    device=cuda_device)
+    want = moe.moe_dense(p, x, cfg)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        with context.use_rules(choose_layout(cfg, LM_SHAPES["train_4k"],
+                                             mesh)):
+            got = moe.moe_layer(p, x, cfg, decode=decode)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -323,17 +323,40 @@ def test_capacity_matches_jax():
                         jmoe._capacity(T, k, E, cf)
 
 
-def test_moe_layer_is_dense_and_raises_in_a_process_group(monkeypatch):
-    """Without a process group moe_layer is moe_dense; inside one of more
-    than one process it raises (the sharded path is not ported) rather than
-    run the dense path on every rank."""
+@pytest.mark.parametrize("decode", [False, True])
+def test_moe_layer_takes_moe_sharded_under_rules(monkeypatch, tmp_path,
+                                                 decode):
+    """Without sharding rules moe_layer is moe_dense; under them (a gloo
+    group of one process, a 1 x 1 mesh) it takes moe_sharded, whose
+    collectives are then identities: the same values bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.distributed import context
+    from repro_torch.distributed.layouts import choose_layout
+    from repro_torch.launch.mesh import make_mesh
     _, tc, _, tp, _, tx = _moe_pair("arctic-480b", "float32", seed=0)
-    for a, b in zip(tmoe.moe_layer(tp, tx, tc), tmoe.moe_dense(tp, tx, tc)):
+    if decode:
+        tx = tx[:, :1]
+    want = tmoe.moe_dense(tp, tx, tc)
+    taken = []
+    real = tmoe.moe_sharded
+    monkeypatch.setattr(tmoe, "moe_sharded",
+                        lambda *a, **kw: taken.append(kw) or real(*a, **kw))
+    for a, b in zip(tmoe.moe_layer(tp, tx, tc, decode=decode), want):
         assert torch.equal(a, b)
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="moe_sharded"):
-        tmoe.moe_layer(tp, tx, tc)
+    assert taken == []
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        rules = choose_layout(tc, LM_SHAPES["train_4k"], mesh)
+        with context.use_rules(rules):
+            got = tmoe.moe_layer(tp, tx, tc, decode=decode)
+    finally:
+        dist.destroy_process_group()
+    assert taken == [{"decode": decode}]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_moe_dense_rejects_uneven_groups():

@@ -30,6 +30,7 @@ from repro_torch.examples import (elastic_restart, serve_pipeline,  # noqa: E402
                                   train_small)
 from repro_torch.launch import flood, serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh, make_mesh  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.loop import TrainLoop  # noqa: E402
 from repro_torch.train.steps import init_train_state  # noqa: E402
@@ -192,6 +193,8 @@ ENTRY_POINTS = {
     "init_train_state": lambda cfg: init_train_state(None, cfg, adamw()),
     "train_loop": lambda cfg: TrainLoop(cfg, adamw(), batch=2, seq=16),
     "launch.train": lambda cfg: launch_train.main([]),
+    "launch.mesh.make_mesh": lambda cfg: make_mesh((1, 1), ("data", "model")),
+    "launch.mesh.make_local_mesh": lambda cfg: make_local_mesh(),
     "examples.train_small": lambda cfg: train_small.main([]),
     "examples.elastic_restart": lambda cfg: elastic_restart.main([]),
     "examples.serve_pipeline": lambda cfg: serve_pipeline.main([]),

@@ -5,9 +5,12 @@ the same batches.
 Weights are the reference's own (``repro.models.init_params``), with every
 norm and zero-initialised vector given random values (as the model tests
 do), converted by ``params_from_jax``.  Batches are the reference's
-``SyntheticTokens`` draws.  Both packages take one step of
-``build_train_step`` with AdamW (f32 master) and a constant learning rate:
-the schedule's first value is 0, which would leave the params unchanged.
+``SyntheticTokens`` draws (whisper's with ``frames``, paligemma's with
+``patches``).  Both packages take one step of ``build_train_step`` with the
+config's optimizer (AdamW with f32 master; Adafactor over the stacked
+leaves for the two MoE configs, whose loss carries the MoE aux) and a
+constant learning rate: the schedule's first value is 0, which would leave
+the params unchanged.
 The reference's step is jitted; the port's runs eagerly, its attention
 through the flash wrapper's plain version (f32 P·V, as the kernel).  rwkv6-7b
 also runs with ``forward_train(seq_exact=True)`` in both train steps (the
@@ -27,6 +30,10 @@ Tolerances, with reasons:
 * AdamW's first step moves each weight by about lr * sign(g) wherever
   |g| >> eps, so an element whose grad is near 0 may step the other way:
   the master weights are held elementwise within 2 lr (1 + wd |p|).
+* Adafactor's state leaves to twice the grads' tolerance (they hold
+  squared grads, as AdamW's v), and each leaf's step (new weights - old) to
+  the grads' tolerance in relative norm: the step is continuous in the
+  grads.
 
 The same steps with bf16 params are in tests/test_torch_train_bf16.py.
 """
@@ -48,6 +55,7 @@ from repro.models.losses import softmax_xent as jax_xent  # noqa: E402
 from repro.optim import adafactor as jax_adafactor  # noqa: E402
 from repro.optim import adamw as jax_adamw  # noqa: E402
 from repro.optim import cosine_schedule as jax_cosine  # noqa: E402
+from repro.optim import make_optimizer as jax_make_optimizer  # noqa: E402
 from repro.train import steps as jsteps  # noqa: E402
 from repro_torch.checkpoint import TwoTierCheckpoint  # noqa: E402
 from repro_torch.checkpoint.twotier import flatten  # noqa: E402
@@ -58,11 +66,14 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import forward_train, init_params  # noqa: E402
 from repro_torch.models.losses import softmax_xent  # noqa: E402
 from repro_torch.models.weights import (params_from_jax,  # noqa: E402
-                                        params_to_numpy)
-from repro_torch.optim import adafactor, adamw, cosine_schedule  # noqa: E402
+                                        params_to_numpy, reference_tree)
+from repro_torch.optim import (adafactor, adamw, cosine_schedule,  # noqa: E402
+                               make_optimizer)
 from repro_torch.train import steps as tsteps  # noqa: E402
 
-ARCHS = ["h2o-danube-1.8b", "gemma3-1b", "recurrentgemma-2b", "rwkv6-7b"]
+ARCHS = ["h2o-danube-1.8b", "gemma3-1b", "recurrentgemma-2b", "rwkv6-7b",
+         "qwen3-moe-235b-a22b", "arctic-480b", "whisper-small",
+         "paligemma-3b"]
 B, S = 2, 64          # h2o-danube's smoke window is 32: the window masks
 LR = 1e-3
 F32_TOL = 1e-4
@@ -123,7 +134,7 @@ def _reference(arch, dtype, seq_exact=False, grad_accum=1):
     jc, _ = _cfgs(arch, dtype)
     jp = _jax_params(jc)
     batch = {k: jnp.asarray(v) for k, v in _batch(jc, B * grad_accum).items()}
-    opt = jax_adamw()
+    opt = jax_make_optimizer(jc.optimizer)
     state = {"params": jp, "opt": opt.init(jp),
              "step": jnp.zeros((), jnp.int32)}
     fwd = functools.partial(jtf.forward_train, seq_exact=seq_exact)
@@ -146,7 +157,8 @@ def _port(arch, dtype, seq_exact=False, grad_accum=1):
     model = params_from_jax(_jax_params(jc), tc, device="cpu")
     batch = {k: torch.from_numpy(v)
              for k, v in _batch(jc, B * grad_accum).items()}
-    state = tsteps.init_train_state(None, tc, adamw(), params=model)
+    opt = make_optimizer(tc.optimizer, cfg=tc)
+    state = tsteps.init_train_state(None, tc, opt, params=model)
     grads = None
     fwd = functools.partial(forward_train, seq_exact=seq_exact)
     with mock.patch.object(tsteps, "forward_train", fwd):
@@ -155,12 +167,17 @@ def _port(arch, dtype, seq_exact=False, grad_accum=1):
             total.backward()
             grads = params_to_numpy({n: p.grad for n, p in
                                      model.named_parameters()}, tc)
-        step = tsteps.build_train_step(tc, adamw(), lambda s: LR,
+        step = tsteps.build_train_step(tc, opt, lambda s: LR,
                                        grad_accum=grad_accum)
         state, metrics = step(state, batch)
-    new = {"params": params_to_numpy(model, tc),
-           "opt": {k: params_to_numpy(state["opt"][k], tc)
-                   for k in ("m", "v", "master")}}
+    if opt.name == "adamw":
+        new_opt = {k: params_to_numpy(state["opt"][k], tc)
+                   for k in ("m", "v", "master")}
+    else:
+        new_opt = {"vs": reference_tree(
+            {k: {n: t.numpy() for n, t in s.items()}
+             for k, s in state["opt"]["vs"].items()}, tc)}
+    new = {"params": params_to_numpy(model, tc), "opt": new_opt}
     assert int(state["step"]) == 1 and int(state["opt"]["count"]) == 1
     return ref, grads, new, {k: float(v) for k, v in metrics.items()}
 
@@ -185,6 +202,17 @@ def _check_master(new, ref, wd=0.1):
         assert np.all(np.abs(t - j) <= bound), jax.tree_util.keystr(path)
 
 
+def _check_steps(new, ref, tols):
+    """Adafactor's step on each leaf (new weights - old) to its tolerance
+    in relative norm: its update is continuous in the grads (no sign flips
+    as AdamW's first step has)."""
+    for (path, j), t, p, tol in zip(_leaves(ref["new"]["params"]),
+                                    jax.tree.leaves(new["params"]),
+                                    jax.tree.leaves(ref["params"]), tols):
+        err = _rel(t.astype(np.float64) - p, j.astype(np.float64) - p)
+        assert err <= tol, (jax.tree_util.keystr(path), err, tol)
+
+
 # seq_exact changes only RWKV layers
 CASES = [(arch, False) for arch in ARCHS] + [("rwkv6-7b", True)]
 
@@ -200,6 +228,11 @@ def test_train_step_f32_matches_reference(arch, seq_exact):
         tol * ref["metrics"]["grad_norm"]
     assert metrics["lr"] == pytest.approx(LR)
     _check_grads(grads, ref["grads"], [tol] * len(jax.tree.leaves(grads)))
+    if "vs" in new["opt"]:                       # Adafactor (the MoE configs)
+        _check_grads(new["opt"]["vs"], ref["new"]["opt"]["vs"],
+                     [2 * tol] * len(jax.tree.leaves(new["opt"]["vs"])))
+        _check_steps(new, ref, [tol] * len(jax.tree.leaves(new["params"])))
+        return
     for k in ("m", "v"):
         _check_grads(new["opt"][k], ref["new"]["opt"][k],
                      [2 * tol if k == "v" else tol] *
