@@ -137,7 +137,23 @@ Phases:
      tree against its formula; pipeline_apply with one stage against the
      sequential stack (2e-5).  With two or more cards one NCCL rank a card
      runs the sharded parity too; with one, a line says it was not run.
-     The group is destroyed at the phase's end.  One JSON line holds it.
+     The bf16 prefill's collectives, traced once (``roofline.trace``), and
+     the least time the gathers' copies take beside the sharded - dense
+     gap.  The group is destroyed at the phase's end.  One JSON line holds
+     it.
+  11. roofline: every step the serving and training phases timed (the
+     prefill and the decode step of each serving path, the h2o-danube-1.8b,
+     recurrentgemma-2b, rwkv6-7b and ``[train_moe]`` train steps) traced
+     once on the meta device at the same depth, batch and length
+     (``launch.dryrun.trace_cell`` on a 1 x 1 mesh; no kernel launches):
+     one ``[roofline]`` line each, a JSON object with the traced flops, the
+     compulsory bytes (arguments read once, outputs written once), the
+     eager bytes, the model flops, the bound (every flop at the bf16
+     tensor-core peak), the measured time, roofline fraction and MFU, and
+     the predicted peak memory beside the measured ``max_memory_allocated``
+     of that step.  It fails where the bound exceeds the measured time by
+     more than 5% (the count would be wrong) or the peaks differ by more
+     than ``roofline.analysis.PEAK_BAND``.
   Phase 2 also holds each kernel's autograd function (the kernel forward, the
   plain version's autograd backward) against autograd of the plain version
   over the kernel's sweep, at the kernel's tolerance.
@@ -159,9 +175,6 @@ import time
 from pathlib import Path
 
 SEED = 0
-PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
-PEAK_F32_FLOPS = 67e12        # H100 SXM f32 rate outside the tensor cores
-PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
 TOL = {"float32": 3e-5, "bfloat16": 2.5e-2}     # tests/test_kernels.py
 RGLRU_TOL = 2e-5              # tests/test_kernels.py::test_rglru_kernel
 WKV6_TOL = 1e-3               # tests/test_kernels.py::test_wkv6_kernel
@@ -229,6 +242,7 @@ PEAK_GB_LIMIT = 75.0
 DIST_F32_TOL = 1e-5           # moe_sharded vs moe_dense in f32, relative
 TRAIN_TOL = {"loss": 2e-2, "grad_norm": 5e-2}  # kernels vs plain, bf16
 SMOKE_TRAIN_TOL = {"loss": 1e-4, "grad": 1e-3}  # card vs CPU, f32, tf32 off
+ROOFLINE_SLACK = 1.05         # a bound above the measured time: a wrong count
 KINDS_OF = {"flash_attention": ("local", "global"), "rglru_scan": ("rglru",),
             "wkv6": ("rwkv",)}
 NO_LIBRARY = ("no single PyTorch call computes the RG-LRU scan or the wkv6 "
@@ -253,37 +267,6 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound(flops: float, peak_flops: float, nbytes: float):
-    """Least time (ms) the card could take, and what bounds it."""
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def flash_bound(BK, S, G, hd, window):
-    """One causal bf16 flash call: the operations the allowed (q, kv) pairs
-    need (two products of 2*hd each) at the bf16 tensor-core rate, against
-    q, k, v read once and o written once at the HBM rate."""
-    pairs = sum(min(s + 1, window) if window else s + 1 for s in range(S))
-    flops = 4 * hd * BK * G * pairs
-    nbytes = (2 * BK * S * G * hd + 2 * BK * S * hd) * 2
-    return bound(flops, PEAK_BF16_FLOPS, nbytes)
-
-
-def rglru_bound(B, S, C):
-    """a and b read once and h written once in f32, one FMA per element."""
-    return bound(2 * B * S * C, PEAK_F32_FLOPS, 3 * B * S * C * 4)
-
-
-def wkv6_bound(BH, S, hd):
-    """r, k, v, logw read once, y and the final state written once, u read,
-    in f32; per step and head 4 operations per state element (the two FMAs
-    of y, the product k v and the decay FMA) and one exp per key channel."""
-    flops = 4 * BH * S * hd * hd + BH * S * hd
-    nbytes = (5 * BH * S * hd + BH * hd + BH * hd * hd) * 4
-    return bound(flops, PEAK_F32_FLOPS, nbytes)
 
 
 def rel_err(torch, a, b) -> float:
@@ -312,6 +295,7 @@ def check_flash(torch, F, randn, dev):
         flash_attention_bkg, flash_attention_ref, flash_attention_wgmma_ref,
         variant)
     from repro_torch.kernels.flash_attention.ops import flash_attention_fma
+    from repro_torch.roofline.bounds import flash_bound
 
     def launch(q, k, v, **kw):
         """The wrapper's route, checked to launch the variant of the rule."""
@@ -419,6 +403,7 @@ def check_rglru(torch, randn):
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.rglru_scan import rglru_scan_bsc, rglru_scan_ref
     from repro_torch.kernels.rglru_scan.ops import rglru_scan_thread
+    from repro_torch.roofline.bounds import rglru_bound
 
     def inputs(shape, near_one=False):
         x = randn(shape, torch.float32)
@@ -480,6 +465,7 @@ def check_wkv6(torch, randn):
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.rwkv6_chunk import wkv6_bh, wkv6_chunk_ref, wkv6_ref
     from repro_torch.kernels.rwkv6_chunk.ops import wkv6_seq
+    from repro_torch.roofline.bounds import wkv6_bound
 
     def inputs(BH, Sq, hd, logw_value=None):
         r, k, v = (randn((BH, Sq, hd), torch.float32) for _ in range(3))
@@ -761,6 +747,7 @@ def serve_path(torch, np, dev, arch):
     want = {name: n for name, n in PATHS[arch].items() if n}
     row = {"layers": cfg.n_layers}
     # ---- 3. prefill at full width ------------------------------------------
+    gc.collect()                # earlier paths' models in reference cycles
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
@@ -777,6 +764,8 @@ def serve_path(torch, np, dev, arch):
     prefill(model, batch)                         # warm-up
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(dev)
+    phase_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)       # the prefill's own peak
 
     cuda_lib.launches.clear()                     # the main path starts here
     t0 = time.perf_counter()
@@ -802,9 +791,10 @@ def serve_path(torch, np, dev, arch):
     check(len(cache["tail"]) == cfg.n_tail, "cache tail")
     check(all(bool(torch.isfinite(t).all()) for t in cache_leaves(cache)),
           "cache finite")
-    peak_gb = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
+    prefill_peak = torch.cuda.max_memory_allocated(dev)
+    peak_gb = (prefill_peak - before) / 1e9
     row.update(prefill_ms=prefill_ms, prefill_launches=prefill_launches,
-               n_params=n_params)
+               n_params=n_params, prefill_peak_gb=prefill_peak / 1e9)
     print(f"[prefill] {arch} {B}x{S} positions ({sorted(batch)}): "
           f"{prefill_ms:.1f} ms ({B * S / prefill_ms * 1e3:.0f} positions/s), "
           f"launches {prefill_launches}, peak memory above the weights "
@@ -814,6 +804,8 @@ def serve_path(torch, np, dev, arch):
     decode = build_decode_step(cfg)
     tok = next_tok[:, None]
     step_ms = []
+    phase_peak = max(phase_peak, prefill_peak)
+    torch.cuda.reset_peak_memory_stats(dev)       # the decode steps' peak
     for i in range(8):
         t0 = time.perf_counter()
         tok, cache = decode(model, cache, tok, n_pos + i)
@@ -825,6 +817,7 @@ def serve_path(torch, np, dev, arch):
           bool(torch.isfinite(logits).all()), "decode logits finite")
     med = float(np.median(step_ms))
     row["decode_ms"] = med
+    row["decode_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"[decode] {arch} 8 steps at batch {B}: median {med:.2f} ms/step "
           f"({med / B:.3f} ms/token, {B / med * 1e3:.0f} tok/s); "
           f"steps ms {[round(t, 2) for t in step_ms]}")
@@ -866,7 +859,7 @@ def serve_path(torch, np, dev, arch):
     else:
         reference_full_width(torch, dev, arch, cfg, model, batch, want, row)
         del model
-    row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    row["peak_gb"] = max(phase_peak, torch.cuda.max_memory_allocated(dev)) / 1e9
     print(f"[reference] {arch}: peak memory of the phase "
           f"{row['peak_gb']:.2f} GB")
 
@@ -1710,6 +1703,7 @@ def train_path(torch, np, dev, card):
                                                      flash_attention_ref)
     from repro_torch.models import init_params
     from repro_torch.optim import adamw, global_norm, make_optimizer
+    from repro_torch.roofline.bounds import flash_bound
     from repro_torch.train import steps as tsteps
 
     out = {"card": card}
@@ -1743,6 +1737,8 @@ def train_path(torch, np, dev, card):
         f"{arch} full width")}
     step = tsteps.build_train_step(cfg, opt, tsteps_lr(), grad_accum=1)
     rows = []
+    phase_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)      # the train steps' own peak
     cuda_lib.launches.clear()                    # the training path starts here
     for i in range(TRAIN_STEPS):
         before = dict(cuda_lib.launches)
@@ -1769,13 +1765,14 @@ def train_path(torch, np, dev, card):
                if p.grad is None or not bool(torch.isfinite(p.grad).all())]
     check(not missing, f"{arch} parameters without a finite grad: {missing}")
     med = float(np.median([r["ms"] for r in rows[1:]]))
-    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    peak = max(phase_peak / 1e9, step_peak)
     prof = profile_step(torch, step, state, batches[TRAIN_STEPS], RANGES)
     out[arch] = {"params": n_params, "batch": TRAIN_B, "seq": TRAIN_S,
                  "steps": rows, "median_ms_steps_2_5": med,
                  "tokens_per_s": TRAIN_B * TRAIN_S / med * 1e3,
-                 "peak_memory_gb": peak, "profile": prof,
-                 "flash_launches_per_step": want_flash}
+                 "peak_memory_gb": peak, "step_peak_gb": step_peak,
+                 "profile": prof, "flash_launches_per_step": want_flash}
     print(f"[train] {arch}: median {med:.1f} ms/step over steps 2-{TRAIN_STEPS} "
           f"({TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s), peak memory "
           f"{peak:.2f} GB (max_memory_allocated), flash launches per step "
@@ -1824,11 +1821,14 @@ def train_path(torch, np, dev, card):
         step = tsteps.build_train_step(cfg, opt, tsteps_lr())
         step(state, batch)                                  # warm-up
         torch.cuda.synchronize()
+        phase_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)  # the train step's own peak
         cuda_lib.launches.clear()              # this path's train step starts
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
         ms = (time.perf_counter() - t0) * 1e3
+        step_peak = torch.cuda.max_memory_allocated(dev)
         launches["train:" + arch] = {n: c for n, c in cuda_lib.launches.items()
                                      if c}
         for kernel in kernels:
@@ -1845,7 +1845,8 @@ def train_path(torch, np, dev, card):
         out[arch] = {"params": n_params, "layers": cfg.n_layers,
                      "batch": REC_TRAIN_B, "seq": REC_TRAIN_S, "ms": ms,
                      "loss": loss, "grad_norm": gn,
-                     "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                     "peak_memory_gb": max(phase_peak, step_peak) / 1e9,
+                     "step_peak_gb": step_peak / 1e9,
                      "profile": profile_step(torch, step, state, batch, RANGES)}
         print(f"[train] {arch} full width, {cfg.n_layers} layers "
               f"({n_params / 1e9:.4f} B params), batch {REC_TRAIN_B} x seq "
@@ -2189,6 +2190,9 @@ def distributed_path(torch, np, dev, card):
                     timing = (f"; sharded {row['sharded_ms']:.3f} ms vs dense "
                               f"{row['dense_ms']:.3f} ms (CUDA events, 10 "
                               f"calls)")
+                    if not decode:
+                        row["collectives"] = sharded_collectives(
+                            torch, sharded, row, card)
                 out[f"{dtype} {what}"] = row
                 tol = f" (tol {DIST_F32_TOL})" if dtype == "float32" else ""
                 print(f"[distributed] {arch} one MoE layer at full width, "
@@ -2260,6 +2264,102 @@ def distributed_path(torch, np, dev, card):
               f"has {n} card (NCCL takes one rank a card; the multi-rank "
               f"parity runs on gloo in tests/test_torch_distributed.py)")
     return out
+
+
+def sharded_collectives(torch, sharded, row, card) -> dict:
+    """``collective_stats`` of one traced ``moe_sharded`` call, and the
+    least time its gathers take on one rank: a gather there copies its
+    operand into the gathered parts and ``torch.cat`` copies them again,
+    each byte read and written twice at the HBM rate."""
+    from repro_torch.roofline.bounds import PEAK_BYTES
+    from repro_torch.roofline.trace import OpTrace, collective_stats
+    with OpTrace() as trace:
+        sharded()
+    torch.cuda.synchronize()
+    stats = collective_stats(trace)
+    gathered = stats["all-gather"]["operand_bytes"]
+    copy_ms = 4 * gathered / PEAK_BYTES * 1e3
+    print(f"[distributed] collective_stats of one traced moe_sharded prefill "
+          f"call: {json.dumps(stats)}; the gathers' {gathered / 1e9:.3f} GB "
+          f"copied twice on one rank take at least {copy_ms:.3f} ms at "
+          f"{PEAK_BYTES / 1e12} TB/s, against the sharded - dense gap "
+          f"{row['sharded_ms'] - row['dense_ms']:.3f} ms; {card}")
+    return {"stats": stats, "gather_copy_bound_ms": copy_ms}
+
+
+def roofline_steps(serving, train_out) -> list:
+    """(path, config, shape, measured ms, measured peak GB) of every step
+    the serving and training phases timed, at their depth, batch and
+    length."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    steps = []
+    for arch in PATHS:
+        cfg, row = path_config(arch), serving[arch]
+        for kind in ("prefill", "decode"):
+            steps.append((f"{arch} {kind}", cfg, ShapeConfig(kind, kind, S, B),
+                          row[f"{kind}_ms"], row[f"{kind}_peak_gb"]))
+    h2o = train_out["h2o-danube-1.8b"]
+    steps.append(("h2o-danube-1.8b train", get_config("h2o-danube-1.8b"),
+                  ShapeConfig("train", "train", TRAIN_S, TRAIN_B),
+                  h2o["median_ms_steps_2_5"], h2o["step_peak_gb"]))
+    for arch in RECURRENT:
+        full = get_config(arch)
+        steps.append((f"{arch} train",
+                      dataclasses.replace(full, n_layers=full.pattern_len),
+                      ShapeConfig("train", "train", REC_TRAIN_S, REC_TRAIN_B),
+                      train_out[arch]["ms"], train_out[arch]["step_peak_gb"]))
+    for arch, depth in TRAIN_MOE_DEPTH.items():
+        cfg = get_config(arch)
+        if depth:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        row = train_out["train_moe"][arch]
+        steps.append((f"{arch} train", cfg,
+                      ShapeConfig("train", "train", TRAIN_MOE_S, TRAIN_MOE_B),
+                      row["ms"], row["peak_memory_gb"]))
+    return steps
+
+
+def roofline_path(torch, steps, card) -> list:
+    """Phase 11: each timed step traced on the meta device (the dry-run's
+    ``trace_cell``, a 1 x 1 mesh), held against its H100 roofline: the
+    bound (every flop at the bf16 tensor-core peak against the arguments
+    read once and the outputs written once) must not exceed the measured
+    time by more than ROOFLINE_SLACK, and the measured peak memory must lie
+    within PEAK_BAND of the predicted one."""
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.roofline.analysis import PEAK_BAND, step_model_flops
+    from repro_torch.roofline.bounds import PEAK_BF16_FLOPS, bound
+    mesh = AbstractMesh(("data", "model"), (1, 1))
+    rows = []
+    for name, cfg, shape, ms, peak_gb in steps:
+        rec = trace_cell(cfg, shape, mesh, grad_accum=1)
+        flops = rec["cost"]["flops_per_device"]
+        compulsory = rec["cost"]["compulsory_bytes"]
+        bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, compulsory)
+        model_flops = step_model_flops(cfg, shape)
+        row = {"path": name, "layers": cfg.n_layers, "batch": shape.global_batch,
+               "seq": shape.seq_len, "flops": flops,
+               "compulsory_bytes": compulsory,
+               "bytes_accessed": rec["cost"]["bytes_accessed"],
+               "model_flops": model_flops, "bound_ms": bound_ms,
+               "bound_by": bound_by, "measured_ms": ms,
+               "roofline_fraction": bound_ms / ms,
+               "mfu": model_flops / (ms / 1e3 * PEAK_BF16_FLOPS),
+               "predicted_peak_gb": rec["memory"]["peak_gb"],
+               "measured_peak_gb": peak_gb,
+               "peak_ratio": peak_gb / rec["memory"]["peak_gb"],
+               "traced_ops": rec["hlo_len"], "trace_s": rec["lower_s"],
+               "card": card}
+        print("[roofline] " + json.dumps(row), flush=True)
+        check(row["roofline_fraction"] <= ROOFLINE_SLACK,
+              f"{name}: bound {bound_ms} ms above the measured {ms} ms: the "
+              f"count is wrong")
+        check(PEAK_BAND[0] <= row["peak_ratio"] <= PEAK_BAND[1],
+              f"{name}: measured peak {peak_gb} GB against the predicted "
+              f"{rec['memory']['peak_gb']} GB, outside {PEAK_BAND}")
+        rows.append(row)
+    return rows
 
 
 def train_launches(cfg, kernel) -> int:
@@ -2350,6 +2450,9 @@ def main() -> int:
 
     # ---- 10. the distribution layer --------------------------------------
     print(json.dumps({"distributed": distributed_path(torch, np, dev, card)}))
+
+    # ---- 11. every timed step against its roofline -----------------------
+    roofline_path(torch, roofline_steps(serving, train_out), card)
 
     def path_launches(name):
         by_path = {arch: n.get(name, 0) for arch, n in launches.items()

@@ -122,6 +122,45 @@ class ModelConfig:
         kinds += list(self.tail_pattern)
         return kinds
 
+    # ----- analytic parameter count (used for 6*N*D MODEL_FLOPS) -----
+    def param_count(self, active_only: bool = False) -> int:
+        d, hd = self.d_model, self.head_dim
+        n = 0
+        # embeddings (+ untied head)
+        n += self.vocab_size * d
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        gated_ffn = 3 * d * self.d_ff
+        for kind in self.layer_kinds():
+            n += 2 * d  # norms
+            if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+                n += attn
+                if self.moe is not None:
+                    e = self.moe.experts_per_token if active_only \
+                        else self.moe.n_experts
+                    n += e * 3 * d * self.moe.d_ff_expert + d * self.moe.n_experts
+                    if self.moe.dense_residual:
+                        n += 3 * d * (self.moe.d_ff_dense or self.d_ff)
+                else:
+                    n += gated_ffn
+            elif kind == RGLRU:
+                dr = self.d_rnn or d
+                # in/out proj + conv + gates
+                n += 2 * d * dr + dr * d + self.conv_width * dr + 2 * dr * dr + dr
+                n += gated_ffn
+            elif kind == RWKV:
+                # time-mix: r,k,v,g,o + decay lora + channel-mix
+                n += 5 * d * d + 2 * d * self.d_ff
+        if self.encoder_decoder:
+            # encoder layers: attn + plain ffn (no gating in whisper)
+            enc = attn + 2 * d * self.d_ff + 2 * d
+            n += self.n_enc_layers * enc
+            # decoder cross-attention
+            n += self.n_layers * (attn + d)
+        return n
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

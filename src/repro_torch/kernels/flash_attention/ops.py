@@ -13,6 +13,10 @@ decided by dtype and head dim alone (``variant``):
   kernel, ``csrc/flash_attention.cu`` (all f32: TF32 would break the
   reference's 3e-5 f32 tolerance).
 
+On a meta tensor it launches nothing: ``flash_attention_meta`` returns
+the output's shape and dtype and adds the kernel's work to the active
+``roofline.trace.OpTrace``, so a dry-run counts what the card runs.
+
 ``cuda_lib.launches["flash_attention"]`` counts every launch, and
 ``launches["flash_attention:<variant>"]`` the launches of each kernel.
 
@@ -35,6 +39,8 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.roofline.bounds import causal_pairs, flash_work
+from repro_torch.roofline.trace import record_kernel
 
 NAME = "flash_attention"
 WGMMA = "flash_attention_wgmma"     # the tensor-core kernel's library
@@ -68,7 +74,8 @@ def _check(q, k, v):
     if not (k.device == v.device == q.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
-    if q.device.index != torch.cuda.current_device():
+    cuda = q.device.type == "cuda"
+    if cuda and q.device.index != torch.cuda.current_device():
         raise ValueError(f"q is on {q.device} but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
@@ -88,7 +95,7 @@ def _check(q, k, v):
         raise ValueError(f"unsupported sizes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or (cuda and t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
@@ -98,12 +105,28 @@ def flash_attention_bkg(q, k, v, *, scale: float, softcap: float = 0.0,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale=scale, softcap=softcap,
                                    window=window, causal=causal)
+    if q.device.type == "meta":
+        return flash_attention_meta(q, k, v, window=window, causal=causal)
     if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+        raise ValueError(f"flash attention runs on cuda, cpu or meta, not "
+                         f"{q.device}")
     launch = flash_attention_wgmma if variant(q.dtype, q.shape[-1]) == "wgmma" \
         else flash_attention_fma
     return launch(q, k, v, scale=scale, softcap=softcap, window=window,
                   causal=causal)
+
+
+def flash_attention_meta(q, k, v, *, window: int = 0, causal: bool = True):
+    """The kernel's output on the meta device: launches nothing, and adds
+    the kernel to the active ``OpTrace`` as one op doing the work of its
+    bound (the allowed (q, kv) pairs only; one exp a pair)."""
+    _check(q, k, v)
+    BK, Sq, G, hd = q.shape
+    Skv = k.shape[1]
+    flops, nbytes = flash_work(BK, Sq, Skv, G, hd, window, causal,
+                               q.element_size())
+    return record_kernel(NAME, flops, nbytes, torch.empty_like(q),
+                         BK * G * causal_pairs(Sq, Skv, window, causal))
 
 
 def _launched(err: int, which: str):

@@ -3,7 +3,9 @@
 ``rglru_scan_bsc`` takes the kernel layout, a and b (B, S, C) f32.  On a
 CUDA tensor it launches ``csrc/rglru_scan_grouped.cu`` (channel groups in
 one wave, fed by a TMA ring; ``plan`` sizes it) or raises; on a CPU
-tensor it runs the plain version (``ref.py``).  Nothing else is on that
+tensor it runs the plain version (``ref.py``); on a meta tensor it
+launches nothing and records the kernel's work in the active
+``roofline.trace.OpTrace`` (``rglru_scan_meta``).  Nothing else is on that
 route: there is no fallback.  ``rglru_scan_thread`` launches the earlier
 design, ``csrc/rglru_scan.cu`` (one thread per channel); no model path
 calls it, it is kept to be timed and checked beside the new one.
@@ -30,6 +32,8 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.roofline.bounds import rglru_work
+from repro_torch.roofline.trace import record_kernel
 
 NAME = "rglru_scan"
 GROUPED = "rglru_scan_grouped"      # the channel-group kernel's library
@@ -65,7 +69,8 @@ def _kernel(name: str):
 def _check(a, b):
     if a.device != b.device:
         raise ValueError(f"a and b on different devices: {a.device}, {b.device}")
-    if a.device.index != torch.cuda.current_device():
+    if a.device.type == "cuda" and \
+            a.device.index != torch.cuda.current_device():
         raise ValueError(f"a is on {a.device} but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
@@ -88,9 +93,19 @@ def rglru_scan_bsc(a, b):
     """a, b: (B, S, C) f32 -> inclusive scan h (B, S, C) f32."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
+    if a.device.type == "meta":
+        return rglru_scan_meta(a, b)
     if a.device.type != "cuda":
-        raise ValueError(f"the RG-LRU scan runs on cuda or cpu, not {a.device}")
+        raise ValueError(f"the RG-LRU scan runs on cuda, cpu or meta, not "
+                         f"{a.device}")
     return rglru_scan_grouped(a, b)
+
+
+def rglru_scan_meta(a, b):
+    """The kernel's output on the meta device: launches nothing, and adds
+    the kernel to the active ``OpTrace`` as one op doing its bound's work."""
+    _check(a, b)
+    return record_kernel(NAME, *rglru_work(*a.shape), torch.empty_like(a))
 
 
 def _launched(err: int, which: str):

@@ -5,10 +5,12 @@
 On a CUDA tensor it launches ``csrc/wkv6_chunk.cu`` (the chunked form on
 the tensor cores, in 3xTF32; its numerics' plain version is
 ``ref.wkv6_chunk_ref``) or raises; on a CPU tensor it runs the plain
-version (``ref.wkv6_ref``).  Nothing else is on that route: there is no
-fallback.  ``wkv6_seq`` launches the earlier design, ``csrc/wkv6.cu`` (the
-sequential form on the CUDA cores); no model path calls it, it is kept to
-be timed and checked beside the new one.
+version (``ref.wkv6_ref``); on a meta tensor it launches nothing and
+records the kernel's work in the active ``roofline.trace.OpTrace``
+(``wkv6_meta``).  Nothing else is on that route: there is no fallback.
+``wkv6_seq`` launches the earlier design, ``csrc/wkv6.cu`` (the sequential
+form on the CUDA cores); no model path calls it, it is kept to be timed and
+checked beside the new one.
 
 ``cuda_lib.launches["wkv6"]`` counts every launch, and
 ``launches["wkv6:chunk"]`` / ``["wkv6:seq"]`` the launches of each kernel.
@@ -31,6 +33,8 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.rwkv6_chunk.ref import wkv6_ref
+from repro_torch.roofline.bounds import wkv6_work
+from repro_torch.roofline.trace import record_kernel
 
 NAME = "wkv6"
 CHUNK = "wkv6_chunk"                # the tensor-core kernel's library
@@ -53,7 +57,8 @@ def _check(r, k, v, logw, u):
             raise ValueError(f"{name} is on {t.device}, r on {r.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"the wkv6 kernel takes f32, {name} is {t.dtype}")
-    if r.device.index != torch.cuda.current_device():
+    cuda = r.device.type == "cuda"
+    if cuda and r.device.index != torch.cuda.current_device():
         raise ValueError(f"r is on {r.device} but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
     if r.dim() != 3 or not (k.shape == v.shape == logw.shape == r.shape):
@@ -67,7 +72,7 @@ def _check(r, k, v, logw, u):
     if min(BH, S) == 0:
         raise ValueError(f"unsupported shape {tuple(r.shape)}")
     for name, t in named:
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or (cuda and t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
@@ -76,9 +81,23 @@ def wkv6_bh(r, k, v, logw, u):
     (y (BH, S, hd) f32, S_last (BH, hd, hd) f32)."""
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, logw, u)
+    if r.device.type == "meta":
+        return wkv6_meta(r, k, v, logw, u)
     if r.device.type != "cuda":
-        raise ValueError(f"the wkv6 kernel runs on cuda or cpu, not {r.device}")
+        raise ValueError(f"the wkv6 kernel runs on cuda, cpu or meta, not "
+                         f"{r.device}")
     return wkv6_chunk(r, k, v, logw, u)
+
+
+def wkv6_meta(r, k, v, logw, u):
+    """The kernel's outputs on the meta device: launches nothing, and adds
+    the kernel to the active ``OpTrace`` as one op doing its bound's work
+    (one exp a key channel a step)."""
+    _check(r, k, v, logw, u)
+    BH, S, hd = r.shape
+    out = (torch.empty_like(r),
+           torch.empty((BH, hd, hd), dtype=torch.float32, device=r.device))
+    return record_kernel(NAME, *wkv6_work(BH, S, hd), out, BH * S * hd)
 
 
 def _launch(name, which, r, k, v, logw, u):

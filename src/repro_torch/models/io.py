@@ -7,7 +7,8 @@ encoder positions; the decoder gets ``seq // dec_len_ratio`` tokens) or
 paligemma's precomputed patch embeddings ``patches`` (``n_prefix_tokens``
 of the ``seq`` positions; ``labels`` is -1 over them).  ``batch_specs`` and
 ``decode_specs`` give the same structures as tensors on the meta device
-(shapes and dtypes, no storage), as the reference's ShapeDtypeStructs.
+(shapes and dtypes, no storage), as the reference's ShapeDtypeStructs;
+``input_specs`` picks one of them by the shape's kind.
 """
 from __future__ import annotations
 
@@ -45,6 +46,14 @@ def decode_specs(cfg: ModelConfig, shape: ShapeConfig,
     return {"tokens": _meta((B, 1)), "cache": init_cache(cfg, B, S,
                                                          device="meta"),
             "pos": _meta(())}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, **kw) -> dict:
+    """The dry-run's inputs of a cell: ``decode_specs`` for a decode shape,
+    else ``batch_specs``."""
+    if shape.kind == "decode":
+        return decode_specs(cfg, shape, **kw)
+    return batch_specs(cfg, shape, **kw)
 
 
 def make_batch(cfg: ModelConfig, generator: torch.Generator, batch: int,

@@ -1,0 +1,332 @@
+"""Op-trace introspection: flops, bytes, live memory, collectives, op census.
+
+The port's twin of ``repro.roofline.hlo``.  The reference reads what XLA
+compiled (the HLO text); eager PyTorch compiles nothing, so ``OpTrace``
+watches the program run instead: a ``TorchDispatchMode`` that sees every
+aten op of one call, on the meta device (shapes only, nothing allocated)
+or on real tensors.
+
+For each op it records the op's name, the bytes of its tensor operands and
+results at their dtypes, its flops (``torch.utils.flop_counter``'s formula
+registry; 0 where an op has none) and its transcendentals (the output
+elements of ``exp``, ``log``, ``tanh``, ``sigmoid``, ``rsqrt``, ``erf``,
+``sin``, ``cos`` and the like).  View ops move no data and allocations
+(``empty``) write none: both count 0 bytes.  A hand-written kernel adds
+itself as one op through ``record_kernel`` with the work its bound formula
+counts (``roofline.analysis``).
+
+Live memory is counted by storage, so views count once: a storage is alive
+from the op that makes it until it is freed, which a weak reference tells
+(autograd's saved tensors and remat keep storages alive without a Python
+tensor).  ``peak_bytes`` is the peak of the live bytes of the storages made
+during the trace; storages the trace first sees as inputs (the arguments)
+are outside it, and the bytes an op writes into them are kept in
+``written_bytes``.
+
+A size only known at run time has no value on the meta device: where a
+boolean mask selects (``nonzero``, indexing and ``index_put`` by a mask, as
+the MoE dispatch's kept slots), the trace counts every element of the mask
+true, the size's upper bound (T*k for the dispatch), which is what the
+reference's static-shape drop/fill dispatch computes under XLA.
+
+``collective_stats(trace)`` maps the collectives the program issues, both
+``c10d`` ops and ``_c10d_functional`` ones, onto the reference's five kinds
+with the same dict as ``hlo.collective_stats``: send and recv are the two
+halves of a ``collective-permute`` (the count is the larger of the sends
+and the recvs; sends carry the operand bytes, recvs the output bytes).
+"""
+from __future__ import annotations
+
+import time
+from collections import Counter
+from dataclasses import dataclass
+
+import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import flop_registry
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+# c10d op -> (kind, index of the operand argument, index of the output
+# argument); the in-place ops write their results into an argument
+_C10D = {
+    "allreduce_": ("all-reduce", 0, 0),
+    "allreduce_coalesced_": ("all-reduce", 0, 0),
+    "_allgather_base_": ("all-gather", 1, 0),
+    "allgather_": ("all-gather", 1, 0),
+    "allgather_coalesced_": ("all-gather", 1, 0),
+    "allgather_into_tensor_coalesced_": ("all-gather", 1, 0),
+    "_reduce_scatter_base_": ("reduce-scatter", 1, 0),
+    "reduce_scatter_": ("reduce-scatter", 1, 0),
+    "reduce_scatter_tensor_coalesced_": ("reduce-scatter", 1, 0),
+    "alltoall_base_": ("all-to-all", 1, 0),
+    "alltoall_": ("all-to-all", 1, 0),
+    "send": ("collective-permute", 0, None),
+    "recv_": ("collective-permute", None, 0),
+}
+# _c10d_functional op -> kind: the operand is the first argument, the
+# output what the op returns
+_FUNCTIONAL = {
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+TRANSCENDENTAL = {
+    "exp", "exp_", "exp2", "expm1", "log", "log_", "log1p", "log2", "log10",
+    "tanh", "tanh_", "sigmoid", "sigmoid_", "rsqrt", "rsqrt_", "sqrt",
+    "sqrt_", "erf", "erf_", "erfc", "erfinv", "sin", "sin_", "cos", "cos_",
+    "tan", "sinh", "cosh", "asin", "acos", "atan", "atan2", "_softmax",
+    "_log_softmax", "gelu", "gelu_backward", "silu", "silu_backward",
+    "logsigmoid", "softplus", "log_sigmoid_forward",
+}
+_NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty",
+             "new_empty_strided"}
+
+
+# ops whose output size a boolean mask's count of true elements sets
+_MASKED = {"nonzero", "index", "index_put", "index_put_", "_index_put_impl_"}
+
+
+def tensor_bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _mask_indices(m: torch.Tensor) -> list:
+    """A boolean mask on the meta device as the int indices of its true
+    elements, every element counted true: its upper bound."""
+    return [torch.empty(m.numel(), dtype=torch.long, device="meta")] * m.dim()
+
+
+def _bounded(name: str, args: tuple):
+    """A data-dependent op's arguments on the meta device, each boolean
+    mask replaced by ``_mask_indices``; ``nonzero``'s own result."""
+    if name == "nonzero":
+        return torch.empty((args[0].numel(), args[0].dim()), dtype=torch.long,
+                           device="meta")
+    indices = []
+    for i in args[1]:
+        if i is not None and i.dtype == torch.bool:
+            indices += _mask_indices(i)
+        else:
+            indices.append(i)
+    return (args[0], indices, *args[2:])
+
+
+def _tensors(tree) -> list:
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+@dataclass
+class Op:
+    name: str
+    in_bytes: int
+    out_bytes: int
+    flops: int
+    transcendentals: int
+
+    @property
+    def bytes(self) -> int:
+        return self.in_bytes + self.out_bytes
+
+
+class OpTrace(TorchDispatchMode):
+    """Records every aten op run under it (module docstring).
+
+    ``ops``: the ``Op`` of each op in order; ``collectives``: ``(kind,
+    operand bytes, output bytes, side)``, ``side`` ``"send"``/``"recv"``
+    for point-to-point halves and None otherwise; ``peak_bytes``: the peak
+    of the live storages made under the trace; ``written_bytes``: bytes
+    written into storages made before it, by storage, at most each one's
+    size; ``seconds``: the trace's wall time."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: list[Op] = []
+        self.collectives: list[tuple] = []
+        self.peak_bytes = 0
+        self.written_bytes: dict = {}
+        self.seconds = 0.0
+        self._made: dict = {}       # storage key -> (weak ref, bytes)
+        self._outside: dict = {}    # storage key -> (weak ref, bytes)
+        self._live = 0              # bytes of self._made at the last sweep
+        self._since = 0             # bytes made since the last sweep
+
+    # ---- the trace ---------------------------------------------------------
+    def __enter__(self):
+        # repro: allow(DB001): the trace's own seconds, a measurement
+        self._t0 = time.perf_counter()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        # repro: allow(DB001): the trace's own seconds, a measurement
+        self.seconds += time.perf_counter() - self._t0
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for t in _tensors((args, kwargs)):
+            self._see_input(t)
+        name = func.overloadpacket.__name__
+        if name in _MASKED and args[0].device.type == "meta":
+            bounded = _bounded(name, args)
+            out = bounded if name == "nonzero" else func(*bounded, **kwargs)
+        else:
+            out = func(*args, **kwargs)
+        ns = func.namespace
+        if ns in ("c10d", "_c10d_functional"):
+            self._collective(ns, name, args, out)
+        outs = _tensors(out)
+        for t in outs:
+            self._see_output(t, func)
+        if func.is_view or name in _NO_BYTES:
+            in_b = out_b = 0
+        else:
+            in_b = sum(tensor_bytes(t) for t in _tensors((args, kwargs)))
+            out_b = sum(tensor_bytes(t) for t in outs)
+        formula = flop_registry.get(func.overloadpacket)
+        flops = formula(*args, **kwargs, out_val=out) if formula else 0
+        trans = sum(t.numel() for t in outs) if name in TRANSCENDENTAL else 0
+        self.ops.append(Op(f"{ns}.{name}", in_b, out_b, flops, trans))
+        return out
+
+    def add_op(self, name: str, flops: int, nbytes: int, outputs,
+               transcendentals: int = 0):
+        """One op of ``nbytes`` bytes and ``flops`` flops (a hand-written
+        kernel); ``outputs`` are its results, made under the trace."""
+        outs = _tensors(outputs)
+        out_b = sum(tensor_bytes(t) for t in outs)
+        for t in outs:
+            self._see_output(t, None)
+        self.ops.append(Op(name, int(nbytes) - out_b, out_b, int(flops),
+                           int(transcendentals)))
+
+    # ---- storages ----------------------------------------------------------
+    @staticmethod
+    def _key(t):
+        s = t.untyped_storage()
+        return s._cdata, s
+
+    def _see_input(self, t):
+        key, s = self._key(t)
+        for table in (self._made, self._outside):
+            if key in table and table[key][0].expired():
+                del table[key]          # freed; the address was reused
+        if key not in self._made and key not in self._outside:
+            self._outside[key] = (StorageWeakRef(s), s.nbytes())
+
+    def _see_output(self, t, func):
+        key, s = self._key(t)
+        if key in self._outside and not self._outside[key][0].expired():
+            if func is not None and not func.is_view:
+                cap = self._outside[key][1]
+                self.written_bytes[key] = min(
+                    cap, self.written_bytes.get(key, 0) + tensor_bytes(t))
+            return
+        if key in self._made and not self._made[key][0].expired():
+            return
+        self._outside.pop(key, None)
+        nbytes = s.nbytes()
+        self._made[key] = (StorageWeakRef(s), nbytes)
+        self._since += nbytes
+        # the live bytes are at most the last sweep's plus what was made
+        # since: sweep for the frees only where that could pass the peak
+        if self._live + self._since > self.peak_bytes:
+            self._sweep()
+            self.peak_bytes = max(self.peak_bytes, self._live)
+
+    def _sweep(self):
+        dead = [k for k, (ref, _) in self._made.items() if ref.expired()]
+        for k in dead:
+            del self._made[k]
+        self._live = sum(n for _, n in self._made.values())
+        self._since = 0
+
+    def made_bytes(self, tree) -> int:
+        """Bytes of the distinct storages of ``tree``'s tensors that were
+        made under the trace (the outputs it created)."""
+        keys = dict.fromkeys(self._key(t)[0] for t in _tensors(tree))
+        return sum(self._made[k][1] for k in keys if k in self._made)
+
+    # ---- collectives -------------------------------------------------------
+    def _collective(self, ns, name, args, out):
+        if ns == "c10d":
+            if name not in _C10D:
+                return
+            kind, i_in, i_out = _C10D[name]
+            operand = sum(tensor_bytes(t) for t in _tensors(args[i_in])) \
+                if i_in is not None else 0
+            output = sum(tensor_bytes(t) for t in _tensors(args[i_out])) \
+                if i_out is not None else 0
+            side = None if kind != "collective-permute" else \
+                ("send" if name == "send" else "recv")
+        else:
+            if name not in _FUNCTIONAL:
+                return
+            kind, side = _FUNCTIONAL[name], None
+            operand = sum(tensor_bytes(t) for t in _tensors(args[0]))
+            output = sum(tensor_bytes(t) for t in _tensors(out))
+        self.collectives.append((kind, operand, output, side))
+
+    # ---- totals ------------------------------------------------------------
+    @property
+    def flops(self) -> int:
+        return sum(op.flops for op in self.ops)
+
+    @property
+    def bytes_accessed(self) -> int:
+        return sum(op.bytes for op in self.ops)
+
+    @property
+    def transcendentals(self) -> int:
+        return sum(op.transcendentals for op in self.ops)
+
+
+def active_trace():
+    """The innermost ``OpTrace`` being run under, or None."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(mode, OpTrace):
+            return mode
+    return None
+
+
+def record_kernel(name: str, flops, nbytes, outputs,
+                  transcendentals: int = 0):
+    """A hand-written kernel's meta path adds itself to the active trace as
+    one op doing its bound formula's work; returns ``outputs``."""
+    trace = active_trace()
+    if trace is not None:
+        trace.add_op(name, flops, nbytes, outputs, transcendentals)
+    return outputs
+
+
+def collective_stats(trace: OpTrace) -> dict:
+    """Per collective kind: count + operand bytes + output bytes."""
+    stats = {k: {"count": 0, "operand_bytes": 0, "output_bytes": 0}
+             for k in COLLECTIVES}
+    sides = Counter()
+    for kind, operand, output, side in trace.collectives:
+        st = stats[kind]
+        if side is None:
+            st["count"] += 1
+        else:
+            sides[side] += 1
+        st["operand_bytes"] += operand
+        st["output_bytes"] += output
+    stats["collective-permute"]["count"] += max(sides["send"], sides["recv"])
+    return stats
+
+
+def total_collective_bytes(stats: dict) -> int:
+    return sum(v["operand_bytes"] for v in stats.values())
+
+
+def op_census(trace: OpTrace, top: int = 20) -> list:
+    return Counter(op.name for op in trace.ops).most_common(top)

@@ -598,3 +598,50 @@ def test_moe_sharded_on_one_nccl_rank_matches_dense(cuda_device, tmp_path,
         dist.destroy_process_group()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_dry_run_predicts_the_peak_memory_of_a_step(cuda_device, kind):
+    """A step's traced peak (``launch.dryrun.trace_cell`` on the meta
+    device, arguments included) against ``max_memory_allocated`` over the
+    same step on the card, above what was allocated before its arguments:
+    within ``roofline.analysis.PEAK_BAND``.  h2o-danube-1.8b at full width,
+    2 layers; 2 x 512 positions (train: 2 x 256, AdamW)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import init_cache
+    from repro_torch.optim import adamw
+    from repro_torch.roofline.analysis import PEAK_BAND
+    from repro_torch.serving.steps import build_decode_step, build_prefill_step
+    from repro_torch.train.steps import build_train_step, init_train_state
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), n_layers=2)
+    B, S = (2, 256) if kind == "train" else (2, 512)
+    rec = trace_cell(cfg, ShapeConfig(kind, kind, S, B),
+                     AbstractMesh(("data", "model"), (1, 1)), grad_accum=1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    if kind == "train":
+        state = init_train_state(gen, cfg, adamw(), device=cuda_device)
+        args = (state, _train_batch(cfg, cuda_device, B, S))
+        step = build_train_step(cfg, adamw(), lambda s: 1e-3)
+    else:
+        model = init_params(cfg, gen, cuda_device)
+        if kind == "prefill":
+            args = (model, make_batch(cfg, gen, B, S))
+            step = build_prefill_step(cfg)
+        else:
+            args = (model, init_cache(cfg, B, S, device=cuda_device),
+                    torch.zeros((B, 1), dtype=torch.int32, device=cuda_device),
+                    S - 1)
+            step = build_decode_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    step(*args)
+    torch.cuda.synchronize()
+    measured = (torch.cuda.max_memory_allocated(cuda_device) - base) / 1e9
+    ratio = measured / rec["memory"]["peak_gb"]
+    assert PEAK_BAND[0] <= ratio <= PEAK_BAND[1], (measured, rec["memory"])

@@ -95,10 +95,14 @@ def test_cpu_route_launches_nothing():
 
 
 def test_other_devices_raise():
-    q = torch.zeros(1, 16, 1, 16, device="meta")
-    k = torch.zeros(1, 16, 16, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        flash_attention_bkg(q, k, k, scale=0.25)
+    # meta is the dry-run's route (tests/test_torch_roofline.py); a fake
+    # tensor stands for a device the wrapper does not run on
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        q = torch.zeros(1, 16, 1, 16, device="xpu")
+        k = torch.zeros(1, 16, 16, device="xpu")
+        with pytest.raises(ValueError, match="cuda, cpu or meta"):
+            flash_attention_bkg(q, k, k, scale=0.25)
 
 
 @pytest.mark.parametrize("dtype,hd,want", [
