@@ -139,10 +139,25 @@ Phases:
      runs the sharded parity too; with one, a line says it was not run.
      The bf16 prefill's collectives, traced once (``roofline.trace``), and
      the least time the gathers' copies take beside the sharded - dense
-     gap.  The group is destroyed at the phase's end.  One JSON line holds
-     it.
+     gap: on one rank they copy nothing (a gather over one rank is a view).
+     The group is destroyed at the phase's end.  One JSON line holds it.
+     With two or more cards the ranks also hold gemma3-1b's sharded prefill
+     (f32, DTensor model) against the plain one, to 1e-5.
+  10b. sharded: one NCCL rank, a 1 x 1 mesh; the DTensor model
+     (``distributed.layouts.shard_params`` under ``use_rules``) against
+     the plain model on the same weights, bit for bit, the kernels on the
+     card through their ``local_map`` routes, each path's launches counted
+     from 0 in both runs: gemma3-1b's prefill at full width and depth (4 x
+     1024; host ms and CUDA-event ms of both, the DTensor dispatch
+     overhead), recurrentgemma-2b's and rwkv6-7b's prefill at one
+     superblock (the scan and the wkv6), and one h2o-danube-1.8b train step
+     at full width cut to 4 layers, 4 x 2048, ``grad_accum=2``,
+     ``grad_shardings`` and ``update_constraint`` set (loss, grad norm and
+     every parameter).  A line says whether the multi-card parity ran.
+     One JSON line holds it.
   11. roofline: every step the serving and training phases timed (the
-     prefill and the decode step of each serving path, the h2o-danube-1.8b,
+     prefill and the decode step of each serving path, gemma3-1b's decode
+     with the int8 cache, the h2o-danube-1.8b,
      recurrentgemma-2b, rwkv6-7b and ``[train_moe]`` train steps) traced
      once on the meta device at the same depth, batch and length
      (``launch.dryrun.trace_cell`` on a 1 x 1 mesh; no kernel launches):
@@ -158,8 +173,9 @@ Phases:
   plain version's autograd backward) against autograd of the plain version
   over the kernel's sweep, at the kernel's tolerance.
 Then one JSON line describing each kernel (its launches summed over the
-serving paths, the int8 cache's included, serve_pipeline and the training
-paths, each counted from 0 just before its run), and last the device line.
+serving paths, the int8 cache's included, serve_pipeline, the training
+paths and the sharded paths, each counted from 0 just before its run), and
+last the device line.
 """
 from __future__ import annotations
 
@@ -245,6 +261,9 @@ SMOKE_TRAIN_TOL = {"loss": 1e-4, "grad": 1e-3}  # card vs CPU, f32, tf32 off
 ROOFLINE_SLACK = 1.05         # a bound above the measured time: a wrong count
 KINDS_OF = {"flash_attention": ("local", "global"), "rglru_scan": ("rglru",),
             "wkv6": ("rwkv",)}
+VARIANT = {"flash_attention": "wgmma", "rglru_scan": "grouped",
+           "wkv6": "chunk"}           # the kernel each wrapper launches
+SHARDED_TRAIN_LAYERS = 4      # [sharded]: h2o-danube-1.8b's step, cut from 24
 NO_LIBRARY = ("no single PyTorch call computes the RG-LRU scan or the wkv6 "
               "recurrence, so their library_ms is null")
 
@@ -1046,6 +1065,8 @@ def kv_quant_path(torch, np, dev):
         cache_mb = sum(t.numel() * t.element_size()
                        for t in cache_leaves(cache)) / 1e6
         out, step_ms = [logits.float()], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)     # the decode steps' peak
         for i in range(8):
             if name == "bf16":
                 toks.append(torch.argmax(out[-1][:, -1], dim=-1)[:, None]
@@ -1057,7 +1078,8 @@ def kv_quant_path(torch, np, dev):
             step_ms.append((time.perf_counter() - t0) * 1e3)
             out.append(logits.float())
         runs[name] = {"logits": out, "decode_ms": float(np.median(step_ms)),
-                      "cache_mb": cache_mb}
+                      "cache_mb": cache_mb, "decode_peak_gb":
+                      torch.cuda.max_memory_allocated(dev) / 1e9}
         del cache
     err = max((a - b).abs().max().item()
               for a, b in zip(runs["int8"]["logits"], runs["bf16"]["logits"]))
@@ -1066,6 +1088,8 @@ def kv_quant_path(torch, np, dev):
           f"{arch} int8 cache vs bf16 cache: logits max abs {err}")
     row = {"int8_vs_bf16_logits_max_abs": err,
            **{f"{n}_decode_ms": r["decode_ms"] for n, r in runs.items()},
+           **{f"{n}_decode_peak_gb": r["decode_peak_gb"]
+              for n, r in runs.items()},
            **{f"{n}_cache_mb": r["cache_mb"] for n, r in runs.items()}}
     print(f"[kv_quant] {arch} full width, 8 decode steps at batch {B} after a "
           f"{B}x{S} prefill: median {runs['int8']['decode_ms']:.2f} ms/step "
@@ -2109,8 +2133,42 @@ def multi_card_rank(rank: int, n: int, store: str, device_type: str,
                       f"diff {row['aux_abs_err']:.3g} (tol {DIST_F32_TOL}), "
                       f"{row['differing_routes']} of {row['routes']} routes "
                       f"differ", flush=True)
+        sharded_prefill_parity(torch, dev, mesh, smoke, rank, n)
     finally:
         dist.destroy_process_group()
+
+
+def sharded_prefill_parity(torch, dev, mesh, smoke: bool, rank: int, n: int):
+    """gemma3-1b's prefill in f32 as a DTensor model on the (1, n) mesh
+    (heads, ff and vocab over ``model``) against the plain model on the
+    same weights, to DIST_F32_TOL (rank 0 prints)."""
+    from repro_torch.configs.base import (ShapeConfig, get_config,
+                                          get_smoke_config)
+    from repro_torch.distributed import context, layouts
+    from repro_torch.models import forward_prefill, init_params
+    from repro_torch.models.io import make_batch
+    arch = "gemma3-1b"
+    cfg = dataclasses.replace((get_smoke_config if smoke else get_config)(
+        arch), param_dtype="float32")
+    seq = 64 if smoke else S
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    batch = make_batch(cfg, torch.Generator(device=dev).manual_seed(SEED), B,
+                       seq)
+    want, _ = forward_prefill(model, cfg, batch)
+    rules = layouts.choose_layout(cfg, ShapeConfig("prefill", "prefill", seq,
+                                                   B), mesh)
+    layouts.shard_params(model, cfg, rules, mesh)
+    with context.use_rules(rules):
+        got, _ = forward_prefill(model, cfg, layouts.distribute_tree(
+            batch, layouts.batch_pspecs(batch, rules), mesh))
+    err = rel_err(torch, got.full_tensor(), want)
+    check(err <= DIST_F32_TOL, f"{n} ranks, {arch} sharded prefill vs plain: "
+          f"relative error {err}")
+    if rank == 0:
+        print(f"[sharded] {n} {dev.type} ranks, (1, {n}) mesh, {arch} "
+              f"prefill in f32, DTensor model vs plain: relative error "
+              f"{err:.3g} (tol {DIST_F32_TOL})", flush=True)
 
 
 def spawn_multi_card(torch, n: int, arch: str, smoke: bool, device_type: str,
@@ -2268,9 +2326,11 @@ def distributed_path(torch, np, dev, card):
 
 def sharded_collectives(torch, sharded, row, card) -> dict:
     """``collective_stats`` of one traced ``moe_sharded`` call, and the
-    least time its gathers take on one rank: a gather there copies its
-    operand into the gathered parts and ``torch.cat`` copies them again,
-    each byte read and written twice at the HBM rate."""
+    least time its gathers' copies take: on one rank a gather is a view of
+    its operand (C2), so nothing is copied and the bound is 0; on more
+    ranks each gathered byte is written once and read once at the HBM
+    rate."""
+    import torch.distributed as dist
     from repro_torch.roofline.bounds import PEAK_BYTES
     from repro_torch.roofline.trace import OpTrace, collective_stats
     with OpTrace() as trace:
@@ -2278,13 +2338,243 @@ def sharded_collectives(torch, sharded, row, card) -> dict:
     torch.cuda.synchronize()
     stats = collective_stats(trace)
     gathered = stats["all-gather"]["operand_bytes"]
-    copy_ms = 4 * gathered / PEAK_BYTES * 1e3
-    print(f"[distributed] collective_stats of one traced moe_sharded prefill "
-          f"call: {json.dumps(stats)}; the gathers' {gathered / 1e9:.3f} GB "
-          f"copied twice on one rank take at least {copy_ms:.3f} ms at "
-          f"{PEAK_BYTES / 1e12} TB/s, against the sharded - dense gap "
-          f"{row['sharded_ms'] - row['dense_ms']:.3f} ms; {card}")
-    return {"stats": stats, "gather_copy_bound_ms": copy_ms}
+    copy_ms = 2 * gathered / PEAK_BYTES * 1e3
+    gap = row["sharded_ms"] - row["dense_ms"]
+    if dist.get_world_size() == 1:
+        check(gathered == 0 and copy_ms == 0,
+              f"one rank: moe_sharded issued gathers of {gathered} bytes")
+        print(f"[distributed] collective_stats of one traced moe_sharded "
+              f"prefill call: {json.dumps(stats)}; on one rank its gathers "
+              f"copy nothing (views of their operands, C2): "
+              f"gather_copy_bound_ms {copy_ms}; the sharded - dense gap "
+              f"{gap:.3f} ms; {card}")
+    else:
+        print(f"[distributed] collective_stats of one traced moe_sharded "
+              f"prefill call: {json.dumps(stats)}; the gathers' "
+              f"{gathered / 1e9:.3f} GB take at least {copy_ms:.3f} ms at "
+              f"{PEAK_BYTES / 1e12} TB/s, against the sharded - dense gap "
+              f"{gap:.3f} ms; {card}")
+    return {"stats": stats, "gather_copy_bound_ms": copy_ms,
+            "sharded_minus_dense_ms": gap}
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: the sharded model
+# ---------------------------------------------------------------------------
+def sharded_prefill(torch, dev, mesh, cfg, arch, want, card):
+    """One prefill of ``cfg`` at full width, 4 x 1024, with plain tensors and
+    then with the same weights as DTensors (``shard_params``), under the
+    rules of a prefill cell: outputs bit for bit, launches equal to
+    ``want`` in both runs (each counted from 0), host ms (one call, then
+    synchronised; median of 3) and CUDA-event ms (mean of 3) of each.
+    Returns (the DTensor run's launches, a row)."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import context, layouts
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import forward_prefill, init_params
+    from repro_torch.models.io import make_batch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    batch = make_batch(cfg, torch.Generator(device=dev).manual_seed(SEED), B, S)
+    rules = layouts.choose_layout(cfg, ShapeConfig("prefill", "prefill", S, B),
+                                  mesh)
+    runs = {}
+    for name in ("plain", "dtensor"):
+        if name == "dtensor":
+            layouts.shard_params(model, cfg, rules, mesh)
+            batch = layouts.distribute_tree(
+                batch, layouts.batch_pspecs(batch, rules), mesh)
+        with context.use_rules(rules if name == "dtensor" else None):
+            forward_prefill(model, cfg, batch)           # warm-up
+            torch.cuda.synchronize()
+            cuda_lib.launches.clear()                    # the path starts here
+            logits, cache = forward_prefill(model, cfg, batch)
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in cuda_lib.launches.items() if n}
+            host = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                forward_prefill(model, cfg, batch)
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+            event_ms = time_ms(torch, lambda: forward_prefill(model, cfg,
+                                                             batch),
+                               iters=3, warmup=0)
+        check(launched == want, f"{arch} {name} prefill launched {launched}, "
+              f"want {want}")
+        runs[name] = {"out": [logits] + cache_leaves(cache),
+                      "host_ms": float(np.median(host)), "event_ms": event_ms,
+                      "launches": launched}
+        del logits, cache
+    outs = zip(runs["dtensor"]["out"], runs["plain"]["out"])
+    same = [torch.equal(d.full_tensor(), p) for d, p in outs]
+    check(all(same), f"{arch} sharded prefill vs plain: outputs "
+          f"{[i for i, ok in enumerate(same) if not ok]} differ")
+    row = {"layers": cfg.n_layers, "batch": B, "seq": S,
+           "bit_identical_outputs": len(same),
+           **{f"{n}_{k}": r[k] for n, r in runs.items()
+              for k in ("host_ms", "event_ms")},
+           "dtensor_host_overhead_ms":
+               runs["dtensor"]["host_ms"] - runs["plain"]["host_ms"],
+           "launches": runs["dtensor"]["launches"], "card": card}
+    print(f"[sharded] {arch} prefill at full width, {cfg.n_layers} layers, "
+          f"{B}x{S}, 1 x 1 mesh: DTensor model equals the plain model bit "
+          f"for bit ({len(same)} outputs: logits and cache leaves); launches "
+          f"{runs['dtensor']['launches']} in both; host ms plain "
+          f"{runs['plain']['host_ms']:.2f} / DTensor "
+          f"{runs['dtensor']['host_ms']:.2f} (DTensor dispatch overhead "
+          f"{row['dtensor_host_overhead_ms']:.2f} ms), CUDA-event ms plain "
+          f"{runs['plain']['event_ms']:.2f} / DTensor "
+          f"{runs['dtensor']['event_ms']:.2f}; {card}")
+    del model, runs
+    return row["launches"], row
+
+
+def sharded_train(torch, dev, mesh, card):
+    """One h2o-danube-1.8b train step at full width (d 2560), cut to
+    ``SHARDED_TRAIN_LAYERS`` layers, 4 x 2048, ``grad_accum=2``, AdamW with
+    f32 master: the plain model, then the same weights as DTensors with
+    ``grad_shardings`` and ``update_constraint`` set (``opt_pspecs``'
+    ZeRO layout through ``param_placements``).  Loss, grad norm and every
+    parameter bit for bit; flash launches equal.  Returns (the DTensor
+    step's launches, a row)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.distributed import context, layouts
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import steps as tsteps
+
+    arch = "h2o-danube-1.8b"
+    cfg = dataclasses.replace(get_config(arch), n_layers=SHARDED_TRAIN_LAYERS)
+    data = SyntheticTokens(cfg, TRAIN_B, TRAIN_S, seed=SEED)
+    rules = layouts.choose_layout(
+        cfg, ShapeConfig("train", "train", TRAIN_S, TRAIN_B), mesh)
+    runs = {}
+    for name in ("plain", "dtensor"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_for_step(0).items()}
+        gshard = None
+        if name == "dtensor":
+            layouts.shard_params(model, cfg, rules, mesh)
+            gshard = layouts.param_placements(model, cfg, layouts.opt_pspecs(
+                layouts.param_pspecs(model, cfg, rules), model, cfg, mesh),
+                mesh)
+            batch = layouts.distribute_tree(
+                batch, layouts.batch_pspecs(batch, rules), mesh)
+        opt = make_optimizer("adamw", update_constraint=gshard)
+        state = tsteps.init_train_state(None, cfg, opt, params=model)
+        step = tsteps.build_train_step(cfg, opt, tsteps_lr(), grad_accum=2,
+                                       grad_shardings=gshard)
+        with context.use_rules(rules if name == "dtensor" else None):
+            torch.cuda.synchronize()
+            cuda_lib.launches.clear()                    # the path starts here
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: n for k, n in cuda_lib.launches.items() if n}
+
+        def full(t):
+            return t.full_tensor() if context.is_dtensor(t) else t
+        runs[name] = {
+            "metrics": {k: full(metrics[k]) for k in ("loss", "grad_norm")},
+            "params": {n: full(p.detach()).clone()
+                       for n, p in model.named_parameters()},
+            "ms": ms, "launches": launched}
+        del model, state, opt, step, batch, metrics
+    n = 2 * train_launches(cfg, "flash_attention")     # two microbatches
+    want = {"flash_attention": n, "flash_attention:wgmma": n}
+    for name, r in runs.items():
+        check(r["launches"] == want, f"{arch} {name} sharded train step "
+              f"launched {r['launches']}, want {want} (two microbatches, "
+              f"forward and remat recompute)")
+    d, p = runs["dtensor"], runs["plain"]
+    differ = [k for k in d["metrics"] if not torch.equal(d["metrics"][k],
+                                                        p["metrics"][k])]
+    differ += [n for n in p["params"] if not torch.equal(d["params"][n],
+                                                        p["params"][n])]
+    check(not differ, f"{arch} sharded train step vs plain differs at "
+          f"{differ[:8]}")
+    loss, gn = float(d["metrics"]["loss"]), float(d["metrics"]["grad_norm"])
+    check(math.isfinite(loss) and math.isfinite(gn), f"{arch} loss {loss}")
+    row = {"layers": cfg.n_layers, "d_model": cfg.d_model, "batch": TRAIN_B,
+           "seq": TRAIN_S, "grad_accum": 2, "loss": loss, "grad_norm": gn,
+           "bit_identical_params": len(p["params"]), "plain_ms": p["ms"],
+           "dtensor_ms": d["ms"], "launches": d["launches"], "card": card}
+    print(f"[sharded] {arch} one train step at full width (d_model "
+          f"{cfg.d_model}), cut to {cfg.n_layers} of 24 layers, {TRAIN_B}x"
+          f"{TRAIN_S}, grad_accum 2, AdamW with grad_shardings and "
+          f"update_constraint (ZeRO placements): loss {loss:.6f}, grad norm "
+          f"{gn:.6f} and all {len(p['params'])} parameters bit-identical to "
+          f"the plain step; launches {d['launches']} in both; first step "
+          f"{p['ms']:.1f} ms plain, {d['ms']:.1f} ms DTensor; {card}")
+    del runs
+    return row["launches"], row
+
+
+def sharded_path(torch, np, dev, card):
+    """Phase 10b: the sharded model (``distributed.layouts.shard_params``:
+    DTensor parameters at ``param_pspecs``, under ``use_rules``) on one
+    NCCL rank and a 1 x 1 mesh, the kernels on the card through their
+    ``local_map`` routes, each path against the plain model bit for bit:
+    gemma3-1b's prefill at full width and depth, recurrentgemma-2b's and
+    rwkv6-7b's at one superblock, h2o-danube-1.8b's train step
+    (``sharded_train``).  With two or more cards the sharded prefill runs
+    across NCCL ranks too (``spawn_multi_card``).  Returns (launches by
+    path, the phase's numbers)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_mesh
+
+    out, launches = {"card": card}, {}
+    tmp = tempfile.TemporaryDirectory()
+    init_group(dev, 1, 0, str(Path(tmp.name) / "store"))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev.type)
+        print(f"[sharded] {dist.get_backend()} group of "
+              f"{dist.get_world_size()} rank, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}; {card}")
+        for arch in ("gemma3-1b",) + RECURRENT:
+            cfg = path_config(arch)
+            if arch in RECURRENT:
+                cfg = dataclasses.replace(get_config(arch),
+                                          n_layers=cfg.pattern_len)
+            want = {}
+            for kernel, kinds in KINDS_OF.items():
+                n = sum(kind in kinds for kind in cfg.layer_kinds())
+                if n:
+                    want[kernel] = want[f"{kernel}:{VARIANT[kernel]}"] = n
+            launches[f"{arch} sharded"], out[f"{arch} prefill"] = \
+                sharded_prefill(torch, dev, mesh, cfg, arch, want, card)
+        launches["h2o-danube-1.8b sharded train"], out["h2o-danube-1.8b train"] \
+            = sharded_train(torch, dev, mesh, card)
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    n = torch.cuda.device_count()
+    if n >= 2:
+        out["multi_card"] = (f"{n} NCCL ranks, one a card: the sharded "
+                             f"prefill parity ran in [distributed]")
+    else:
+        out["multi_card"] = (f"not run: {n} card on this machine, and NCCL "
+                             f"takes one rank a card")
+        print(f"[sharded] the sharded prefill across NCCL ranks not run: this "
+              f"machine has {n} card (the 8-rank parity runs on gloo in "
+              f"tests/test_torch_sharded.py)")
+    return launches, out
 
 
 def roofline_steps(serving, train_out) -> list:
@@ -2298,6 +2588,11 @@ def roofline_steps(serving, train_out) -> list:
         for kind in ("prefill", "decode"):
             steps.append((f"{arch} {kind}", cfg, ShapeConfig(kind, kind, S, B),
                           row[f"{kind}_ms"], row[f"{kind}_peak_gb"]))
+    kvq = serving["gemma3-1b kv_quant"]
+    steps.append(("gemma3-1b kv_quant decode",
+                  dataclasses.replace(path_config("gemma3-1b"), kv_quant=True),
+                  ShapeConfig("decode", "decode", S, B), kvq["int8_decode_ms"],
+                  kvq["int8_decode_peak_gb"]))
     h2o = train_out["h2o-danube-1.8b"]
     steps.append(("h2o-danube-1.8b train", get_config("h2o-danube-1.8b"),
                   ShapeConfig("train", "train", TRAIN_S, TRAIN_B),
@@ -2450,6 +2745,11 @@ def main() -> int:
 
     # ---- 10. the distribution layer --------------------------------------
     print(json.dumps({"distributed": distributed_path(torch, np, dev, card)}))
+
+    # ---- 10b. the sharded model ------------------------------------------
+    sharded_by_path, sharded = sharded_path(torch, np, dev, card)
+    launches.update(sharded_by_path)
+    print(json.dumps({"sharded": sharded}))
 
     # ---- 11. every timed step against its roofline -----------------------
     roofline_path(torch, roofline_steps(serving, train_out), card)

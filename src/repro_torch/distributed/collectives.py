@@ -7,6 +7,11 @@ act as one axis in mesh order (the first major), as the reference's do:
 a gather runs over the last axis first, a scatter over the first.  The
 backward of a gather is a reduce-scatter of the gradient, of a
 reduce-scatter a gather, of a sum a sum (the reference's transposes).
+
+Over a group of one rank each is the identity and copies nothing (a view
+of its input, so that autograd sees a new tensor), as the reference's
+collectives over a size-1 axis compile to nothing.  On more ranks a gather
+is one ``all_gather_into_tensor`` along a leading dim, moved into place.
 """
 from __future__ import annotations
 
@@ -19,13 +24,19 @@ def _axes(axes) -> tuple:
 
 
 def _gather(x, dim: int, group):
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim)
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x.view_as(x)
+    xs = x.movedim(dim, 0).contiguous()
+    out = xs.new_empty((n * xs.shape[0], *xs.shape[1:]))
+    dist.all_gather_into_tensor(out, xs, group=group)
+    return out.movedim(0, dim)
 
 
 def _scatter_sum(x, dim: int, group):
     n = dist.get_world_size(group)
+    if n == 1:
+        return x.view_as(x)
     xs = x.movedim(dim, 0).contiguous()
     if xs.shape[0] % n:
         raise ValueError(f"dim {dim} of size {xs.shape[0]} does not split "
@@ -36,6 +47,8 @@ def _scatter_sum(x, dim: int, group):
 
 
 def _sum(x, group):
+    if dist.get_world_size(group) == 1:
+        return x.view_as(x)
     x = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(x, group=group)
     return x

@@ -13,10 +13,25 @@ axis is that axis, an empty tuple None).  ``placements`` turns one into
 DTensor placements on a real ``DeviceMesh``.  A mesh is read through its ``mesh_dim_names`` and
 ``shape`` only, so a ``launch.mesh.AbstractMesh`` (names and sizes, no
 devices) serves wherever no collective runs.
+
+The sharded model is the port's model with its parameters as DTensors
+(``layouts.shard_params``) and its batch and cache too
+(``layouts.distribute_tree``).  Under active rules ``constrain`` lays an
+activation out as the reference's ``with_sharding_constraint`` does, by a
+DTensor ``redistribute``; a plain tensor, or no active rules, leaves it
+as it is, so the unsharded model runs exactly as before.  The tensors the
+model makes itself (rope tables, positions, masks, scalars, zero caches)
+stay plain: the model's entry points, the train step and the optimizers'
+updates run under ``replicate_made_tensors``, which is torch's
+``implicit_replication`` (a plain tensor taken as replicated on the
+DTensor's mesh) where the model holds DTensors and nothing otherwise.
+``local_placements`` is what a kernel wrapper's DTensor route checks
+before it runs its kernel on the local shards (``local_map``).
 """
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 from typing import Optional
 
@@ -54,12 +69,16 @@ def placements(spec: tuple, mesh) -> tuple:
     """A spec -> one DTensor placement per mesh dim: ``Shard(d)`` where the
     mesh dim shards tensor dim d, ``Replicate()`` elsewhere.  A tensor dim
     sharded over several mesh dims is split in mesh-dim order, as the
-    reference's ``("pod", "data")`` is (``pod`` major)."""
+    reference's ``("pod", "data")`` is (``pod`` major).  A mesh dim of size
+    1 cuts nothing and is ``Replicate()`` (DTensor's view rules refuse some
+    reshapes of a dim "sharded" over one rank)."""
     from torch.distributed.tensor import Replicate, Shard
+    sizes = axis_sizes(mesh)
     out = [Replicate()] * len(mesh.mesh_dim_names)
     for d, s in enumerate(spec):
         for ax in ((s,) if isinstance(s, str) else (s or ())):
-            out[mesh.mesh_dim_names.index(ax)] = Shard(d)
+            if sizes[ax] > 1:
+                out[mesh.mesh_dim_names.index(ax)] = Shard(d)
     return tuple(out)
 
 
@@ -95,16 +114,144 @@ def use_rules(rules: Optional[ShardingRules]):
 
 def constrain(x, logical: tuple):
     """Lay ``x`` out as the logical axes say: ``redistribute`` a DTensor to
-    the active rules' placements; a plain tensor, or no active rules, leaves
-    ``x`` as it is (the port's models hold no DTensors)."""
+    the active rules' placements; a plain tensor (the unsharded model's),
+    or no active rules, leaves ``x`` as it is."""
     r = current()
-    if r is None:
-        return x
-    from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
+    if r is None or not is_dtensor(x):
         return x
     return x.redistribute(x.device_mesh, placements(r.spec(logical),
                                                     x.device_mesh))
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor, without importing DTensor: nothing is
+    one until ``torch.distributed.tensor`` has been imported."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def redistribute(t, place):
+    """``t`` at the placements ``place`` where it is a DTensor and they
+    differ; else ``t`` itself."""
+    if place is None or not is_dtensor(t) or tuple(t.placements) == \
+            tuple(place):
+        return t
+    return t.redistribute(t.device_mesh, tuple(place))
+
+
+def unflatten(t, dim: int, sizes: tuple):
+    """``t`` with ``dim`` split into ``sizes`` (a reshape).  A DTensor can
+    only split a shard that holds whole rows of ``sizes[0]`` (the reference's
+    XLA re-lays out instead): the mesh dims that shard ``dim`` over more
+    ranks than divide ``sizes[0]`` are replicated first (an all-gather),
+    the one redistribution DTensor needs where the reference's layout
+    cannot be followed through the reshape.  So is a shard where
+    ``sizes[0]`` is 1 (it would move to ``sizes[1]``: GQA with one kv
+    head)."""
+    shape = (*t.shape[:dim], *sizes, *t.shape[dim + 1:])
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        mesh = t.device_mesh
+        on = [m for m, p in enumerate(t.placements)
+              if p.is_shard() and p.dim == dim % t.dim()]
+        n = 1
+        for m in on:
+            n *= mesh.size(m)
+        if sizes[0] % n or sizes[0] == 1:
+            t = t.redistribute(mesh, tuple(
+                Replicate() if m in on else p
+                for m, p in enumerate(t.placements)))
+    return t.reshape(shape)
+
+
+@contextlib.contextmanager
+def replicate_made_tensors(t):
+    """``implicit_replication`` where ``t`` (a parameter of the model) is a
+    DTensor, else nothing.  Nested uses enter it once (torch's turns it off
+    on any exit)."""
+    if not is_dtensor(t) or getattr(_state, "replicating", False):
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    _state.replicating = True
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _state.replicating = False
+
+
+def local_placements(kernel: str, inputs: dict, splits: dict) -> tuple:
+    """The placements a kernel runs its DTensor ``inputs`` at on their
+    local shards.
+
+    ``inputs``: {name: DTensor}.  ``splits``: {name: {split axis: tensor
+    dim}}, the axes along which the kernel's maths lets each input be cut
+    (batch, heads, channels); an input without an axis holds all of it.
+    Each mesh dim may shard one split axis: every input that has that axis
+    is sharded on its dim there, every other one is replicated.  An input
+    already sharded there keeps its shard; a replicated one is cut locally
+    (``Replicate`` to ``Shard`` moves no data); on a mesh dim of size 1 every
+    input is taken replicated.  A ``Partial``, a shard of a
+    dim that is no split axis, or two inputs sharding different axes on
+    one mesh dim raise, with the placements in the message: nothing here
+    gathers.  Returns ({name: placements}, {name: grad placements}, the
+    axis chosen on each mesh dim or None): an input replicated on a mesh
+    dim that shards an axis it lacks takes a ``Partial`` gradient there
+    (each shard's contribution is summed)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = next(iter(inputs.values())).device_mesh
+    seen = {n: tuple(t.placements) for n, t in inputs.items()}
+
+    def fail(why):
+        raise ValueError(f"{kernel}: {why}; placements {seen}")
+
+    axes = []
+    for m in range(mesh.ndim):
+        chosen = None
+        for name, t in inputs.items():
+            pl = t.placements[m]
+            if isinstance(pl, Partial) or not (pl.is_shard() or
+                                               pl.is_replicate()):
+                fail(f"{name} is {pl} on mesh dim {m}")
+            if pl.is_replicate():
+                continue
+            ax = {d: a for a, d in splits[name].items()}.get(pl.dim)
+            if ax is None:
+                fail(f"{name}'s dim {pl.dim} cannot be split")
+            if mesh.size(m) == 1:
+                continue            # a shard of one: nothing is cut
+            if chosen not in (None, ax):
+                fail(f"mesh dim {m} shards both {chosen} and {ax}")
+            chosen = ax
+        axes.append(chosen)
+    place, grad = {}, {}
+    for name in inputs:
+        sp = splits[name]
+        place[name] = tuple(Shard(sp[a]) if a in sp else Replicate()
+                            for a in axes)
+        grad[name] = tuple(Partial() if a is not None and a not in sp
+                           else p for a, p in zip(axes, place[name]))
+    return place, grad, axes
+
+
+def run_local(kernel: str, fn, inputs: dict, splits: dict, out_splits):
+    """``fn`` (taking the inputs in order, returning a tensor or a tuple)
+    on the local shards of the DTensor ``inputs`` through ``local_map``,
+    at ``local_placements``; ``out_splits`` gives each output's {axis:
+    dim} (a dict, or a tuple of them)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    place, grad, axes = local_placements(kernel, inputs, splits)
+    mesh = next(iter(inputs.values())).device_mesh
+    outs = (out_splits,) if isinstance(out_splits, dict) else out_splits
+    out_place = tuple(tuple(Shard(sp[a]) if a in sp else Replicate()
+                            for a in axes) for sp in outs)
+    run = local_map(fn, out_placements=out_place,
+                    in_placements=tuple(place[n] for n in inputs),
+                    in_grad_placements=tuple(grad[n] for n in inputs),
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(*inputs.values())
 
 
 def axis_size(mesh_axis: str) -> int:

@@ -23,6 +23,25 @@ same nesting with a spec at each tensor.  A spec is a plain tuple
 (``distributed.context``); ``to_shardings`` gives DTensor placements.
 ``choose_layout`` and ``opt_pspecs`` read only the mesh's names and sizes,
 so they take a ``launch.mesh.AbstractMesh`` as well as a DeviceMesh.
+
+Placing a model: ``shard_params`` turns each parameter into a DTensor at
+its leaf's spec (``param_placements``), ``distribute_tree`` a batch or a
+cache at ``batch_pspecs`` / ``cache_pspecs``.  A per-layer tensor takes its
+stacked leaf's spec without the leading R entry (``layer_spec``).  Where
+the reference shards R itself, a layer cannot: ``opt_pspecs`` puts
+``data`` on R wherever R is the first free dim it divides, and that entry
+moves to the layer's next free dim that it divides, or, where there is
+none, the layer is replicated over it.  So the grad shardings and update
+constraints built from ``opt_pspecs`` differ from the reference's at
+every stacked leaf whose R it shards.  On the ``TRAIN_LOWERS`` cell
+(smoke gemma2-9b, a 2 x 4 ``("data", "model")`` mesh) that is all 22
+stacked leaves, and all 22 move ``data`` to a layer dim (``wo`` and
+``w_down`` to d_model, the rest to their first dim); on the same mesh
+recurrentgemma-2b's 39 all carry it and 8 (``conv_b``, ``ba``, ``bi``,
+``lam``: one dim, already over ``model``) are replicated over ``data``
+instead, and qwen3-moe's experts keep ``data`` on ``moe_ff`` (9 of 12
+move).  ``tests/test_torch_sharded.py`` counts them.  No leaf of
+``param_pspecs`` shards R.
 """
 from __future__ import annotations
 
@@ -30,7 +49,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed.context import (ShardingRules, axis_sizes,
-                                             placements, pspec)
+                                             is_dtensor, placements, pspec)
 from repro_torch.models import weights
 
 
@@ -262,3 +281,81 @@ def to_shardings(specs, mesh):
         return tuple(to_shardings(v, mesh) for v in specs)
     return placements(specs, mesh)
 
+
+
+# ---------------------------------------------------------------------------
+# placing a model, a batch, a cache
+# ---------------------------------------------------------------------------
+def _axes_of(s) -> tuple:
+    return (s,) if isinstance(s, str) else tuple(s or ())
+
+
+def layer_spec(spec: tuple, layer_shape: tuple, stacked: bool,
+               mesh) -> tuple:
+    """The spec of one layer tensor of a leaf whose spec is ``spec``: the
+    leaf's own where it is not stacked; else without the leading R entry,
+    whose mesh axes (if any) move to the layer's first free dim they
+    divide, or are dropped (replicated) where none does."""
+    if not stacked:
+        return spec
+    dims = list(spec[1:]) + [None] * (len(layer_shape) - len(spec) + 1)
+    lead = _axes_of(spec[0] if spec else None)
+    if lead:
+        sizes = axis_sizes(mesh)
+        n = 1
+        for a in lead:
+            n *= sizes[a]
+        for i, (s, size) in enumerate(zip(dims, layer_shape)):
+            if s is None and size % n == 0 and size >= n:
+                dims[i] = spec[0]
+                break
+    return pspec(*dims)
+
+
+def param_placements(params, cfg: ModelConfig, specs: dict, mesh) -> dict:
+    """{leaf key: spec} (``param_pspecs``, ``opt_pspecs``) -> {parameter
+    name: DTensor placements} for the model's per-layer tensors on
+    ``mesh``, each its leaf's ``layer_spec``."""
+    named = dict(params.named_parameters()) \
+        if isinstance(params, nn.Module) else params
+    out = {}
+    for key, names in weights.stacked_view(named, cfg).items():
+        for n in names:
+            out[n] = placements(layer_spec(specs[key], tuple(named[n].shape),
+                                           weights.is_stacked(key), mesh),
+                                mesh)
+    return out
+
+
+def shard_params(model: nn.Module, cfg: ModelConfig, rules: ShardingRules,
+                 mesh) -> nn.Module:
+    """Replaces each parameter of ``model`` (in place) by a DTensor on
+    ``mesh`` placed by ``param_pspecs`` (``param_placements``); each rank
+    passes the same full tensors.  Returns the model."""
+    from torch.distributed.tensor import distribute_tensor
+    place = param_placements(model, cfg, param_pspecs(model, cfg, rules),
+                             mesh)
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        mod.register_parameter(leaf, nn.Parameter(
+            distribute_tensor(p.detach(), mesh, place[name]),
+            requires_grad=p.requires_grad))
+    return model
+
+
+def distribute_tree(tree, specs, mesh):
+    """A batch or a cache (``batch_pspecs``' or ``cache_pspecs``' nesting)
+    with each tensor a DTensor at its spec: a plain tensor is distributed
+    (each rank passes the same full tensor), a DTensor redistributed."""
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, specs[k], mesh) for k, v in
+                tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(distribute_tree(v, s, mesh) for v, s in
+                     zip(tree, specs))
+    place = placements(specs, mesh)
+    if is_dtensor(tree):
+        return tree.redistribute(mesh, place)
+    return distribute_tensor(tree, mesh, place)

@@ -28,7 +28,12 @@ and whose backward is the gradient of the eager masked attention the
 reference trains through (``models.attention.plain_attention``, its
 ``_sdpa``), recomputed from the saved q, k, v: the reference's kernel has
 no VJP, so no backward kernel is owed.  On a CPU tensor it calls the plain
-version directly, which autograd differentiates as it is.
+version directly, which autograd differentiates as it is.  On a DTensor it
+runs all of that on each rank's local shard through ``local_map``
+(``distributed.context.run_local``): the batch and the kv heads may be
+sharded, the sequence, the group and the head dim may not (a shard of
+those raises, with the placements in the message), and each rank launches
+its kernel, and counts the launch, on its own shard.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import functools
 
 import torch
 
+from repro_torch.distributed import context
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.roofline.bounds import causal_pairs, flash_work
@@ -206,9 +212,19 @@ class FlashAttention(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+# the axes a DTensor's shard may cut: batch and kv heads
+_SPLITS = {"batch": 0, "kv_heads": 2}
+
+
 def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
                     scale: float, causal: bool = True):
     """q: (B,S,K,G,hd); k,v: (B,Skv,K,hd) -> (B,S,K,G,hd)."""
+    if context.is_dtensor(q):
+        return context.run_local(
+            "flash attention", functools.partial(
+                flash_attention, window=window, softcap=softcap, scale=scale,
+                causal=causal),
+            {"q": q, "k": k, "v": v}, dict.fromkeys("qkv", _SPLITS), _SPLITS)
     if q.device.type == "cpu":
         return _flash_gqa(q, k, v, window=window, softcap=softcap,
                           scale=scale, causal=causal)

@@ -21,7 +21,10 @@ whose backward is autograd of the plain version (``rglru_scan_ref``)
 recomputed from the saved a and b in f64, as the kernel carries h (in f32
 the ladder's gradient drifts past the scan's 2e-5 where a is near 1): the
 reference's kernel has no VJP, so no backward kernel is owed.  On a CPU
-tensor it calls the plain version directly.
+tensor it calls the plain version directly.  On a DTensor it runs on each
+rank's local shard through ``local_map`` (``distributed.context.
+run_local``): the batch and the channels may be sharded, the sequence may
+not.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import functools
 
 import torch
 
+from repro_torch.distributed import context
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.roofline.bounds import rglru_work
@@ -161,6 +165,11 @@ class RGLRUScan(torch.autograd.Function):
 
 def rglru_scan(a, b):
     """a, b: (B, S, C) gates and inputs -> recurrence output h (B, S, C) f32."""
+    if context.is_dtensor(a):
+        splits = {"batch": 0, "channels": 2}
+        return context.run_local("the RG-LRU scan", rglru_scan,
+                                 {"a": a, "b": b},
+                                 {"a": splits, "b": splits}, splits)
     a, b = a.float().contiguous(), b.float().contiguous()
     if a.device.type == "cpu":
         return rglru_scan_bsc(a, b)

@@ -22,7 +22,10 @@ CUDA tensor it goes through ``WKV6``, an autograd function whose forward
 launches the kernel and whose backward is autograd of the plain chunked
 version (``wkv6_ref``) recomputed from the saved inputs in f64, as the
 kernel carries its state: the reference's kernel has no VJP, so no backward
-kernel is owed.  On a CPU tensor it calls the plain version directly.
+kernel is owed.  On a CPU tensor it calls the plain version directly.  On a DTensor it runs on each
+rank's local shard through ``local_map`` (``distributed.context.
+run_local``): the batch and the heads may be sharded (u by its heads), the
+sequence and the head dim may not.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import functools
 
 import torch
 
+from repro_torch.distributed import context
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.rwkv6_chunk.ref import wkv6_ref
 from repro_torch.roofline.bounds import wkv6_work
@@ -149,6 +153,13 @@ class WKV6(torch.autograd.Function):
 def wkv6(r, k, v, logw, u):
     """r, k, v, logw: (B, S, H, hd); u: (H, hd) ->
     (y (B, S, H, hd) f32, S_last (B, H, hd, hd) f32)."""
+    if context.is_dtensor(r):
+        seq = {"batch": 0, "heads": 2}
+        return context.run_local(
+            "the wkv6 kernel", wkv6,
+            {"r": r, "k": k, "v": v, "logw": logw, "u": u},
+            dict.fromkeys(("r", "k", "v", "logw"), seq) | {"u": {"heads": 0}},
+            (seq, {"batch": 0, "heads": 1}))
     B, S, H, hd = r.shape
 
     def fold(t):

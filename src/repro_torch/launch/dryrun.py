@@ -105,6 +105,11 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, rules,
     model or a dict keyed by parameter names against specs keyed by leaf
     key)."""
     if shape.kind == "train":
+        # unsharded: the sharded step (DTensor params from
+        # layouts.shard_params, grad_shardings and update_constraint from
+        # opt_pspecs through layouts.param_placements, as the reference's
+        # build_cell passes them) exists, and tracing it on a fake mesh is
+        # ROADMAP's A14
         opt = make_optimizer(cfg.optimizer, cfg=cfg)
         lr = cosine_schedule(3e-4, 100, 10_000)
         state = init_train_state(None, cfg, opt, device="meta")

@@ -31,6 +31,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
+from repro_torch.distributed.context import constrain, is_dtensor, unflatten
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.modules import (ParamModule, init_norm, normal, pdtype,
                                         rms_norm, rope)
@@ -145,19 +146,23 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
     window = cfg.window_size if kind == ATTN_LOCAL else 0
     theta = _theta(cfg, kind)
 
-    q = (x @ p.wq).reshape(B, S, H, hd)
+    q = unflatten(x @ p.wq, 2, (H, hd))
     kv_src, kv_pos = (x, positions) if kv_override is None else kv_override
-    Skv = kv_src.shape[1]
-    k = (kv_src @ p.wk).reshape(B, Skv, K, hd)
-    v = (kv_src @ p.wv).reshape(B, Skv, K, hd)
+    k = unflatten(kv_src @ p.wk, 2, (K, hd))
+    v = unflatten(kv_src @ p.wv, 2, (K, hd))
     if hasattr(p, "q_norm"):
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
     if not cfg.encoder_decoder:
         q = rope(q, positions, theta)
         k = rope(k, kv_pos, theta)
+    q = constrain(q, ("batch", "seq", "heads", None))
+    k = constrain(k, ("batch", "seq", "kv_heads", None))
+    v = constrain(v, ("batch", "seq", "kv_heads", None))
 
-    q = q.reshape(B, S, K, G, hd)
+    # the GQA fold: a heads shard splits into (K, G) only where K divides
+    # it (smoke gemma2-9b: 4 heads over 4 ranks, K = 2 replicates q here)
+    q = unflatten(q, 2, (K, G))
     scale = hd ** -0.5
     if _ATTN_IMPL is not None and mask_mode == "causal":
         o = _ATTN_IMPL(q, k, v, window=window, softcap=cfg.attn_logit_softcap,
@@ -166,7 +171,7 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
         mask = make_mask_fn(mask_mode, window, prefix_len)(
             _first_row(positions), _first_row(kv_pos))
         o = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, scale)
-    o = o.reshape(B, S, H * hd)
+    o = constrain(o.reshape(B, S, H * hd), ("batch", "seq", "heads_flat"))
     return o @ p.wo, (k, v)
 
 
@@ -226,19 +231,19 @@ def attention_decode(p: Attention, x, cfg: ModelConfig, kind: str,
     theta = _theta(cfg, kind)
     scale = hd ** -0.5
 
-    q = (x @ p.wq).reshape(B, 1, H, hd)
+    q = unflatten(x @ p.wq, 2, (H, hd))
     if hasattr(p, "q_norm"):
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
     if cross:
         k, v = cache["ck"], cache["cv"]
         s = torch.einsum("bskgd,btkd->bkgst",
-                         q.reshape(B, 1, K, G, hd).float(), k.float()) * scale
+                         unflatten(q, 2, (K, G)).float(), k.float()) * scale
         a = torch.softmax(s, dim=-1).to(v.dtype)
         o = torch.einsum("bkgst,btkd->bskgd", a, v).reshape(B, 1, H * hd)
         return o @ p.wo, cache
 
-    kn = (x @ p.wk).reshape(B, 1, K, hd)
-    vn = (x @ p.wv).reshape(B, 1, K, hd)
+    kn = unflatten(x @ p.wk, 2, (K, hd))
+    vn = unflatten(x @ p.wv, 2, (K, hd))
     if hasattr(p, "k_norm"):
         kn = rms_norm(kn, p.k_norm, cfg.norm_eps)
     if not cfg.encoder_decoder:
@@ -255,13 +260,13 @@ def attention_decode(p: Attention, x, cfg: ModelConfig, kind: str,
     if "ksc" in cache:
         for name, t in (("k", kn), ("v", vn)):
             tq, tsc = _kv_quantize(t)
-            cache[name][:, idx] = tq[:, 0]
-            cache[name + "sc"][:, idx] = tsc[:, 0]
+            _write_slot(cache[name], idx, tq[:, 0])
+            _write_slot(cache[name + "sc"], idx, tsc[:, 0])
         k = _kv_dequantize(cache["k"], cache["ksc"], x.dtype)
         v = _kv_dequantize(cache["v"], cache["vsc"], x.dtype)
     else:
-        cache["k"][:, idx] = kn[:, 0]
-        cache["v"][:, idx] = vn[:, 0]
+        _write_slot(cache["k"], idx, kn[:, 0])
+        _write_slot(cache["v"], idx, vn[:, 0])
         k, v = cache["k"], cache["v"]
 
     slot = torch.arange(L, device=x.device)
@@ -276,14 +281,29 @@ def attention_decode(p: Attention, x, cfg: ModelConfig, kind: str,
         if prefix_len:
             allow |= kv_pos < prefix_len
 
-    s = torch.einsum("bskgd,btkd->bkgst", q.reshape(B, 1, K, G, hd).float(),
+    s = torch.einsum("bskgd,btkd->bkgst", unflatten(q, 2, (K, G)).float(),
                      k.float()) * scale
     if cfg.attn_logit_softcap:
         s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
     s = torch.where(allow, s, NEG_INF)
     a = torch.softmax(s, dim=-1).to(v.dtype)
-    o = torch.einsum("bkgst,btkd->bskgd", a, v).reshape(B, 1, H * hd)
-    return o @ p.wo, cache
+    o = torch.einsum("bkgst,btkd->bskgd", a, v).reshape(B, H * hd)
+    # a 2-D product: the (B, 1, H*hd) form is folded into one by eager
+    # matmul but not on a DTensor, whose size-1 dim keeps another stride
+    return (o @ p.wo)[:, None], cache
+
+
+def _write_slot(buf, idx: int, val):
+    """``buf[:, idx] = val`` in place.  A DTensor cache is sharded over its
+    slots (``cache_pspecs``' ``kv_seq``), and an index into a sharded dim
+    writes into a gathered copy, so there the slot is written by a select
+    over the whole buffer (the same values)."""
+    if not is_dtensor(buf):
+        buf[:, idx] = val
+        return
+    slot = torch.arange(buf.shape[1], device=buf.device) == idx
+    buf.copy_(torch.where(slot.reshape(1, -1, *(1,) * (buf.dim() - 2)),
+                          val[:, None], buf))
 
 
 def build_ring_cache(k_full, v_full, window: int, quant: bool = False) -> dict:

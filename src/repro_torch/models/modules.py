@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import constrain, unflatten
 
 
 def pdtype(cfg: ModelConfig) -> torch.dtype:
@@ -64,7 +65,7 @@ def group_norm_heads(x, scale, bias, n_heads: int, eps: float = 1e-5):
     computed in f32 (population variance, as ``jnp.var``)."""
     dt = x.dtype
     *lead, d = x.shape
-    x = x.float().reshape(*lead, n_heads, d // n_heads)
+    x = unflatten(x.float(), len(lead), (n_heads, d // n_heads))
     mu = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, correction=0)
     x = (x - mu) * torch.rsqrt(var + eps)
@@ -146,4 +147,5 @@ def mlp(p: MLP, x, act_name: str):
         h = act(x @ p.w_gate) * (x @ p.w_up)
     else:
         h = act(x @ p.w_up)
+    h = constrain(h, ("batch", "seq", "ff"))
     return h @ p.w_down

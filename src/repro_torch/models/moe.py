@@ -45,11 +45,22 @@ local.
 
 ``moe_layer`` takes ``moe_sharded`` while sharding rules are active
 (``distributed.context.use_rules``) and ``moe_dense`` otherwise, as the
-reference's does.
+reference's does.  In the sharded model (DTensor parameters, placed by
+``distributed.layouts.shard_params``, whose expert specs are the ones
+``moe_sharded`` reads) ``moe_layer`` hands ``moe_sharded`` local shards, as
+the reference's ``shard_map`` does: x redistributed to its in_spec and
+``to_local``, each weight's ``to_local`` (the router whole), and wraps y
+(by the out_spec) and aux (replicated) back as DTensors.  The collectives
+inside give each rank's result a gradient of its own, the loss being the
+sum over ranks; a replicated DTensor is one value with one gradient.  So
+the gradient entering y and aux is divided by the number of ranks that
+hold the same block of them, and an input replicated over a mesh dim takes
+its gradient as a ``Partial`` there (the ranks' contributions summed).
 """
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 import torch.nn.functional as F
@@ -220,10 +231,7 @@ def moe_sharded(p: MoE, x, cfg: ModelConfig, decode: bool = False):
     if m.n_experts % ep != 0:
         return moe_dense(p, x, cfg)
     da = tuple(a for a in (rules.rules.get("batch") or ()) if a in sizes)
-    # the reference's sequence-parallel boundary, gated on head
-    # divisibility as there (repro/models/moe.py:195-208)
-    sp = (not decode and rules.rules.get("act_seq") == ep_axis
-          and cfg.n_heads % ep == 0)
+    sp = _sequence_parallel(rules, cfg, decode)
     act = activation(cfg.act)
     k_top = m.experts_per_token
     e_loc = m.n_experts // ep
@@ -264,9 +272,74 @@ def moe_sharded(p: MoE, x, cfg: ModelConfig, decode: bool = False):
     return y, aux
 
 
+def _sequence_parallel(rules, cfg: ModelConfig, decode: bool) -> bool:
+    """The reference's sequence-parallel boundary, gated on head
+    divisibility as there (repro/models/moe.py:195-208)."""
+    ep = context.axis_sizes(rules.mesh)[rules.moe_axis]
+    return (not decode and rules.rules.get("act_seq") == rules.moe_axis
+            and cfg.n_heads % ep == 0)
+
+
+class _GradScale(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def _to_dtensor(t, mesh, place):
+    """A rank's result ``t`` as a DTensor at ``place``, its gradient divided
+    by the ranks that hold the same block (module docstring)."""
+    from torch.distributed.tensor import DTensor
+    n = 1
+    for m, pl in enumerate(place):
+        if pl.is_replicate():
+            n *= mesh.size(m)
+    if n > 1:
+        t = _GradScale.apply(t, 1.0 / n)
+    return DTensor.from_local(t, mesh, place, run_check=False)
+
+
+def _moe_sharded_dtensor(p: MoE, x, cfg: ModelConfig, decode: bool):
+    """``moe_sharded`` in the DTensor model (module docstring)."""
+    from torch.distributed.tensor import Partial, Replicate
+    rules = context.current()
+    mesh = x.device_mesh
+    ep = context.axis_sizes(mesh)[rules.moe_axis]
+    if cfg.moe.n_experts % ep:
+        raise ValueError(f"{cfg.moe.n_experts} experts do not split over "
+                         f"{ep} ranks of {rules.moe_axis!r}")
+
+    def local(t, place):
+        t = t.redistribute(mesh, place)
+        return t.to_local(grad_placements=tuple(
+            Partial() if pl.is_replicate() else pl for pl in place))
+    x_pl = rules.placements(("batch", "act_seq" if _sequence_parallel(
+        rules, cfg, decode) else "seq", None))         # its in/out spec
+    w_in = rules.placements(("experts", None, "moe_ff"))
+    lp = types.SimpleNamespace(
+        router=local(p.router, rules.placements((None, None))),
+        w_gate=local(p.w_gate, w_in), w_up=local(p.w_up, w_in),
+        w_down=local(p.w_down, rules.placements(("experts", "moe_ff",
+                                                 None))))
+    y, aux = moe_sharded(lp, local(x, x_pl), cfg, decode=decode)
+    y = _to_dtensor(y, mesh, x_pl)
+    aux = _to_dtensor(aux, mesh, (Replicate(),) * mesh.ndim)
+    if hasattr(p, "dense"):
+        y = y + mlp(p.dense, x, cfg.act)
+    return y, aux
+
+
 def moe_layer(p: MoE, x, cfg: ModelConfig, decode: bool = False):
-    """The MoE of a layer: ``moe_sharded`` under active sharding rules,
-    ``moe_dense`` otherwise, as the reference's."""
+    """The MoE of a layer: ``moe_sharded`` under active sharding rules (on
+    local shards in the DTensor model), ``moe_dense`` otherwise, as the
+    reference's."""
     if context.current() is not None:
+        if context.is_dtensor(x):
+            return _moe_sharded_dtensor(p, x, cfg, decode)
         return moe_sharded(p, x, cfg, decode=decode)
     return moe_dense(p, x, cfg)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import constrain
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.models.modules import ParamModule, normal, pdtype
 
@@ -65,7 +66,7 @@ def rglru_seq(p: RGLRU, x, cfg: ModelConfig, h0=None):
     B, S, D = x.shape
     cw = cfg.conv_width
     y_br = _gelu_f32(x @ p.w_y)
-    xi = x @ p.w_x                                       # (B,S,dr)
+    xi = constrain(x @ p.w_x, ("batch", "seq", "rnn"))   # (B,S,dr)
     # causal depthwise conv; x's dtype times f32 conv_w promotes to f32
     pad = torch.zeros((B, cw - 1, xi.shape[-1]), dtype=xi.dtype,
                       device=xi.device)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import constrain, unflatten
 from repro_torch.kernels.rwkv6_chunk import wkv6
 from repro_torch.models.modules import (ParamModule, group_norm_heads, normal,
                                         pdtype)
@@ -92,14 +93,14 @@ def _ddlerp(p: TimeMix, x, xs):
 
 def _projections(p: TimeMix, x, xs, n_heads: int, hd: int):
     xr, xk, xv, xw, xg = _ddlerp(p, x, xs)
-    lead = x.shape[:-1]
-    r = (xr @ p.wr).reshape(*lead, n_heads, hd)
-    k = (xk @ p.wk).reshape(*lead, n_heads, hd)
-    v = (xv @ p.wv).reshape(*lead, n_heads, hd)
+    nd = x.dim() - 1
+    r = unflatten(xr @ p.wr, nd, (n_heads, hd))
+    k = unflatten(xk @ p.wk, nd, (n_heads, hd))
+    v = unflatten(xv @ p.wv, nd, (n_heads, hd))
     g = F.silu((xg @ p.wg).float())
     logw = -torch.exp(xw.float() @ p.dw1 @ p.dw2 + p.w0)
     logw = torch.clamp(logw, _LOGW_MIN, _LOGW_MAX)
-    logw = logw.reshape(*lead, n_heads, hd)
+    logw = unflatten(logw, nd, (n_heads, hd))
     return r, k, v, g, logw
 
 
@@ -129,6 +130,10 @@ def time_mix_seq(p: TimeMix, x, cfg: ModelConfig, state0=None, x_prev=None):
     hd = cfg.rwkv_head_dim
     H = D // hd
     r, k, v, g, logw = _projections(p, x, _shifted(x, x_prev), H, hd)
+    # the kernel cannot split the sequence, which the residual stream
+    # shards (act_seq): its inputs are laid out by heads first
+    r, k, v, logw = (constrain(t, ("batch", "seq", "heads", None))
+                     for t in (r, k, v, logw))
     y, st = wkv6(r, k, v, logw, p.u)
     if state0 is not None:
         lp = torch.cumsum(logw, dim=1)                     # (B,S,H,hd)

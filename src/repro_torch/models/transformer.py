@@ -37,6 +37,17 @@ Entry points:
 
 ``batch`` is the reference's (``models.io.make_batch``): ``tokens``, and
 ``frames`` (whisper) or ``patches`` (paligemma).
+
+The sharded model is this one with DTensor parameters
+(``distributed.layouts.shard_params``), batch and cache, under
+``distributed.context.use_rules``: ``constrain`` lays the activations out
+at the reference's places (the residual ``("batch", "act_seq", None)``
+after each layer and after the embedding, the logits ``("batch", None,
+"vocab")``, decode's input ``("batch", "seq", None)``; the MLP's hidden,
+attention's q, k, v and output and the RG-LRU's input in their modules),
+and the entry points run under ``replicate_made_tensors``, so that the
+tensors the model makes itself count as replicated.  With plain tensors
+none of it changes anything.
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV,
                                       ModelConfig)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import constrain, replicate_made_tensors
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -166,8 +178,8 @@ def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions,
         o, h_last, conv_tail = rglru_mod.rglru_seq(p.rec, h, cfg)
         x = x + o
         h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-        return x + mlp(p.mlp, h2, cfg.act), 0.0, {"h": h_last,
-                                                  "conv": conv_tail}
+        return _residual(x + mlp(p.mlp, h2, cfg.act)), 0.0, \
+            {"h": h_last, "conv": conv_tail}
     if kind == RWKV:
         # tm_x and cm_x are the last rows of the ln1 and ln2 outputs (the
         # mixes' inputs), not of the residual
@@ -176,7 +188,8 @@ def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions,
         x = x + o
         h2 = rms_norm(x, p.ln2, cfg.norm_eps)
         o2, cm_x = rwkv_mod.channel_mix(p.cm, h2)
-        return x + o2, 0.0, {"state": st, "tm_x": tm_x, "cm_x": cm_x}
+        return _residual(x + o2), 0.0, {"state": st, "tm_x": tm_x,
+                                        "cm_x": cm_x}
     cache = {}
     o, (k, v) = attn.attention_seq(p.attn, h, cfg, kind, positions, mask_mode,
                                    prefix_len)
@@ -198,7 +211,7 @@ def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions,
         f = mlp(p.mlp, h2, cfg.act)
     if cfg.post_norms:
         f = rms_norm(f, p.post_ln2, cfg.norm_eps)
-    x = x + f
+    x = _residual(x + f)
     if not want_cache:
         return x, aux, None
     if kind == ATTN_LOCAL and cfg.window_size:
@@ -206,6 +219,12 @@ def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions,
     else:
         cache.update(attn.pack_kv(k, v, cfg.kv_quant))
     return x, aux, cache
+
+
+def _residual(x):
+    """The sequence-parallel residual boundary between layers (Megatron-SP):
+    sharded over ``act_seq``."""
+    return constrain(x, ("batch", "act_seq", None))
 
 
 def _layer_decode(p: Layer, x, cfg: ModelConfig, kind: str, cache, pos,
@@ -331,7 +350,7 @@ def _unembed(model: Transformer, cfg: ModelConfig, x):
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = (c * torch.tanh(logits.float() / c)).to(logits.dtype)
-    return logits
+    return constrain(logits, ("batch", None, "vocab"))
 
 
 def _encode(model: Transformer, cfg: ModelConfig, frames):
@@ -366,12 +385,22 @@ def _prep_inputs(model: Transformer, cfg: ModelConfig, batch):
     else:
         x = _embed(model, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device).expand(B, -1)
-    return x, positions, mask_mode, prefix_len, enc_out
+    return _residual(x), positions, mask_mode, prefix_len, enc_out
 
 
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+def _entry(fn):
+    """Runs ``fn(model, ...)`` under ``replicate_made_tensors``."""
+    @functools.wraps(fn)
+    def run(model, *args, **kw):
+        with replicate_made_tensors(model.embed):
+            return fn(model, *args, **kw)
+    return run
+
+
+@_entry
 def forward_train(model: Transformer, cfg: ModelConfig, batch,
                   seq_exact: bool = False):
     """-> (logits (B,S,V), aux): ``aux`` is the f32 sum of the MoE layers'
@@ -384,6 +413,7 @@ def forward_train(model: Transformer, cfg: ModelConfig, batch,
     return _unembed(model, cfg, x), aux
 
 
+@_entry
 def forward_prefill(model: Transformer, cfg: ModelConfig, batch):
     """-> (last-position logits (B,1,V), cache)."""
     x, positions, mask_mode, prefix_len, enc_out = _prep_inputs(model, cfg,
@@ -401,6 +431,7 @@ def _sin_at(pos: int, d: int, dtype, device):
     return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None].to(dtype)
 
 
+@_entry
 def forward_decode(model: Transformer, cfg: ModelConfig, cache, tokens, pos):
     """tokens: (B,1); pos: int; cache from init_cache or prefill.
 
@@ -410,6 +441,7 @@ def forward_decode(model: Transformer, cfg: ModelConfig, cache, tokens, pos):
     x = _embed(model, cfg, tokens)
     if cfg.encoder_decoder:
         x = x + _sin_at(pos, cfg.d_model, x.dtype, x.device)
+    x = constrain(x, ("batch", "seq", None))
     for i, layer in enumerate(model.layers):
         x = _layer_decode(layer, x, cfg, layer.kind, _layer_cache(cache, cfg, i),
                           pos, cfg.n_prefix_tokens)

@@ -31,6 +31,18 @@ factored (the layers, then the experts) so that no f32 temporary spans a
 whole leaf: arctic-480b's stacked ``w_gate`` is 4.5e9 elements a layer.
 The first pass updates the moments and sums the squared update, the second
 applies the update clipped by the leaf's RMS.
+
+On the sharded model (DTensor params and grads) the same arithmetic runs on
+DTensors, under ``distributed.context.replicate_made_tensors``.  Both take
+``update_constraint`` ({parameter name: placements}, ``opt_pspecs``' ZeRO
+layout through ``distributed.layouts.param_placements``), the reference's
+sharding constraint on the update: the state is made at those placements
+and each layer's update is computed there and then copied into the
+parameter at its own placements.  ``global_norm`` reduces a ``Partial``
+grad once and sums each group of equally sharded grads on its shards with
+one reduction.  Adafactor's state takes its leaf's placements (past the
+layer axis, which is never sharded), and a DTensor leaf's layers are not
+cut into chunks.  On plain tensors none of this changes anything.
 """
 from __future__ import annotations
 
@@ -41,6 +53,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import context
 from repro_torch.models import weights
 
 
@@ -65,19 +78,53 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
 _CHUNK = 1 << 28  # elements of a chunk's f32 temporaries (1 GiB)
 
 
+def _reduced(g):
+    """A DTensor's ``Partial`` placements reduced (to ``Replicate``)."""
+    if not context.is_dtensor(g) or not any(p.is_partial()
+                                             for p in g.placements):
+        return g
+    from torch.distributed.tensor import Replicate
+    return g.redistribute(g.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in g.placements))
+
+
 def global_norm(tree: dict):
     """The f32 norm of every leaf together, summed over chunks of ``_CHUNK``
     elements: an f32 copy of a whole leaf (arctic-480b's expert grads, 4.5e9
-    elements) does not fit beside the params and grads."""
-    return torch.sqrt(sum(torch.sum(torch.square(c.float()))
-                          for x in tree.values()
-                          for c in x.reshape(-1).split(_CHUNK)))
+    elements) does not fit beside the params and grads.  A DTensor leaf is
+    summed on its local shard, and the sums of the leaves sharded over the
+    same mesh dims are added over those ranks in one reduction."""
+    sums = {}
+    for x in tree.values():
+        group = None
+        if context.is_dtensor(x):
+            x = _reduced(x)
+            mesh = x.device_mesh
+            group = (mesh, tuple(m for m, p in enumerate(x.placements)
+                                 if p.is_shard() and mesh.size(m) > 1))
+            x = x.to_local()
+        sums.setdefault(group, []).extend(
+            torch.sum(torch.square(c.float())) for c in x.reshape(-1).split(
+                _CHUNK))
+    total = 0
+    for group, parts in sums.items():
+        part = sum(parts)
+        if group is not None and group[1]:
+            from torch.distributed.tensor import DTensor, Partial, Replicate
+            mesh, on = group
+            part = DTensor.from_local(part, mesh, tuple(
+                Partial() if m in on else Replicate()
+                for m in range(mesh.ndim)), run_check=False).full_tensor()
+        total = total + part
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: dict, max_norm: float):
     """Scales the grads in place, in their own dtype (an f32 copy of every
     grad at once would add 2 bytes a parameter of live memory for
-    nothing); returns (grads, norm before the clip)."""
+    nothing); returns (grads, norm before the clip).  ``Partial`` DTensor
+    grads are reduced first, and the returned dict holds them."""
+    grads = {n: _reduced(g) for n, g in grads.items()}
     gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in grads.values():
@@ -94,24 +141,40 @@ def _check_grads(grads: dict, params: dict):
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
+def _update_fn(update):
+    """``update(grads, state, params, lr)`` under ``no_grad`` and
+    ``replicate_made_tensors`` of the first parameter."""
+    @torch.no_grad()
+    def run(grads: dict, st: dict, params: dict, lr):
+        with context.replicate_made_tensors(next(iter(params.values()))):
+            return update(grads, st, params, lr)
+    return run
+
+
 def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, max_grad_norm: float = 1.0,
-          master: bool = True) -> Optimizer:
+          master: bool = True, update_constraint=None) -> Optimizer:
+    """``update_constraint``: {parameter name: placements} at which m, v,
+    the master copy and each update live (module docstring)."""
+    uc = update_constraint or {}
+
     def init(params: dict) -> dict:
+        def placed(t, n):
+            return context.redistribute(t, uc.get(n))
         st = {
-            "m": {n: torch.zeros_like(p, dtype=torch.float32)
+            "m": {n: placed(torch.zeros_like(p, dtype=torch.float32), n)
                   for n, p in params.items()},
-            "v": {n: torch.zeros_like(p, dtype=torch.float32)
+            "v": {n: placed(torch.zeros_like(p, dtype=torch.float32), n)
                   for n, p in params.items()},
             "count": torch.zeros((), dtype=torch.int32,
                                  device=next(iter(params.values())).device),
         }
         if master:
-            st["master"] = {n: p.detach().float().clone()
+            st["master"] = {n: placed(p.detach().float().clone(), n)
                             for n, p in params.items()}
         return st
 
-    @torch.no_grad()
+    @_update_fn
     def update(grads: dict, st: dict, params: dict, lr):
         _check_grads(grads, params)
         grads, gn = clip_by_global_norm(grads, max_grad_norm)
@@ -125,9 +188,11 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             v.mul_(b2).add_((1 - b2) * torch.square(g))
             mh = m / bc1
             vh = v / bc2
-            base = st["master"][n] if master else p.float()
+            base = st["master"][n] if master else \
+                context.redistribute(p.float(), uc.get(n))
             new = base - lr * (mh / (torch.sqrt(vh) + eps)
                                + weight_decay * base)
+            new = context.redistribute(new, uc.get(n))
             if master:
                 base.copy_(new)
             p.copy_(new)
@@ -145,12 +210,40 @@ def _chunks(n: int, per: int) -> list:
     return [slice(a, min(a + step, n)) for a in range(0, n, step)]
 
 
+def _state_zeros(shape: tuple, like, place, stacked: bool, drop=None):
+    """f32 zeros of ``shape`` on ``like``'s device: an Adafactor moment of a
+    leaf of ``len(shape) + (drop is not None)`` dims whose dim ``drop`` was
+    averaged out.  Where ``like`` is a DTensor, a DTensor at ``place`` (its
+    layer's placements), shifted past R where the leaf is stacked, dim
+    ``drop`` replicated and the dims after it moved down one."""
+    f32 = dict(dtype=torch.float32)
+    if not context.is_dtensor(like):
+        return torch.zeros(shape, device=like.device, **f32)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import zeros as dzeros
+    nd = len(shape) + (drop is not None)
+    drop = None if drop is None else drop % nd
+    out = []
+    for p in place:
+        d = p.dim % (nd - stacked) + stacked if p.is_shard() else None
+        if d is None or d == drop:
+            out.append(Replicate())
+        else:
+            out.append(Shard(d - (drop is not None and d > drop)))
+    return dzeros(shape, device_mesh=like.device_mesh, placements=out, **f32)
+
+
 def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0,
               decay_pow: float = 0.8, weight_decay: float = 0.0,
               max_grad_norm: float = 1.0,
-              cfg: ModelConfig | None = None) -> Optimizer:
+              cfg: ModelConfig | None = None,
+              update_constraint=None) -> Optimizer:
     """``cfg``: the config of the model trained, whose stacked view groups
-    its tensors into the reference's leaves (module docstring)."""
+    its tensors into the reference's leaves (module docstring).
+    ``update_constraint``: {parameter name: placements} at which the state
+    and each update live."""
+    uc = update_constraint or {}
+
     def leaves(named: dict) -> dict:
         return weights.stacked_view(named, cfg)
 
@@ -158,14 +251,17 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0,
         vs = {}
         for key, names in leaves(params).items():
             p = params[names[0]]
-            shape = ((len(names),) if weights.is_stacked(key) else ()) + \
-                tuple(p.shape)
-            f32 = dict(dtype=torch.float32, device=p.device)
+            stacked = weights.is_stacked(key)
+            shape = ((len(names),) if stacked else ()) + tuple(p.shape)
+            place = uc.get(names[0]) or getattr(p, "placements", None)
+
+            def zeros(sub, drop=None):
+                return _state_zeros(sub, p, place, stacked, drop)
             if len(shape) >= 2:
-                vs[key] = {"vr": torch.zeros(shape[:-1], **f32),
-                           "vc": torch.zeros(shape[:-2] + shape[-1:], **f32)}
+                vs[key] = {"vr": zeros(shape[:-1], -1),
+                           "vc": zeros(shape[:-2] + shape[-1:], -2)}
             else:
-                vs[key] = {"v": torch.zeros(shape, **f32)}
+                vs[key] = {"v": zeros(shape)}
         return {"vs": vs,
                 "count": torch.zeros((), dtype=torch.int32,
                                      device=next(iter(params.values())).device)}
@@ -190,26 +286,29 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0,
         return u.mul_(torch.rsqrt(s["vc"])[..., None, :])
 
     def pieces(key, names, grads, params, s):
-        """(g, p, state views) chunks of the leaf; a leaf whose layer
+        """(name, g, p, state views) chunks of the leaf, the name where the
+        piece is a whole layer tensor (else None); a leaf whose layer
         tensors have fewer than 2 dims is stacked whole (norms, biases:
         small) and written back by the caller."""
         ps = [params[n] for n in names]
         if ps[0].dim() < 2:
-            return [(weights.stack(key, [grads[n] for n in names]),
+            return [(None if weights.is_stacked(key) else names[0],
+                     weights.stack(key, [grads[n] for n in names]),
                      weights.stack(key, ps), s)]
         out = []
         for r, n in enumerate(names):
             sr = {k: v[r] for k, v in s.items()} if weights.is_stacked(key) \
                 else s
             g, p = grads[n], params[n]
-            if p.dim() == 2:
-                out.append((g, p, sr))
+            if p.dim() == 2 or context.is_dtensor(p):
+                out.append((n, g, p, sr))
                 continue
             for sl in _chunks(p.shape[0], p[0].numel()):
-                out.append((g[sl], p[sl], {k: v[sl] for k, v in sr.items()}))
+                out.append((None, g[sl], p[sl],
+                            {k: v[sl] for k, v in sr.items()}))
         return out
 
-    @torch.no_grad()
+    @_update_fn
     def update(grads: dict, st: dict, params: dict, lr):
         _check_grads(grads, params)
         grads, gn = clip_by_global_norm(grads, max_grad_norm)
@@ -220,7 +319,7 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0,
             chunks = pieces(key, names, grads, params, s)
             # pass 1: the moments and the leaf's mean squared update
             sq, n = 0.0, 0
-            for g, _, sc in chunks:
+            for _, g, _, sc in chunks:
                 u = moments(g, sc, beta)
                 sq = sq + torch.sum(torch.square(u), dtype=torch.float64)
                 n += u.numel()
@@ -228,27 +327,30 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0,
             rms = torch.sqrt((sq / n).float() + 1e-12)
             clip = torch.clamp(rms / clip_thresh, min=1.0)
             # pass 2: apply, in place where the arithmetic is the same
-            for g, p, sc in chunks:
+            for name, g, p, sc in chunks:
                 u = unclipped(g, sc).div_(clip)
-                pf = p.float()
+                pf = context.redistribute(p.float(), uc.get(name))
                 if weight_decay:
                     u.add_(weight_decay * pf)
                 p.copy_(pf.sub_(u.mul_(lr)))
             if params[names[0]].dim() < 2 and weights.is_stacked(key):
                 for name, new in zip(names, weights.unstack(key,
-                                                            chunks[0][1])):
-                    params[name].copy_(new)
+                                                            chunks[0][2])):
+                    params[name].copy_(context.redistribute(new,
+                                                            uc.get(name)))
         return params, st, gn
 
     return Optimizer("adafactor", init, update)
 
 
 def make_optimizer(name: str, cfg: ModelConfig | None = None,
-                   **kw) -> Optimizer:
+                   update_constraint=None, **kw) -> Optimizer:
     """``cfg``: the model's config, which Adafactor needs to see the
-    reference's stacked leaves (AdamW is elementwise and takes none)."""
+    reference's stacked leaves (AdamW is elementwise and takes none).
+    ``update_constraint``: {parameter name: placements} (module
+    docstring)."""
     if name == "adamw":
-        return adamw(**kw)
+        return adamw(update_constraint=update_constraint, **kw)
     if name == "adafactor":
-        return adafactor(cfg=cfg, **kw)
+        return adafactor(cfg=cfg, update_constraint=update_constraint, **kw)
     raise ValueError(name)

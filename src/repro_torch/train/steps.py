@@ -8,10 +8,21 @@ accumulation runs the loss over the microbatches one after another, adds
 their grads (``.grad`` accumulates across the backward passes, in each
 parameter's dtype, as the reference's ``jnp.add``) and divides the sum by
 ``grad_accum``.  The reference's ``optimization_barrier`` (keeping one
-microbatch's activations from overlapping the next's) and ``grad_shardings``
-(a ZeRO layout constraint) have no eager counterpart and need none: eager
-execution finishes microbatch i's backward before microbatch i+1's forward
-begins, and one device has nothing to shard.
+microbatch's activations from overlapping the next's) has no eager
+counterpart and needs none: eager execution finishes microbatch i's
+backward before microbatch i+1's forward begins.
+
+The sharded step is this one on the DTensor model
+(``distributed.layouts.shard_params``, the batch by
+``distributed.layouts.distribute_tree``), under
+``distributed.context.use_rules``; the step runs under
+``replicate_made_tensors``, its backward too.  A microbatch is laid out as
+the batch (rows over ``batch``) before it runs.  ``grad_shardings``
+({parameter name: DTensor placements}, ``layouts.param_placements`` of
+``opt_pspecs``: ZeRO) redistributes the summed grads before the optimizer,
+as the reference's ``with_sharding_constraint`` does, so that the update
+runs at the optimizer state's sharding (a reduce-scatter of ``Partial``
+grads); on plain grads it changes nothing.
 """
 from __future__ import annotations
 
@@ -19,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import context
 from repro_torch.models import forward_train, init_params
 from repro_torch.models.losses import softmax_xent
 from repro_torch.optim import Optimizer
@@ -47,14 +59,29 @@ def loss_fn(params, cfg: ModelConfig, batch):
     return total, {"loss": loss, "aux": aux, "tokens": n}
 
 
+def _microbatch(t, grad_accum: int, i: int):
+    """Microbatch ``i`` of ``t``; of a DTensor, laid out as the whole batch
+    was (``batch_pspecs``: rows over ``batch``)."""
+    t = t.reshape(grad_accum, t.shape[0] // grad_accum, *t.shape[1:])
+    t = context.constrain(t, (None, "batch", "seq", *[None] * t.dim())[
+        :t.dim()])
+    return t[i]
+
+
 def build_train_step(cfg: ModelConfig, optimizer: Optimizer, lr_fn,
-                     grad_accum: int = 1):
+                     grad_accum: int = 1, grad_shardings=None):
+    """``grad_shardings``: {parameter name: placements} of the summed grads
+    (module docstring)."""
     def one_grad(model, batch):
         total, metrics = loss_fn(model, cfg, batch)
         total.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state, batch):
+        with context.replicate_made_tensors(state["params"].embed):
+            return step(state, batch)
+
+    def step(state, batch):
         model = state["params"]
         params = dict(model.named_parameters())
         for p in params.values():
@@ -62,8 +89,8 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, lr_fn,
         if grad_accum > 1:
             metrics = None
             for i in range(grad_accum):
-                mb = {k: t.reshape(grad_accum, t.shape[0] // grad_accum,
-                                   *t.shape[1:])[i] for k, t in batch.items()}
+                mb = {k: _microbatch(t, grad_accum, i)
+                      for k, t in batch.items()}
                 met = one_grad(model, mb)
                 metrics = met if metrics is None else \
                     {k: metrics[k] + met[k] for k in metrics}
@@ -74,11 +101,13 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, lr_fn,
         else:
             metrics = one_grad(model, batch)
 
+        grads = {n: p.grad for n, p in params.items()}
+        if grad_shardings is not None:
+            grads = {n: context.redistribute(g, grad_shardings[n])
+                     for n, g in grads.items()}
         lr = lr_fn(state["step"])
         with torch.profiler.record_function("optimizer"):
-            _, _, gnorm = optimizer.update(
-                {n: p.grad for n, p in params.items()}, state["opt"], params,
-                lr)
+            _, _, gnorm = optimizer.update(grads, state["opt"], params, lr)
         state["step"] += 1
         return state, dict(metrics, grad_norm=gnorm, lr=lr)
 

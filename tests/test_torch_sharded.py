@@ -1,0 +1,724 @@
+"""The port's sharded model (DTensor parameters placed by
+``distributed.layouts.shard_params``, the reference's ``constrain`` sites,
+``grad_shardings`` and ``update_constraint``, the kernels under
+``local_map``, ``moe_sharded`` inside the DTensor model) against the
+unsharded port and the JAX reference, on the CPU.
+
+The multi-rank cells run in 8 processes joined in one gloo group, spawned
+once for the module by ``tests/torch_dist_worker.py`` (its ``sharded``
+mode) from a FileStore in the test's temp dir and joined under a time
+limit, as tests/test_torch_distributed.py does.  The mesh is the
+reference's TRAIN_LOWERS one (tests/test_distributed.py): 2 x 4
+``("data", "model")``, smoke configs in f32 with ``attn_q_block=16``,
+sequence 32, global batch 8.  The cells:
+
+* ``g2``: gemma2-9b prefill, then decode at the next position on the
+  cache laid out by ``cache_pspecs`` (``kv_seq`` over ``model``: ring and
+  full caches); ``g2q`` the same with the int8 cache;
+* ``g2t``: gemma2-9b, one train step, ``grad_accum=2`` (TRAIN_LOWERS),
+  AdamW with ``grad_shardings`` and ``update_constraint`` from
+  ``opt_pspecs`` (ZeRO);
+* ``rg``: recurrentgemma-2b prefill (the RG-LRU's ``constrain`` and the
+  scan under ``local_map``); ``rgt`` its train step (``grad_accum=1``);
+* ``rw``: rwkv6-7b prefill (the wkv6 under ``local_map``);
+* ``qw``: qwen3-moe-235b-a22b, one train step with Adafactor and
+  ``moe_sharded`` inside the DTensor model.
+
+Weights are the reference's own (``init_params``, every norm and zero
+vector given random values, as tests/test_torch_train.py does), carried
+across by ``params_from_jax``; tokens are numpy draws.
+
+The sharded MoE routes each data shard's tokens with a capacity of its
+own, and its aux loss is the mean of the shards' (the reference's
+``moe_sharded`` does the same), so the unsharded run it is held to
+computes the same semantics: each data shard's rows through the unsharded
+model on their own, the logits joined for one cross-entropy, the aux the
+shards' mean (``_per_shard_step``), in the port and in the reference alike.
+
+Tolerances, with reasons:
+* against the unsharded port: 1e-5 relative (each output, cache leaf and
+  parameter in relative norm, the loss and grad norm as numbers), the
+  tolerance of the sharded-vs-dense MoE (``chip_smoke.DIST_F32_TOL``):
+  only the order of the sums changes;
+* against the reference: those of tests/test_torch_model.py (2e-4 on
+  prefill and decode outputs) and tests/test_torch_train.py (loss 1e-5,
+  grad norm 1e-4; AdamW's weights within 2 lr (1 + wd |p|) elementwise;
+  Adafactor's step per leaf 1e-4 in relative norm).  The reference runs
+  its plain attention (f32, so its cast of the probabilities changes
+  nothing).  The int8 cell ``g2q`` is held to the unsharded port only: the
+  port's int8 values sit one step from the reference's at rounding ties
+  (one element a leaf here, with or without sharding), which moves its
+  decode logits by 2.2e-4, past 2e-4; the int8 cache against the
+  reference is tests/test_torch_encdec_vision.py's.
+
+One process: a 1 x 1 mesh (a gloo group of one) must give bit-identical
+outputs with and without ``shard_params`` on every path; a kernel wrapper
+given a DTensor it cannot split raises; C2's collectives copy nothing on a
+one-rank group.
+"""
+import dataclasses
+import functools
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs.base import get_smoke_config as jax_smoke  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro.models.losses import softmax_xent as jax_xent  # noqa: E402
+from repro.optim import make_optimizer as jax_make_optimizer  # noqa: E402
+from repro.train import steps as jsteps  # noqa: E402
+from repro_torch.configs.base import LM_SHAPES, get_smoke_config  # noqa: E402
+from repro_torch.distributed import collectives as coll  # noqa: E402
+from repro_torch.distributed import context  # noqa: E402
+from repro_torch.distributed import layouts  # noqa: E402
+from repro_torch.launch.mesh import AbstractMesh, make_mesh  # noqa: E402
+from repro_torch.models import (forward_decode, forward_prefill,  # noqa: E402
+                                forward_train, init_params)
+from repro_torch.models.losses import softmax_xent  # noqa: E402
+from repro_torch.models.weights import (params_from_jax,  # noqa: E402
+                                        params_to_numpy)
+from repro_torch.optim import make_optimizer  # noqa: E402
+from repro_torch.train import steps as tsteps  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+WORLD = 8
+JOIN_S = 240
+B, S = 8, 32
+LR = 1e-3
+DIST_F32_TOL = 1e-5
+MODEL_TOL = 2e-4
+LOSS_TOL, GNORM_TOL = 1e-5, 1e-4
+NORMAL = {"ln1", "ln2", "post_ln1", "post_ln2", "final_norm", "q_norm",
+          "k_norm", "lnx_b", "ba", "bi", "conv_b", "mu_x", "mu", "mu_k",
+          "mu_r"}
+# cell -> (arch, kinds, kv_quant, grad_accum)
+CELLS = {
+    "g2": ("gemma2-9b", "prefill,decode", False, 0),
+    "g2q": ("gemma2-9b", "prefill,decode", True, 0),
+    "g2t": ("gemma2-9b", "train", False, 2),
+    "rg": ("recurrentgemma-2b", "prefill", False, 0),
+    "rgt": ("recurrentgemma-2b", "train", False, 1),
+    "rw": ("rwkv6-7b", "prefill", False, 0),
+    "qw": ("qwen3-moe-235b-a22b", "train", False, 1),
+}
+TRAIN = [c for c, v in CELLS.items() if v[1] == "train"]
+SERVE = [c for c, v in CELLS.items() if v[1] != "train"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _rel(t, j) -> float:
+    t, j = np.asarray(t, np.float64), np.asarray(j, np.float64)
+    return float(np.linalg.norm(t - j) / max(np.linalg.norm(j), 1e-30))
+
+
+def _cfgs(cell):
+    arch, _, kv_quant, _ = CELLS[cell]
+    kw = dict(param_dtype="float32", attn_q_block=16, kv_quant=kv_quant)
+    return (dataclasses.replace(jax_smoke(arch), **kw),
+            dataclasses.replace(get_smoke_config(arch), **kw))
+
+
+@functools.cache
+def _jax_params(arch, seed=0):
+    jc = dataclasses.replace(jax_smoke(arch), param_dtype="float32")
+    params = jtf.init_params(jax.random.PRNGKey(seed), jc)
+    rng = np.random.default_rng(seed)
+
+    def perturb(path, leaf):
+        if getattr(path[-1], "key", None) in NORMAL:
+            return leaf + jnp.asarray(
+                rng.standard_normal(leaf.shape) * 0.3, leaf.dtype)
+        return leaf
+    return jax.tree_util.tree_map_with_path(perturb, params)
+
+
+def _tokens(cell):
+    cfg = _cfgs(cell)[1]
+    seed = list(CELLS).index(cell)
+    return np.random.default_rng(seed).integers(
+        2, cfg.vocab_size, (B, S + 1)).astype(np.int64)
+
+
+def _port_model(cell):
+    jc, tc = _cfgs(cell)
+    return params_from_jax(jax.tree.map(np.asarray, _jax_params(
+        CELLS[cell][0])), tc, device="cpu")
+
+
+KERNEL_SHAPES = {"q": (8, 16, 4, 2, 16), "k": (8, 16, 4, 16),
+                 "v": (8, 16, 4, 16), "a": (8, 16, 8), "b": (8, 16, 8),
+                 "r": (8, 16, 4, 16), "wk": (8, 16, 4, 16),
+                 "wv": (8, 16, 4, 16), "logw": (8, 16, 4, 16), "u": (4, 16)}
+
+
+def _kernel_inputs():
+    rng = np.random.default_rng(7)
+    inp = {f"kern/{n}": rng.standard_normal(s).astype(np.float32)
+           for n, s in KERNEL_SHAPES.items()}
+    inp["kern/a"] = rng.uniform(0.5, 1.0, KERNEL_SHAPES["a"]).astype(
+        np.float32)
+    inp["kern/logw"] = -rng.uniform(1e-3, 2.0, KERNEL_SHAPES["logw"]).astype(
+        np.float32)
+    for tag, shapes in (("flash", [KERNEL_SHAPES["q"]]),
+                        ("scan", [KERNEL_SHAPES["a"]]),
+                        ("wkv6", [KERNEL_SHAPES["r"], (8, 4, 16, 16)])):
+        for i, shape in enumerate(shapes):
+            inp[f"kern/{tag}/ct{i}"] = rng.standard_normal(shape).astype(
+                np.float32)
+    return inp
+
+
+def _kernel_plain(inp):
+    """Each kernel wrapper on plain tensors: outputs and input grads."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_chunk import wkv6
+    out = {}
+    for tag, fn, names in (
+            ("flash", functools.partial(flash_attention, scale=0.25), "qkv"),
+            ("scan", rglru_scan, "ab"),
+            ("wkv6", wkv6, ("r", "wk", "wv", "logw", "u"))):
+        ins = {n: torch.from_numpy(inp[f"kern/{n}"]).requires_grad_()
+               for n in names}
+        outs = fn(*ins.values())
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        torch.autograd.backward(outs, [torch.from_numpy(
+            inp[f"kern/{tag}/ct{i}"]) for i in range(len(outs))])
+        for i, o in enumerate(outs):
+            out[f"kern/{tag}/out{i}"] = o.detach().numpy()
+        for n, t in ins.items():
+            out[f"kern/{tag}/grad/{n}"] = t.grad.numpy()
+    return out
+
+
+def _inputs():
+    inp = {"cells": np.array(",".join(CELLS)), **_kernel_inputs()}
+    for cell, (arch, kinds, kv_quant, accum) in CELLS.items():
+        inp[f"{cell}/arch"] = np.array(arch)
+        inp[f"{cell}/kinds"] = np.array(kinds)
+        inp[f"{cell}/kv_quant"] = np.array(kv_quant)
+        inp[f"{cell}/accum"] = np.array(accum)
+        inp[f"{cell}/tokens"] = _tokens(cell)
+        for n, p in _port_model(cell).named_parameters():
+            inp[f"{cell}/p/{n}"] = p.detach().numpy()
+    return inp
+
+
+def _leaves(cache):
+    return [e[n] for part in ("blocks", "tail") for e in cache[part]
+            for n in sorted(e)]
+
+
+# ---------------------------------------------------------------------------
+# the unsharded runs: the port and the reference
+# ---------------------------------------------------------------------------
+def _split(batch, n=2):
+    """The data shards of a (micro)batch: n contiguous row blocks."""
+    return [{k: v[i * len(v) // n:(i + 1) * len(v) // n]
+             for k, v in batch.items()} for i in range(n)]
+
+
+def _per_shard_step(cfg, model, opt, batch, grad_accum):
+    """One step of the port, plain, with the sharded MoE's semantics: each
+    data shard's rows through the model on their own, one cross-entropy
+    over their logits, the aux the shards' mean."""
+    state = tsteps.init_train_state(None, cfg, opt, params=model)
+    params = dict(model.named_parameters())
+    loss = 0.0
+    for mb in _split(batch, grad_accum):
+        outs = [forward_train(model, cfg, {"tokens": s["tokens"]})
+                for s in _split(mb)]
+        xent, _ = softmax_xent(torch.cat([o[0] for o in outs]), mb["labels"])
+        (xent + tsteps.AUX_COEF * (outs[0][1] + outs[1][1]) / 2).backward()
+        loss = loss + xent.detach() / grad_accum
+    for p in params.values():
+        p.grad.div_(grad_accum)
+    _, _, gn = opt.update({n: p.grad for n, p in params.items()},
+                          state["opt"], params, torch.tensor(LR))
+    return {"loss": loss, "grad_norm": gn}
+
+
+def _port_run(cell):
+    """The unsharded port's outputs, keyed as the worker's."""
+    _, tc = _cfgs(cell)
+    _, kinds, _, accum = CELLS[cell]
+    tokens = torch.from_numpy(_tokens(cell))
+    model = _port_model(cell)
+    out = {}
+    if kinds == "train":
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        opt = make_optimizer(tc.optimizer, cfg=tc)
+        if tc.moe is not None:
+            metrics = _per_shard_step(tc, model, opt, batch, accum)
+        else:
+            state = tsteps.init_train_state(None, tc, opt, params=model)
+            step = tsteps.build_train_step(tc, opt, lambda s: LR,
+                                           grad_accum=accum)
+            _, metrics = step(state, batch)
+        out.update({k: float(metrics[k]) for k in ("loss", "grad_norm")})
+        out["new"] = {n: p.detach().numpy()
+                      for n, p in model.named_parameters()}
+        if opt.name == "adamw":
+            for k in ("m", "v"):
+                out[k] = {n: t.numpy() for n, t in state["opt"][k].items()}
+        return out
+    logits, cache = forward_prefill(model, tc, {"tokens": tokens[:, :-1]})
+    # copies: decode writes into the cache in place
+    out["prefill"] = [logits.numpy()] + [t.numpy().copy()
+                                         for t in _leaves(cache)]
+    if "decode" in kinds:
+        logits, cache = forward_decode(model, tc, cache, tokens[:, -1:], S)
+        out["decode"] = [logits.numpy()] + [t.numpy() for t in
+                                            _leaves(cache)]
+    return out
+
+
+def _jax_run(cell):
+    """The reference's outputs, keyed as ``_port_run``'s."""
+    jc, _ = _cfgs(cell)
+    arch, kinds, _, accum = CELLS[cell]
+    params = _jax_params(arch)
+    tokens = jnp.asarray(_tokens(cell), jnp.int32)
+    out = {}
+    if kinds == "train":
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        opt = jax_make_optimizer(jc.optimizer)
+        if jc.moe is None:
+            state = {"params": params, "opt": opt.init(params),
+                     "step": jnp.zeros((), jnp.int32)}
+            new, metrics = jax.jit(jsteps.build_train_step(
+                jc, opt, lambda s: LR, grad_accum=accum))(state, batch)
+            new = new["params"]
+        else:
+            def loss(p, mb):
+                outs = [jtf.forward_train(p, jc, {"tokens": s["tokens"]})
+                        for s in _split(mb)]
+                xent, _ = jax_xent(jnp.concatenate([o[0] for o in outs]),
+                                   mb["labels"])
+                return xent + jsteps.AUX_COEF * (outs[0][1] + outs[1][1]) \
+                    / 2, xent
+
+            @jax.jit
+            def step(p):
+                grads, xent = jax.grad(loss, has_aux=True)(p, batch)
+                new, _, gn = opt.update(grads, opt.init(p), p, LR)
+                return new, {"loss": xent, "grad_norm": gn}
+            assert accum == 1
+            new, metrics = step(params)
+        out.update({k: float(metrics[k]) for k in ("loss", "grad_norm")})
+        out["new"] = jax.tree.map(np.asarray, new)
+        out["old"] = jax.tree.map(np.asarray, params)
+        return out
+    logits, cache = jax.jit(functools.partial(jtf.forward_prefill, cfg=jc))(
+        params, batch={"tokens": tokens[:, :-1]})
+
+    def leaves(c):
+        return [np.asarray(e[n]) for part in ("blocks", "tail")
+                for e in c[part] for n in sorted(e)]
+    out["prefill"] = [np.asarray(logits)] + leaves(cache)
+    if "decode" in kinds:
+        logits, cache = jtf.forward_decode(params, jc, cache,
+                                           tokens[:, -1:], S)
+        out["decode"] = [np.asarray(logits)] + leaves(cache)
+    return out
+
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    """Starts the 8 ranks, computes the unsharded runs meanwhile, joins the
+    ranks; -> (rank 0's results, {cell: port run}, {cell: reference
+    run})."""
+    d = tmp_path_factory.mktemp("sharded")
+    np.savez(d / "inputs.npz", **_inputs())
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]),
+        OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "torch_dist_worker.py"),
+         str(r), str(WORLD), str(d / "store"), str(d / "inputs.npz"),
+         str(d / f"out{r}.npz"), "sharded"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+    deadline = time.monotonic() + JOIN_S
+    logs = []
+    try:
+        port = {c: _port_run(c) for c in CELLS}
+        port["kernels"] = _kernel_plain(_kernel_inputs())
+        ref = {c: _jax_run(c) for c in CELLS}
+        for p in procs:
+            out, _ = p.communicate(timeout=max(deadline - time.monotonic(),
+                                               1))
+            logs.append(out)
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"the {WORLD} gloo ranks did not finish in {JOIN_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode, logs[r][-3000:]) for r, p in enumerate(procs)
+           if p.returncode != 0]
+    assert not bad, bad
+    return dict(np.load(d / "out0.npz")), port, ref
+
+
+# ---------------------------------------------------------------------------
+# 8 ranks, a 2 x 4 mesh
+# ---------------------------------------------------------------------------
+def _outputs(res, cell, kind):
+    n = sum(1 for k in res if k.startswith(f"{cell}/{kind}/cache"))
+    return [res[f"{cell}/{kind}/logits"]] + [
+        res[f"{cell}/{kind}/cache{i}"] for i in range(n)]
+
+
+SERVE_CASES = [(c, k) for c in SERVE for k in CELLS[c][1].split(",")]
+
+
+@pytest.mark.parametrize("cell,kind", SERVE_CASES)
+def test_sharded_serving_matches_unsharded_port(sharded, cell, kind):
+    """The logits and every cache leaf: 1e-5 relative (int8 leaves
+    exactly: the quantizer's inputs agree to ~1e-7, and an int8 value one
+    step off would show)."""
+    res, port, _ = sharded
+    got, want = _outputs(res, cell, kind), port[cell][kind]
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape, (i, g.shape, w.shape)
+        if w.dtype == np.int8:
+            assert np.abs(g.astype(np.int32) - w).max() <= 1, i
+            assert (g != w).mean() < 1e-3, i
+        else:
+            assert _rel(g, w) <= DIST_F32_TOL, (i, _rel(g, w))
+
+
+@pytest.mark.parametrize("cell,kind", [c for c in SERVE_CASES
+                                       if c[0] != "g2q"])
+def test_sharded_serving_matches_reference(sharded, cell, kind):
+    res, _, ref = sharded
+    got, want = _outputs(res, cell, kind), ref[cell][kind]
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g, w, atol=MODEL_TOL, rtol=MODEL_TOL,
+                                   err_msg=f"output {i}")
+
+
+def _adamw_ratio(m, v, count=1, b1=0.9, b2=0.95, eps=1e-8):
+    """AdamW's step direction from its state (optimizers.adamw)."""
+    m, v = np.asarray(m, np.float64), np.asarray(v, np.float64)
+    return (m / (1 - b1 ** count)) / (np.sqrt(v / (1 - b2 ** count)) + eps)
+
+
+@pytest.mark.parametrize("cell", TRAIN)
+def test_sharded_train_step_matches_unsharded_port(sharded, cell):
+    """The loss, the grad norm, AdamW's m and v (the grads) and Adafactor's
+    updated parameters to 1e-5 in relative norm.  AdamW's first step moves
+    a weight by lr m / (sqrt(v) + eps), which turns a grad near eps that
+    the order of the sums moves by 1e-7 of the larger grads into a step
+    that differs by up to lr (2 elements of gemma2-9b's embedding table:
+    1.2e-5 of the table in relative norm); so each AdamW weight is held to
+    1e-5 of itself plus lr times the difference of the two runs' step
+    directions, recomputed from their own m and v."""
+    res, port, _ = sharded
+    want = port[cell]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(res[f"{cell}/{k}"]) - want[k]) <= \
+            DIST_F32_TOL * abs(want[k]), k
+    if "m" not in want:
+        for n, w in want["new"].items():
+            assert _rel(res[f"{cell}/new/{n}"], w) <= DIST_F32_TOL, n
+        return
+    for n, w in want["new"].items():
+        for k in ("m", "v"):
+            assert _rel(res[f"{cell}/{k}/{n}"], want[k][n]) <= \
+                DIST_F32_TOL, (k, n)
+        moved = LR * np.abs(_adamw_ratio(res[f"{cell}/m/{n}"],
+                                         res[f"{cell}/v/{n}"]) -
+                            _adamw_ratio(want["m"][n], want["v"][n]))
+        got = res[f"{cell}/new/{n}"].astype(np.float64)
+        assert np.all(np.abs(got - w) <= DIST_F32_TOL * np.abs(w) + moved +
+                      1e-9), n
+
+
+@pytest.mark.parametrize("cell", TRAIN)
+def test_sharded_train_step_matches_reference(sharded, cell):
+    res, _, ref = sharded
+    jc, tc = _cfgs(cell)
+    assert abs(float(res[f"{cell}/loss"]) - ref[cell]["loss"]) <= \
+        LOSS_TOL * abs(ref[cell]["loss"])
+    assert abs(float(res[f"{cell}/grad_norm"]) - ref[cell]["grad_norm"]) <= \
+        GNORM_TOL * ref[cell]["grad_norm"]
+    new = params_to_numpy({k[len(f"{cell}/new/"):]: torch.from_numpy(v)
+                           for k, v in res.items()
+                           if k.startswith(f"{cell}/new/")}, tc)
+    pairs = zip(jax.tree_util.tree_leaves_with_path(ref[cell]["new"]),
+                jax.tree.leaves(new), jax.tree.leaves(ref[cell]["old"]))
+    for (path, j), t, p in pairs:
+        what = jax.tree_util.keystr(path)
+        if tc.optimizer == "adamw":
+            bound = 2 * LR * (1 + 0.1 * np.abs(p)) * (1 + 2 ** -7)
+            assert np.all(np.abs(t - j) <= bound), what
+        else:
+            err = _rel(t.astype(np.float64) - p, j.astype(np.float64) - p)
+            assert err <= GNORM_TOL, (what, err)
+
+
+@pytest.mark.parametrize("tag", ["flash", "scan", "wkv6"])
+def test_kernel_routes_on_eight_ranks(sharded, tag):
+    """Each wrapper's DTensor route on the 2 x 4 mesh (some inputs cut
+    locally, u's gradient a Partial over ``data``): its outputs and the
+    gradients of its inputs equal the plain call's to 1e-5 relative, at
+    the placements of the split axes."""
+    res, port, _ = sharded
+    want = port["kernels"]
+    keys = [k for k in want if k.startswith(f"kern/{tag}/")]
+    assert keys
+    for k in keys:
+        assert _rel(res[k], want[k]) <= DIST_F32_TOL, k
+    place = {"flash": ["(Shard(dim=0), Shard(dim=2))"],
+             "scan": ["(Shard(dim=0), Shard(dim=2))"],
+             "wkv6": ["(Shard(dim=0), Shard(dim=2))",
+                      "(Shard(dim=0), Shard(dim=1))"]}[tag]
+    for i, pl in enumerate(place):
+        assert str(res[f"kern/{tag}/place{i}"]) == pl
+
+
+def test_grad_shardings_take_zero_layout(sharded):
+    """The grads and updates of the TRAIN_LOWERS cell sit at ``opt_pspecs``'
+    ZeRO layout: every stacked layer tensor is sharded over ``data``
+    (``layer_spec`` moved it off R)."""
+    res, _, _ = sharded
+    _, tc = _cfgs("g2t")
+    names = [k[len("g2t/new/"):] for k in res if k.startswith("g2t/new/")]
+    for n, pl in zip(names, res["g2t/grad_placements"]):
+        if n.startswith("layers."):
+            assert str(pl).startswith("(Shard"), (n, pl)
+
+
+def test_decode_cache_is_sharded_over_its_slots(sharded):
+    """``cache_pspecs``: batch over ``data``, the slots over ``model``
+    (``kv_seq``), for the ring, the full and the int8 caches."""
+    res, _, _ = sharded
+    for cell in ("g2", "g2q"):
+        for pl in res[f"{cell}/cache_placements"]:
+            assert str(pl) == "(Shard(dim=1), Shard(dim=2))", (cell, pl)
+
+
+# ---------------------------------------------------------------------------
+# one process
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def one_rank(tmp_path):
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _same(got, want, what):
+    got = got.full_tensor() if context.is_dtensor(got) else got
+    assert torch.equal(got, want), what
+
+
+ONE_RANK = ["g2", "g2q", "rg", "rw", "g2t", "rgt", "qw"]
+
+
+@pytest.mark.parametrize("cell", ONE_RANK)
+def test_one_rank_mesh_is_bit_identical(one_rank, cell):
+    """``shard_params`` on a 1 x 1 mesh: prefill, decode and the train step
+    (``grad_shardings`` and ``update_constraint`` set) equal the plain
+    model's bit for bit, through flash, the scan, the wkv6 and
+    ``moe_sharded`` (which, on one rank, is the dense path)."""
+    mesh = one_rank
+    _, tc = _cfgs(cell)
+    kinds = CELLS[cell][1]
+    tokens = torch.from_numpy(_tokens(cell))[:4]
+    shape = LM_SHAPES["train_4k" if kinds == "train" else "prefill_32k"]
+    rules = layouts.choose_layout(tc, dataclasses.replace(
+        shape, seq_len=S, global_batch=4), mesh)
+    plain, model = _port_model(cell), _port_model(cell)
+    layouts.shard_params(model, tc, rules, mesh)
+    if kinds == "train":
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        gshard = layouts.param_placements(model, tc, layouts.opt_pspecs(
+            layouts.param_pspecs(model, tc, rules), model, tc, mesh), mesh)
+        runs = []
+        for m, kw in ((plain, {}), (model, {"update_constraint": gshard})):
+            opt = make_optimizer(tc.optimizer, cfg=tc, **kw)
+            step = tsteps.build_train_step(
+                tc, opt, lambda s: LR, grad_accum=2,
+                grad_shardings=kw.get("update_constraint"))
+            state = tsteps.init_train_state(None, tc, opt, params=m)
+            if m is model:
+                batch = layouts.distribute_tree(
+                    batch, layouts.batch_pspecs(batch, rules), mesh)
+            with context.use_rules(rules if m is model else None):
+                runs.append(step(state, batch)[1])
+        for k in ("loss", "grad_norm"):
+            _same(runs[1][k], runs[0][k], k)
+        want = dict(plain.named_parameters())
+        for n, p in model.named_parameters():
+            _same(p.detach(), want[n].detach(), n)
+        return
+    batch = {"tokens": tokens[:, :-1]}
+    logits, cache = forward_prefill(plain, tc, batch)
+    dbatch = layouts.distribute_tree(batch, layouts.batch_pspecs(
+        batch, rules), mesh)
+    with context.use_rules(rules):
+        dlogits, dcache = forward_prefill(model, tc, dbatch)
+    _same(dlogits, logits, "prefill logits")
+    for i, (g, w) in enumerate(zip(_leaves(dcache), _leaves(cache))):
+        _same(g, w, f"prefill cache leaf {i}")
+    if "decode" not in kinds:
+        return
+    logits, cache = forward_decode(plain, tc, cache, tokens[:, -1:], S)
+    drules = layouts.choose_layout(tc, dataclasses.replace(
+        LM_SHAPES["decode_32k"], seq_len=S, global_batch=4), mesh)
+    dcache = layouts.distribute_tree(dcache, layouts.cache_pspecs(
+        dcache, tc, drules), mesh)
+    tok = layouts.distribute_tree({"t": tokens[:, -1:]}, {"t": (None, None)},
+                                  mesh)["t"]
+    with context.use_rules(drules):
+        dlogits, dcache = forward_decode(model, tc, dcache, tok, S)
+    _same(dlogits, logits, "decode logits")
+    for i, (g, w) in enumerate(zip(_leaves(dcache), _leaves(cache))):
+        _same(g, w, f"decode cache leaf {i}")
+
+
+def _dt(mesh, t, placements):
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh, placements)
+
+
+@pytest.mark.parametrize("bad", ["seq", "head_dim", "partial"])
+def test_flash_raises_on_a_placement_it_cannot_split(one_rank, bad):
+    """Sharding the sequence or the head dim, or a Partial, raises with
+    the placements in the message; nothing gathers or falls back."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.kernels.flash_attention import flash_attention
+    mesh = one_rank
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 16, 2, 2, 16, generator=g)
+    k, v = (torch.randn(2, 16, 2, 16, generator=g) for _ in range(2))
+    pl = {"seq": Shard(1), "head_dim": Shard(4), "partial": Partial()}[bad]
+    dq = _dt(mesh, q, (Replicate(), Replicate()))
+    if bad == "partial":
+        dq = torch.distributed.tensor.DTensor.from_local(
+            q, mesh, (Replicate(), pl), run_check=False)
+    else:
+        dq = _dt(mesh, q, (Replicate(), pl))
+    dk, dv = (_dt(mesh, t, (Shard(0), Replicate())) for t in (k, v))
+    with pytest.raises(ValueError, match="flash attention.*placements"):
+        flash_attention(dq, dk, dv, scale=0.25)
+
+
+def test_recurrent_kernels_raise_on_a_sequence_shard(one_rank):
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_chunk import wkv6
+    mesh = one_rank
+    g = torch.Generator().manual_seed(0)
+    a = _dt(mesh, torch.rand(2, 16, 8, generator=g), (Shard(1), Replicate()))
+    with pytest.raises(ValueError, match="RG-LRU.*cannot be split"):
+        rglru_scan(a, a)
+    r = _dt(mesh, torch.randn(2, 16, 2, 16, generator=g),
+            (Replicate(), Shard(1)))
+    u = _dt(mesh, torch.randn(2, 16, generator=g), (Replicate(), Shard(1)))
+    with pytest.raises(ValueError, match="wkv6.*cannot be split"):
+        wkv6(r, r, r, -r.abs(), u)
+
+
+def test_kernels_run_local_shards_of_splittable_dtensors(one_rank):
+    """On a mesh of one, shards of the split axes cut nothing: the
+    wrappers run the plain version on the local tensors, return the plain
+    call's values bit for bit, replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_chunk import wkv6
+    mesh = one_rank
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(2, 16, 2, 2, 16, generator=g)
+    k, v = (torch.randn(2, 16, 2, 16, generator=g) for _ in range(2))
+    o = flash_attention(_dt(mesh, q, (Shard(0), Shard(2))),
+                        _dt(mesh, k, (Shard(0), Replicate())),
+                        _dt(mesh, v, (Replicate(), Shard(2))), scale=0.25)
+    assert o.placements == (Replicate(), Replicate())
+    _same(o, flash_attention(q, k, v, scale=0.25), "flash")
+    r, kk, vv = (torch.randn(2, 16, 2, 16, generator=g) for _ in range(3))
+    w, u = -torch.rand(2, 16, 2, 16, generator=g), torch.randn(2, 16,
+                                                               generator=g)
+    y, st = wkv6(*(_dt(mesh, t, (Shard(0), Shard(2))) for t in (r, kk, vv, w)),
+                 _dt(mesh, u, (Replicate(), Shard(0))))
+    wy, wst = wkv6(r, kk, vv, w, u)
+    _same(y, wy, "wkv6 y")
+    _same(st, wst, "wkv6 state")
+
+
+@pytest.mark.parametrize("op", ["all_gather", "reduce_scatter", "all_reduce"])
+def test_collectives_copy_nothing_on_one_rank(one_rank, op):
+    """C2: over a group of one rank each collective returns a view of its
+    input (the same storage, no allocation) and its backward passes the
+    gradient through."""
+    mesh = one_rank
+    x = torch.randn(4, 6, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    y = {"all_gather": lambda: coll.all_gather(x, ("data", "model"), 1, mesh),
+         "reduce_scatter": lambda: coll.reduce_scatter(x, "model", 1, mesh),
+         "all_reduce": lambda: coll.all_reduce(x, ("data", "model"), mesh),
+         }[op]()
+    assert y is not x
+    assert y.data_ptr() == x.data_ptr()
+    assert y.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+    assert torch.equal(y, x)
+    g = torch.randn(4, 6, generator=torch.Generator().manual_seed(1))
+    y.backward(g)
+    assert torch.equal(x.grad, g)
+
+
+def test_layer_spec_moves_the_layer_axis():
+    """The reference shards R itself where ``opt_pspecs`` finds it free;
+    a layer takes ``data`` on its next free dim that ``data`` divides, or
+    is replicated over it.  The counts stated in layouts.py's docstring."""
+    mesh = AbstractMesh(("data", "model"), (2, 4))
+    assert layouts.layer_spec(("data", None, "model"), (64, 16), True,
+                              mesh) == ("data", "model")
+    assert layouts.layer_spec(("data", "model"), (64,), True,
+                              mesh) == ("model",)
+    assert layouts.layer_spec(("data", None), (3,), True, mesh) == (None,)
+    assert layouts.layer_spec(("data", None), (3,), False, mesh) == \
+        ("data", None)
+    counts = {}
+    for arch in ("gemma2-9b", "recurrentgemma-2b", "qwen3-moe-235b-a22b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), attn_q_block=16)
+        rules = layouts.choose_layout(cfg, dataclasses.replace(
+            LM_SHAPES["train_4k"], seq_len=S, global_batch=B), mesh)
+        model = init_params(cfg, None, device="meta")
+        ps = layouts.param_pspecs(model, cfg, rules)
+        assert not any(s and s[0] for k, s in ps.items()
+                       if k.startswith("blocks/"))
+        shapes = layouts._stacked_shapes(model, cfg)
+        on_r = moved = 0
+        for key, spec in layouts.opt_pspecs(ps, model, cfg, mesh).items():
+            if key.startswith("blocks/") and spec and spec[0]:
+                on_r += 1
+                moved += "data" in str(layouts.layer_spec(
+                    spec, shapes[key][1:], True, mesh))
+        counts[arch] = (on_r, moved)
+    assert counts == {"gemma2-9b": (22, 22), "recurrentgemma-2b": (39, 31),
+                      "qwen3-moe-235b-a22b": (9, 9)}

@@ -1,7 +1,7 @@
 """One rank of the multi-process checks in tests/test_torch_distributed.py
-(not a test module: the test spawns it).
+and tests/test_torch_sharded.py (not a test module: the tests spawn it).
 
-    python tests/torch_dist_worker.py RANK WORLD STORE INPUTS OUT
+    python tests/torch_dist_worker.py RANK WORLD STORE INPUTS OUT [sharded]
 
 Joins a gloo group of WORLD ranks through the FileStore at STORE, builds a
 (2, 4) mesh ("data", "model") and a (2, 4) mesh ("data", "pp") with
@@ -10,7 +10,12 @@ Joins a gloo group of WORLD ranks through the FileStore at STORE, builds a
 ``constrain`` on the numpy inputs in INPUTS, and writes what it computed to
 OUT.  Rank 0
 writes the sharded outputs gathered back to full tensors.
+
+With ``sharded`` it runs the sharded model instead (``sharded_main``): each
+cell of INPUTS (its weights in the port's names, its tokens) as DTensors on
+the (2, 4) ("data", "model") mesh, and writes each output in full.
 """
+import dataclasses
 import sys
 
 import numpy as np
@@ -123,6 +128,162 @@ def main(rank, world, store, inputs, out):
     dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# the sharded model
+# ---------------------------------------------------------------------------
+def cell_config(inp, cell):
+    """The f32 smoke config of a cell (``<cell>/arch``, ``<cell>/kv_quant``)
+    with the reference's ``attn_q_block=16`` of TRAIN_LOWERS."""
+    cfg = get_smoke_config(str(inp[f"{cell}/arch"]))
+    return dataclasses.replace(cfg, param_dtype="float32", attn_q_block=16,
+                               kv_quant=bool(inp[f"{cell}/kv_quant"]))
+
+
+def cell_model(inp, cell, cfg):
+    """The port's model from the cell's weights, keyed by parameter name."""
+    from repro_torch.models import init_params
+    model = init_params(cfg, None, device="meta")
+    pre = f"{cell}/p/"
+    model.load_state_dict({k[len(pre):]: torch.from_numpy(v)
+                           for k, v in inp.items() if k.startswith(pre)},
+                          assign=True)
+    return model
+
+
+def cell_shape(kind, B, S):
+    return dataclasses.replace(
+        LM_SHAPES[{"train": "train_4k", "prefill": "prefill_32k",
+                   "decode": "decode_32k"}[kind]], seq_len=S, global_batch=B)
+
+
+def full(t):
+    """A copy of the whole tensor (decode writes into a cache in place)."""
+    return (t.full_tensor() if context.is_dtensor(t) else t).clone()
+
+
+def cache_leaves(cache):
+    return [e[n] for part in ("blocks", "tail") for e in cache[part]
+            for n in sorted(e)]
+
+
+def run_cell(inp, cell, mesh, res, grad_accum=2, lr=1e-3):
+    """Prefill (and decode at the next position), or one train step with
+    ``grad_shardings`` and ``update_constraint`` set (ZeRO, from
+    ``opt_pspecs``), of the cell's sharded model; the outputs in full."""
+    from repro_torch.distributed.layouts import (
+        batch_pspecs, cache_pspecs, distribute_tree, opt_pspecs,
+        param_placements, param_pspecs, shard_params)
+    from repro_torch.models import forward_decode, forward_prefill
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import steps as tsteps
+    cfg = cell_config(inp, cell)
+    tokens = torch.from_numpy(inp[f"{cell}/tokens"])
+    B, S = tokens.shape[0], tokens.shape[1] - 1
+    kinds = str(inp[f"{cell}/kinds"]).split(",")
+    model = cell_model(inp, cell, cfg)
+    if "train" in kinds:
+        rules = choose_layout(cfg, cell_shape("train", B, S), mesh)
+        shard_params(model, cfg, rules, mesh)
+        gshard = param_placements(
+            model, cfg, opt_pspecs(param_pspecs(model, cfg, rules), model,
+                                   cfg, mesh), mesh)
+        opt = make_optimizer(cfg.optimizer, cfg=cfg, update_constraint=gshard)
+        state = tsteps.init_train_state(None, cfg, opt, params=model)
+        step = tsteps.build_train_step(cfg, opt, lambda s: lr,
+                                       grad_accum=int(inp[f"{cell}/accum"]),
+                                       grad_shardings=gshard)
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        batch = distribute_tree(batch, batch_pspecs(batch, rules), mesh)
+        with context.use_rules(rules):
+            state, metrics = step(state, batch)
+        for k in ("loss", "grad_norm"):
+            res[f"{cell}/{k}"] = full(metrics[k]).numpy()
+        for n, p in model.named_parameters():
+            res[f"{cell}/new/{n}"] = full(p.detach()).numpy()
+            for k in ("m", "v"):
+                if k in state["opt"]:
+                    res[f"{cell}/{k}/{n}"] = full(state["opt"][k][n]).numpy()
+        res[f"{cell}/grad_placements"] = np.array(
+            [str(gshard[n]) for n, _ in model.named_parameters()])
+        return
+    rules = choose_layout(cfg, cell_shape("prefill", B, S), mesh)
+    shard_params(model, cfg, rules, mesh)
+    batch = {"tokens": tokens[:, :-1]}
+    batch = distribute_tree(batch, batch_pspecs(batch, rules), mesh)
+    with context.use_rules(rules):
+        logits, cache = forward_prefill(model, cfg, batch)
+    res[f"{cell}/prefill/logits"] = full(logits).numpy()
+    for i, t in enumerate(cache_leaves(cache)):
+        res[f"{cell}/prefill/cache{i}"] = full(t).numpy()
+    if "decode" not in kinds:
+        return
+    rules = choose_layout(cfg, cell_shape("decode", B, S), mesh)
+    cache = distribute_tree(cache, cache_pspecs(cache, cfg, rules), mesh)
+    res[f"{cell}/cache_placements"] = np.array(
+        [str(t.placements) for t in cache_leaves(cache)])
+    tok = {"tokens": tokens[:, -1:]}
+    tok = distribute_tree(tok, batch_pspecs(tok, rules), mesh)["tokens"]
+    with context.use_rules(rules):
+        logits, cache = forward_decode(model, cfg, cache, tok, S)
+    res[f"{cell}/decode/logits"] = full(logits).numpy()
+    for i, t in enumerate(cache_leaves(cache)):
+        res[f"{cell}/decode/cache{i}"] = full(t).numpy()
+
+
+def run_kernels(inp, mesh, res):
+    """Each kernel wrapper on DTensors of the inputs ``kern/*`` placed so
+    that some are cut locally (flash's k, the scan's b, the wkv6's u over
+    ``model``) and some gradients are ``Partial`` (u over ``data``); the
+    outputs, the input gradients of a random cotangent and the output
+    placements, in full."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_chunk import wkv6
+
+    def dt(name, *place):
+        t = distribute_tensor(torch.from_numpy(inp[f"kern/{name}"]), mesh,
+                              place)
+        return t.requires_grad_()
+
+    def record(tag, outs, ins):
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        torch.autograd.backward(outs, [distribute_tensor(
+            torch.from_numpy(inp[f"kern/{tag}/ct{i}"]), mesh, o.placements)
+            for i, o in enumerate(outs)])
+        for i, o in enumerate(outs):
+            res[f"kern/{tag}/out{i}"] = full(o.detach()).numpy()
+            res[f"kern/{tag}/place{i}"] = np.array(str(o.placements))
+        for n, t in ins.items():
+            res[f"kern/{tag}/grad/{n}"] = full(t.grad).numpy()
+    ins = {"q": dt("q", Shard(0), Shard(2)),
+           "k": dt("k", Shard(0), Replicate()),
+           "v": dt("v", Replicate(), Shard(2))}
+    record("flash", flash_attention(*ins.values(), scale=0.25), ins)
+    ins = {"a": dt("a", Shard(0), Shard(2)), "b": dt("b", Replicate(),
+                                                     Replicate())}
+    record("scan", rglru_scan(*ins.values()), ins)
+    ins = {n: dt(n, Shard(0), Shard(2)) for n in ("r", "wk", "wv", "logw")}
+    ins["u"] = dt("u", Replicate(), Replicate())
+    record("wkv6", wkv6(*ins.values()), ins)
+
+
+def sharded_main(rank, world, store, inputs, out):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    inp = dict(np.load(inputs))
+    mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+    res = {}
+    for cell in str(inp["cells"]).split(","):
+        run_cell(inp, cell, mesh, res)
+    run_kernels(inp, mesh, res)
+    np.savez(out, **res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    r, w, store, inputs, out = sys.argv[1:]
-    main(int(r), int(w), store, inputs, out)
+    r, w, store, inputs, out = sys.argv[1:6]
+    (sharded_main if sys.argv[6:] == ["sharded"] else main)(
+        int(r), int(w), store, inputs, out)
