@@ -153,8 +153,11 @@ Phases:
      superblock (the scan and the wkv6), and one h2o-danube-1.8b train step
      at full width cut to 4 layers, 4 x 2048, ``grad_accum=2``,
      ``grad_shardings`` and ``update_constraint`` set (loss, grad norm and
-     every parameter).  A line says whether the multi-card parity ran.
-     One JSON line holds it.
+     every parameter).  Then that step as the dry-run builds it, plain and
+     as the DTensor step, each run once under ``roofline.trace.OpTrace``:
+     flops and bytes equal, and the DTensor step's predicted peak within
+     ``PEAK_BAND`` of its measured ``max_memory_allocated``.  A line says
+     whether the multi-card parity ran.  One JSON line holds it.
   11. roofline: every step the serving and training phases timed (the
      prefill and the decode step of each serving path, gemma3-1b's decode
      with the int8 cache, the h2o-danube-1.8b,
@@ -169,6 +172,13 @@ Phases:
      of that step.  It fails where the bound exceeds the measured time by
      more than 5% (the count would be wrong) or the peaks differ by more
      than ``roofline.analysis.PEAK_BAND``.
+  12. dryrun: ``python -m repro_torch.launch.dryrun --arch
+     qwen3-moe-235b-a22b --shape train_4k --mesh pod --layers 1`` in a
+     subprocess under a 90 s limit: the sharded step at full width, one
+     layer, traced on the host as rank 0 of a fake 256-rank world; one
+     ``[dryrun]`` line with the record's collectives, per-device flops and
+     op count beside a CPU host's and the torch version;
+     it fails on a non-zero exit, a timeout or no reduce-scatter.
   Phase 2 also holds each kernel's autograd function (the kernel forward, the
   plain version's autograd backward) against autograd of the plain version
   over the kernel's sweep, at the kernel's tolerance.
@@ -185,6 +195,7 @@ import gc
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -264,6 +275,18 @@ KINDS_OF = {"flash_attention": ("local", "global"), "rglru_scan": ("rglru",),
 VARIANT = {"flash_attention": "wgmma", "rglru_scan": "grouped",
            "wkv6": "chunk"}           # the kernel each wrapper launches
 SHARDED_TRAIN_LAYERS = 4      # [sharded]: h2o-danube-1.8b's step, cut from 24
+# [dryrun]: one production cell traced as rank 0 of a fake 256-rank world in
+# a subprocess, cut to one layer, under its own time limit
+DRYRUN_CELL = ("qwen3-moe-235b-a22b", "train_4k", "pod")
+DRYRUN_LAYERS = 1
+DRYRUN_TIMEOUT_S = 90
+# the same cell's trace on a CPU host (torch 2.13.0+cpu): printed beside the
+# card machine's, so that a torch whose DTensor issues other ops or
+# collectives, or whose bookkeeping the trace filters otherwise, shows
+DRYRUN_CPU = {"torch": "2.13.0+cpu", "ops": 5871,
+              "collective_counts": {"all-gather": 104, "all-reduce": 91,
+                                    "reduce-scatter": 51, "all-to-all": 8,
+                                    "collective-permute": 0}}
 NO_LIBRARY = ("no single PyTorch call computes the RG-LRU scan or the wkv6 "
               "recurrence, so their library_ms is null")
 
@@ -2523,6 +2546,86 @@ def sharded_train(torch, dev, mesh, card):
     return row["launches"], row
 
 
+def sharded_trace(torch, dev, mesh, card):
+    """``sharded_train``'s step (h2o-danube-1.8b, full width, cut to
+    ``SHARDED_TRAIN_LAYERS`` layers, TRAIN_B x TRAIN_S, ``grad_accum`` 2) as
+    the dry-run builds it (``launch.dryrun.build_cell``: seeded weights,
+    zero tokens), plain and as the DTensor step on the 1 x 1 NCCL mesh, each
+    run once on the card under ``roofline.trace.OpTrace`` (which counts a
+    DTensor's local ops): flops and bytes equal, flash launched twice a
+    layer and microbatch in both, and the DTensor step's predicted peak
+    (``launch.dryrun.record``) within PEAK_BAND of its measured
+    ``max_memory_allocated``, less what earlier phases still hold.
+    Returns (the DTensor step's launches, a row)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.distributed import context, layouts
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.roofline.analysis import PEAK_BAND
+    from repro_torch.roofline.trace import OpTrace, collective_stats
+
+    arch = "h2o-danube-1.8b"
+    cfg = dataclasses.replace(get_config(arch), n_layers=SHARDED_TRAIN_LAYERS)
+    shape = ShapeConfig("train", "train", TRAIN_S, TRAIN_B)
+    n = 2 * train_launches(cfg, "flash_attention")     # two microbatches
+    want = {"flash_attention": n, "flash_attention:wgmma": n}
+    runs = {}
+    for name, m in (("plain", AbstractMesh(("data", "model"), (1, 1))),
+                    ("dtensor", mesh)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        kept = torch.cuda.memory_allocated(dev)     # what earlier phases keep
+        rules = layouts.choose_layout(cfg, shape, m)
+        fn, args, in_specs, out_specs, donate = dryrun.build_cell(
+            cfg, shape, m, rules, grad_accum=2, device=dev.type)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)    # the step's own peak
+        cuda_lib.launches.clear()                  # the path starts here
+        with context.use_rules(rules if name == "dtensor" else None), \
+                OpTrace() as trace:
+            out = fn(*args)
+        torch.cuda.synchronize()
+        launched = {k: c for k, c in cuda_lib.launches.items() if c}
+        rec = dryrun.record(cfg, m, trace, out, args, in_specs, out_specs,
+                            donate)
+        runs[name] = {
+            "flops": trace.flops, "bytes": trace.bytes_accessed,
+            "ops": len(trace.ops), "launches": launched,
+            "collective_operand_bytes": sum(
+                v["operand_bytes"] for v in collective_stats(trace).values()),
+            "predicted_peak_gb": rec["memory"]["peak_gb"],
+            "argument_gb": rec["memory"]["argument_gb"],
+            "kept_before_gb": kept / 1e9,
+            "measured_peak_gb":
+                (torch.cuda.max_memory_allocated(dev) - kept) / 1e9}
+        check(launched == want, f"{arch} {name} traced train step launched "
+              f"{launched}, want {want}")
+        del fn, args, out, trace
+    d, p = runs["dtensor"], runs["plain"]
+    check(d["flops"] == p["flops"] and d["bytes"] == p["bytes"],
+          f"{arch} DTensor step traced {d['flops']} flops / {d['bytes']} "
+          f"bytes, the plain step {p['flops']} / {p['bytes']}")
+    ratio = d["measured_peak_gb"] / d["predicted_peak_gb"]
+    check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1],
+          f"{arch} DTensor step: measured peak {d['measured_peak_gb']} GB "
+          f"against the predicted {d['predicted_peak_gb']} GB, outside "
+          f"{PEAK_BAND}: {runs}")
+    row = {"layers": cfg.n_layers, "batch": TRAIN_B, "seq": TRAIN_S,
+           "grad_accum": 2, **runs, "peak_ratio": ratio, "card": card}
+    print(f"[sharded] {arch} train step ({cfg.n_layers} layers, {TRAIN_B}x"
+          f"{TRAIN_S}, grad_accum 2) traced on the card: DTensor on the 1 x 1 "
+          f"mesh {d['flops']:.6e} flops, {d['bytes']:.6e} bytes, {d['ops']} "
+          f"ops; plain {p['flops']:.6e} flops, {p['bytes']:.6e} bytes, "
+          f"{p['ops']} ops; predicted peak {d['predicted_peak_gb']:.3f} GB, "
+          f"measured {d['measured_peak_gb']:.3f} GB (ratio {ratio:.4f}, band "
+          f"{PEAK_BAND}; plain {p['predicted_peak_gb']:.3f} / "
+          f"{p['measured_peak_gb']:.3f} GB; earlier phases held "
+          f"{d['kept_before_gb']:.3f} GB); launches {d['launches']} in both; "
+          f"{card}")
+    return d["launches"], row
+
+
 def sharded_path(torch, np, dev, card):
     """Phase 10b: the sharded model (``distributed.layouts.shard_params``:
     DTensor parameters at ``param_pspecs``, under ``use_rules``) on one
@@ -2561,6 +2664,8 @@ def sharded_path(torch, np, dev, card):
                 sharded_prefill(torch, dev, mesh, cfg, arch, want, card)
         launches["h2o-danube-1.8b sharded train"], out["h2o-danube-1.8b train"] \
             = sharded_train(torch, dev, mesh, card)
+        launches["h2o-danube-1.8b sharded trace"], out["h2o-danube-1.8b trace"] \
+            = sharded_trace(torch, dev, mesh, card)
     finally:
         dist.destroy_process_group()
         tmp.cleanup()
@@ -2655,6 +2760,51 @@ def roofline_path(torch, steps, card) -> list:
               f"{rec['memory']['peak_gb']} GB, outside {PEAK_BAND}")
         rows.append(row)
     return rows
+
+
+def dryrun_path(card) -> dict:
+    """Phase 12: ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL``
+    cut to ``DRYRUN_LAYERS`` layers, in a subprocess (a fake world needs a
+    process without a process group) under ``DRYRUN_TIMEOUT_S``: the cell's
+    sharded step traced as rank 0 of a fake 256-rank world on the host, its
+    record read back.  Prints its collectives, per-device flops and op
+    count on one line, beside a CPU host's (``DRYRUN_CPU``); fails on a
+    non-zero exit, a timeout, or no reduce-scatter."""
+    import torch
+    arch, shape, mesh = DRYRUN_CELL
+    root = Path(__file__).resolve().parent
+    path = root / "experiments" / "dryrun_torch" / \
+        f"{arch}__{shape}__{mesh}.json"
+    path.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--mesh", mesh, "--layers", str(DRYRUN_LAYERS)]
+    t0 = time.perf_counter()
+    try:
+        run = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                             timeout=DRYRUN_TIMEOUT_S, env=dict(
+                                 os.environ, PYTHONPATH=str(root / "src")))
+    except subprocess.TimeoutExpired:
+        check(False, f"[dryrun] {' '.join(cmd[1:])} did not finish in "
+              f"{DRYRUN_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"[dryrun] {' '.join(cmd[1:])} exited "
+          f"{run.returncode}: {run.stderr[-3000:]}")
+    rec = json.loads(path.read_text())
+    row = {"cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
+           "n_chips": rec["n_chips"], "n_ranks_traced": rec["n_ranks_traced"],
+           "flops_per_device": rec["cost"]["flops_per_device"],
+           "bytes_accessed": rec["cost"]["bytes_accessed"],
+           "temp_gb": rec["memory"]["temp_gb"],
+           "peak_gb": rec["memory"]["peak_gb"],
+           "collectives": rec["collectives"], "trace_s": rec["lower_s"],
+           "wall_s": wall, "ops": rec["hlo_len"], "torch": torch.__version__,
+           "cpu_trace": DRYRUN_CPU, "card": card}
+    print("[dryrun] " + json.dumps(row), flush=True)
+    check(rec["cost"]["split"] == "rank0" and rec["n_chips"] == 256,
+          f"[dryrun] the record is not rank 0's of 256: {rec['cost']}")
+    check(rec["collectives"]["reduce-scatter"]["count"] > 0,
+          f"[dryrun] {arch} {shape} on {mesh} issued no reduce-scatter")
+    return row
 
 
 def train_launches(cfg, kernel) -> int:
@@ -2753,6 +2903,9 @@ def main() -> int:
 
     # ---- 11. every timed step against its roofline -----------------------
     roofline_path(torch, roofline_steps(serving, train_out), card)
+
+    # ---- 12. a production cell's dry-run record --------------------------
+    dryrun_path(card)
 
     def path_launches(name):
         by_path = {arch: n.get(name, 0) for arch, n in launches.items()

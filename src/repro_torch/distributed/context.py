@@ -27,10 +27,15 @@ updates run under ``replicate_made_tensors``, which is torch's
 DTensor's mesh) where the model holds DTensors and nothing otherwise.
 ``local_placements`` is what a kernel wrapper's DTensor route checks
 before it runs its kernel on the local shards (``local_map``).
+``unflatten``/``flatten``, ``replicate_dim``, ``grad_like`` and
+``native_alltoall`` keep a DTensor's layout where DTensor's own rules would
+refuse a reshape, scatter a gradient onto strided rows, or gather a whole
+dim for an all-to-all (the dry-run's production meshes need all four).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import sys
 import threading
 from typing import Optional
@@ -150,18 +155,93 @@ def unflatten(t, dim: int, sizes: tuple):
     head)."""
     shape = (*t.shape[:dim], *sizes, *t.shape[dim + 1:])
     if is_dtensor(t):
-        from torch.distributed.tensor import Replicate
-        mesh = t.device_mesh
-        on = [m for m, p in enumerate(t.placements)
-              if p.is_shard() and p.dim == dim % t.dim()]
         n = 1
-        for m in on:
-            n *= mesh.size(m)
+        for m in _sharding(t, dim):
+            n *= t.device_mesh.size(m)
         if sizes[0] % n or sizes[0] == 1:
-            t = t.redistribute(mesh, tuple(
-                Replicate() if m in on else p
-                for m, p in enumerate(t.placements)))
+            t = replicate_dim(t, dim)
     return t.reshape(shape)
+
+
+def flatten(t, dim: int):
+    """``t`` with dims ``dim`` and ``dim + 1`` merged (a reshape).  Of a
+    DTensor, the gradient is split back by ``unflatten``: the reshape's own
+    backward cannot split a gradient shard that holds no whole rows of the
+    first dim (more ranks than heads)."""
+    dim %= t.dim()
+    if not is_dtensor(t):
+        return t.reshape(*t.shape[:dim], t.shape[dim] * t.shape[dim + 1],
+                         *t.shape[dim + 2:])
+    return _flatten_fn().apply(t, dim)
+
+
+@functools.cache
+def _flatten_fn():
+    import torch
+
+    class Flatten(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t, dim):
+            ctx.dim, ctx.sizes = dim, tuple(t.shape[dim:dim + 2])
+            return t.flatten(dim, dim + 1)
+
+        @staticmethod
+        def backward(ctx, g):
+            return unflatten(g, ctx.dim, ctx.sizes), None
+    return Flatten
+
+
+def grad_like(t):
+    """``t``, whose gradient is laid out as ``t`` is where ``t`` is a
+    DTensor.  DTensor otherwise may resolve a partial gradient by
+    scattering it over the rows of the flattened (batch x sequence) dim, a
+    strided shard whose sharding propagation takes minutes an op on a 3-D
+    mesh.  Products whose output is replicated over ``model`` take their
+    gradients here: RWKV's LoRA and receptance, the q/k/v projections
+    where the heads do not split, the frontend projections."""
+    if not is_dtensor(t):
+        return t
+    return _grad_like_fn().apply(t)
+
+
+@functools.cache
+def _grad_like_fn():
+    import torch
+
+    class GradLike(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            ctx.placements = t.placements
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(ctx, g):
+            return redistribute(g, ctx.placements)
+    return GradLike
+
+
+def _sharding(t, dim: int) -> list:
+    """The mesh dims on which the DTensor ``t`` shards tensor dim ``dim``."""
+    return [m for m, p in enumerate(t.placements)
+            if p.is_shard() and p.dim == dim % t.dim()]
+
+
+def replicate_dim(t, dim: int):
+    """The DTensor ``t`` with tensor dim ``dim`` whole on every rank: the
+    mesh dims that shard it are replicated (an all-gather each), the
+    others keep their placements."""
+    from torch.distributed.tensor import Replicate
+    on = _sharding(t, dim)
+    if not on:
+        return t
+    return t.redistribute(t.device_mesh, tuple(
+        Replicate() if m in on else p for m, p in enumerate(t.placements)))
+
+
+def local_device(t):
+    """The device of ``t``'s data: a DTensor's local shard's (a DTensor's
+    own ``device`` can be its mesh's device type), a tensor's own."""
+    return t.to_local().device if is_dtensor(t) else t.device
 
 
 @contextlib.contextmanager
@@ -179,6 +259,33 @@ def replicate_made_tensors(t):
             yield
     finally:
         _state.replicating = False
+
+
+@contextlib.contextmanager
+def native_alltoall():
+    """DTensor's shard-to-shard ``redistribute`` as the all-to-all it is on
+    every mesh.  On a mesh of device type ``"cpu"`` DTensor falls back to an
+    all-gather of the whole dim and a local chunk (16 times the bytes on a
+    16-rank axis, under another kind); gloo and the fake process group run
+    the all-to-all itself (``_dtensor.shard_dim_alltoall``), as a card's
+    mesh does.  The dry-run traces its sharded cells under this, and so
+    does any run they are held against."""
+    import torch
+    from torch.distributed.tensor import _collective_utils, placement_types
+    fallback = _collective_utils.shard_dim_alltoall
+
+    def alltoall(x, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            x, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+    mods = [m for m in (_collective_utils, placement_types)
+            if getattr(m, "shard_dim_alltoall", None) is fallback]
+    for m in mods:
+        m.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.shard_dim_alltoall = fallback
 
 
 def local_placements(kernel: str, inputs: dict, splits: dict) -> tuple:

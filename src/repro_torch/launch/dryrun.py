@@ -13,35 +13,44 @@ masks, whose sizes are known only at run time: the trace counts each at its
 upper bound T*k, which is what the reference's static drop/fill dispatch
 computes.
 
-No sharding rules are set while tracing: the port's model is unsharded
-apart from ``moe_sharded``, so a cell runs the whole program at global
-shapes.  The record keeps the reference's keys where they mean the same:
+On a production mesh (``pod`` 16 x 16, ``multipod`` 2 x 16 x 16) the cell
+is the sharded step (``build_cell``: DTensor parameters, ZeRO grads and
+updates, the batch and caches at their specs, under the cell's rules),
+traced as rank 0 of a fake world of 256 or 512 ranks
+(``launch.mesh.fake_mesh``: torch's in-process ``"fake"`` process group on a
+``"cpu"`` mesh, every tensor on the meta device, no card).  The counts are
+rank 0's local work and the collectives it issues.  On a 1 x 1 mesh no
+group is started and the model stays plain.  The record keeps the
+reference's keys where they mean the same:
 
 * ``memory``: ``argument_gb``, ``output_gb`` and ``alias_gb`` (the donated
   arguments) are per device and exact, each leaf's shard taken from its
-  spec (a dim split n ways takes ceil(dim / n)).  ``temp_gb`` is the trace's
-  peak of live intermediates (``temp_split: "even"``: divided by the
-  chips), ``peak_gb`` the reference's sum.
+  spec (a dim split n ways takes ceil(dim / n)).  ``temp_gb`` is the peak
+  of rank 0's live local storages made during the step (``temp_split:
+  "rank0"``; on one chip the trace's peak, ``"even"``), ``peak_gb`` the
+  reference's sum.
 * ``cost``: ``flops_per_device``, ``transcendentals`` and
   ``bytes_accessed`` (eager traffic: each op's operand and result bytes)
-  are the global counts over the chips (``split: "even"``);
+  are rank 0's own (``split: "rank0"``; on one chip ``"even"``);
   ``compulsory_bytes`` reads the arguments once and writes the outputs once
   (an argument updated in place counts the bytes written into it).
-* ``collectives``: ``collective_stats`` of the trace on one device; null on
-  a production mesh, where the unsharded program issues none of the
-  collectives XLA's partitioner inserts (``collectives_note``).
+* ``collectives``: ``collective_stats`` of rank 0's trace;
+  ``n_ranks_traced``: 1 on a production mesh.
 * ``hlo_ops``: the op census (top 12); ``hlo_len``: the ops traced;
-  ``lower_s``: the trace's seconds (eager has no ``compile_s``).
+  ``lower_s``: the trace's seconds (eager has no ``compile_s``);
+  ``layers``: the depth a cell was cut to (``--layers``), where it was.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-20b \\
         --shape train_4k --mesh pod
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
     ... --calibrate     # also trace the R=1/R=2 calibration models
+    ... --layers 2      # cut every cell to 2 layers
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import traceback
 from dataclasses import replace
@@ -52,11 +61,13 @@ from torch import nn
 
 from repro_torch.configs.base import (LM_SHAPES, ModelConfig, ShapeConfig,
                                       get_config, list_archs, shapes_for)
-from repro_torch.distributed.context import axis_sizes, pspec
+from repro_torch.distributed.context import axis_sizes, pspec, use_rules
 from repro_torch.distributed.layouts import (batch_pspecs, cache_pspecs,
-                                             choose_layout, opt_pspecs,
-                                             param_pspecs)
-from repro_torch.launch.mesh import make_production_mesh
+                                             choose_layout, distribute_tree,
+                                             opt_pspecs, param_placements,
+                                             param_pspecs, shard_params)
+from repro_torch.launch.mesh import (AbstractMesh, fake_mesh,
+                                     make_production_mesh)
 from repro_torch.models import init_cache, init_params, weights
 from repro_torch.models.io import batch_specs, decode_specs
 from repro_torch.optim import cosine_schedule, make_optimizer
@@ -65,9 +76,6 @@ from repro_torch.serving.steps import build_decode_step, build_prefill_step
 from repro_torch.train.steps import build_train_step, init_train_state
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
-COLLECTIVES_NOTE = ("not counted: the port's model is unsharded apart from "
-                    "moe_sharded, so it issues none of the collectives a "
-                    "partitioner inserts on this mesh")
 
 
 def _opt_state_pspecs(abstract_opt, abstract_params, pspecs, mesh,
@@ -98,62 +106,108 @@ def _opt_state_pspecs(abstract_opt, abstract_params, pspecs, mesh,
 TRAIN_GRAD_ACCUM = 4
 
 
+def _made(tree, device: str):
+    """The meta tensors of ``tree`` as zeros on ``device`` (meta: as
+    they are)."""
+    if device == "meta":
+        return tree
+    if isinstance(tree, dict):
+        return {k: _made(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_made(v, device) for v in tree)
+    return torch.zeros_like(tree, device=device)
+
+
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, rules,
-               grad_accum: int = TRAIN_GRAD_ACCUM):
+               grad_accum: int = TRAIN_GRAD_ACCUM, device: str = "meta"):
     """Returns (fn, abstract_args, in_specs, out_specs, donate): the
     arguments on the meta device, the specs nested as the arguments (a
     model or a dict keyed by parameter names against specs keyed by leaf
-    key)."""
+    key).  On another ``device`` the arguments are real: seeded weights,
+    zero inputs and caches (a run to hold the trace against).
+
+    On a ``DeviceMesh`` the cell is the sharded one, as the reference's
+    ``build_cell`` places it: the parameters DTensors at ``param_pspecs``
+    (``shard_params``); a train step's summed grads and each update at
+    ``opt_pspecs``' ZeRO placements (``grad_shardings``,
+    ``update_constraint``), the optimizer state made there; the batch, and
+    a decode step's cache and tokens, at their specs (``distribute_tree``);
+    a step's cache and tokens laid out at their out specs before it
+    returns.  On an ``AbstractMesh`` (a 1 x 1 mesh) everything stays
+    plain."""
+    sharded = not isinstance(mesh, AbstractMesh)
+    gen = None if device == "meta" else \
+        torch.Generator(device).manual_seed(0)
+
+    def laid_out(tree, specs):
+        return distribute_tree(tree, specs, mesh) if sharded else tree
+
+    def placed(tree, specs):              # an input: made on ``device``
+        return laid_out(_made(tree, device), specs)
+
     if shape.kind == "train":
-        # unsharded: the sharded step (DTensor params from
-        # layouts.shard_params, grad_shardings and update_constraint from
-        # opt_pspecs through layouts.param_placements, as the reference's
-        # build_cell passes them) exists, and tracing it on a fake mesh is
-        # ROADMAP's A14
         opt = make_optimizer(cfg.optimizer, cfg=cfg)
         lr = cosine_schedule(3e-4, 100, 10_000)
-        state = init_train_state(None, cfg, opt, device="meta")
-        pspecs = param_pspecs(state["params"], cfg, rules)
-        step_fn = build_train_step(cfg, opt, lr, grad_accum=grad_accum)
+        state = init_train_state(gen, cfg, opt, device=device)
+        model = state["params"]
+        pspecs = param_pspecs(model, cfg, rules)
         state_specs = {
             "params": pspecs,
-            "opt": _opt_state_pspecs(state["opt"], state["params"], pspecs,
-                                     mesh, cfg),
+            "opt": _opt_state_pspecs(state["opt"], model, pspecs, mesh, cfg),
             "step": (),
         }
+        gshard = None
+        if sharded:
+            shard_params(model, cfg, rules, mesh)
+            gshard = param_placements(
+                model, cfg, opt_pspecs(pspecs, model, cfg, mesh), mesh)
+            opt = make_optimizer(cfg.optimizer, cfg=cfg,
+                                 update_constraint=gshard)
+            state = init_train_state(None, cfg, opt, params=model)
+        step_fn = build_train_step(cfg, opt, lr, grad_accum=grad_accum,
+                                   grad_shardings=gshard)
         batch = batch_specs(cfg, shape)
         bspecs = batch_pspecs(batch, rules)
-        return (step_fn, (state, batch), (state_specs, bspecs),
+        return (step_fn, (state, placed(batch, bspecs)), (state_specs, bspecs),
                 (state_specs, None), (0,))
 
-    params = init_params(cfg, None, device="meta")
+    params = init_params(cfg, gen, device=device)
     pspecs = param_pspecs(params, cfg, rules)
+    if sharded:
+        shard_params(params, cfg, rules, mesh)
+    b = rules.rules.get("batch")
 
     if shape.kind == "prefill":
-        step_fn = build_prefill_step(cfg)
+        prefill = build_prefill_step(cfg)
         batch = batch_specs(cfg, shape)
         bspecs = batch_pspecs(batch, rules)
         cache = init_cache(cfg, shape.global_batch, shape.seq_len,
                            device="meta")
         cspecs = cache_pspecs(cache, cfg, rules)
-        tok_spec = pspec(rules.rules.get("batch"))
-        return (step_fn, (params, batch), (pspecs, bspecs),
-                (tok_spec, cspecs), ())
+        tok_spec = pspec(b)
+
+        def prefill_step(params, batch):
+            tok, cache = prefill(params, batch)
+            return laid_out(tok, tok_spec), laid_out(cache, cspecs)
+        return (prefill_step, (params, placed(batch, bspecs)),
+                (pspecs, bspecs), (tok_spec, cspecs), ())
 
     # decode
     decode = build_decode_step(cfg)
     dspec = decode_specs(cfg, shape)
     cspecs = cache_pspecs(dspec["cache"], cfg, rules)
-    b = rules.rules.get("batch")
+    tok_spec = pspec(b, None)
 
     def decode_step(params, cache, tokens, pos):
         # pos is the reference's int32 scalar argument; a meta tensor holds
         # no value and a step's work does not depend on it, so the step
         # runs at the cache's last position
-        return decode(params, cache, tokens, shape.seq_len - 1)
-    in_specs = (pspecs, cspecs, pspec(b, None), ())
-    out_specs = (pspec(b, None), cspecs)
-    abstract = (params, dspec["cache"], dspec["tokens"], dspec["pos"])
+        tok, cache = decode(params, cache, tokens, shape.seq_len - 1)
+        return laid_out(tok, tok_spec), laid_out(cache, cspecs)
+    in_specs = (pspecs, cspecs, tok_spec, ())
+    out_specs = (tok_spec, cspecs)
+    abstract = (params, placed(dspec["cache"], cspecs),
+                placed(dspec["tokens"], tok_spec), dspec["pos"])
     return decode_step, abstract, in_specs, out_specs, (1,)
 
 
@@ -197,45 +251,73 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                grad_accum: int = TRAIN_GRAD_ACCUM) -> dict:
     """One call of the cell's step under ``OpTrace`` -> the record's
     ``n_chips``, ``lower_s``, ``memory``, ``cost``, ``collectives``,
-    ``hlo_ops`` and ``hlo_len`` (module docstring)."""
+    ``hlo_ops`` and ``hlo_len`` (module docstring).  On a mesh of more than
+    one chip, the sharded step traced as rank 0 of a fake world of the
+    mesh's ranks (``launch.mesh.fake_mesh``), and ``n_ranks_traced``."""
+    sharded = mesh.size() > 1
+    with fake_mesh(mesh) if sharded else contextlib.nullcontext(mesh) as m:
+        trace, cell = run_step(cfg, shape, m, grad_accum)
+        return record(cfg, m, trace, *cell)
+
+
+def run_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
+             grad_accum: int = TRAIN_GRAD_ACCUM, device: str = "meta"):
+    """One call of the cell's step (``build_cell``) under ``OpTrace``, under
+    the cell's rules where ``mesh`` is a ``DeviceMesh`` -> (the trace, the
+    ``build_cell`` tuple with the step's output in place of the step)."""
     rules = choose_layout(cfg, shape, mesh)
+    fn, args, in_specs, out_specs, donate = build_cell(
+        cfg, shape, mesh, rules, grad_accum=grad_accum, device=device)
+    sharded = not isinstance(mesh, AbstractMesh)
+    with use_rules(rules if sharded else None), OpTrace() as trace:
+        out = fn(*args)
+    return trace, (out, args, in_specs, out_specs, donate)
+
+
+def record(cfg: ModelConfig, mesh, trace, out, args, in_specs, out_specs,
+           donate) -> dict:
+    """The record's ``n_chips``, ``lower_s``, ``memory``, ``cost``,
+    ``collectives``, ``hlo_ops`` and ``hlo_len`` from one traced call
+    (``run_step``): rank 0's own on a mesh of more than one chip, else the
+    whole program's."""
     sizes = axis_sizes(mesh)
     chips = 1
     for n in sizes.values():
         chips *= n
-    fn, args, in_specs, out_specs, donate = build_cell(
-        cfg, shape, mesh, rules, grad_accum=grad_accum)
-    with OpTrace() as trace:
-        out = fn(*args)
+    sharded = chips > 1
     arg_b = tree_bytes(args, in_specs, sizes, cfg)
     out_b = tree_bytes(out, out_specs, sizes, cfg)
     alias_b = sum(tree_bytes(args[i], in_specs[i], sizes, cfg)
                   for i in donate)
     made_out = trace.made_bytes(out)
-    compulsory = tree_bytes(args, None, {}, cfg) + made_out + \
-        sum(trace.written_bytes.values())
-    temp_b = max(trace.peak_bytes - made_out, 0) / chips
+    written = sum(trace.written_bytes.values())
+    if sharded:
+        # rank 0's own: its shards of the arguments, what it made and wrote
+        compulsory, temp_b, split = arg_b + made_out + written, \
+            max(trace.peak_bytes - made_out, 0), "rank0"
+    else:
+        compulsory = tree_bytes(args, None, {}, cfg) + made_out + written
+        temp_b, split = max(trace.peak_bytes - made_out, 0) / chips, "even"
+    per = 1 if sharded else chips
     rec = {"n_chips": chips, "lower_s": trace.seconds}
     rec["memory"] = {
         "argument_gb": arg_b / 1e9,
         "output_gb": out_b / 1e9,
         "alias_gb": alias_b / 1e9,
         "temp_gb": temp_b / 1e9,
-        "temp_split": "even",
+        "temp_split": split,
         "peak_gb": (arg_b + out_b + temp_b - alias_b) / 1e9,
     }
     rec["cost"] = {
-        "flops_per_device": trace.flops / chips,
-        "transcendentals": trace.transcendentals / chips,
-        "bytes_accessed": trace.bytes_accessed / chips,
-        "compulsory_bytes": compulsory / chips,
-        "split": "even",
+        "flops_per_device": trace.flops / per,
+        "transcendentals": trace.transcendentals / per,
+        "bytes_accessed": trace.bytes_accessed / per,
+        "compulsory_bytes": compulsory / per,
+        "split": split,
     }
-    if chips == 1:
-        rec["collectives"] = collective_stats(trace)
-    else:
-        rec["collectives"] = None
-        rec["collectives_note"] = COLLECTIVES_NOTE
+    rec["collectives"] = collective_stats(trace)
+    if sharded:
+        rec["n_ranks_traced"] = 1
     rec["hlo_ops"] = dict(op_census(trace, top=12))
     rec["hlo_len"] = len(trace.ops)
     return rec
@@ -243,13 +325,19 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              cfg_override=None, tag: str = "",
-             grad_accum: int = TRAIN_GRAD_ACCUM) -> dict:
+             grad_accum: int = TRAIN_GRAD_ACCUM, layers: int = 0) -> dict:
+    """``layers``: the depth the cell is cut to (0: the config's own); the
+    record keeps it under ``layers``."""
     cfg = cfg_override or get_config(arch)
+    if layers:
+        cfg = replace(cfg, n_layers=layers)
     shape = LM_SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod)
     rec = {"arch": arch, "shape": shape_name,
            "mesh": "multipod" if multi_pod else "pod",
            "kind": shape.kind, "tag": tag}
+    if layers:
+        rec["layers"] = layers
     rec.update(trace_cell(cfg, shape, mesh, grad_accum=grad_accum))
     print(json.dumps({k: rec[k] for k in
                       ("arch", "shape", "mesh", "lower_s")}), flush=True)
@@ -287,6 +375,8 @@ def main():
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--calibrate", action="store_true",
                     help="trace cal1/cal2 calibration variants too")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut every cell to this many layers (0: full depth)")
     args = ap.parse_args()
 
     archs = list_archs() if (args.all or not args.arch) else [args.arch]
@@ -304,7 +394,7 @@ def main():
                     print("skip", name)
                     continue
                 try:
-                    rec = run_cell(arch, sn, mp)
+                    rec = run_cell(arch, sn, mp, layers=args.layers)
                     _save(rec)
                 except Exception as e:  # noqa: BLE001
                     traceback.print_exc()

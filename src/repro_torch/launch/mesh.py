@@ -5,12 +5,15 @@
 has initialised (``torch.distributed.init_process_group``; one card gives
 a group of one).  ``make_production_mesh`` returns an ``AbstractMesh``,
 the names and sizes of the reference's production mesh with no devices
-behind them: 256 or 512 ranks cannot be built here, and what reads it
-(``distributed.layouts.choose_layout``, ``opt_pspecs``, a dry-run's
-layout) needs only the shape.
+behind them: what reads it (``distributed.layouts.choose_layout``,
+``opt_pspecs``, a dry-run's layout) needs only the shape.  ``fake_mesh``
+makes one real: this process as rank 0 of a fake process group of the
+mesh's size (torch's in-process ``"fake"`` backend: every collective is
+issued, none moves data), for the dry-run to trace rank 0's program.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -63,3 +66,30 @@ def make_local_mesh(data: int = 2, model: int = 4, *, device="cuda"):
     if data * model > n:
         data, model = 1, n
     return make_mesh((data, model), ("data", "model"), device=device)
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh):
+    """A DeviceMesh of ``mesh``'s names and sizes on which this process is
+    rank 0 of a fake process group, under ``distributed.context.
+    native_alltoall``; the group is destroyed on the way out.  The mesh's
+    device type is ``"cpu"`` (its tensors are the caller's: the dry-run's
+    are on the meta device), so no card is needed.  Raises where the
+    process already has a default process group."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.distributed.context import native_alltoall
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"fake_mesh needs a process without a default process group; "
+            f"this one has a {dist.get_backend()} group of "
+            f"{dist.get_world_size()} ranks")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size())
+    try:
+        with native_alltoall():
+            yield init_device_mesh("cpu", tuple(mesh.shape),
+                                   mesh_dim_names=tuple(mesh.mesh_dim_names))
+    finally:
+        dist.destroy_process_group()

@@ -31,7 +31,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
-from repro_torch.distributed.context import constrain, is_dtensor, unflatten
+from repro_torch.distributed.context import (constrain, grad_like, is_dtensor,
+                                             unflatten)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.modules import (ParamModule, init_norm, normal, pdtype,
                                         rms_norm, rope)
@@ -146,10 +147,12 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
     window = cfg.window_size if kind == ATTN_LOCAL else 0
     theta = _theta(cfg, kind)
 
-    q = unflatten(x @ p.wq, 2, (H, hd))
+    # grad_like: a projection whose heads are not split (fewer heads than
+    # ranks) takes a replicated gradient, not a shard of its rows
+    q = unflatten(grad_like(x @ p.wq), 2, (H, hd))
     kv_src, kv_pos = (x, positions) if kv_override is None else kv_override
-    k = unflatten(kv_src @ p.wk, 2, (K, hd))
-    v = unflatten(kv_src @ p.wv, 2, (K, hd))
+    k = unflatten(grad_like(kv_src @ p.wk), 2, (K, hd))
+    v = unflatten(grad_like(kv_src @ p.wv), 2, (K, hd))
     if hasattr(p, "q_norm"):
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.context import constrain, unflatten
+from repro_torch.distributed.context import constrain, flatten, unflatten
 
 
 def pdtype(cfg: ModelConfig) -> torch.dtype:
@@ -68,8 +68,7 @@ def group_norm_heads(x, scale, bias, n_heads: int, eps: float = 1e-5):
     x = unflatten(x.float(), len(lead), (n_heads, d // n_heads))
     mu = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, correction=0)
-    x = (x - mu) * torch.rsqrt(var + eps)
-    x = x.reshape(*lead, d)
+    x = flatten((x - mu) * torch.rsqrt(var + eps), -2)
     return (x * scale.float() + bias.float()).to(dt)
 
 

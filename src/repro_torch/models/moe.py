@@ -311,8 +311,7 @@ def _moe_sharded_dtensor(p: MoE, x, cfg: ModelConfig, decode: bool):
     mesh = x.device_mesh
     ep = context.axis_sizes(mesh)[rules.moe_axis]
     if cfg.moe.n_experts % ep:
-        raise ValueError(f"{cfg.moe.n_experts} experts do not split over "
-                         f"{ep} ranks of {rules.moe_axis!r}")
+        return _moe_dense_dtensor(p, x, cfg)
 
     def local(t, place):
         t = t.redistribute(mesh, place)
@@ -329,6 +328,28 @@ def _moe_sharded_dtensor(p: MoE, x, cfg: ModelConfig, decode: bool):
     y, aux = moe_sharded(lp, local(x, x_pl), cfg, decode=decode)
     y = _to_dtensor(y, mesh, x_pl)
     aux = _to_dtensor(aux, mesh, (Replicate(),) * mesh.ndim)
+    if hasattr(p, "dense"):
+        y = y + mlp(p.dense, x, cfg.act)
+    return y, aux
+
+
+def _moe_dense_dtensor(p: MoE, x, cfg: ModelConfig):
+    """``moe_dense`` in the DTensor model, the reference's fallback where
+    the experts do not split over the expert axis: every rank runs it on
+    whole copies of the tokens and weights (gathered; their gradients are
+    the replicated ones) and keeps its block of the output."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+
+    def full(t):
+        return t.redistribute(mesh, whole).to_local()
+    lp = types.SimpleNamespace(**{n: full(getattr(p, n)) for n in (
+        "router", "w_gate", "w_up", "w_down")})
+    y, aux = moe_dense(lp, full(x), cfg)
+    y = DTensor.from_local(y, mesh, whole, run_check=False).redistribute(
+        mesh, x.placements)
+    aux = DTensor.from_local(aux, mesh, whole, run_check=False)
     if hasattr(p, "dense"):
         y = y + mlp(p.dense, x, cfg.act)
     return y, aux

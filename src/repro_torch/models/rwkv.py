@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.context import constrain, unflatten
+from repro_torch.distributed.context import (constrain, flatten, grad_like,
+                                             unflatten)
 from repro_torch.kernels.rwkv6_chunk import wkv6
 from repro_torch.models.modules import (ParamModule, group_norm_heads, normal,
                                         pdtype)
@@ -84,7 +85,7 @@ def _ddlerp(p: TimeMix, x, xs):
     diff = (xs - x).float()
     xf = x.float()
     xxx = xf + diff * p.mu_x
-    a = torch.tanh(xxx @ p.tm_w1)
+    a = torch.tanh(grad_like(xxx @ p.tm_w1))
     a = a.reshape(*a.shape[:-1], 5, _LORA_MIX)
     m = torch.einsum("...fl,fld->...fd", a, p.tm_w2)
     mixed = xf[..., None, :] + diff[..., None, :] * (p.mu + m)
@@ -98,16 +99,14 @@ def _projections(p: TimeMix, x, xs, n_heads: int, hd: int):
     k = unflatten(xk @ p.wk, nd, (n_heads, hd))
     v = unflatten(xv @ p.wv, nd, (n_heads, hd))
     g = F.silu((xg @ p.wg).float())
-    logw = -torch.exp(xw.float() @ p.dw1 @ p.dw2 + p.w0)
+    logw = -torch.exp(grad_like(xw.float() @ p.dw1) @ p.dw2 + p.w0)
     logw = torch.clamp(logw, _LOGW_MIN, _LOGW_MAX)
     logw = unflatten(logw, nd, (n_heads, hd))
     return r, k, v, g, logw
 
 
 def _finish(p: TimeMix, y, g, x_dtype, n_heads: int):
-    lead = y.shape[:-2]
-    d = y.shape[-2] * y.shape[-1]
-    y = y.reshape(*lead, d)
+    y = flatten(y, -2)
     y = group_norm_heads(y.float(), p.lnx_s, p.lnx_b, n_heads)
     y = (y * g).to(x_dtype)
     return y @ p.wo
@@ -202,5 +201,6 @@ def channel_mix(p: ChannelMix, x, x_prev=None):
     xk = x + diff * p.mu_k.to(x.dtype)
     xr = x + diff * p.mu_r.to(x.dtype)
     k = torch.square(F.relu(xk @ p.wk))
-    return torch.sigmoid((xr @ p.wr).float()).to(x.dtype) * (k @ p.wv), \
+    return torch.sigmoid(grad_like(xr @ p.wr).float()).to(x.dtype) * \
+        (k @ p.wv), \
         x[:, -1].clone()

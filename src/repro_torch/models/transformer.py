@@ -62,7 +62,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV,
                                       ModelConfig)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.context import constrain, replicate_made_tensors
+from repro_torch.distributed.context import (constrain, grad_like,
+                                             replicate_made_tensors)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -173,42 +174,44 @@ def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions,
                want_cache: bool = True, seq_exact: bool = False):
     """Returns (x, aux, cache_entry): ``aux`` is the MoE load-balance loss
     (0.0 without MoE); the entry is None without ``want_cache``."""
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    h = _gathered(rms_norm(x, p.ln1, cfg.norm_eps))
     if kind == RGLRU:
         o, h_last, conv_tail = rglru_mod.rglru_seq(p.rec, h, cfg)
-        x = x + o
-        h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-        return _residual(x + mlp(p.mlp, h2, cfg.act)), 0.0, \
+        x = x + _scattered(o)
+        h2 = _gathered(rms_norm(x, p.ln2, cfg.norm_eps))
+        return _residual(x + _scattered(mlp(p.mlp, h2, cfg.act))), 0.0, \
             {"h": h_last, "conv": conv_tail}
     if kind == RWKV:
         # tm_x and cm_x are the last rows of the ln1 and ln2 outputs (the
         # mixes' inputs), not of the residual
         seq = rwkv_mod.wkv_scan if seq_exact else rwkv_mod.time_mix_seq
         o, st, tm_x = seq(p.tm, h, cfg)
-        x = x + o
-        h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+        x = x + _scattered(o)
+        h2 = _gathered(rms_norm(x, p.ln2, cfg.norm_eps))
         o2, cm_x = rwkv_mod.channel_mix(p.cm, h2)
-        return _residual(x + o2), 0.0, {"state": st, "tm_x": tm_x,
-                                        "cm_x": cm_x}
+        return _residual(x + _scattered(o2)), 0.0, {
+            "state": st, "tm_x": tm_x, "cm_x": cm_x}
     cache = {}
     o, (k, v) = attn.attention_seq(p.attn, h, cfg, kind, positions, mask_mode,
                                    prefix_len)
+    o = _scattered(o)
     if cfg.post_norms:
         o = rms_norm(o, p.post_ln1, cfg.norm_eps)
     x = x + o
     if hasattr(p, "xattn"):           # whisper's decoder: cross-attention
-        hx = rms_norm(x, p.ln_x, cfg.norm_eps)
+        hx = _gathered(rms_norm(x, p.ln_x, cfg.norm_eps))
         ox, (ck, cv) = attn.attention_seq(p.xattn, hx, cfg, ATTN_GLOBAL,
                                           positions, "bidir",
                                           kv_override=enc_out)
-        x = x + ox
+        x = x + _scattered(ox)
         cache = {"ck": ck, "cv": cv}
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+    h2 = _gathered(rms_norm(x, p.ln2, cfg.norm_eps))
     aux = 0.0
     if hasattr(p, "moe"):
         f, aux = moe_mod.moe_layer(p.moe, h2, cfg)
     else:
         f = mlp(p.mlp, h2, cfg.act)
+    f = _scattered(f)
     if cfg.post_norms:
         f = rms_norm(f, p.post_ln2, cfg.norm_eps)
     x = _residual(x + f)
@@ -219,6 +222,27 @@ def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions,
     else:
         cache.update(attn.pack_kv(k, v, cfg.kv_quant))
     return x, aux, cache
+
+
+def _gathered(h):
+    """A sublayer's input, gathered over ``act_seq``: Megatron-SP's
+    all-gather before the column-parallel projections (its gradient's
+    reduce-scatter in the backward).  The reference's partitioner infers
+    it from the sites below; DTensor, left to infer it, carries the
+    sequence shard into the (B*S, D) products as a strided shard, whose
+    sharding propagation on a 3-D mesh takes minutes an op."""
+    return constrain(h, ("batch", "seq", None))
+
+
+def _scattered(o):
+    """A sublayer's output laid out as the residual stream it is added to
+    (``act_seq``) where a backward follows: Megatron-SP's reduce-scatter
+    after the row-parallel projection, whose gradient is the all-gather
+    that keeps the strided shard out of the backward's products.  Without
+    a backward, DTensor lays the sum out itself."""
+    if not getattr(o, "requires_grad", False):
+        return o
+    return constrain(o, ("batch", "act_seq", None))
 
 
 def _residual(x):
@@ -344,7 +368,7 @@ def _embed(model: Transformer, cfg: ModelConfig, tokens):
 
 
 def _unembed(model: Transformer, cfg: ModelConfig, x):
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    x = _gathered(rms_norm(x, model.final_norm, cfg.norm_eps))
     w = model.embed if cfg.tie_embeddings else model.lm_head
     logits = x @ w.t()
     if cfg.final_logit_softcap:
@@ -357,13 +381,13 @@ def _encode(model: Transformer, cfg: ModelConfig, frames):
     """Whisper's encoder over precomputed frame embeddings (B,S,D) ->
     (encoder output, its positions)."""
     B, S, D = frames.shape
-    x = frames.to(pdtype(cfg)) @ model.frontend_proj
+    x = grad_like(frames.to(pdtype(cfg)) @ model.frontend_proj)
     x = x + sinusoidal_pos_emb(S, D, x.dtype, x.device)[None]
     pos = torch.arange(S, device=x.device).expand(B, S)
     for layer in model.enc_blocks:
         x, _, _ = _layer_seq(layer, x, cfg, ATTN_GLOBAL, pos, "bidir",
                              want_cache=False)
-    return rms_norm(x, model.enc_norm, cfg.norm_eps), pos
+    return _gathered(rms_norm(x, model.enc_norm, cfg.norm_eps)), pos
 
 
 def _prep_inputs(model: Transformer, cfg: ModelConfig, batch):
@@ -379,7 +403,8 @@ def _prep_inputs(model: Transformer, cfg: ModelConfig, batch):
         x = x + sinusoidal_pos_emb(tokens.shape[1], cfg.d_model, x.dtype,
                                    x.device)[None]
     elif cfg.frontend == "vision":
-        patches = batch["patches"].to(pdtype(cfg)) @ model.frontend_proj
+        patches = grad_like(batch["patches"].to(pdtype(cfg)) @
+                            model.frontend_proj)
         x = torch.cat([patches, _embed(model, cfg, tokens)], dim=1)
         mask_mode, prefix_len = "prefix", cfg.n_prefix_tokens
     else:

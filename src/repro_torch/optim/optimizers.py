@@ -141,6 +141,11 @@ def _check_grads(grads: dict, params: dict):
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
+def _device(params: dict):
+    """The device of the parameters' data (a DTensor's local shard's)."""
+    return context.local_device(next(iter(params.values())))
+
+
 def _update_fn(update):
     """``update(grads, state, params, lr)`` under ``no_grad`` and
     ``replicate_made_tensors`` of the first parameter."""
@@ -167,7 +172,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             "v": {n: placed(torch.zeros_like(p, dtype=torch.float32), n)
                   for n, p in params.items()},
             "count": torch.zeros((), dtype=torch.int32,
-                                 device=next(iter(params.values())).device),
+                                 device=_device(params)),
         }
         if master:
             st["master"] = {n: placed(p.detach().float().clone(), n)
@@ -220,7 +225,6 @@ def _state_zeros(shape: tuple, like, place, stacked: bool, drop=None):
     if not context.is_dtensor(like):
         return torch.zeros(shape, device=like.device, **f32)
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor import zeros as dzeros
     nd = len(shape) + (drop is not None)
     drop = None if drop is None else drop % nd
     out = []
@@ -230,7 +234,16 @@ def _state_zeros(shape: tuple, like, place, stacked: bool, drop=None):
             out.append(Replicate())
         else:
             out.append(Shard(d - (drop is not None and d > drop)))
-    return dzeros(shape, device_mesh=like.device_mesh, placements=out, **f32)
+    # made whole on each rank and cut (a moment is a leaf less one dim):
+    # torch.distributed.tensor.zeros would make it on the mesh's device
+    # type, not the parameter's
+    return context.redistribute(like.new_zeros(shape, **f32), out)
+
+
+def _assign(dst, value):
+    """``dst.copy_(value)``; a DTensor ``value`` laid out as ``dst`` first (a
+    mean over a sharded dim is a partial sum until it is reduced)."""
+    dst.copy_(context.redistribute(value, getattr(dst, "placements", None)))
 
 
 def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0,
@@ -264,18 +277,18 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0,
                 vs[key] = {"v": zeros(shape)}
         return {"vs": vs,
                 "count": torch.zeros((), dtype=torch.int32,
-                                     device=next(iter(params.values())).device)}
+                                     device=_device(params))}
 
     def moments(g, s, beta):
         """Updates the chunk's moments in place; returns its update u (f32)."""
         g2 = torch.square(g).add_(eps)
         if "v" in s:
-            s["v"].copy_(beta * s["v"] + (1 - beta) * g2.float())
+            _assign(s["v"], beta * s["v"] + (1 - beta) * g2.float())
         else:
             # .float(): beta is a strongly typed f32 in the reference, which
             # promotes the bf16 means to f32 (a 0-d tensor would not)
-            s["vr"].copy_(beta * s["vr"] + (1 - beta) * g2.mean(-1).float())
-            s["vc"].copy_(beta * s["vc"] + (1 - beta) * g2.mean(-2).float())
+            _assign(s["vr"], beta * s["vr"] + (1 - beta) * g2.mean(-1).float())
+            _assign(s["vc"], beta * s["vc"] + (1 - beta) * g2.mean(-2).float())
         return unclipped(g, s)
 
     def unclipped(g, s):
@@ -328,8 +341,9 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0,
             clip = torch.clamp(rms / clip_thresh, min=1.0)
             # pass 2: apply, in place where the arithmetic is the same
             for name, g, p, sc in chunks:
-                u = unclipped(g, sc).div_(clip)
                 pf = context.redistribute(p.float(), uc.get(name))
+                u = context.redistribute(unclipped(g, sc).div_(clip),
+                                         getattr(pf, "placements", None))
                 if weight_decay:
                     u.add_(weight_decay * pf)
                 p.copy_(pf.sub_(u.mul_(lr)))

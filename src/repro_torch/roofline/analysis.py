@@ -5,9 +5,11 @@
     collective term = collective_bytes / (chips * link_bw)
 
 Port of ``repro.roofline.analysis``.  The records are ``launch/dryrun.py``'s
-(``experiments/dryrun_torch/``): flops and bytes counted op by op over an
-eager trace (``roofline.trace``), split evenly over the chips.  Two of the
-reference's corrections have no place here:
+(``experiments/dryrun_torch/``): flops, bytes and collectives counted op by
+op over an eager trace (``roofline.trace``), on a production mesh rank 0's
+own (``split: "rank0"``: the sharded step traced as rank 0 of a fake world
+of the mesh's ranks).  Two of the reference's corrections have no place
+here:
 
 * ``CPU_BYTES_ADJ``: XLA's CPU backend turns bf16 dots into f32, which
   inflates the reference's HLO bytes; the trace counts every tensor at its
@@ -16,12 +18,12 @@ reference's corrections have no place here:
   rebuilds a cell's totals from two calibration cells; the eager trace runs
   every layer, so a cell is used as it is and ``corrected`` stays False.
 
-Where a record's ``collectives`` is null (a production mesh: the port's
-model is not sharded, so it issues none of the collectives a partitioner
-would insert), the collective term is None and ``dominant`` is taken over
-the two known terms.
+A record written before the dry-run traced sharded cells has ``collectives``
+null on a production mesh; only there is the collective term None (and
+``dominant`` taken over the two known terms).
 
-The H100 constants are ``roofline.bounds``'s.
+The H100 constants are ``roofline.bounds``'s: ``LINK_BW`` NVLink per card
+within a node, ``DCN_BW`` one InfiniBand port per card between nodes.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ def _load(name: str):
 
 
 def _coll_bytes(rec):
-    """Operand bytes of the record's collectives; None where unknown."""
+    """Operand bytes of the record's collectives; None in a record written
+    before sharded cells were traced."""
     if rec["collectives"] is None:
         return None
     return sum(v["operand_bytes"] for v in rec["collectives"].values())
@@ -181,8 +184,9 @@ def main():
 def compare_meshes() -> list:
     """Per train/prefill cell: single-pod vs multi-pod collective picture.
     The pod axis is pure DP, so multi-pod adds a cross-node gradient
-    all-reduce; everything else stays intra-pod.  Unknown collectives
-    (null in a record) give None."""
+    reduction; everything else stays intra-pod.  The DCN term prices the
+    growth of rank 0's collective bytes at ``DCN_BW``.  A record without
+    collectives (written before sharded cells were traced) gives None."""
     rows = []
     for arch in list_archs():
         for s in shapes_for(arch):

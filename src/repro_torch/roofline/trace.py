@@ -21,7 +21,14 @@ from the op that makes it until it is freed, which a weak reference tells
 tensor).  ``peak_bytes`` is the peak of the live bytes of the storages made
 during the trace; storages the trace first sees as inputs (the arguments)
 are outside it, and the bytes an op writes into them are kept in
-``written_bytes``.
+``written_bytes``.  An op's own temporaries never reach the dispatcher; the
+one that decides a train step's peak is counted while its op runs
+(``_hidden_bytes``): ``_softmax_backward_data`` holds the product of its
+gradient and output, and a contiguous copy of that product where the
+gradient is not (the eager attention backward's): one or two times the
+gradient's bytes (measured on an H100 at three shapes in f32 and bf16,
+tests/test_torch_cuda.py; 2.147 GB a call at h2o-danube-1.8b's 2 x 2048
+microbatch).
 
 A size only known at run time has no value on the meta device: where a
 boolean mask selects (``nonzero``, indexing and ``index_put`` by a mask, as
@@ -29,19 +36,38 @@ the MoE dispatch's kept slots), the trace counts every element of the mask
 true, the size's upper bound (T*k for the dispatch), which is what the
 reference's static-shape drop/fill dispatch computes under XLA.
 
-``collective_stats(trace)`` maps the collectives the program issues, both
-``c10d`` ops and ``_c10d_functional`` ones, onto the reference's five kinds
-with the same dict as ``hlo.collective_stats``: send and recv are the two
-halves of a ``collective-permute`` (the count is the larger of the sends
-and the recvs; sends carry the operand bytes, recvs the output bytes).
+``collective_stats(trace)`` maps the collectives the program issues,
+``c10d`` ops, ``_c10d_functional`` ones and DTensor's own all-to-all
+(``_dtensor.shard_dim_alltoall``, which a shard-to-shard ``redistribute``
+issues), onto the reference's five kinds with the same dict as
+``hlo.collective_stats``: send and recv are the two halves of a
+``collective-permute`` (the count is the larger of the sends and the recvs;
+sends carry the operand bytes, recvs the output bytes).  An op of those
+namespaces that is neither one of them nor known to move no data (a wait,
+a barrier) raises: no collective is dropped unseen.
+
+Under a DTensor the trace counts what one rank runs: the mode steps aside
+for an op on DTensors (``NotImplemented``), so DTensor's dispatch runs and
+the mode sees the local ops it issues on this rank's shards, and the
+collectives of any redistribution, at their local shapes.  What DTensor
+runs to decide rather than to compute is not the rank's work and is not
+counted, so a trace counts the same whether DTensor's caches are cold or
+warm: its sharding propagation runs each op it has not cached on fake
+tensors at the global shapes (an op under a ``FakeTensorMode``), and its
+cost model and shard arithmetic work on small index tensors that it makes
+itself (a factory op called from ``torch.distributed``, and every op whose
+tensor operands all descend from one: "bookkeeping").
 """
 from __future__ import annotations
 
+import os
+import sys
 import time
 from collections import Counter
 from dataclasses import dataclass
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
@@ -79,6 +105,14 @@ _FUNCTIONAL = {
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all",
 }
+# _dtensor op -> kind: the operand is the first argument, the output what
+# the op returns
+_DTENSOR = {"shard_dim_alltoall": "all-to-all"}
+_COLLECTIVE_NS = ("c10d", "_c10d_functional", "_dtensor")
+# ops of those namespaces that move no data between ranks
+_NOT_COLLECTIVE = {"barrier", "monitored_barrier_", "check_for_nan",
+                   "wait_tensor", "_wrap_tensor_autograd",
+                   "mesh_get_process_group"}
 TRANSCENDENTAL = {
     "exp", "exp_", "exp2", "expm1", "log", "log_", "log1p", "log2", "log10",
     "tanh", "tanh_", "sigmoid", "sigmoid_", "rsqrt", "rsqrt_", "sqrt",
@@ -93,6 +127,15 @@ _NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty",
 
 # ops whose output size a boolean mask's count of true elements sets
 _MASKED = {"nonzero", "index", "index_put", "index_put_", "_index_put_impl_"}
+
+
+def _hidden_bytes(name: str, args: tuple) -> int:
+    """Bytes an op holds in temporaries of its own while it runs (module
+    docstring): softmax's backward holds grad * output, and its contiguous
+    copy where the gradient is strided."""
+    if name == "_softmax_backward_data":
+        return tensor_bytes(args[0]) * (1 if args[0].is_contiguous() else 2)
+    return 0
 
 
 def tensor_bytes(t: torch.Tensor) -> int:
@@ -122,6 +165,38 @@ def _bounded(name: str, args: tuple):
 
 def _tensors(tree) -> list:
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _dtensor_op(types) -> bool:
+    """Whether an op's tensor types include DTensor (imported by then)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and any(issubclass(t, mod.DTensor) for t in types)
+
+
+_TORCH = os.path.dirname(torch.__file__) + os.sep
+_DISTRIBUTED = os.path.join(_TORCH, "distributed") + os.sep
+
+
+def _made_by_distributed() -> bool:
+    """Whether the op being dispatched was called from ``torch.distributed``
+    code: the first frame below the dispatch that is not torch's own
+    machinery decides."""
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        if name.startswith(_DISTRIBUTED):
+            return True
+        if not name.startswith(_TORCH):
+            return False
+        f = f.f_back
+    return False
+
+
+def _propagating() -> bool:
+    """Whether the op runs under a ``FakeTensorMode``: DTensor's sharding
+    propagation learning an output's global shape."""
+    return any(isinstance(m, FakeTensorMode)
+               for m in _get_current_dispatch_mode_stack())
 
 
 @dataclass
@@ -156,6 +231,7 @@ class OpTrace(TorchDispatchMode):
         self.seconds = 0.0
         self._made: dict = {}       # storage key -> (weak ref, bytes)
         self._outside: dict = {}    # storage key -> (weak ref, bytes)
+        self._bookkeeping: dict = {}  # storage key -> weak ref
         self._live = 0              # bytes of self._made at the last sweep
         self._since = 0             # bytes made since the last sweep
 
@@ -171,8 +247,20 @@ class OpTrace(TorchDispatchMode):
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _dtensor_op(types):
+            return NotImplemented       # its local ops come back here
         kwargs = kwargs or {}
-        for t in _tensors((args, kwargs)):
+        if _propagating():
+            return func(*args, **kwargs)
+        ins = _tensors((args, kwargs))
+        if all(self._is_bookkeeping(t) for t in ins) if ins else \
+                _made_by_distributed():
+            out = func(*args, **kwargs)
+            for t in _tensors(out):
+                key, st = self._key(t)
+                self._bookkeeping[key] = StorageWeakRef(st)
+            return out
+        for t in ins:
             self._see_input(t)
         name = func.overloadpacket.__name__
         if name in _MASKED and args[0].device.type == "meta":
@@ -181,11 +269,15 @@ class OpTrace(TorchDispatchMode):
         else:
             out = func(*args, **kwargs)
         ns = func.namespace
-        if ns in ("c10d", "_c10d_functional"):
+        if ns in _COLLECTIVE_NS and name not in _NOT_COLLECTIVE:
             self._collective(ns, name, args, out)
         outs = _tensors(out)
         for t in outs:
             self._see_output(t, func)
+        hidden = _hidden_bytes(name, args)
+        if hidden:
+            self._sweep()
+            self.peak_bytes = max(self.peak_bytes, self._live + hidden)
         if func.is_view or name in _NO_BYTES:
             in_b = out_b = 0
         else:
@@ -213,6 +305,14 @@ class OpTrace(TorchDispatchMode):
     def _key(t):
         s = t.untyped_storage()
         return s._cdata, s
+
+    def _is_bookkeeping(self, t) -> bool:
+        key, _ = self._key(t)
+        ref = self._bookkeeping.get(key)
+        if ref is not None and ref.expired():
+            del self._bookkeeping[key]      # freed; the address was reused
+            return False
+        return ref is not None
 
     def _see_input(self, t):
         key, s = self._key(t)
@@ -250,16 +350,24 @@ class OpTrace(TorchDispatchMode):
         self._since = 0
 
     def made_bytes(self, tree) -> int:
-        """Bytes of the distinct storages of ``tree``'s tensors that were
-        made under the trace (the outputs it created)."""
-        keys = dict.fromkeys(self._key(t)[0] for t in _tensors(tree))
+        """Bytes of the distinct storages of ``tree``'s tensors (a DTensor's
+        local shard) that were made under the trace (the outputs it
+        created)."""
+        mod = sys.modules.get("torch.distributed.tensor")
+        keys = dict.fromkeys(
+            self._key(t.to_local() if mod and isinstance(t, mod.DTensor)
+                      else t)[0] for t in _tensors(tree))
         return sum(self._made[k][1] for k in keys if k in self._made)
 
     # ---- collectives -------------------------------------------------------
     def _collective(self, ns, name, args, out):
+        known = {"c10d": _C10D, "_c10d_functional": _FUNCTIONAL,
+                 "_dtensor": _DTENSOR}[ns]
+        if name not in known:
+            raise NotImplementedError(
+                f"{ns}.{name}: a collective the trace cannot map onto "
+                f"{COLLECTIVES}")
         if ns == "c10d":
-            if name not in _C10D:
-                return
             kind, i_in, i_out = _C10D[name]
             operand = sum(tensor_bytes(t) for t in _tensors(args[i_in])) \
                 if i_in is not None else 0
@@ -268,9 +376,7 @@ class OpTrace(TorchDispatchMode):
             side = None if kind != "collective-permute" else \
                 ("send" if name == "send" else "recv")
         else:
-            if name not in _FUNCTIONAL:
-                return
-            kind, side = _FUNCTIONAL[name], None
+            kind, side = known[name], None
             operand = sum(tensor_bytes(t) for t in _tensors(args[0]))
             output = sum(tensor_bytes(t) for t in _tensors(out))
         self.collectives.append((kind, operand, output, side))

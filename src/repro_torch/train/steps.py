@@ -46,7 +46,7 @@ def init_train_state(generator, cfg: ModelConfig, optimizer: Optimizer,
     if params is None:
         params = init_params(cfg, generator, device=resolve_device(device))
     model = params.requires_grad_(True)
-    dev = next(model.parameters()).device
+    dev = context.local_device(next(model.parameters()))
     return {"params": model,
             "opt": optimizer.init(dict(model.named_parameters())),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -60,12 +60,20 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 
 def _microbatch(t, grad_accum: int, i: int):
-    """Microbatch ``i`` of ``t``; of a DTensor, laid out as the whole batch
-    was (``batch_pspecs``: rows over ``batch``)."""
-    t = t.reshape(grad_accum, t.shape[0] // grad_accum, *t.shape[1:])
-    t = context.constrain(t, (None, "batch", "seq", *[None] * t.dim())[
+    """Microbatch ``i`` of ``t``: rows ``[i B / grad_accum, (i + 1) B /
+    grad_accum)``, as the reference's reshape takes them.  Of a DTensor,
+    laid out as the whole batch was (``batch_pspecs``: rows over
+    ``batch``): a DTensor cannot split a row shard into microbatches unless
+    ``grad_accum`` is a multiple of the ranks holding the rows, so the
+    rows are gathered (``context.replicate_dim``), taken, and cut again
+    where the rules say."""
+    if not context.is_dtensor(t):
+        return t.reshape(grad_accum, t.shape[0] // grad_accum,
+                         *t.shape[1:])[i]
+    rows = t.shape[0] // grad_accum
+    t = context.replicate_dim(t, 0).narrow(0, i * rows, rows)
+    return context.constrain(t, ("batch", "seq", *[None] * t.dim())[
         :t.dim()])
-    return t[i]
 
 
 def build_train_step(cfg: ModelConfig, optimizer: Optimizer, lr_fn,

@@ -1,0 +1,149 @@
+"""Train cells' dry-run records on a production mesh, from the reference
+or from the port, for tests/test_torch_dryrun_mesh.py and the side-by-side
+of PERF.md §7 (not a test module: the reference's dry-run forces 512 host
+devices before JAX starts, so each side runs in a process of its own).
+
+    python tests/dryrun_records_worker.py {reference,port} ARCH[,ARCH...] \
+        {smoke,full} {pod,multipod} [--layers N] [--seq S --batch B] \
+        [--accum A]
+
+The train step of each ARCH's smoke or full config cut to N layers
+(default: one superblock, the fewest the reference's layer scan takes) on
+the ``train_4k`` shape (or S x B tokens): the reference's compiled as its
+``run_cell`` does (``repro.launch.dryrun.build_cell``, XLA's cost analysis
+and HLO), the port's traced as rank 0 of a fake world
+(``repro_torch.launch.dryrun.run_step``).  Prints one JSON line an arch,
+with the same keys for both sides: ``flops_per_device``, ``collectives``
+(each side's own ``collective_stats``), ``attention_flops`` and
+``product_flops``.
+
+``attention_flops`` are the products of q.k and p.v: in the reference the
+batched dots (its ``bskgd,btkd->bkgst`` einsums; its projections, MLPs and
+head are unbatched dots), in the port the ``flash_attention`` ops and the
+eager attention backward's ``bmm``.  ``product_flops`` are the other dots
+(the reference's unbatched dots, the port's ``mm``).  The split holds for
+the dense archs; a MoE's expert products are batched too.  XLA's cost
+analysis counts a loop's body once per trip where the trip count is known;
+one superblock keeps the layer scan to one trip.
+"""
+import argparse
+import collections
+import dataclasses
+import json
+import re
+import sys
+import time
+from pathlib import Path
+
+_SHAPE = re.compile(r"^\s*(?:ROOT\s+)?%([\w.\-]+)\s*=\s*\w+\[([\d,]*)\]")
+_DOT = re.compile(r"=\s*\w+\[([\d,]*)\]\S*\s+dot\(%([\w.\-]+),")
+_DIMS = re.compile(r"(lhs_batch_dims|lhs_contracting_dims)=\{([\d,]*)\}")
+
+
+def _dims(s: str) -> list:
+    return [int(d) for d in s.split(",") if d]
+
+
+def dot_flops(hlo: str) -> dict:
+    """{"attention_flops", "product_flops"}: 2 x output elements x
+    contracted size of every dot of the HLO, batched and unbatched."""
+    lines = hlo.splitlines()
+    shapes = {m.group(1): _dims(m.group(2))
+              for m in map(_SHAPE.match, lines) if m}
+    out = {"attention_flops": 0, "product_flops": 0}
+    for line in lines:
+        m = _DOT.search(line)
+        if not m:
+            continue
+        dims = dict(_DIMS.findall(line))
+        lhs, n = shapes[m.group(2)], 2
+        for d in _dims(m.group(1)):
+            n *= d
+        for d in _dims(dims["lhs_contracting_dims"]):
+            n *= lhs[d]
+        batched = bool(_dims(dims.get("lhs_batch_dims", "")))
+        out["attention_flops" if batched else "product_flops"] += n
+    return out
+
+
+def _cfg_shape(configs, arch, width, layers, seq, batch):
+    base = configs.get_smoke_config(arch) if width == "smoke" \
+        else configs.get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=layers or base.pattern_len)
+    shape = configs.LM_SHAPES["train_4k"]
+    if seq:
+        shape = dataclasses.replace(shape, seq_len=seq, global_batch=batch)
+    return cfg, shape
+
+
+def reference(arch, width, mesh_name, layers=0, seq=0, batch=0,
+              accum=1) -> dict:
+    from repro.launch import dryrun as ref    # first: forces 512 devices
+    import jax
+    from repro.configs import base as configs
+    from repro.distributed import context as dctx
+    from repro.distributed.layouts import choose_layout
+    from repro.launch.mesh import make_production_mesh
+    from repro.roofline.hlo import collective_stats
+    cfg, shape = _cfg_shape(configs, arch, width, layers, seq, batch)
+    mesh = make_production_mesh(multi_pod=mesh_name == "multipod")
+    rules = choose_layout(cfg, shape, mesh)
+    t0 = time.perf_counter()
+    with dctx.use_rules(rules):
+        fn, abstract, in_sh, out_sh, donate = ref.build_cell(
+            cfg, shape, mesh, rules, grad_accum=accum)
+        compiled = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh,
+                           donate_argnums=donate).lower(*abstract).compile()
+    ca = compiled.cost_analysis()
+    ca = ca[0] if isinstance(ca, list) else ca
+    hlo = compiled.as_text()
+    return {"side": "reference", "version": f"jax {jax.__version__}",
+            "layers": cfg.n_layers, "n_chips": int(mesh.devices.size),
+            "seconds": time.perf_counter() - t0,
+            "flops_per_device": float(ca.get("flops", 0.0)),
+            "collectives": collective_stats(hlo), **dot_flops(hlo)}
+
+
+def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1) -> dict:
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh, make_production_mesh
+    cfg, shape = _cfg_shape(configs, arch, width, layers, seq, batch)
+    with fake_mesh(make_production_mesh(
+            multi_pod=mesh_name == "multipod")) as mesh:
+        trace, cell = dryrun.run_step(cfg, shape, mesh, accum)
+        rec = dryrun.record(cfg, mesh, trace, *cell)
+    flops = collections.Counter()
+    for op in trace.ops:
+        flops[op.name] += op.flops
+    return {"side": "port", "version": f"torch {torch.__version__}",
+            "layers": cfg.n_layers, "n_chips": rec["n_chips"],
+            "seconds": trace.seconds,
+            "flops_per_device": rec["cost"]["flops_per_device"],
+            "collectives": rec["collectives"],
+            "attention_flops": flops["flash_attention"] + flops["aten.bmm"],
+            "product_flops": flops["aten.mm"]}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("side", choices=("reference", "port"))
+    ap.add_argument("arch")
+    ap.add_argument("width", choices=("smoke", "full"))
+    ap.add_argument("mesh", choices=("pod", "multipod"))
+    ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--seq", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--accum", type=int, default=1)
+    a = ap.parse_args()
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+    for arch in a.arch.split(","):
+        rec = (reference if a.side == "reference" else port)(
+            arch, a.width, a.mesh, a.layers, a.seq, a.batch, a.accum)
+        print(json.dumps({"arch": arch, "width": a.width, "mesh": a.mesh,
+                          "accum": a.accum, **rec}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -26,6 +26,9 @@ the bodies override for their own convolutions, and through ``launch.flood``
 end to end with the engine's clock stepped.  Adafactor's chunked two-pass
 update on the card is held against the CPU (1e-5), and ``moe_layer`` under
 sharding rules on one NCCL rank against ``moe_dense`` (bit for bit).
+``_softmax_backward_data``'s peak memory on the card equals the one
+``OpTrace`` counts on meta, at three shapes, in f32 and bf16, for a
+contiguous and a strided gradient.
 """
 import dataclasses
 
@@ -645,3 +648,38 @@ def test_dry_run_predicts_the_peak_memory_of_a_step(cuda_device, kind):
     measured = (torch.cuda.max_memory_allocated(cuda_device) - base) / 1e9
     ratio = measured / rec["memory"]["peak_gb"]
     assert PEAK_BAND[0] <= ratio <= PEAK_BAND[1], (measured, rec["memory"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,T", [(2, 32, 2048, 2048),
+                                     (1, 8, 1024, 4096), (4, 16, 512, 512)])
+def test_softmax_backward_holds_what_the_trace_counts(cuda_device, B, H, S,
+                                                      T, dtype, strided):
+    """``_softmax_backward_data``'s peak above its inputs on the card equals
+    ``OpTrace``'s on meta: its output, grad * output, and that product's
+    contiguous copy where the gradient is strided
+    (``roofline.trace._hidden_bytes``; the first shape is h2o-danube-1.8b's
+    f32 attention backward at 2 x 2048, the last one a softmax of the
+    short rows that CUDA runs in one warp)."""
+    from repro_torch.roofline.trace import OpTrace
+
+    def grad(device):
+        shape = (B, S, H, T) if strided else (B, H, S, T)
+        g = torch.empty(shape, dtype=dtype, device=device)
+        return g.transpose(1, 2) if strided else g
+    s = _randn((B, H, S, T), torch.float32, cuda_device, 0).softmax(-1).to(
+        dtype)
+    g = grad(cuda_device).normal_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    out = torch.ops.aten._softmax_backward_data(g, s, -1, dtype)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated(cuda_device) - base
+    meta = grad("meta"), torch.empty_like(s, device="meta")
+    with OpTrace() as trace:
+        torch.ops.aten._softmax_backward_data(*meta, -1, dtype)
+    assert out.is_contiguous()
+    assert measured == trace.peak_bytes, (measured, trace.peak_bytes)

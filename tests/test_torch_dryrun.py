@@ -16,7 +16,9 @@
   each leaf, and the port's train-step token count is int64 (a bool sum in
   PyTorch) where the reference's is int32.
 * ``run_cell`` writes no file: records are written by ``main`` only, and
-  never under ``experiments/dryrun/``.
+  never under ``experiments/dryrun/``.  A production-mesh cell is traced
+  as rank 0 of a fake world (``tests/test_torch_dryrun_mesh.py``): its
+  record carries rank 0's collectives and counts (``"rank0"``).
 """
 import dataclasses
 import os
@@ -46,6 +48,7 @@ from repro_torch.launch.mesh import AbstractMesh  # noqa: E402
 from repro_torch.models import init_cache, init_params  # noqa: E402
 from repro_torch.models.io import batch_specs, input_specs  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
+from repro_torch.roofline.trace import COLLECTIVES  # noqa: E402
 from repro_torch.train.steps import init_train_state  # noqa: E402
 
 EXPERIMENTS = Path(__file__).resolve().parents[1] / "experiments"
@@ -193,7 +196,8 @@ def test_run_cell_writes_no_file():
     assert {p: sorted(p.rglob("*")) for p in before} == before
     assert (rec["mesh"], rec["n_chips"], rec["kind"]) == ("multipod", 512,
                                                           "decode")
-    assert rec["collectives"] is None and rec["collectives_note"]
-    assert rec["memory"]["temp_split"] == "even"
-    assert rec["cost"]["split"] == "even"
+    assert set(rec["collectives"]) == set(COLLECTIVES) and \
+        "collectives_note" not in rec and rec["n_ranks_traced"] == 1
+    assert rec["memory"]["temp_split"] == "rank0"
+    assert rec["cost"]["split"] == "rank0"
     assert "compile_s" not in rec and rec["lower_s"] > 0

@@ -1,0 +1,531 @@
+"""The dry-run's production-mesh records (``launch.dryrun.trace_cell`` on
+the 16 x 16 ``pod`` and 2 x 16 x 16 ``multipod`` meshes): the sharded
+DTensor step traced as rank 0 of a fake world (``launch.mesh.fake_mesh``:
+torch's in-process ``"fake"`` process group, every collective issued and
+none moving data; the mesh of device type ``"cpu"``, its tensors on the
+meta device), on the CPU.
+
+* The repairs it needed, one test each: ``train.steps._microbatch`` on a
+  batch sharded 16 and 32 ways at ``grad_accum`` 4; DTensor's all-to-all
+  (``_dtensor.shard_dim_alltoall``) counted as an all-to-all of its local
+  bytes, never as the all-gather of DTensor's CPU fallback
+  (``context.native_alltoall``), and every op of the collective namespaces
+  mapped or refused; rank 0's local ops counted, not DTensor's global-shape
+  sharding propagation nor its bookkeeping, the same on a cold and a warm
+  trace, and a kernel's meta path at its local shapes; the optimizers'
+  state made on the device of the parameters' shards.
+* A hand-counted cell: one gated MLP on a fake 16 x 16 mesh, its products'
+  flops and bytes and its one collective equal to the formula.
+* A 1 x 1 mesh: the records of seven smoke cells equal the ones the
+  dry-run wrote before it traced sharded cells, number for number.
+* The reference's record properties (``tests/test_dryrun_records.py``,
+  which skips here: the reference's records are not in the repository),
+  on the port's own records: qwen3-moe-235b-a22b's ``train_4k`` step on
+  ``pod`` reduce-scatters; gemma2-9b's and internlm2-20b's per-device
+  collective bytes on ``multipod`` are at most 1.1 times ``pod``'s; every
+  arch's train cell communicates on both meshes.  Full-width cells are cut
+  to one layer (gemma2-9b's is a local one); the every-arch cells are the
+  smoke configs at one layer, 64 x 256 tokens, ``grad_accum`` 1, traced
+  by 4 spawned processes while the other tests run.
+
+* The reference's own records of five smoke train cells on ``pod``
+  (tests/dryrun_records_worker.py, in one process): wherever the
+  reference gathers or reduces, rank 0's record does too.
+
+Rank 0 of a fake world against rank 0 of 8 real gloo ranks is
+tests/test_torch_sharded.py's (its 8-process spawn runs the real side).
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch.configs.base import (LM_SHAPES, ShapeConfig,  # noqa: E402
+                                      get_config, get_smoke_config,
+                                      list_archs)
+from repro_torch.distributed import context, layouts  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import (AbstractMesh, fake_mesh,  # noqa: E402
+                                     make_production_mesh)
+from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models.modules import mlp  # noqa: E402
+from repro_torch.optim import make_optimizer  # noqa: E402
+from repro_torch.roofline import trace as rtrace  # noqa: E402
+from repro_torch.roofline.bounds import flash_work  # noqa: E402
+from repro_torch.roofline.trace import OpTrace, collective_stats  # noqa: E402
+from repro_torch.train import steps as tsteps  # noqa: E402
+
+POD = AbstractMesh(("data", "model"), (16, 16))
+WORKER = Path(__file__).resolve().parent / "dryrun_records_worker.py"
+
+
+def _clear_dtensor_caches():
+    """DTensor's sharding-propagation and redistribute-plan caches emptied,
+    so that the next trace runs cold."""
+    from torch.distributed.tensor import _redistribute
+    from torch.distributed.tensor.debug import _clear_sharding_prop_cache
+    _clear_sharding_prop_cache()
+    _redistribute._gen_transform_infos.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# microbatches of a sharded batch
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("names,sizes", [(("data",), (16,)),
+                                         (("pod", "data"), (2, 16))],
+                         ids=["16", "32"])
+def test_microbatch_splits_a_batch_sharded_16_and_32_ways(names, sizes):
+    """``grad_accum`` 4 on a batch of 128 rows sharded over 16 or 32 data
+    ranks (a DTensor reshape refuses it: 4 is not a multiple of the ranks).
+    Each microbatch is the reference's rows ``t.reshape(4, 32, ...)[i]``
+    (``repro/train/steps.py:55-59``), sharded as the batch was.  A fake
+    all-gather hands every rank rank 0's rows, so the sharded batch holds
+    rank 0's 8 (or 4) rows on every rank, and the gathered batch is that
+    tile; a replicated batch shows rank 0 its own rows of each microbatch
+    (rows 32 i to 32 i + 2, or + 1)."""
+    B, S, accum = 128, 4, 4
+    with fake_mesh(AbstractMesh(names, sizes)) as mesh:
+        n = mesh.size()
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        rules = context.ShardingRules(mesh, {"batch": names})
+        mine = torch.arange(B // n * S).reshape(B // n, S)
+        tiled = mine.repeat(n, 1)
+        rows = DTensor.from_local(mine, mesh, (Shard(0),) * len(names),
+                                  run_check=False)
+        full = torch.arange(B * S).reshape(B, S)
+        whole = DTensor.from_local(full, mesh, (Replicate(),) * len(names),
+                                   run_check=False)
+        with context.use_rules(rules):
+            for i in range(accum):
+                want = tiled.reshape(accum, B // accum, S)[i]
+                mb = tsteps._microbatch(rows, accum, i)
+                assert mb.shape == (B // accum, S)
+                assert mb.placements == (Shard(0),) * len(names)
+                assert torch.equal(mb.to_local(), want[:B // accum // n])
+                mb = tsteps._microbatch(whole, accum, i)
+                assert torch.equal(
+                    mb.to_local(),
+                    full.reshape(accum, B // accum, S)[i][:B // accum // n])
+
+
+def test_microbatch_of_a_plain_batch_is_the_reshape():
+    t = torch.arange(8 * 3).reshape(8, 3)
+    for i in range(4):
+        assert torch.equal(tsteps._microbatch(t, 4, i),
+                           t.reshape(4, 2, 3)[i])
+
+
+# ---------------------------------------------------------------------------
+# DTensor's all-to-all and the collective namespaces
+# ---------------------------------------------------------------------------
+def test_shard_to_shard_counts_one_all_to_all_of_its_local_bytes():
+    """Shard(0) -> Shard(1) over ``data`` of a (64, 256) f32 on the fake
+    16 x 16 ``"cpu"`` mesh: one all-to-all of rank 0's (4, 256) in and
+    (64, 16) out, no all-gather (DTensor's fallback on a CPU mesh would
+    gather (64, 256), 16 times the bytes, as an all-gather)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    with fake_mesh(POD) as mesh:
+        assert mesh.device_type == "cpu"
+        x = distribute_tensor(torch.empty(64, 256, device="meta"), mesh,
+                              (Shard(0), Replicate()))
+        with OpTrace() as trace:
+            y = x.redistribute(mesh, (Shard(1), Replicate()))
+    assert tuple(y.to_local().shape) == (64, 16)
+    stats = collective_stats(trace)
+    assert stats["all-to-all"] == {"count": 1, "operand_bytes": 4 * 256 * 4,
+                                   "output_bytes": 64 * 16 * 4}
+    assert all(stats[k]["count"] == 0 for k in stats if k != "all-to-all")
+    assert [op.name for op in trace.ops] == ["_dtensor.shard_dim_alltoall"]
+
+
+def test_every_collective_op_is_mapped_or_refused():
+    """Every op of ``_dtensor`` is a mapped collective or moves no data;
+    a collective the trace cannot map (``_c10d_functional.broadcast``)
+    raises instead of being dropped."""
+    import torch.distributed._functional_collectives as funcol
+    import torch.distributed.tensor  # noqa: F401 (defines _dtensor's ops)
+    names = {n.split("::")[1].split(".")[0]
+             for n in torch._C._dispatch_get_all_op_names()
+             if n.startswith("_dtensor::")}
+    assert "shard_dim_alltoall" in names
+    assert names <= set(rtrace._DTENSOR) | rtrace._NOT_COLLECTIVE
+    with fake_mesh(AbstractMesh(("data",), (4,))):
+        with pytest.raises(NotImplementedError, match="broadcast"), \
+                OpTrace():
+            funcol.broadcast(torch.zeros(4), 0, dist.group.WORLD)
+
+
+# ---------------------------------------------------------------------------
+# rank 0's local work
+# ---------------------------------------------------------------------------
+def _mlp_trace(mesh, B, S, D, F):
+    """One gated MLP on DTensors: x (B, S, D) rows over ``data``, w_gate
+    and w_up (D, F) and w_down (F, D) split on F over ``model``; its
+    output laid out (batch, seq, None), which sums w_down's partial
+    products over ``model``."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    def dt(shape, place):
+        return distribute_tensor(torch.empty(shape, device="meta"), mesh,
+                                 place)
+    p = SimpleNamespace(w_gate=dt((D, F), (Replicate(), Shard(1))),
+                        w_up=dt((D, F), (Replicate(), Shard(1))),
+                        w_down=dt((F, D), (Replicate(), Shard(0))))
+    x = dt((B, S, D), (Shard(0), Replicate()))
+    rules = context.ShardingRules(mesh, {"batch": "data", "ff": "model"})
+    with context.use_rules(rules), OpTrace() as trace:
+        context.constrain(mlp(p, x, "silu"), ("batch", "seq", None))
+    return trace
+
+
+def test_hand_counted_mlp_on_a_16_by_16_mesh():
+    """Rank 0 holds 2 of the 32 rows and 16 of the 256 ff columns: each of
+    the three products is a local (16, 64) x (64, 16) or (16, 16) x
+    (16, 64) ``mm`` of 2 * 16 * 64 * 16 flops and (1024 + 1024 + 256) or
+    (256 + 1024 + 1024) f32 elements; the output's partial sums are one
+    all-reduce of rank 0's (2, 8, 64) f32 over ``model``.  A cold trace
+    (DTensor's caches emptied) and a warm one count the same ops."""
+    B, S, D, F = 32, 8, 64, 256
+    _clear_dtensor_caches()
+    with fake_mesh(POD) as mesh:
+        cold = _mlp_trace(mesh, B, S, D, F)
+        warm = _mlp_trace(mesh, B, S, D, F)
+    for trace in (cold, warm):
+        mms = [op for op in trace.ops if op.name == "aten.mm"]
+        assert len(mms) == 3
+        assert all(op.flops == 2 * 16 * 64 * 16 for op in mms)
+        assert sorted(op.in_bytes for op in mms) == [(16 * 16 + 16 * 64) * 4] \
+            + [(16 * 64 + 64 * 16) * 4] * 2
+        assert sorted(op.out_bytes for op in mms) == [16 * 16 * 4] * 2 + \
+            [16 * 64 * 4]
+        stats = collective_stats(trace)
+        assert stats["all-reduce"] == {"count": 1,
+                                       "operand_bytes": 2 * 8 * 64 * 4,
+                                       "output_bytes": 2 * 8 * 64 * 4}
+        assert sum(v["count"] for v in stats.values()) == 1
+        assert trace.transcendentals == 2 * 8 * 16      # silu, local
+    assert [(o.name, o.in_bytes, o.out_bytes, o.flops) for o in cold.ops] == \
+        [(o.name, o.in_bytes, o.out_bytes, o.flops) for o in warm.ops]
+
+
+def test_flash_records_its_local_shapes():
+    """Flash on DTensors (batch over ``data``, kv heads over ``model``)
+    runs its meta path on rank 0's shard through ``run_local``: one op of
+    the work of (2, 16, 1 kv head, G 2, hd 16), not of the global
+    (32, 16, 16, 2, 16)."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, S, K, G, hd = 32, 16, 16, 2, 16
+    with fake_mesh(POD) as mesh:
+        def dt(shape):
+            return distribute_tensor(torch.empty(shape, device="meta"), mesh,
+                                     (Shard(0), Shard(2)))
+        q, k, v = dt((B, S, K, G, hd)), dt((B, S, K, hd)), dt((B, S, K, hd))
+        with OpTrace() as trace:
+            o = flash_attention(q, k, v, scale=0.25)
+    assert tuple(o.to_local().shape) == (2, S, 1, G, hd)
+    ops = [op for op in trace.ops if op.name == "flash_attention"]
+    flops, nbytes = flash_work(2, S, S, G, hd, 0, True, 4)
+    assert [(op.flops, op.bytes) for op in ops] == [(flops, nbytes)]
+
+
+def test_softmax_backward_holds_its_product_and_a_strided_copy():
+    """``_softmax_backward_data`` holds grad * output while it runs, and a
+    contiguous copy of it where the gradient is permuted (measured on the
+    H100 by tests/test_torch_cuda.py: 2.147 GB a call at h2o-danube-1.8b's
+    f32 microbatch); the trace's peak counts them beside the output."""
+    s = torch.empty(2, 4, 64, 64, device="meta")
+    peaks = []
+    for strided in (False, True):
+        g = torch.empty(2, 4, 64, 64, device="meta")
+        if strided:
+            g = torch.empty(2, 64, 4, 64, device="meta").transpose(1, 2)
+        with OpTrace() as trace:
+            out = torch.ops.aten._softmax_backward_data(g, s, -1, s.dtype)
+        peaks.append(trace.peak_bytes)
+        assert out.shape == s.shape
+    nbytes = 2 * 4 * 64 * 64 * 4
+    assert peaks == [2 * nbytes, 3 * nbytes]
+
+
+def test_cold_and_warm_traces_of_a_train_cell_count_the_same():
+    """The whole sharded train step of a smoke cell, traced with DTensor's
+    caches emptied and then again: every count of the record is equal."""
+    cfg = get_smoke_config("h2o-danube-1.8b")
+    shape = ShapeConfig("s", "train", 64, 32)
+    mesh = AbstractMesh(("data", "model"), (4, 4))
+    recs = []
+    _clear_dtensor_caches()
+    for _ in ("cold", "warm"):
+        rec = dryrun.trace_cell(cfg, shape, mesh, grad_accum=2)
+        rec.pop("lower_s")
+        recs.append(rec)
+    assert recs[0] == recs[1]
+    assert recs[0]["cost"]["flops_per_device"] > 0
+
+
+# ---------------------------------------------------------------------------
+# state made beside a DTensor
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "h2o-danube-1.8b"])
+def test_optimizer_state_takes_the_shards_device(arch):
+    """Adafactor's (qwen3-moe) and AdamW's (h2o-danube) state and the
+    step counter of a sharded model whose shards are on the meta device,
+    at ``opt_pspecs``' ZeRO placements: every local tensor on the meta
+    device, and the step traces."""
+    cfg = get_smoke_config(arch)
+    shape = ShapeConfig("s", "train", 32, 8)
+    with fake_mesh(AbstractMesh(("data", "model"), (2, 4))) as mesh:
+        rules = layouts.choose_layout(cfg, shape, mesh)
+        model = init_params(cfg, None, device="meta")
+        layouts.shard_params(model, cfg, rules, mesh)
+        gshard = layouts.param_placements(model, cfg, layouts.opt_pspecs(
+            layouts.param_pspecs(model, cfg, rules), model, cfg, mesh), mesh)
+        opt = make_optimizer(cfg.optimizer, cfg=cfg, update_constraint=gshard)
+        state = tsteps.init_train_state(None, cfg, opt, params=model)
+        leaves = [t for t in torch.utils._pytree.tree_leaves(state["opt"])
+                  if isinstance(t, torch.Tensor)] + [state["step"]]
+        assert leaves and all(context.local_device(t).type == "meta"
+                              for t in leaves)
+        trace, _ = dryrun.run_step(cfg, shape, mesh, grad_accum=1)
+    assert trace.flops > 0
+
+
+# ---------------------------------------------------------------------------
+# the records
+# ---------------------------------------------------------------------------
+# the 1 x 1 records of smoke cells (ShapeConfig("s", kind, 32, 4), the
+# default grad_accum 4), as the dry-run wrote them before it traced sharded
+# cells: flops, transcendentals, bytes, compulsory bytes, temp GB, ops
+ONE_BY_ONE = {
+    "h2o-danube-1.8b/decode": (917504, 2132, 791712, 313636, 3.8424e-05, 291),
+    "h2o-danube-1.8b/prefill": (20217856, 58372, 4886704, 313616,
+                                0.000196848, 227),
+    "h2o-danube-1.8b/train": (89161728, 329154, 52626498, 3910692,
+                              0.000935452, 3632),
+    "qwen3-moe-235b-a22b/train": (99385344, 226689, 80656162, 1227748,
+                                  0.001277544, 5818),
+    "recurrentgemma-2b/train": (224493568, 837570, 185795758, 8006692,
+                                0.00184618, 12301),
+    "rwkv6-7b/prefill": (36978688, 108036, 13541040, 567568, 0.000720112,
+                         350),
+    "whisper-small/decode": (933888, 2396, 861872, 397348, 3.8896e-05, 316),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(ONE_BY_ONE))
+def test_one_by_one_records_are_unchanged(cell):
+    """No group is started and the model stays plain: the record's keys,
+    its even splits, its zero collectives and its counts are the ones the
+    dry-run wrote before it traced sharded cells."""
+    arch, kind = cell.split("/")
+    rec = dryrun.trace_cell(get_smoke_config(arch),
+                            ShapeConfig("s", kind, 32, 4),
+                            AbstractMesh(("data", "model"), (1, 1)))
+    assert not dist.is_initialized()
+    assert sorted(rec) == ["collectives", "cost", "hlo_len", "hlo_ops",
+                           "lower_s", "memory", "n_chips"]
+    assert rec["memory"]["temp_split"] == rec["cost"]["split"] == "even"
+    assert all(v == {"count": 0, "operand_bytes": 0, "output_bytes": 0}
+               for v in rec["collectives"].values())
+    c = rec["cost"]
+    assert (c["flops_per_device"], c["transcendentals"], c["bytes_accessed"],
+            c["compulsory_bytes"], rec["memory"]["temp_gb"],
+            rec["hlo_len"]) == ONE_BY_ONE[cell]
+
+
+def _total(rec) -> int:
+    return sum(v["operand_bytes"] for v in rec["collectives"].values())
+
+
+def _full_width(arch: str, layers: int):
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def test_moe_train_uses_reduce_scatter():
+    """qwen3-moe-235b-a22b ``train_4k`` on ``pod`` at full width, 1 layer:
+    the record is rank 0's of 256 and reduce-scatters."""
+    rec = dryrun.trace_cell(_full_width("qwen3-moe-235b-a22b", 1),
+                            LM_SHAPES["train_4k"], POD)
+    assert (rec["n_chips"], rec["n_ranks_traced"]) == (256, 1)
+    assert rec["cost"]["split"] == rec["memory"]["temp_split"] == "rank0"
+    assert rec["collectives"]["reduce-scatter"]["count"] > 0
+
+
+@pytest.mark.parametrize("arch,layers", [("gemma2-9b", 1),
+                                         ("internlm2-20b", 1)])
+def test_multipod_weak_scaling(arch, layers, tmp_path, monkeypatch):
+    """2 pods = twice the data ranks: rank 0's collective operand bytes on
+    ``multipod`` are at most 1.1 times ``pod``'s (full width, one layer).
+    The batch is split over ("pod", "data") as the reference's is; DTensor
+    reduces over ``pod`` and ``data`` one after the other where the
+    reference's partitioner issues one collective, so a reduction over
+    both counts twice, at its own bytes each time.  The roofline reads both
+    records: a numeric collective term and DCN row."""
+    from repro_torch.roofline import analysis
+    cfg = _full_width(arch, layers)
+    recs = {"pod": dryrun.trace_cell(cfg, LM_SHAPES["train_4k"], POD),
+            "multipod": dryrun.trace_cell(
+                cfg, LM_SHAPES["train_4k"],
+                make_production_mesh(multi_pod=True))}
+    pod, two = recs["pod"], recs["multipod"]
+    assert two["n_chips"] == 512
+    assert 0 < _total(two) <= 1.1 * _total(pod), (_total(pod), _total(two))
+    for mesh, rec in recs.items():
+        rec.update(arch=arch, shape="train_4k", mesh=mesh, kind="train")
+        (tmp_path / f"{arch}__train_4k__{mesh}.json").write_text(
+            json.dumps(rec))
+    monkeypatch.setattr(analysis, "DRYRUN", tmp_path)
+    for mesh, rec in recs.items():
+        row = analysis.analyze_cell(arch, "train_4k", mesh)
+        assert row["collective_s"] == _total(rec) / analysis.LINK_BW > 0
+    [row] = analysis.compare_meshes()
+    assert row["dcn_term_s"] == max(_total(two) - _total(pod), 0) / \
+        analysis.DCN_BW
+    assert "n/a" not in analysis.multipod_markdown()
+
+
+def smoke_train_record(arch: str, multi_pod: bool) -> dict:
+    """The record of ``arch``'s smoke train cell (one layer, 64 x 256
+    tokens, ``grad_accum`` 1) on a production mesh."""
+    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=1)
+    shape = dataclasses.replace(LM_SHAPES["train_4k"], seq_len=256,
+                                global_batch=64)
+    return dryrun.trace_cell(cfg, shape, make_production_mesh(
+        multi_pod=multi_pod), grad_accum=1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def smoke_records():
+    """Every arch's smoke train record on both meshes, traced by 4 spawned
+    processes (each cell its own fake world) while the module's other
+    tests run: {cell: future}.  A cell's cold sharding propagation on a 3-D
+    mesh takes 1-17 s."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        4, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        yield {(a, mp): pool.submit(smoke_train_record, a, mp)
+               for a in list_archs() for mp in (False, True)}
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+SMOKE_JOIN_S = 240
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["pod", "multipod"])
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_train_cell_communicates(smoke_records, arch, multi_pod):
+    rec = smoke_records[arch, multi_pod].result(timeout=SMOKE_JOIN_S)
+    assert rec["n_chips"] == (512 if multi_pod else 256)
+    assert rec["n_ranks_traced"] == 1
+    assert _total(rec) > 0
+    assert rec["cost"]["flops_per_device"] > 0
+
+
+# the archs whose smoke train cell the reference compiles on ``pod`` (its
+# Adafactor state of a MoE with 8 experts does not split over 16 ranks)
+REFERENCE_ARCHS = ["internlm2-20b", "h2o-danube-1.8b", "rwkv6-7b",
+                   "whisper-small", "paligemma-3b"]
+# kinds that move the same data: a gather, a reduction
+COLLECTIVE_CLASSES = {"gather": ("all-gather",),
+                      "reduction": ("all-reduce", "reduce-scatter")}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_records():
+    """The reference's records of ``REFERENCE_ARCHS``' smoke train cells on
+    ``pod`` (tests/dryrun_records_worker.py: the cells of
+    ``smoke_train_record``), compiled one after the other by one process
+    started while the module's other tests run."""
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    proc = subprocess.Popen(
+        [sys.executable, str(WORKER), "reference", ",".join(REFERENCE_ARCHS),
+         "smoke", "pod", "--layers", "1", "--seq", "256", "--batch", "64"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    records = {}
+
+    def get(arch: str) -> dict:
+        if not records:
+            out, err = proc.communicate(timeout=SMOKE_JOIN_S)
+            assert proc.returncode == 0, err[-3000:]
+            for line in out.splitlines():
+                rec = json.loads(line)
+                records[rec["arch"]] = rec
+        return records[arch]
+    try:
+        yield get
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.mark.parametrize("arch", REFERENCE_ARCHS)
+def test_collectives_cover_the_reference(smoke_records, reference_records,
+                                         arch):
+    """Rank 0's record of a smoke train cell on ``pod`` issues a gather and
+    a reduction wherever the reference's compiled cell does: a kind the
+    trace dropped would show.  The kinds within a class differ by design
+    (the port reduce-scatters the ZeRO gradients where XLA all-reduces at
+    these widths), and the re-layouts (XLA's all-to-all and
+    collective-permute) are not held: DTensor has no permute, and its
+    layouts differ (PERF.md §7)."""
+    ref = reference_records(arch)
+    rec = smoke_records[arch, False].result(timeout=SMOKE_JOIN_S)
+    assert (ref["layers"], ref["n_chips"], rec["n_chips"]) == (1, 256, 256)
+    for cls, kinds in COLLECTIVE_CLASSES.items():
+        if sum(ref["collectives"][k]["count"] for k in kinds):
+            assert sum(rec["collectives"][k]["count"] for k in kinds) > 0, \
+                (cls, ref["collectives"], rec["collectives"])
+
+
+def test_one_rank_dtensor_step_traces_the_plain_step(tmp_path):
+    """A smoke train step built by the dry-run on CPU tensors, as the
+    DTensor step on a 1 x 1 gloo mesh and plain: equal flops, bytes and
+    record memory (``chip_smoke.py`` ``[sharded]`` holds the same at full
+    width on the card)."""
+    from repro_torch.launch.mesh import make_mesh
+    cfg = dataclasses.replace(get_smoke_config("h2o-danube-1.8b"),
+                              param_dtype="float32")
+    shape = ShapeConfig("s", "train", 64, 4)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        runs = [(m, *dryrun.run_step(cfg, shape, m, grad_accum=2,
+                                     device="cpu"))
+                for m in (mesh, AbstractMesh(("data", "model"), (1, 1)))]
+    finally:
+        dist.destroy_process_group()
+    (dm, dt, dcell), (pm, pt, pcell) = runs
+    assert (dt.flops, dt.bytes_accessed) == (pt.flops, pt.bytes_accessed)
+    assert dryrun.record(cfg, dm, dt, *dcell)["memory"] == \
+        dryrun.record(cfg, pm, pt, *pcell)["memory"]
+
+
+def test_fake_mesh_refuses_a_process_with_a_group(tmp_path):
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="gloo group of 1"):
+            with fake_mesh(POD):
+                pass
+    finally:
+        dist.destroy_process_group()
+    with fake_mesh(POD) as mesh:
+        assert mesh.size() == 256 and dist.get_world_size() == 256
+    assert not dist.is_initialized()

@@ -24,6 +24,12 @@ sequence 32, global batch 8.  The cells:
 * ``qw``: qwen3-moe-235b-a22b, one train step with Adafactor and
   ``moe_sharded`` inside the DTensor model.
 
+Beside the cells, ``moe_layer`` on DTensors where the experts do not split
+over ``model`` (qwen3-moe and arctic smoke MoEs with 6 experts on 4
+ranks): it falls back to ``moe_dense`` on every token, as the reference's
+``moe_sharded`` does, and its y, aux and gradients are held to the
+unsharded port's and the reference's ``moe_dense`` (``jax.vjp``).
+
 Weights are the reference's own (``init_params``, every norm and zero
 vector given random values, as tests/test_torch_train.py does), carried
 across by ``params_from_jax``; tokens are numpy draws.
@@ -51,6 +57,14 @@ Tolerances, with reasons:
   decode logits by 2.2e-4, past 2e-4; the int8 cache against the
   reference is tests/test_torch_encdec_vision.py's.
 
+The same 8 ranks also run what the dry-run's fake world
+(``launch.mesh.fake_mesh``, tests/test_torch_dryrun_mesh.py) is held
+against: ``train.steps._microbatch`` at ``grad_accum`` 4 on 8 data ranks
+(the reference's rows), a shard-to-shard ``redistribute`` as gloo's
+all-to-all under ``context.native_alltoall``, and rank 0's ``OpTrace`` of
+one sharded smoke train step, which rank 0 of a fake 2 x 4 world traced in
+this process must equal: op names and counts, flops, ``collective_stats``.
+
 One process: a 1 x 1 mesh (a gloo group of one) must give bit-identical
 outputs with and without ``shard_params`` on every path; a kernel wrapper
 given a DTensor it cannot split raises; C2's collectives copy nothing on a
@@ -58,6 +72,7 @@ one-rank group.
 """
 import dataclasses
 import functools
+import json
 import os
 import subprocess
 import sys
@@ -72,6 +87,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs.base import get_smoke_config as jax_smoke  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.models.losses import softmax_xent as jax_xent  # noqa: E402
 from repro.optim import make_optimizer as jax_make_optimizer  # noqa: E402
@@ -83,7 +99,9 @@ from repro_torch.distributed import layouts  # noqa: E402
 from repro_torch.launch.mesh import AbstractMesh, make_mesh  # noqa: E402
 from repro_torch.models import (forward_decode, forward_prefill,  # noqa: E402
                                 forward_train, init_params)
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.losses import softmax_xent  # noqa: E402
+from repro_torch.models.modules import MLP  # noqa: E402
 from repro_torch.models.weights import (params_from_jax,  # noqa: E402
                                         params_to_numpy)
 from repro_torch.optim import make_optimizer  # noqa: E402
@@ -207,8 +225,106 @@ def _kernel_plain(inp):
     return out
 
 
+# arch -> an expert count that does not divide the 4 ``model`` ranks
+MOE_DENSE = {"qwen3-moe-235b-a22b": 6, "arctic-480b": 6}
+
+
+def _moe_dense_cfgs(arch):
+    out = []
+    for cfg in (jax_smoke(arch), get_smoke_config(arch)):
+        cfg = dataclasses.replace(cfg, param_dtype="float32")
+        out.append(dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=MOE_DENSE[arch])))
+    return out
+
+
+def _moe_dense_inputs():
+    """``moed/<arch>/*``: the reference's ``init_moe`` weights (the dense
+    FFN's under ``dense/``), x, the cotangents of y and aux."""
+    inp = {"moed/archs": np.array(",".join(MOE_DENSE))}
+    for i, arch in enumerate(MOE_DENSE):
+        jc, _ = _moe_dense_cfgs(arch)
+        pre = f"moed/{arch}/"
+        jp = jmoe.init_moe(jax.random.PRNGKey(i), jc)
+        for n, v in jp.items():
+            if n == "dense":
+                inp.update({f"{pre}dense/{k}": np.array(w)
+                            for k, w in v.items()})
+            else:
+                inp[pre + n] = np.array(v)
+        rng = np.random.default_rng(20 + i)
+        inp[pre + "x"] = rng.standard_normal((B, S, jc.d_model)).astype(
+            np.float32)
+        inp[pre + "ct"] = rng.standard_normal((B, S, jc.d_model)).astype(
+            np.float32)
+        inp[pre + "ct_aux"] = np.array(rng.standard_normal(), np.float32)
+        inp[pre + "experts"] = np.array(MOE_DENSE[arch])
+    return inp
+
+
+def _moe_dense_weights(inp, pre):
+    return {n[len(pre):]: v for n, v in inp.items() if n.startswith(pre)
+            and n[len(pre):] not in ("x", "ct", "ct_aux", "experts")}
+
+
+def _moe_dense_port(inp):
+    """The unsharded port's ``moe_dense``: y, aux, the gradients."""
+    out = {}
+    for arch in MOE_DENSE:
+        _, tc = _moe_dense_cfgs(arch)
+        pre = f"moed/{arch}/"
+        w = {n: torch.from_numpy(v)
+             for n, v in _moe_dense_weights(inp, pre).items()}
+        dense = {n[len("dense/"):]: t for n, t in w.items()
+                 if n.startswith("dense/")}
+        p = tmoe.MoE({n: w[n] for n in ("router", "w_gate", "w_up",
+                                        "w_down")},
+                     MLP(dense) if dense else None).requires_grad_()
+        ins = {n.replace(".", "/"): t for n, t in p.named_parameters()}
+        ins["x"] = torch.from_numpy(inp[pre + "x"]).requires_grad_()
+        y, aux = tmoe.moe_dense(p, ins["x"], tc)
+        torch.autograd.backward([y, aux], [
+            torch.from_numpy(inp[pre + "ct"]),
+            torch.from_numpy(inp[pre + "ct_aux"])])
+        out[pre + "y"], out[pre + "aux"] = y.detach().numpy(), \
+            aux.detach().numpy()
+        out.update({f"{pre}grad/{n}": t.grad.numpy()
+                    for n, t in ins.items()})
+    return out
+
+
+def _moe_dense_jax(inp):
+    """The reference's ``moe_dense`` (its fallback where the experts do
+    not split, repro/models/moe.py ``moe_sharded``): y, aux, the gradients
+    by ``jax.vjp``."""
+    out = {}
+    for arch in MOE_DENSE:
+        jc, _ = _moe_dense_cfgs(arch)
+        pre = f"moed/{arch}/"
+        w = {n: jnp.asarray(v)
+             for n, v in _moe_dense_weights(inp, pre).items()}
+        params = {n: v for n, v in w.items() if "/" not in n}
+        if any(n.startswith("dense/") for n in w):
+            params["dense"] = {n[len("dense/"):]: v for n, v in w.items()
+                               if n.startswith("dense/")}
+        (y, aux), vjp = jax.vjp(lambda p, x: jmoe.moe_dense(p, x, jc),
+                                params, jnp.asarray(inp[pre + "x"]))
+        gp, gx = vjp((jnp.asarray(inp[pre + "ct"]),
+                      jnp.asarray(inp[pre + "ct_aux"])))
+        out[pre + "y"], out[pre + "aux"] = np.asarray(y), np.asarray(aux)
+        out[pre + "grad/x"] = np.asarray(gx)
+        for n, g in gp.items():
+            if n == "dense":
+                out.update({f"{pre}grad/dense/{k}": np.asarray(v)
+                            for k, v in g.items()})
+            else:
+                out[f"{pre}grad/{n}"] = np.asarray(g)
+    return out
+
+
 def _inputs():
-    inp = {"cells": np.array(",".join(CELLS)), **_kernel_inputs()}
+    inp = {"cells": np.array(",".join(CELLS)), **_kernel_inputs(),
+           **_moe_dense_inputs()}
     for cell, (arch, kinds, kv_quant, accum) in CELLS.items():
         inp[f"{cell}/arch"] = np.array(arch)
         inp[f"{cell}/kinds"] = np.array(kinds)
@@ -360,6 +476,8 @@ def sharded(tmp_path_factory):
         port = {c: _port_run(c) for c in CELLS}
         port["kernels"] = _kernel_plain(_kernel_inputs())
         ref = {c: _jax_run(c) for c in CELLS}
+        port["moed"] = _moe_dense_port(_moe_dense_inputs())
+        ref["moed"] = _moe_dense_jax(_moe_dense_inputs())
         for p in procs:
             out, _ = p.communicate(timeout=max(deadline - time.monotonic(),
                                                1))
@@ -476,6 +594,42 @@ def test_sharded_train_step_matches_reference(sharded, cell):
             assert err <= GNORM_TOL, (what, err)
 
 
+def _moe_dense_keys(want, arch):
+    keys = [k for k in want if k.startswith(f"moed/{arch}/")]
+    assert f"moed/{arch}/grad/x" in keys and f"moed/{arch}/grad/w_down" \
+        in keys, keys
+    return keys
+
+
+@pytest.mark.parametrize("arch", list(MOE_DENSE))
+def test_moe_fallback_matches_unsharded_port(sharded, arch):
+    """``moe_layer`` on DTensors whose experts do not split over the 4
+    ``model`` ranks (6 experts) takes ``moe_dense`` on every token, as the
+    reference does: y, aux and the gradients of x and every weight equal
+    the unsharded port's ``moe_dense`` to 1e-5 relative."""
+    res, port, _ = sharded
+    for k in _moe_dense_keys(port["moed"], arch):
+        assert res[k].shape == port["moed"][k].shape, k
+        assert _rel(res[k], port["moed"][k]) <= DIST_F32_TOL, \
+            (k, _rel(res[k], port["moed"][k]))
+
+
+@pytest.mark.parametrize("arch", list(MOE_DENSE))
+def test_moe_fallback_matches_reference(sharded, arch):
+    """The same against the reference's ``moe_dense`` and its ``jax.vjp``,
+    to tests/test_torch_moe.py's f32 tolerances (2e-4; aux 1e-5
+    relative)."""
+    res, _, ref = sharded
+    for k in _moe_dense_keys(ref["moed"], arch):
+        if k.endswith("/aux"):
+            np.testing.assert_allclose(res[k], ref["moed"][k], rtol=1e-5,
+                                       atol=1e-6)
+        else:
+            np.testing.assert_allclose(res[k], ref["moed"][k],
+                                       atol=MODEL_TOL, rtol=MODEL_TOL,
+                                       err_msg=k)
+
+
 @pytest.mark.parametrize("tag", ["flash", "scan", "wkv6"])
 def test_kernel_routes_on_eight_ranks(sharded, tag):
     """Each wrapper's DTensor route on the 2 x 4 mesh (some inputs cut
@@ -515,6 +669,51 @@ def test_decode_cache_is_sharded_over_its_slots(sharded):
     for cell in ("g2", "g2q"):
         for pl in res[f"{cell}/cache_placements"]:
             assert str(pl) == "(Shard(dim=1), Shard(dim=2))", (cell, pl)
+
+
+def test_microbatch_takes_the_reference_rows_on_eight_data_ranks(sharded):
+    """A batch of 64 rows sharded over 8 data ranks, ``grad_accum`` 4 (not
+    a multiple of the ranks, which a DTensor reshape refuses): microbatch i
+    is rows [16 i, 16 i + 16), as the reference's reshape
+    (``repro/train/steps.py:55-59``) takes them, sharded over ``data``."""
+    res, _, _ = sharded
+    full = np.arange(64 * 4).reshape(64, 4)
+    for i in range(4):
+        np.testing.assert_array_equal(res[f"mb/{i}"],
+                                      full.reshape(4, 16, 4)[i])
+        assert str(res[f"mb/place{i}"]) == "(Shard(dim=0),)"
+
+
+def test_shard_to_shard_is_an_all_to_all_on_gloo(sharded):
+    """Shard(0) -> Shard(1) over ``data`` of an (8, 12) f32 under
+    ``native_alltoall``: rank 0 holds columns 0-5 of every row, and the
+    trace counts one all-to-all of its own (4, 12) in and (8, 6) out, no
+    all-gather (DTensor's own CPU fallback would gather the whole dim)."""
+    res, _, _ = sharded
+    full = np.arange(8 * 12, dtype=np.float32).reshape(8, 12)
+    np.testing.assert_array_equal(res["a2a/local"], full[:, :6])
+    stats = json.loads(str(res["a2a/stats"]))
+    assert stats["all-to-all"] == {"count": 1, "operand_bytes": 4 * 12 * 4,
+                                   "output_bytes": 8 * 6 * 4}
+    assert stats["all-gather"]["count"] == 0
+
+
+def test_fake_world_traces_what_the_real_ranks_run(sharded):
+    """Rank 0 of a fake 2 x 4 world (no other process, no data moved)
+    traces the same sharded smoke train step as rank 0 of the 8 gloo ranks
+    running it on real CPU tensors: the same ops, op for op by name, the
+    same flops and the same collectives, kind by kind, in bytes."""
+    import torch_dist_worker as worker
+
+    from repro_torch.launch.mesh import fake_mesh
+    res, _, _ = sharded
+    with fake_mesh(AbstractMesh(("data", "model"), (2, 4))) as mesh:
+        fake = worker.traced_train_step(mesh)
+    assert json.loads(fake["ops"]) == json.loads(str(res["trace/ops"]))
+    assert int(fake["flops"]) == int(res["trace/flops"]) > 0
+    real = json.loads(str(res["trace/collectives"]))
+    assert json.loads(fake["collectives"]) == real
+    assert sum(v["operand_bytes"] for v in real.values()) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,17 @@ writes the sharded outputs gathered back to full tensors.
 
 With ``sharded`` it runs the sharded model instead (``sharded_main``): each
 cell of INPUTS (its weights in the port's names, its tokens) as DTensors on
-the (2, 4) ("data", "model") mesh, and writes each output in full.
+the (2, 4) ("data", "model") mesh, and writes each output in full; the
+MoE whose experts do not split over ``model`` (``run_moe_dense``).  Then
+what the dry-run's fake world is held against (``run_dryrun_checks``):
+``train.steps._microbatch`` on a batch sharded over 8 data ranks, a
+shard-to-shard ``redistribute`` under ``native_alltoall`` (gloo's
+all-to-all, values and trace), and rank 0's ``OpTrace`` of one sharded
+train step (``launch.dryrun.run_step`` on CPU tensors).
 """
+import collections
 import dataclasses
+import json
 import sys
 
 import numpy as np
@@ -268,6 +276,107 @@ def run_kernels(inp, mesh, res):
     record("wkv6", wkv6(*ins.values()), ins)
 
 
+MOE_DENSE_LOGICAL = {"router": (None, None),
+                     "w_gate": ("experts", None, "moe_ff"),
+                     "w_up": ("experts", None, "moe_ff"),
+                     "w_down": ("experts", "moe_ff", None),
+                     "dense/w_gate": (None, "ff"), "dense/w_up": (None, "ff"),
+                     "dense/w_down": ("ff", None)}
+
+
+def run_moe_dense(inp, mesh, res):
+    """``moe_layer`` in the DTensor model where the experts do not split
+    over ``model`` (``moed/<arch>/*``: weights placed by the model's rules,
+    x by ``("batch", "act_seq", None)``): y, aux and the gradients of x and
+    every weight for the cotangents ``ct`` (y) and ``ct_aux`` (aux), in
+    full."""
+    from torch.distributed.tensor import distribute_tensor
+    for arch in str(inp["moed/archs"]).split(","):
+        pre = f"moed/{arch}/"
+        cfg = dataclasses.replace(
+            get_smoke_config(arch), param_dtype="float32")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=int(inp[pre + "experts"])))
+        x = torch.from_numpy(inp[pre + "x"])
+        rules = choose_layout(cfg, cell_shape("train", x.shape[0],
+                                              x.shape[1]), mesh)
+
+        def dt(t, logical):
+            return distribute_tensor(t, mesh, rules.placements(logical))
+        w = {n: dt(torch.from_numpy(inp[pre + n]), lg)
+             for n, lg in MOE_DENSE_LOGICAL.items() if pre + n in inp}
+        dense = {n[len("dense/"):]: t for n, t in w.items()
+                 if n.startswith("dense/")}
+        p = tmoe.MoE({n: w[n] for n in ("router", "w_gate", "w_up",
+                                        "w_down")},
+                     MLP(dense) if dense else None).requires_grad_()
+        ins = {n.replace(".", "/"): t for n, t in p.named_parameters()}
+        ins["x"] = dt(x, ("batch", "act_seq", None)).requires_grad_()
+        with context.use_rules(rules):
+            y, aux = tmoe.moe_layer(p, ins["x"], cfg)
+        torch.autograd.backward(
+            [y, aux], [distribute_tensor(torch.from_numpy(inp[pre + "ct"]),
+                                         mesh, y.placements),
+                       distribute_tensor(torch.from_numpy(inp[pre + "ct_aux"]),
+                                         mesh, aux.placements)])
+        res[pre + "y"] = full(y.detach()).numpy()
+        res[pre + "aux"] = full(aux.detach()).numpy()
+        for n, t in ins.items():
+            res[f"{pre}grad/{n}"] = full(t.grad).numpy()
+
+
+TRACE_ARCH, TRACE_B, TRACE_S, TRACE_ACCUM = "gemma2-9b", 8, 32, 2
+
+
+def trace_summary(trace) -> dict:
+    """What the fake world's trace is compared on: the op names and
+    counts, the flops, ``collective_stats``."""
+    from repro_torch.roofline.trace import collective_stats
+    return {"ops": json.dumps(collections.Counter(op.name
+                                                  for op in trace.ops)),
+            "flops": np.array(trace.flops),
+            "collectives": json.dumps(collective_stats(trace))}
+
+
+def traced_train_step(mesh):
+    """Rank 0's trace of one sharded f32 smoke train step of
+    ``TRACE_ARCH`` (``launch.dryrun.run_step`` on CPU tensors)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(get_smoke_config(TRACE_ARCH),
+                              param_dtype="float32")
+    trace, _ = dryrun.run_step(cfg, ShapeConfig("s", "train", TRACE_S,
+                                                TRACE_B),
+                               mesh, grad_accum=TRACE_ACCUM, device="cpu")
+    return trace_summary(trace)
+
+
+def run_dryrun_checks(mesh, res):
+    """``_microbatch`` at ``grad_accum`` 4 on 8 data ranks (rows in full);
+    Shard(0) -> Shard(1) over ``data`` under ``native_alltoall`` (rank 0's
+    shard and the trace's collectives); rank 0's trace of a train step."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.roofline.trace import OpTrace, collective_stats
+    from repro_torch.train import steps as tsteps
+    full = torch.arange(64 * 4).reshape(64, 4)
+    data8 = make_mesh((8,), ("data",), device="cpu")
+    rows = distribute_tensor(full, data8, (Shard(0),))
+    with context.use_rules(context.ShardingRules(data8, {"batch": "data"})):
+        for i in range(4):
+            mb = tsteps._microbatch(rows, 4, i)
+            res[f"mb/{i}"] = mb.full_tensor().numpy()
+            res[f"mb/place{i}"] = np.array(str(mb.placements))
+    x = distribute_tensor(torch.arange(8 * 12, dtype=torch.float32).reshape(
+        8, 12), mesh, (Shard(0), Replicate()))
+    with context.native_alltoall(), OpTrace() as trace:
+        y = x.redistribute(mesh, (Shard(1), Replicate()))
+    res["a2a/local"] = y.to_local().numpy()
+    res["a2a/stats"] = np.array(json.dumps(collective_stats(trace)))
+    with context.native_alltoall():
+        for k, v in traced_train_step(mesh).items():
+            res[f"trace/{k}"] = np.array(v)
+
+
 def sharded_main(rank, world, store, inputs, out):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
@@ -278,6 +387,8 @@ def sharded_main(rank, world, store, inputs, out):
     for cell in str(inp["cells"]).split(","):
         run_cell(inp, cell, mesh, res)
     run_kernels(inp, mesh, res)
+    run_moe_dense(inp, mesh, res)
+    run_dryrun_checks(mesh, res)
     np.savez(out, **res)
     dist.barrier()
     dist.destroy_process_group()
