@@ -178,7 +178,13 @@ Phases:
      layer, traced on the host as rank 0 of a fake 256-rank world; one
      ``[dryrun]`` line with the record's collectives, per-device flops and
      op count beside a CPU host's and the torch version;
-     it fails on a non-zero exit, a timeout or no reduce-scatter.
+     it fails on a non-zero exit, a timeout or no reduce-scatter.  Then
+     gemma2-9b's cell the same way (16 q heads over 8 kv heads on 16
+     ``model`` ranks): one ``[dryrun]`` line with its attention flops a
+     device, its largest all-gather and flash's local q; it fails unless
+     flash runs on 1 local q head (the q-heads route) and every all-gather
+     is smaller than the f32 logits of the rank's rows (the vocab-parallel
+     loss).
   Phase 2 also holds each kernel's autograd function (the kernel forward, the
   plain version's autograd backward) against autograd of the plain version
   over the kernel's sweep, at the kernel's tolerance.
@@ -278,14 +284,17 @@ SHARDED_TRAIN_LAYERS = 4      # [sharded]: h2o-danube-1.8b's step, cut from 24
 # [dryrun]: one production cell traced as rank 0 of a fake 256-rank world in
 # a subprocess, cut to one layer, under its own time limit
 DRYRUN_CELL = ("qwen3-moe-235b-a22b", "train_4k", "pod")
+# and gemma2-9b's, whose 8 kv heads do not split over 16 ``model`` ranks:
+# flash on each rank's own q head, the loss vocab-parallel
+DRYRUN_HEADS_CELL = ("gemma2-9b", "train_4k", "pod")
 DRYRUN_LAYERS = 1
 DRYRUN_TIMEOUT_S = 90
 # the same cell's trace on a CPU host (torch 2.13.0+cpu): printed beside the
 # card machine's, so that a torch whose DTensor issues other ops or
 # collectives, or whose bookkeeping the trace filters otherwise, shows
-DRYRUN_CPU = {"torch": "2.13.0+cpu", "ops": 5871,
-              "collective_counts": {"all-gather": 104, "all-reduce": 91,
-                                    "reduce-scatter": 51, "all-to-all": 8,
+DRYRUN_CPU = {"torch": "2.13.0+cpu", "ops": 6003,
+              "collective_counts": {"all-gather": 112, "all-reduce": 119,
+                                    "reduce-scatter": 49, "all-to-all": 8,
                                     "collective-permute": 0}}
 NO_LIBRARY = ("no single PyTorch call computes the RG-LRU scan or the wkv6 "
               "recurrence, so their library_ms is null")
@@ -2762,16 +2771,12 @@ def roofline_path(torch, steps, card) -> list:
     return rows
 
 
-def dryrun_path(card) -> dict:
-    """Phase 12: ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL``
-    cut to ``DRYRUN_LAYERS`` layers, in a subprocess (a fake world needs a
-    process without a process group) under ``DRYRUN_TIMEOUT_S``: the cell's
-    sharded step traced as rank 0 of a fake 256-rank world on the host, its
-    record read back.  Prints its collectives, per-device flops and op
-    count on one line, beside a CPU host's (``DRYRUN_CPU``); fails on a
-    non-zero exit, a timeout, or no reduce-scatter."""
-    import torch
-    arch, shape, mesh = DRYRUN_CELL
+def dryrun_record(cell) -> tuple:
+    """``python -m repro_torch.launch.dryrun`` on ``cell`` cut to
+    ``DRYRUN_LAYERS`` layers, in a subprocess (a fake world needs a process
+    without a process group) under ``DRYRUN_TIMEOUT_S`` -> (its record,
+    the wall seconds); fails on a non-zero exit or a timeout."""
+    arch, shape, mesh = cell
     root = Path(__file__).resolve().parent
     path = root / "experiments" / "dryrun_torch" / \
         f"{arch}__{shape}__{mesh}.json"
@@ -2790,6 +2795,25 @@ def dryrun_path(card) -> dict:
     check(run.returncode == 0, f"[dryrun] {' '.join(cmd[1:])} exited "
           f"{run.returncode}: {run.stderr[-3000:]}")
     rec = json.loads(path.read_text())
+    check(rec["cost"]["split"] == "rank0" and rec["n_chips"] == 256,
+          f"[dryrun] the record is not rank 0's of 256: {rec['cost']}")
+    return rec, wall
+
+
+def dryrun_path(card) -> dict:
+    """Phase 12: ``DRYRUN_CELL``'s sharded step traced as rank 0 of a fake
+    256-rank world on the host (``dryrun_record``).  Prints its
+    collectives, per-device flops and op count on one line, beside a CPU
+    host's (``DRYRUN_CPU``); fails on no reduce-scatter.  Then
+    ``DRYRUN_HEADS_CELL``'s: prints its attention flops a device (flash
+    and the eager backward's ``bmm``), its largest all-gather and flash's
+    local q; fails unless flash runs on one q head of the rank's rows, or
+    where an all-gather is as large as the f32 logits of those rows."""
+    import torch
+    from repro_torch.configs.base import LM_SHAPES, get_config
+    from repro_torch.launch.dryrun import TRAIN_GRAD_ACCUM
+    arch, shape, mesh = DRYRUN_CELL
+    rec, wall = dryrun_record(DRYRUN_CELL)
     row = {"cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
            "n_chips": rec["n_chips"], "n_ranks_traced": rec["n_ranks_traced"],
            "flops_per_device": rec["cost"]["flops_per_device"],
@@ -2800,11 +2824,35 @@ def dryrun_path(card) -> dict:
            "wall_s": wall, "ops": rec["hlo_len"], "torch": torch.__version__,
            "cpu_trace": DRYRUN_CPU, "card": card}
     print("[dryrun] " + json.dumps(row), flush=True)
-    check(rec["cost"]["split"] == "rank0" and rec["n_chips"] == 256,
-          f"[dryrun] the record is not rank 0's of 256: {rec['cost']}")
     check(rec["collectives"]["reduce-scatter"]["count"] > 0,
           f"[dryrun] {arch} {shape} on {mesh} issued no reduce-scatter")
-    return row
+
+    arch, shape, mesh = DRYRUN_HEADS_CELL
+    rec, wall = dryrun_record(DRYRUN_HEADS_CELL)
+    cfg, sh = get_config(arch), LM_SHAPES[shape]
+    rows = sh.global_batch // TRAIN_GRAD_ACCUM // 16    # 16 data ranks
+    flash_q = rec["rank0"]["kernel_shapes"]["flash_attention"]
+    heads = sorted({bk * g // rows for bk, _, g, _ in flash_q})
+    gather = rec["rank0"]["largest_collective"]["all-gather"]
+    logits = rows * sh.seq_len * cfg.vocab_size * 4
+    ops = rec["rank0"]["op_flops"]
+    heads_row = {
+        "cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
+        "flops_per_device": rec["cost"]["flops_per_device"],
+        "attention_flops_per_device":
+            ops.get("flash_attention", 0) + ops.get("aten.bmm", 0),
+        "flash_local_q": flash_q, "flash_local_q_heads": heads,
+        "largest_all_gather": gather, "logits_rows_bytes": logits,
+        "collectives": rec["collectives"], "trace_s": rec["lower_s"],
+        "wall_s": wall, "card": card}
+    print("[dryrun] " + json.dumps(heads_row), flush=True)
+    check(heads == [1] and all(s == sh.seq_len for _, s, _, _ in flash_q),
+          f"[dryrun] {arch}: flash's local q {flash_q} is not 1 head of "
+          f"the rank's {rows} rows")
+    check(gather["output_bytes"] < logits,
+          f"[dryrun] {arch}: an all-gather of {gather['output_bytes']} bytes "
+          f"carries the logits ({logits} bytes)")
+    return {"dryrun": row, "heads": heads_row}
 
 
 def train_launches(cfg, kernel) -> int:

@@ -33,7 +33,12 @@ runs all of that on each rank's local shard through ``local_map``
 (``distributed.context.run_local``): the batch and the kv heads may be
 sharded, the sequence, the group and the head dim may not (a shard of
 those raises, with the placements in the message), and each rank launches
-its kernel, and counts the launch, on its own shard.
+its kernel, and counts the launch, on its own shard.  Where a mesh dim
+cuts the q heads and not the kv heads (gemma2-9b's 16 heads and 8 kv heads
+over 16 ``model`` ranks), the model hands q over flat, (B, S, H, hd): each
+rank runs its H / tp q heads against the one kv head they read, and k's
+and v's gradients are summed over that dim (``head_split`` says which
+layouts split how; any other raises).
 """
 from __future__ import annotations
 
@@ -214,18 +219,97 @@ class FlashAttention(torch.autograd.Function):
 
 # the axes a DTensor's shard may cut: batch and kv heads
 _SPLITS = {"batch": 0, "kv_heads": 2}
+# where a mesh dim splits the q heads and not the kv heads: q flat
+# (B,S,H,hd) cut on its heads, k and v whole there
+_Q_SPLITS = {"batch": 0, "q_heads": 2}
+_KV_SPLITS = {"batch": 0}
+
+
+def head_split(H: int, K: int, tp: int) -> str:
+    """How ``tp`` ranks of the ``model`` axis split an attention of ``H`` q
+    heads and ``K`` kv heads (the reference's rules, ``layouts.
+    choose_layout``, put ``heads`` on ``model`` where ``tp`` divides ``H``,
+    ``kv_heads`` where it divides ``K``): ``"kv_heads"`` where ``tp``
+    divides ``K`` (each rank a whole group of kv heads and their q heads);
+    ``"replicated"`` where it does not divide ``H`` (attention whole on
+    every rank, as the reference's rules say); ``"q_heads"`` where each
+    rank's ``H / tp`` q heads read one kv head (``tp > K`` and the group
+    ``G = H / K`` a multiple of ``H / tp``).  Any other layout raises."""
+    if K % tp == 0:
+        return "kv_heads"
+    if H % tp:
+        return "replicated"
+    if tp > K and (H // K) % (H // tp) == 0:
+        return "q_heads"
+    raise ValueError(f"flash attention cannot split (H, K, tp) = "
+                     f"({H}, {K}, {tp}): each rank's {H // tp} q heads read "
+                     f"more than one of the {K} kv heads")
+
+
+def splits_q_heads(q, k) -> bool:
+    """Whether the DTensors q (B,S,H,hd) and k (B,Skv,K,hd) take the q-heads
+    route: a mesh dim of more than one rank cuts q's heads and not k's."""
+    if not (context.is_dtensor(q) and context.is_dtensor(k)):
+        return False
+    mesh = q.device_mesh
+    return any(p.is_shard(2) and mesh.size(m) > 1
+               and not k.placements[m].is_shard(2)
+               for m, p in enumerate(q.placements))
+
+
+def _q_heads_local(q, k, v, *, kv: int, **kw):
+    """One rank's q heads (B,S,h,hd), all of them in kv head ``kv``: the
+    kernel on that kv head alone.  The narrow's gradient is zero on the
+    other kv heads, so the sum over ranks of k's and v's is theirs."""
+    B, S, h, hd = q.shape
+    o = flash_attention(q.reshape(B, S, 1, h, hd), k.narrow(2, kv, 1),
+                        v.narrow(2, kv, 1), **kw)
+    return o.reshape(B, S, h, hd)
+
+
+def _flash_q_heads(q, k, v, **kw):
+    """The q-heads route: q (B,S,H,hd) cut on its heads over one mesh dim
+    whose ranks hold k and v whole; the rank at coordinate r there runs q
+    heads [r h, (r + 1) h) against kv head r h // G (h = H / tp) through
+    ``run_local``, and k's and v's gradients come back ``Partial`` there."""
+    mesh = q.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    on = [m for m, p in enumerate(q.placements)
+          if p.is_shard(2) and mesh.size(m) > 1]
+    where = (f"placements q {tuple(q.placements)}, k {tuple(k.placements)}, "
+             f"v {tuple(v.placements)}")
+    if len(on) != 1 or H % K or any(t.placements[on[0]].is_shard(2)
+                                    for t in (k, v)):
+        raise ValueError(f"flash attention: q's {H} heads are cut on mesh "
+                         f"dims {on}, the route takes one that leaves k and "
+                         f"v whole; {where}")
+    tp = mesh.size(on[0])
+    try:
+        how = head_split(H, K, tp)
+    except ValueError as e:
+        raise ValueError(f"{e}; {where}") from None
+    if how != "q_heads":
+        raise ValueError(f"flash attention: (H, K, tp) = ({H}, {K}, {tp}) "
+                         f"splits {how}, not q heads; {where}")
+    kv = mesh.get_local_rank(on[0]) * (H // tp) // (H // K)
+    return context.run_local(
+        "flash attention", functools.partial(_q_heads_local, kv=kv, **kw),
+        {"q": q, "k": k, "v": v},
+        {"q": _Q_SPLITS, "k": _KV_SPLITS, "v": _KV_SPLITS}, _Q_SPLITS)
 
 
 def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
                     scale: float, causal: bool = True):
-    """q: (B,S,K,G,hd); k,v: (B,Skv,K,hd) -> (B,S,K,G,hd)."""
+    """q: (B,S,K,G,hd); k,v: (B,Skv,K,hd) -> (B,S,K,G,hd).  On DTensors q
+    may also be flat, (B,S,H,hd) -> (B,S,H,hd): the q-heads route
+    (``splits_q_heads``)."""
+    kw = dict(window=window, softcap=softcap, scale=scale, causal=causal)
     if context.is_dtensor(q):
+        if q.dim() == 4:
+            return _flash_q_heads(q, k, v, **kw)
         return context.run_local(
-            "flash attention", functools.partial(
-                flash_attention, window=window, softcap=softcap, scale=scale,
-                causal=causal),
+            "flash attention", functools.partial(flash_attention, **kw),
             {"q": q, "k": k, "v": v}, dict.fromkeys("qkv", _SPLITS), _SPLITS)
     if q.device.type == "cpu":
-        return _flash_gqa(q, k, v, window=window, softcap=softcap,
-                          scale=scale, causal=causal)
+        return _flash_gqa(q, k, v, **kw)
     return FlashAttention.apply(q, k, v, window, softcap, scale, causal)

@@ -36,6 +36,10 @@ reference's keys where they mean the same:
   (an argument updated in place counts the bytes written into it).
 * ``collectives``: ``collective_stats`` of rank 0's trace;
   ``n_ranks_traced``: 1 on a production mesh.
+* ``rank0`` (a production mesh only): ``op_flops``, rank 0's flops by op
+  name; ``kernel_shapes``, each hand-written kernel's local output shapes
+  (flash's: q's, in its (B*K, S, G, hd) layout); ``largest_collective``, the
+  largest operand and output bytes of one collective of each kind.
 * ``hlo_ops``: the op census (top 12); ``hlo_len``: the ops traced;
   ``lower_s``: the trace's seconds (eager has no ``compile_s``);
   ``layers``: the depth a cell was cut to (``--layers``), where it was.
@@ -53,6 +57,7 @@ import argparse
 import contextlib
 import json
 import traceback
+from collections import Counter
 from dataclasses import replace
 from pathlib import Path
 
@@ -318,9 +323,28 @@ def record(cfg: ModelConfig, mesh, trace, out, args, in_specs, out_specs,
     rec["collectives"] = collective_stats(trace)
     if sharded:
         rec["n_ranks_traced"] = 1
+        rec["rank0"] = rank0_work(trace)
     rec["hlo_ops"] = dict(op_census(trace, top=12))
     rec["hlo_len"] = len(trace.ops)
     return rec
+
+
+def rank0_work(trace) -> dict:
+    """A sharded record's ``rank0`` (module docstring)."""
+    flops, shapes, largest = Counter(), {}, {}
+    for op in trace.ops:
+        flops[op.name] += op.flops
+        if op.shape:
+            shapes.setdefault(op.name, set()).add(op.shape)
+    for kind, operand, output, _ in trace.collectives:
+        big = largest.setdefault(kind, {"operand_bytes": 0,
+                                        "output_bytes": 0})
+        big["operand_bytes"] = max(big["operand_bytes"], operand)
+        big["output_bytes"] = max(big["output_bytes"], output)
+    return {"op_flops": {n: f for n, f in flops.items() if f},
+            "kernel_shapes": {n: sorted(map(list, s))
+                              for n, s in shapes.items()},
+            "largest_collective": largest}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,

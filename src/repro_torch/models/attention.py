@@ -32,8 +32,9 @@ import torch
 
 from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
 from repro_torch.distributed.context import (constrain, grad_like, is_dtensor,
-                                             unflatten)
+                                             redistribute, unflatten)
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ops import splits_q_heads
 from repro_torch.models.modules import (ParamModule, init_norm, normal, pdtype,
                                         rms_norm, rope)
 
@@ -133,6 +134,25 @@ def _first_row(pos):
     return pos[0] if pos.dim() > 1 else pos
 
 
+def kv_columns(w, q):
+    """The k or v projection ``w`` (D, K*hd), cut on its columns over each
+    mesh dim that cuts q's heads (B,S,H,hd) and leaves ``w`` whole there
+    (the q-heads route: more ranks than kv heads).  Each rank then
+    projects its share of the columns and ``unflatten`` gathers k, as the
+    reference's partitioner splits this product (each device its own kv
+    head) where a whole ``w`` is every rank's full product; ``w``'s
+    gradient is gathered back.  Elsewhere ``w`` as it is."""
+    if not (is_dtensor(w) and is_dtensor(q)):
+        return w
+    from torch.distributed.tensor import Shard
+    mesh = w.device_mesh
+    place = tuple(Shard(1) if p.is_shard(2) and mesh.size(m) > 1 and
+                  w.placements[m].is_replicate() and
+                  w.shape[1] % mesh.size(m) == 0 else w.placements[m]
+                  for m, p in enumerate(q.placements))
+    return redistribute(w, place)
+
+
 def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
                   mask_mode: str = "causal", prefix_len: int = 0,
                   kv_override=None):
@@ -151,8 +171,8 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
     # ranks) takes a replicated gradient, not a shard of its rows
     q = unflatten(grad_like(x @ p.wq), 2, (H, hd))
     kv_src, kv_pos = (x, positions) if kv_override is None else kv_override
-    k = unflatten(grad_like(kv_src @ p.wk), 2, (K, hd))
-    v = unflatten(grad_like(kv_src @ p.wv), 2, (K, hd))
+    k = unflatten(grad_like(kv_src @ kv_columns(p.wk, q)), 2, (K, hd))
+    v = unflatten(grad_like(kv_src @ kv_columns(p.wv, q)), 2, (K, hd))
     if hasattr(p, "q_norm"):
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -163,17 +183,25 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
     k = constrain(k, ("batch", "seq", "kv_heads", None))
     v = constrain(v, ("batch", "seq", "kv_heads", None))
 
-    # the GQA fold: a heads shard splits into (K, G) only where K divides
-    # it (smoke gemma2-9b: 4 heads over 4 ranks, K = 2 replicates q here)
-    q = unflatten(q, 2, (K, G))
     scale = hd ** -0.5
-    if _ATTN_IMPL is not None and mask_mode == "causal":
-        o = _ATTN_IMPL(q, k, v, window=window, softcap=cfg.attn_logit_softcap,
-                       scale=scale)
+    if _ATTN_IMPL is flash_attention and mask_mode == "causal" and \
+            splits_q_heads(q, k):
+        # q's heads split where the kv heads do not (gemma2-9b: 16 heads, 8
+        # kv heads, 16 ranks): flash takes q flat, each rank its own heads
+        o = flash_attention(q, k, v, window=window,
+                            softcap=cfg.attn_logit_softcap, scale=scale)
     else:
-        mask = make_mask_fn(mask_mode, window, prefix_len)(
-            _first_row(positions), _first_row(kv_pos))
-        o = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, scale)
+        # the GQA fold: a heads shard splits into (K, G) only where K
+        # divides it; elsewhere (the plain path, a hook other than flash)
+        # q is replicated here
+        q = unflatten(q, 2, (K, G))
+        if _ATTN_IMPL is not None and mask_mode == "causal":
+            o = _ATTN_IMPL(q, k, v, window=window,
+                           softcap=cfg.attn_logit_softcap, scale=scale)
+        else:
+            mask = make_mask_fn(mask_mode, window, prefix_len)(
+                _first_row(positions), _first_row(kv_pos))
+            o = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, scale)
     o = constrain(o.reshape(B, S, H * hd), ("batch", "seq", "heads_flat"))
     return o @ p.wo, (k, v)
 

@@ -206,6 +206,7 @@ class Op:
     out_bytes: int
     flops: int
     transcendentals: int
+    shape: tuple = ()       # a hand-written kernel's first output's shape
 
     @property
     def bytes(self) -> int:
@@ -292,13 +293,15 @@ class OpTrace(TorchDispatchMode):
     def add_op(self, name: str, flops: int, nbytes: int, outputs,
                transcendentals: int = 0):
         """One op of ``nbytes`` bytes and ``flops`` flops (a hand-written
-        kernel); ``outputs`` are its results, made under the trace."""
+        kernel); ``outputs`` are its results, made under the trace (the
+        op's ``shape`` is the first one's)."""
         outs = _tensors(outputs)
         out_b = sum(tensor_bytes(t) for t in outs)
         for t in outs:
             self._see_output(t, None)
         self.ops.append(Op(name, int(nbytes) - out_b, out_b, int(flops),
-                           int(transcendentals)))
+                           int(transcendentals),
+                           tuple(outs[0].shape) if outs else ()))
 
     # ---- storages ----------------------------------------------------------
     @staticmethod

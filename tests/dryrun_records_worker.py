@@ -9,13 +9,15 @@ devices before JAX starts, so each side runs in a process of its own).
 
 The train step of each ARCH's smoke or full config cut to N layers
 (default: one superblock, the fewest the reference's layer scan takes) on
-the ``train_4k`` shape (or S x B tokens): the reference's compiled as its
+the ``train_4k`` shape (or S x B tokens); an ARCH written
+``ARCH@HxK[:PACK]`` takes H q heads and K kv heads (and the config's
+``attn_causal_pack`` PACK): the reference's compiled as its
 ``run_cell`` does (``repro.launch.dryrun.build_cell``, XLA's cost analysis
 and HLO), the port's traced as rank 0 of a fake world
-(``repro_torch.launch.dryrun.run_step``).  Prints one JSON line an arch,
-with the same keys for both sides: ``flops_per_device``, ``collectives``
-(each side's own ``collective_stats``), ``attention_flops`` and
-``product_flops``.
+(``repro_torch.launch.dryrun.run_step``).  Prints one JSON line an ARCH
+(``cell``: as written), with the same keys for both sides:
+``flops_per_device``, ``collectives`` (each side's own
+``collective_stats``), ``attention_flops`` and ``product_flops``.
 
 ``attention_flops`` are the products of q.k and p.v: in the reference the
 batched dots (its ``bskgd,btkd->bkgst`` einsums; its projections, MLPs and
@@ -66,10 +68,18 @@ def dot_flops(hlo: str) -> dict:
     return out
 
 
-def _cfg_shape(configs, arch, width, layers, seq, batch):
+def _cfg_shape(configs, arch, width, layers, seq, batch, heads=""):
+    """The cell's config and shape; ``heads``: "HxK" or "HxK:PACK", the q
+    and kv heads and the config's ``attn_causal_pack`` replaced."""
     base = configs.get_smoke_config(arch) if width == "smoke" \
         else configs.get_config(arch)
     cfg = dataclasses.replace(base, n_layers=layers or base.pattern_len)
+    if heads:
+        hk, _, pack = heads.partition(":")
+        H, K = (int(h) for h in hk.split("x"))
+        cfg = dataclasses.replace(cfg, n_heads=H, n_kv_heads=K,
+                                  attn_causal_pack=pack or
+                                  cfg.attn_causal_pack)
     shape = configs.LM_SHAPES["train_4k"]
     if seq:
         shape = dataclasses.replace(shape, seq_len=seq, global_batch=batch)
@@ -77,7 +87,7 @@ def _cfg_shape(configs, arch, width, layers, seq, batch):
 
 
 def reference(arch, width, mesh_name, layers=0, seq=0, batch=0,
-              accum=1) -> dict:
+              accum=1, heads="") -> dict:
     from repro.launch import dryrun as ref    # first: forces 512 devices
     import jax
     from repro.configs import base as configs
@@ -85,7 +95,8 @@ def reference(arch, width, mesh_name, layers=0, seq=0, batch=0,
     from repro.distributed.layouts import choose_layout
     from repro.launch.mesh import make_production_mesh
     from repro.roofline.hlo import collective_stats
-    cfg, shape = _cfg_shape(configs, arch, width, layers, seq, batch)
+    cfg, shape = _cfg_shape(configs, arch, width, layers, seq, batch,
+                            heads)
     mesh = make_production_mesh(multi_pod=mesh_name == "multipod")
     rules = choose_layout(cfg, shape, mesh)
     t0 = time.perf_counter()
@@ -104,12 +115,14 @@ def reference(arch, width, mesh_name, layers=0, seq=0, batch=0,
             "collectives": collective_stats(hlo), **dot_flops(hlo)}
 
 
-def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1) -> dict:
+def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1,
+         heads="") -> dict:
     import torch
     from repro_torch.configs import base as configs
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_mesh, make_production_mesh
-    cfg, shape = _cfg_shape(configs, arch, width, layers, seq, batch)
+    cfg, shape = _cfg_shape(configs, arch, width, layers, seq, batch,
+                            heads)
     with fake_mesh(make_production_mesh(
             multi_pod=mesh_name == "multipod")) as mesh:
         trace, cell = dryrun.run_step(cfg, shape, mesh, accum)
@@ -138,11 +151,14 @@ def main():
     ap.add_argument("--accum", type=int, default=1)
     a = ap.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-    for arch in a.arch.split(","):
+    for cell in a.arch.split(","):
+        arch, _, heads = cell.partition("@")
         rec = (reference if a.side == "reference" else port)(
-            arch, a.width, a.mesh, a.layers, a.seq, a.batch, a.accum)
-        print(json.dumps({"arch": arch, "width": a.width, "mesh": a.mesh,
-                          "accum": a.accum, **rec}), flush=True)
+            arch, a.width, a.mesh, a.layers, a.seq, a.batch, a.accum, heads)
+        print(json.dumps({"cell": cell, "arch": arch, "width": a.width,
+                          "mesh": a.mesh, "accum": a.accum, "heads": heads,
+                          **rec}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -30,12 +30,19 @@ meta device), on the CPU.
 
 * The reference's own records of five smoke train cells on ``pod``
   (tests/dryrun_records_worker.py, in one process): wherever the
-  reference gathers or reduces, rank 0's record does too.
+  reference gathers or reduces, rank 0's record does too.  In the same
+  process, C3's cell (``HEADS_CELL``: 16 q heads over 8 kv heads on 16
+  ``model`` ranks): rank 0's attention and other products at most 1.25
+  times the reference's.
+* C3 and C4 in rank 0's full-width records of gemma2-9b and internlm2-20b
+  (one layer, both meshes): flash on the rank's H / 16 q heads, no
+  all-gather of the logits.
 
 Rank 0 of a fake world against rank 0 of 8 real gloo ranks is
 tests/test_torch_sharded.py's (its 8-process spawn runs the real side).
 """
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -353,6 +360,15 @@ def _full_width(arch: str, layers: int):
     return dataclasses.replace(get_config(arch), n_layers=layers)
 
 
+@functools.cache
+def _full_width_record(arch: str, layers: int, mesh: str) -> dict:
+    """The record of ``arch``'s ``train_4k`` cell at full width, cut to
+    ``layers`` layers, on ``pod`` or ``multipod`` (traced once a module)."""
+    return dryrun.trace_cell(_full_width(arch, layers), LM_SHAPES["train_4k"],
+                             make_production_mesh(multi_pod=mesh ==
+                                                  "multipod"))
+
+
 def test_moe_train_uses_reduce_scatter():
     """qwen3-moe-235b-a22b ``train_4k`` on ``pod`` at full width, 1 layer:
     the record is rank 0's of 256 and reduce-scatters."""
@@ -374,11 +390,8 @@ def test_multipod_weak_scaling(arch, layers, tmp_path, monkeypatch):
     both counts twice, at its own bytes each time.  The roofline reads both
     records: a numeric collective term and DCN row."""
     from repro_torch.roofline import analysis
-    cfg = _full_width(arch, layers)
-    recs = {"pod": dryrun.trace_cell(cfg, LM_SHAPES["train_4k"], POD),
-            "multipod": dryrun.trace_cell(
-                cfg, LM_SHAPES["train_4k"],
-                make_production_mesh(multi_pod=True))}
+    recs = {mesh: dict(_full_width_record(arch, layers, mesh))
+            for mesh in ("pod", "multipod")}
     pod, two = recs["pod"], recs["multipod"]
     assert two["n_chips"] == 512
     assert 0 < _total(two) <= 1.1 * _total(pod), (_total(pod), _total(two))
@@ -396,6 +409,25 @@ def test_multipod_weak_scaling(arch, layers, tmp_path, monkeypatch):
     assert "n/a" not in analysis.multipod_markdown()
 
 
+@pytest.mark.parametrize("mesh", ["pod", "multipod"])
+@pytest.mark.parametrize("arch,layers", [("gemma2-9b", 1),
+                                         ("internlm2-20b", 1)])
+def test_rank0_runs_its_q_heads_and_keeps_the_logits(arch, layers, mesh):
+    """C3 and C4 in rank 0's record (full width, one layer, 16 ``model``
+    ranks; 16 and 48 q heads over 8 kv heads): flash runs on the rank's
+    H / 16 q heads of its rows of a microbatch (256 rows / 4 microbatches
+    / 16 or 32 data ranks; the kernel's q (rows, 4096, H / 16, hd): one kv
+    head), and no all-gather carries the f32 logits of those rows."""
+    cfg = get_config(arch)
+    rec = _full_width_record(arch, layers, mesh)
+    rows = 256 // 4 // (16 if mesh == "pod" else 32)
+    S = LM_SHAPES["train_4k"].seq_len
+    assert rec["rank0"]["kernel_shapes"]["flash_attention"] == \
+        [[rows, S, cfg.n_heads // 16, cfg.head_dim]]
+    gathers = rec["rank0"]["largest_collective"]["all-gather"]
+    assert 0 < gathers["output_bytes"] < rows * S * cfg.vocab_size * 4
+
+
 def smoke_train_record(arch: str, multi_pod: bool) -> dict:
     """The record of ``arch``'s smoke train cell (one layer, 64 x 256
     tokens, ``grad_accum`` 1) on a production mesh."""
@@ -406,19 +438,37 @@ def smoke_train_record(arch: str, multi_pod: bool) -> dict:
         multi_pod=multi_pod), grad_accum=1)
 
 
+# C3's cell beside the reference's own record: the internlm2-20b smoke
+# config with 16 q heads and 8 kv heads on ``pod`` (16 ``model`` ranks:
+# the q-heads route, each rank 1 q head), one layer, 64 x 256 tokens; the
+# reference's causal packing off (``attn_causal_pack``), which halves its
+# causal products where the port's eager attention backward computes the
+# whole square (PERF.md §7): the ratio then reads the partitioning
+HEADS_CELL = "internlm2-20b@16x8:off"
+
+
+def heads_port_record() -> dict:
+    """The port's side of ``HEADS_CELL`` (tests/dryrun_records_worker.py)."""
+    import dryrun_records_worker as worker
+    arch, _, heads = HEADS_CELL.partition("@")
+    return worker.port(arch, "smoke", "pod", 1, 256, 64, 1, heads)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def smoke_records():
-    """Every arch's smoke train record on both meshes, traced by 4 spawned
-    processes (each cell its own fake world) while the module's other
-    tests run: {cell: future}.  A cell's cold sharding propagation on a 3-D
-    mesh takes 1-17 s."""
+    """Every arch's smoke train record on both meshes, and the port's side
+    of ``HEADS_CELL``, traced by 4 spawned processes (each cell its own
+    fake world) while the module's other tests run: {cell: future}.  A
+    cell's cold sharding propagation on a 3-D mesh takes 1-17 s."""
     import concurrent.futures
     import multiprocessing
     pool = concurrent.futures.ProcessPoolExecutor(
         4, mp_context=multiprocessing.get_context("spawn"))
     try:
-        yield {(a, mp): pool.submit(smoke_train_record, a, mp)
-               for a in list_archs() for mp in (False, True)}
+        futures = {HEADS_CELL: pool.submit(heads_port_record)}
+        futures.update({(a, mp): pool.submit(smoke_train_record, a, mp)
+                        for a in list_archs() for mp in (False, True)})
+        yield futures
     finally:
         pool.shutdown(cancel_futures=True)
 
@@ -449,23 +499,24 @@ COLLECTIVE_CLASSES = {"gather": ("all-gather",),
 def reference_records():
     """The reference's records of ``REFERENCE_ARCHS``' smoke train cells on
     ``pod`` (tests/dryrun_records_worker.py: the cells of
-    ``smoke_train_record``), compiled one after the other by one process
-    started while the module's other tests run."""
+    ``smoke_train_record``) and of ``HEADS_CELL``, compiled one after the
+    other by one process started while the module's other tests run."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     proc = subprocess.Popen(
-        [sys.executable, str(WORKER), "reference", ",".join(REFERENCE_ARCHS),
-         "smoke", "pod", "--layers", "1", "--seq", "256", "--batch", "64"],
+        [sys.executable, str(WORKER), "reference",
+         ",".join(REFERENCE_ARCHS + [HEADS_CELL]), "smoke", "pod",
+         "--layers", "1", "--seq", "256", "--batch", "64"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     records = {}
 
-    def get(arch: str) -> dict:
+    def get(cell: str) -> dict:
         if not records:
             out, err = proc.communicate(timeout=SMOKE_JOIN_S)
             assert proc.returncode == 0, err[-3000:]
             for line in out.splitlines():
                 rec = json.loads(line)
-                records[rec["arch"]] = rec
-        return records[arch]
+                records[rec["cell"]] = rec
+        return records[cell]
     try:
         yield get
     finally:
@@ -491,6 +542,20 @@ def test_collectives_cover_the_reference(smoke_records, reference_records,
         if sum(ref["collectives"][k]["count"] for k in kinds):
             assert sum(rec["collectives"][k]["count"] for k in kinds) > 0, \
                 (cls, ref["collectives"], rec["collectives"])
+
+
+def test_split_heads_hold_the_reference(smoke_records, reference_records):
+    """C3 and C4 beside the reference's own record of ``HEADS_CELL``: rank
+    0's attention products (flash and the eager backward's ``bmm``) and its
+    other products (``mm``: the projections, with k's and v's split by
+    columns, the MLP and the vocab-parallel head) at most 1.25 times the
+    reference's a device (measured 1.167 and 1.000; replicated heads would
+    be 16 times)."""
+    ref = reference_records(HEADS_CELL)
+    port = smoke_records[HEADS_CELL].result(timeout=SMOKE_JOIN_S)
+    assert (ref["n_chips"], port["n_chips"]) == (256, 256)
+    for key in ("attention_flops", "product_flops"):
+        assert 0 < port[key] <= 1.25 * ref[key], (key, port[key], ref[key])
 
 
 def test_one_rank_dtensor_step_traces_the_plain_step(tmp_path):

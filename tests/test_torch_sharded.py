@@ -24,6 +24,13 @@ sequence 32, global batch 8.  The cells:
 * ``qw``: qwen3-moe-235b-a22b, one train step with Adafactor and
   ``moe_sharded`` inside the DTensor model.
 
+On this mesh gemma2-9b's 4 q heads split over ``model`` and its 2 kv
+heads do not: flash runs on each rank's own q head (the q-heads route,
+C3) and the loss of the vocab-sharded logits is vocab-parallel (C4), in
+``g2``, ``g2t`` and the traced step; both are also held alone (flash's
+routes beside the other kernels', the loss against the full logits), and
+``head_split`` over every arch at 4 and 16 ``model`` ranks.
+
 Beside the cells, ``moe_layer`` on DTensors where the experts do not split
 over ``model`` (qwen3-moe and arctic smoke MoEs with 6 experts on 4
 ranks): it falls back to ``moe_dense`` on every token, as the reference's
@@ -92,7 +99,8 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro.models.losses import softmax_xent as jax_xent  # noqa: E402
 from repro.optim import make_optimizer as jax_make_optimizer  # noqa: E402
 from repro.train import steps as jsteps  # noqa: E402
-from repro_torch.configs.base import LM_SHAPES, get_smoke_config  # noqa: E402
+from repro_torch.configs.base import (LM_SHAPES, get_config,  # noqa: E402
+                                      get_smoke_config)
 from repro_torch.distributed import collectives as coll  # noqa: E402
 from repro_torch.distributed import context  # noqa: E402
 from repro_torch.distributed import layouts  # noqa: E402
@@ -180,7 +188,9 @@ def _port_model(cell):
 
 
 KERNEL_SHAPES = {"q": (8, 16, 4, 2, 16), "k": (8, 16, 4, 16),
-                 "v": (8, 16, 4, 16), "a": (8, 16, 8), "b": (8, 16, 8),
+                 "v": (8, 16, 4, 16), "qf": (8, 16, 8, 16),
+                 "kf": (8, 16, 2, 16), "vf": (8, 16, 2, 16),
+                 "a": (8, 16, 8), "b": (8, 16, 8),
                  "r": (8, 16, 4, 16), "wk": (8, 16, 4, 16),
                  "wv": (8, 16, 4, 16), "logw": (8, 16, 4, 16), "u": (4, 16)}
 
@@ -194,6 +204,7 @@ def _kernel_inputs():
     inp["kern/logw"] = -rng.uniform(1e-3, 2.0, KERNEL_SHAPES["logw"]).astype(
         np.float32)
     for tag, shapes in (("flash", [KERNEL_SHAPES["q"]]),
+                        ("flashq", [KERNEL_SHAPES["qf"]]),
                         ("scan", [KERNEL_SHAPES["a"]]),
                         ("wkv6", [KERNEL_SHAPES["r"], (8, 4, 16, 16)])):
         for i, shape in enumerate(shapes):
@@ -207,9 +218,13 @@ def _kernel_plain(inp):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rwkv6_chunk import wkv6
+    def flat_q(qf, kf, vf):         # 8 q heads, 2 kv heads: G = 4
+        return flash_attention(qf.unflatten(2, (2, 4)), kf, vf,
+                               scale=0.25).flatten(2, 3)
     out = {}
     for tag, fn, names in (
             ("flash", functools.partial(flash_attention, scale=0.25), "qkv"),
+            ("flashq", flat_q, ("qf", "kf", "vf")),
             ("scan", rglru_scan, "ab"),
             ("wkv6", wkv6, ("r", "wk", "wv", "logw", "u"))):
         ins = {n: torch.from_numpy(inp[f"kern/{n}"]).requires_grad_()
@@ -223,6 +238,31 @@ def _kernel_plain(inp):
         for n, t in ins.items():
             out[f"kern/{tag}/grad/{n}"] = t.grad.numpy()
     return out
+
+
+XENT_B, XENT_S, XENT_V = 8, 6, 512      # the vocab: 128 columns a rank
+
+
+def _xent_inputs():
+    """f32 logits and labels: every shard's first and last column among
+    the labels, and ignored (-1) labels."""
+    rng = np.random.default_rng(11)
+    labels = rng.integers(0, XENT_V, (XENT_B, XENT_S))
+    edges = [c for r in range(4) for c in (128 * r, 128 * r + 127)]
+    labels.flat[:len(edges)] = edges
+    labels.flat[-5:] = -1
+    return {"xent/logits": 3 * rng.standard_normal(
+        (XENT_B, XENT_S, XENT_V)).astype(np.float32),
+            "xent/labels": labels}
+
+
+def _xent_plain(inp):
+    """``softmax_xent`` on the full plain logits: loss, count, gradient."""
+    logits = torch.from_numpy(inp["xent/logits"]).requires_grad_()
+    loss, n = softmax_xent(logits, torch.from_numpy(inp["xent/labels"]))
+    loss.backward()
+    return {"xent/loss": loss.detach().numpy(), "xent/n": n.numpy(),
+            "xent/grad": logits.grad.numpy()}
 
 
 # arch -> an expert count that does not divide the 4 ``model`` ranks
@@ -324,7 +364,7 @@ def _moe_dense_jax(inp):
 
 def _inputs():
     inp = {"cells": np.array(",".join(CELLS)), **_kernel_inputs(),
-           **_moe_dense_inputs()}
+           **_xent_inputs(), **_moe_dense_inputs()}
     for cell, (arch, kinds, kv_quant, accum) in CELLS.items():
         inp[f"{cell}/arch"] = np.array(arch)
         inp[f"{cell}/kinds"] = np.array(kinds)
@@ -475,6 +515,7 @@ def sharded(tmp_path_factory):
     try:
         port = {c: _port_run(c) for c in CELLS}
         port["kernels"] = _kernel_plain(_kernel_inputs())
+        port["xent"] = _xent_plain(_xent_inputs())
         ref = {c: _jax_run(c) for c in CELLS}
         port["moed"] = _moe_dense_port(_moe_dense_inputs())
         ref["moed"] = _moe_dense_jax(_moe_dense_inputs())
@@ -630,12 +671,14 @@ def test_moe_fallback_matches_reference(sharded, arch):
                                        err_msg=k)
 
 
-@pytest.mark.parametrize("tag", ["flash", "scan", "wkv6"])
+@pytest.mark.parametrize("tag", ["flash", "flashq", "scan", "wkv6"])
 def test_kernel_routes_on_eight_ranks(sharded, tag):
     """Each wrapper's DTensor route on the 2 x 4 mesh (some inputs cut
     locally, u's gradient a Partial over ``data``): its outputs and the
     gradients of its inputs equal the plain call's to 1e-5 relative, at
-    the placements of the split axes."""
+    the placements of the split axes.  ``flashq`` is flash's q-heads
+    route: flat q of 8 heads cut over the 4 ``model`` ranks, k and v of 2
+    kv heads whole there (each rank reads one; their gradients summed)."""
     res, port, _ = sharded
     want = port["kernels"]
     keys = [k for k in want if k.startswith(f"kern/{tag}/")]
@@ -643,11 +686,33 @@ def test_kernel_routes_on_eight_ranks(sharded, tag):
     for k in keys:
         assert _rel(res[k], want[k]) <= DIST_F32_TOL, k
     place = {"flash": ["(Shard(dim=0), Shard(dim=2))"],
+             "flashq": ["(Shard(dim=0), Shard(dim=2))"],
              "scan": ["(Shard(dim=0), Shard(dim=2))"],
              "wkv6": ["(Shard(dim=0), Shard(dim=2))",
                       "(Shard(dim=0), Shard(dim=1))"]}[tag]
     for i, pl in enumerate(place):
         assert str(res[f"kern/{tag}/place{i}"]) == pl
+
+
+def test_vocab_parallel_loss_matches_the_full_logits(sharded):
+    """``softmax_xent`` of logits sharded on the vocab over ``model`` (128
+    columns a rank) and on the batch over ``data``, labels at every shard's
+    edges and ignored ones: the loss, the count and the logits' gradient
+    equal the plain call's on the full logits (f32, 1e-6 relative); the
+    gradient stays sharded on the vocab; the ranks exchange no logits (no
+    all-gather; the max, the sum and the label's logit all-reduced)."""
+    res, port, _ = sharded
+    want = port["xent"]
+    assert abs(float(res["xent/loss"]) - float(want["xent/loss"])) <= \
+        1e-6 * abs(float(want["xent/loss"]))
+    assert int(res["xent/n"]) == int(want["xent/n"]) == XENT_B * XENT_S - 5
+    assert _rel(res["xent/grad"], want["xent/grad"]) <= 1e-6
+    assert str(res["xent/grad_place"]) == "(Shard(dim=0), Shard(dim=2))"
+    stats = json.loads(str(res["xent/stats"]))
+    assert stats["all-gather"]["count"] == 0
+    assert stats["all-reduce"]["count"] >= 3
+    assert stats["all-reduce"]["operand_bytes"] < \
+        XENT_B * XENT_S * XENT_V * 4 / 8
 
 
 def test_grad_shardings_take_zero_layout(sharded):
@@ -714,6 +779,15 @@ def test_fake_world_traces_what_the_real_ranks_run(sharded):
     real = json.loads(str(res["trace/collectives"]))
     assert json.loads(fake["collectives"]) == real
     assert sum(v["operand_bytes"] for v in real.values()) > 0
+    # C3: flash on 1 of the 4 q heads (the q-heads route), the rank's
+    # microbatch rows; C4: no all-gather of the f32 logits' rows
+    cfg = get_smoke_config(worker.TRACE_ARCH)
+    rows = worker.TRACE_B // worker.TRACE_ACCUM // 2
+    S = worker.TRACE_S
+    assert json.loads(fake["flash_q"]) == json.loads(str(res["trace/flash_q"])) \
+        == [[rows, S, cfg.n_heads // 4, cfg.head_dim]]
+    assert int(fake["largest_gather"]) == int(res["trace/largest_gather"]) \
+        < rows * S * cfg.vocab_size * 4
 
 
 # ---------------------------------------------------------------------------
@@ -888,6 +962,86 @@ def test_collectives_copy_nothing_on_one_rank(one_rank, op):
     g = torch.randn(4, 6, generator=torch.Generator().manual_seed(1))
     y.backward(g)
     assert torch.equal(x.grad, g)
+
+
+# arch -> how flash splits its heads over 4 and over 16 ``model`` ranks
+HEAD_SPLITS = {
+    "arctic-480b": ("kv_heads", "replicated"),
+    "gemma2-9b": ("kv_heads", "q_heads"),
+    "gemma3-1b": ("q_heads", "replicated"),
+    "h2o-danube-1.8b": ("kv_heads", "q_heads"),
+    "internlm2-20b": ("kv_heads", "q_heads"),
+    "paligemma-3b": ("q_heads", "replicated"),
+    "qwen3-moe-235b-a22b": ("kv_heads", "q_heads"),
+    "recurrentgemma-2b": ("replicated", "replicated"),
+    "rwkv6-7b": ("kv_heads", "kv_heads"),
+    "whisper-small": ("kv_heads", "replicated"),
+}
+
+
+def _flash_local_q(H, K, hd, tp, kv_split):
+    """Rank 0's flash on meta DTensors of (2, 8) tokens on a fake
+    (1, tp) mesh: q cut on its heads over ``model`` (flat unless the kv
+    heads split too) -> (the local output's shape, the q shape the kernel
+    recorded)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.roofline.trace import OpTrace
+    with fake_mesh(AbstractMesh(("data", "model"), (1, tp))) as mesh:
+        def dt(shape, d):
+            return distribute_tensor(torch.empty(shape, device="meta"), mesh,
+                                     (Replicate(), Shard(d) if d else
+                                      Replicate()))
+        q = dt((2, 8, K, H // K, hd) if kv_split else (2, 8, H, hd), 2)
+        k, v = (dt((2, 8, K, hd), 2 if kv_split else None) for _ in "kv")
+        with OpTrace() as trace:
+            o = flash_attention(q, k, v, scale=0.25)
+    [op] = [op for op in trace.ops if op.name == "flash_attention"]
+    return tuple(o.to_local().shape), op.shape
+
+
+@pytest.mark.parametrize("tp", [4, 16])
+@pytest.mark.parametrize("arch", sorted(HEAD_SPLITS))
+def test_each_arch_takes_one_head_split(arch, tp):
+    """C3: each arch's full config at 4 and 16 ``model`` ranks takes
+    exactly one of flash's three layouts, the one the reference's rules
+    imply: kv heads split (``kv_heads`` on ``model``), attention
+    replicated (``heads`` on nothing), or q heads split with each rank's
+    H / tp heads reading one kv head, which rank 0 runs at those local
+    shapes (its q (B, S, 1 kv head, H / tp, hd) in the kernel's layout)."""
+    from repro_torch.kernels.flash_attention.ops import head_split
+    cfg = get_config(arch)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    how = head_split(H, K, tp)
+    assert how == HEAD_SPLITS[arch][tp == 16]
+    rules = layouts.choose_layout(cfg, LM_SHAPES["train_4k"],
+                                  AbstractMesh(("data", "model"), (16, tp)))
+    assert (rules.rules["kv_heads"] == "model") == (how == "kv_heads")
+    assert (rules.rules["heads"] is None) == (how == "replicated")
+    if how == "replicated":
+        return
+    out, kernel_q = _flash_local_q(H, K, hd, tp, how == "kv_heads")
+    if how == "kv_heads":
+        assert out == (2, 8, K // tp, H // K, hd)
+        assert kernel_q == (2 * K // tp, 8, H // K, hd)
+    else:
+        assert out == (2, 8, H // tp, hd)
+        assert kernel_q == (2, 8, H // tp, hd)
+
+
+@pytest.mark.parametrize("H,K,tp", [(24, 6, 4), (12, 4, 6)])
+def test_other_head_layouts_raise(H, K, tp):
+    """q heads that split over ``model`` where each rank's H / tp heads
+    read more than one kv head: ``head_split`` and flash's DTensor route
+    raise with (H, K, tp) and the placements; nothing is replicated."""
+    from repro_torch.kernels.flash_attention.ops import head_split
+    with pytest.raises(ValueError, match=rf"\({H}, {K}, {tp}\)"):
+        head_split(H, K, tp)
+    with pytest.raises(ValueError, match=rf"\({H}, {K}, {tp}\).*"
+                       "placements q"):
+        _flash_local_q(H, K, 16, tp, False)
 
 
 def test_layer_spec_moves_the_layer_axis():

@@ -14,7 +14,9 @@ writes the sharded outputs gathered back to full tensors.
 With ``sharded`` it runs the sharded model instead (``sharded_main``): each
 cell of INPUTS (its weights in the port's names, its tokens) as DTensors on
 the (2, 4) ("data", "model") mesh, and writes each output in full; the
-MoE whose experts do not split over ``model`` (``run_moe_dense``).  Then
+MoE whose experts do not split over ``model`` (``run_moe_dense``); the
+kernels' DTensor routes (``run_kernels``) and the vocab-parallel
+cross-entropy (``run_loss``).  Then
 what the dry-run's fake world is held against (``run_dryrun_checks``):
 ``train.steps._microbatch`` on a batch sharded over 8 data ranks, a
 shard-to-shard ``redistribute`` under ``native_alltoall`` (gloo's
@@ -241,9 +243,10 @@ def run_cell(inp, cell, mesh, res, grad_accum=2, lr=1e-3):
 def run_kernels(inp, mesh, res):
     """Each kernel wrapper on DTensors of the inputs ``kern/*`` placed so
     that some are cut locally (flash's k, the scan's b, the wkv6's u over
-    ``model``) and some gradients are ``Partial`` (u over ``data``); the
-    outputs, the input gradients of a random cotangent and the output
-    placements, in full."""
+    ``model``) and some gradients are ``Partial`` (u over ``data``), and
+    flash's q-heads route (flat q cut on its heads over ``model``, k and v
+    whole there); the outputs, the input gradients of a random cotangent
+    and the output placements, in full."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
@@ -268,12 +271,39 @@ def run_kernels(inp, mesh, res):
            "k": dt("k", Shard(0), Replicate()),
            "v": dt("v", Replicate(), Shard(2))}
     record("flash", flash_attention(*ins.values(), scale=0.25), ins)
+    # the q-heads route: 8 flat q heads over 4 ranks, 2 kv heads whole
+    ins = {"qf": dt("qf", Shard(0), Shard(2)),
+           "kf": dt("kf", Shard(0), Replicate()),
+           "vf": dt("vf", Replicate(), Replicate())}
+    record("flashq", flash_attention(*ins.values(), scale=0.25), ins)
     ins = {"a": dt("a", Shard(0), Shard(2)), "b": dt("b", Replicate(),
                                                      Replicate())}
     record("scan", rglru_scan(*ins.values()), ins)
     ins = {n: dt(n, Shard(0), Shard(2)) for n in ("r", "wk", "wv", "logw")}
     ins["u"] = dt("u", Replicate(), Replicate())
     record("wkv6", wkv6(*ins.values()), ins)
+
+
+def run_loss(inp, mesh, res):
+    """``softmax_xent`` of the logits ``xent/logits`` sharded on the vocab
+    over ``model`` and on the batch over ``data`` (the labels on the batch):
+    the loss, the token count and the logits' gradient in full, the
+    gradient's placements, and the trace's collectives."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models.losses import softmax_xent
+    from repro_torch.roofline.trace import OpTrace, collective_stats
+    logits = distribute_tensor(torch.from_numpy(inp["xent/logits"]), mesh,
+                               (Shard(0), Shard(2))).requires_grad_()
+    labels = distribute_tensor(torch.from_numpy(inp["xent/labels"]), mesh,
+                               (Shard(0), Replicate()))
+    with OpTrace() as trace:
+        loss, n = softmax_xent(logits, labels)
+        loss.backward()
+    res["xent/loss"] = full(loss.detach()).numpy()
+    res["xent/n"] = full(n).numpy()
+    res["xent/grad"] = full(logits.grad).numpy()
+    res["xent/grad_place"] = np.array(str(logits.grad.placements))
+    res["xent/stats"] = np.array(json.dumps(collective_stats(trace)))
 
 
 MOE_DENSE_LOGICAL = {"router": (None, None),
@@ -330,25 +360,40 @@ TRACE_ARCH, TRACE_B, TRACE_S, TRACE_ACCUM = "gemma2-9b", 8, 32, 2
 
 def trace_summary(trace) -> dict:
     """What the fake world's trace is compared on: the op names and
-    counts, the flops, ``collective_stats``."""
+    counts, the flops, ``collective_stats`` and the largest all-gather
+    output."""
     from repro_torch.roofline.trace import collective_stats
     return {"ops": json.dumps(collections.Counter(op.name
                                                   for op in trace.ops)),
             "flops": np.array(trace.flops),
-            "collectives": json.dumps(collective_stats(trace))}
+            "collectives": json.dumps(collective_stats(trace)),
+            "largest_gather": np.array(max(
+                (out for kind, _, out, _ in trace.collectives
+                 if kind == "all-gather"), default=0))}
 
 
 def traced_train_step(mesh):
     """Rank 0's trace of one sharded f32 smoke train step of
-    ``TRACE_ARCH`` (``launch.dryrun.run_step`` on CPU tensors)."""
+    ``TRACE_ARCH`` (``launch.dryrun.run_step`` on CPU tensors), and the
+    shapes of the q its flash calls hand the kernel wrapper."""
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import dryrun
     cfg = dataclasses.replace(get_smoke_config(TRACE_ARCH),
                               param_dtype="float32")
-    trace, _ = dryrun.run_step(cfg, ShapeConfig("s", "train", TRACE_S,
-                                                TRACE_B),
-                               mesh, grad_accum=TRACE_ACCUM, device="cpu")
-    return trace_summary(trace)
+    seen, bkg = set(), ops.flash_attention_bkg
+
+    def seeing(q, k, v, **kw):
+        seen.add(tuple(q.shape))
+        return bkg(q, k, v, **kw)
+    ops.flash_attention_bkg = seeing
+    try:
+        trace, _ = dryrun.run_step(cfg, ShapeConfig("s", "train", TRACE_S,
+                                                    TRACE_B),
+                                   mesh, grad_accum=TRACE_ACCUM, device="cpu")
+    finally:
+        ops.flash_attention_bkg = bkg
+    return {**trace_summary(trace), "flash_q": json.dumps(sorted(seen))}
 
 
 def run_dryrun_checks(mesh, res):
@@ -387,6 +432,7 @@ def sharded_main(rank, world, store, inputs, out):
     for cell in str(inp["cells"]).split(","):
         run_cell(inp, cell, mesh, res)
     run_kernels(inp, mesh, res)
+    run_loss(inp, mesh, res)
     run_moe_dense(inp, mesh, res)
     run_dryrun_checks(mesh, res)
     np.savez(out, **res)
