@@ -16,7 +16,11 @@ Phases:
   2. kernel vs plain version on the card, tf32 off, each timed with CUDA
      events beside its plain version and its bound:
      - flash attention: the sweep of tests/test_kernels.py in f32 (the
-       CUDA-core kernel) and bf16 (the tensor-core kernel), gemma3-1b's
+       CUDA-core kernel) and bf16 (the tensor-core kernel), the same two
+       kernels with q's rows at a row offset q0 (``Q0_SWEEP``: S/4 rows at
+       q0 = S/4, S/2, 3S/4 against S keys, the q-rows route's shape), and
+       the gradients through the q-block dispatch (``GRAD_Q_BLOCK``) and at
+       row offsets (``GRAD_Q0``), gemma3-1b's
        prefill shapes (local and global layers), recurrentgemma-2b's
        local layer (G=10, window 2048), qwen3-moe's (G=16, hd 128),
        arctic's (G=7, hd 128) and whisper's decoder (G=1, hd 64, 256
@@ -221,6 +225,18 @@ TABLE2_MB = (10, 50)          # Table 2's smallest and largest input
 SWEEP = [(2, 256, 4, 64, 0, 0.0), (2, 256, 1, 64, 64, 0.0),
          (3, 128, 2, 32, 0, 50.0), (1, 512, 6, 128, 128, 30.0),
          (2, 192, 2, 64, 96, 0.0)]
+# (BK, S, G, hd, window): both flash kernels with q's rows at a row offset
+# q0 in {S/4, S/2, 3S/4}, Sq = S/4 rows against Skv = S keys (the q-rows
+# route's shape), each case in f32 (the CUDA-core kernel) and bf16 (the
+# tensor-core kernel at hd 64, 128 and 256)
+Q0_SWEEP = [(2, 512, 2, 64, 0), (2, 512, 4, 64, 96), (2, 512, 3, 128, 0),
+            (1, 512, 4, 128, 200), (1, 512, 2, 256, 0), (1, 512, 2, 256, 64)]
+# the gradient sweep's q block: S = 256 packs (no window) or scans q blocks
+# (a window; S = 192), S = 128 is one masked square
+GRAD_Q_BLOCK = 64
+# (B, Sq, q0, G, hd, window): gradients of the rows at q0 (a rank's block
+# on the q-rows route) against the keys up to their last row
+GRAD_Q0 = [(2, 64, 192, 4, 64, 0), (2, 64, 128, 2, 128, 48)]
 # (B, S, C, a near 1): test_rglru_kernel's sweep, then ragged C (C % 4 != 0;
 # a last group of 4 channels) and a near 1, also at the prefill shape
 RGLRU_SWEEP = [(2, 256, 128, False), (1, 128, 512, False), (3, 64, 96, False),
@@ -292,7 +308,7 @@ DRYRUN_TIMEOUT_S = 90
 # the same cell's trace on a CPU host (torch 2.13.0+cpu): printed beside the
 # card machine's, so that a torch whose DTensor issues other ops or
 # collectives, or whose bookkeeping the trace filters otherwise, shows
-DRYRUN_CPU = {"torch": "2.13.0+cpu", "ops": 6003,
+DRYRUN_CPU = {"torch": "2.13.0+cpu", "ops": 11003,
               "collective_counts": {"all-gather": 112, "all-reduce": 119,
                                     "reduce-scatter": 49, "all-to-all": 8,
                                     "collective-permute": 0}}
@@ -378,6 +394,37 @@ def check_flash(torch, F, randn, dev):
         sweep_err[dname] = worst
         print(f"[kernels] flash sweep {dname} ({'/'.join(used)} kernel): max abs "
               f"err {worst:.3g} (tol {TOL[dname]})")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        worst, worst_emu, used = 0.0, 0.0, set()
+        for BK, S_, G, hd, win in Q0_SWEEP:
+            k, v = randn((BK, S_, hd), dtype), randn((BK, S_, hd), dtype)
+            for q0 in (S_ // 4, S_ // 2, 3 * S_ // 4):
+                q = randn((BK, S_ // 4, G, hd), dtype)
+                kw = dict(scale=hd ** -0.5, window=win, q0=q0)
+                o, which = launch(q, k, v, **kw)
+                used.add(which)
+                ref = flash_attention_ref(q, k, v, **kw)
+                torch.cuda.synchronize()
+                err = (o.float() - ref.float()).abs().max().item()
+                check(o.dtype == dtype and o.shape == q.shape,
+                      "kernel output type at q0")
+                check(err <= TOL[dname], f"q0 sweep {dname} "
+                      f"{(BK, S_, G, hd, win, q0)} max err {err} > {TOL[dname]}")
+                worst = max(worst, err)
+                if which == "wgmma":
+                    emu = flash_attention_wgmma_ref(q, k, v, **kw)
+                    worst_emu = max(worst_emu, (o.float() - emu.float())
+                                    .abs().max().item())
+        check(used == {"fma" if dtype == torch.float32 else "wgmma"},
+              f"q0 sweep {dname} took {used}")
+        sweep_err[f"{dname} q0"] = worst
+        print(f"[kernels] flash q0 sweep {dname} ({'/'.join(used)} kernel; Sq "
+              f"= S/4 rows at q0 = S/4, S/2, 3S/4 against S keys; G > 1; "
+              f"hd 64/128/256; windows 0/64/96/200): max abs err {worst:.3g} "
+              f"(tol {TOL[dname]})" + (f", vs its numerics' plain version "
+                                       f"{worst_emu:.3g}" if worst_emu else ""))
 
     rows = {}
     gemma3, rgemma = get_config("gemma3-1b"), get_config("recurrentgemma-2b")
@@ -597,9 +644,14 @@ def check_grads(torch, randn):
     """Each kernel's autograd function (forward: the kernel; backward: autograd
     of the plain version on the saved inputs) against autograd of the plain
     version alone, over the kernel's sweep, at the kernel's tolerance: flash
-    in the model's layout (B, S, K=1, G, hd) against the eager attention the
-    reference trains through; the scan and the wkv6 (y and final state)
-    against their plain versions in f64.  Returns the worst error by kernel."""
+    in the model's layout (B, S, K=1, G, hd) at q block ``GRAD_Q_BLOCK``, its
+    backward recomputed through the reference's q-block dispatch
+    (``causal_attention``: packed, q-block scan or one square), against the
+    whole-square eager attention, and at row offsets (``GRAD_Q0``), output
+    and gradients, against the whole square of q0 + Sq rows with those rows
+    sliced out of its output (no row offset on that side); the scan and the wkv6 (y and final
+    state) against their plain versions in f64.  Returns the worst error by
+    kernel."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
@@ -618,8 +670,8 @@ def check_grads(torch, randn):
                    randn((BK, Sq, 1, hd), dtype))
             go = (randn((BK, Sq, 1, G, hd), dtype),)
             before = cuda_lib.launches["flash_attention"]
-            (o,), got = grads_of(torch, lambda *t: flash_attention(*t, **kw),
-                                 ins, go)
+            (o,), got = grads_of(torch, lambda *t: flash_attention(
+                *t, q_block=GRAD_Q_BLOCK, pack=True, **kw), ins, go)
             check(cuda_lib.launches["flash_attention"] == before + 1 and
                   o.grad_fn is not None, "flash autograd function launched")
             _, want = grads_of(torch, lambda *t: plain_attention(*t, **kw), ins,
@@ -630,6 +682,27 @@ def check_grads(torch, randn):
                   f"flash grads {dname} {(BK, Sq, G, hd, win, cap)}: {err}")
             worst[f"flash_attention {dname}"] = max(
                 worst.get(f"flash_attention {dname}", 0.0), err)
+        for B_, Sq, q0, G, hd, win in GRAD_Q0:
+            # held against an independent computation: the whole square of
+            # q0 + Sq rows (the first q0 of them fixed), the rows at q0..
+            # sliced out of its output
+            kw = dict(window=win, scale=hd ** -0.5)
+            head = randn((B_, q0, 1, G, hd), dtype)
+            ins = (randn((B_, Sq, 1, G, hd), dtype),
+                   randn((B_, q0 + Sq, 1, hd), dtype),
+                   randn((B_, q0 + Sq, 1, hd), dtype))
+            go = (randn((B_, Sq, 1, G, hd), dtype),)
+            (o,), got = grads_of(torch, lambda *t: flash_attention(
+                *t, q0=q0, q_block=GRAD_Q_BLOCK, pack=True, **kw), ins, go)
+            (w,), want = grads_of(torch, lambda q, k, v: plain_attention(
+                torch.cat([head, q], dim=1), k, v, **kw)[:, q0:], ins, go)
+            err = max((g.float() - w_.float()).abs().max().item()
+                      for g, w_ in zip((o, *got), (w, *want)))
+            check(excess((o, *got), (w, *want), TOL[dname]) <= TOL[dname],
+                  f"flash output and grads {dname} at q0 "
+                  f"{(B_, Sq, q0, G, hd, win)}: {err}")
+            worst[f"flash_attention {dname} q0"] = max(
+                worst.get(f"flash_attention {dname} q0", 0.0), err)
     for B_, S_, C, near_one in RGLRU_SWEEP:
         x = randn((B_, S_, C), torch.float32)
         a = 1 - torch.sigmoid(x) * 1e-3 if near_one else torch.sigmoid(x)
@@ -683,9 +756,10 @@ def recurrent_kernel(arch):
     return wkv6_ops, "wkv6_bh", wkv6_ops.wkv6_ref, WKV6_TOL
 
 
-def plain_flash(q, k, v, *, window, softcap, scale):
+def plain_flash(q, k, v, *, window, softcap, scale, q_block, pack):
     """The flash hook's plain version (``flash_attention_ref``, P·V in f32
-    as the kernels) in the model's layout."""
+    as the kernels) in the model's layout; the hook's ``q_block`` and
+    ``pack`` do not change it."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
     Bq, Sq, K, Gq, hdq = q.shape
     qf = q.permute(0, 2, 1, 3, 4).reshape(Bq * K, Sq, Gq, hdq)
@@ -2795,14 +2869,15 @@ def dryrun_record(cell) -> tuple:
     check(run.returncode == 0, f"[dryrun] {' '.join(cmd[1:])} exited "
           f"{run.returncode}: {run.stderr[-3000:]}")
     rec = json.loads(path.read_text())
-    check(rec["cost"]["split"] == "rank0" and rec["n_chips"] == 256,
-          f"[dryrun] the record is not rank 0's of 256: {rec['cost']}")
+    check(rec["cost"]["split"] == f"rank{rec['rank_traced']}" and
+          rec["n_chips"] == 256, f"[dryrun] the record does not name the "
+          f"rank it traced of 256: {rec['cost']}")
     return rec, wall
 
 
 def dryrun_path(card) -> dict:
-    """Phase 12: ``DRYRUN_CELL``'s sharded step traced as rank 0 of a fake
-    256-rank world on the host (``dryrun_record``).  Prints its
+    """Phase 12: ``DRYRUN_CELL``'s sharded step traced as one rank of a fake
+    256-rank world (``launch.dryrun.traced_rank``: rank 0 here) on the host (``dryrun_record``).  Prints its
     collectives, per-device flops and op count on one line, beside a CPU
     host's (``DRYRUN_CPU``); fails on no reduce-scatter.  Then
     ``DRYRUN_HEADS_CELL``'s: prints its attention flops a device (flash
@@ -2831,11 +2906,12 @@ def dryrun_path(card) -> dict:
     rec, wall = dryrun_record(DRYRUN_HEADS_CELL)
     cfg, sh = get_config(arch), LM_SHAPES[shape]
     rows = sh.global_batch // TRAIN_GRAD_ACCUM // 16    # 16 data ranks
-    flash_q = rec["rank0"]["kernel_shapes"]["flash_attention"]
+    work = rec[rec["cost"]["split"]]
+    flash_q = work["kernel_shapes"]["flash_attention"]
     heads = sorted({bk * g // rows for bk, _, g, _ in flash_q})
-    gather = rec["rank0"]["largest_collective"]["all-gather"]
+    gather = work["largest_collective"]["all-gather"]
     logits = rows * sh.seq_len * cfg.vocab_size * 4
-    ops = rec["rank0"]["op_flops"]
+    ops = work["op_flops"]
     heads_row = {
         "cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
         "flops_per_device": rec["cost"]["flops_per_device"],
@@ -2987,7 +3063,7 @@ def main() -> int:
         "train_shape": train_out["flash_train_shape"],
         "sweep_max_abs_err": flash_sweep,
         "grad_sweep_max_abs_err": {
-            k.split()[1]: v for k, v in grad_err.items()
+            k.split(" ", 1)[1]: v for k, v in grad_err.items()
             if k.startswith("flash")},
         "launches_per_train_step": {
             "h2o-danube-1.8b": train_out["h2o-danube-1.8b"][

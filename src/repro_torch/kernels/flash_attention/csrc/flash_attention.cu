@@ -8,8 +8,9 @@
 // (flash_attention_bkg, body _flash_kernel).  It computes the same function:
 //   q (BK, Sq, G, hd), k and v (BK, Skv, hd), output (BK, Sq, G, hd) in q's
 //   dtype; s = scale * q k^T, optionally softcap * tanh(s / softcap); a causal
-//   mask aligned top-left (col <= row) with an optional sliding window
-//   (col > row - window); masked scores set to -1e30; online softmax with f32
+//   mask with row i of q at position q0 + i (col <= q0 + i; q0 = 0 aligns it
+//   top-left) and an optional sliding window (col > q0 + i - window); masked
+//   scores set to -1e30; online softmax with f32
 //   m, l and acc; l clamped at 1e-30 before the final division.  The PV
 //   product is taken in f32, as in the Pallas body, so the plain version in
 //   ../ref.py is the same function.
@@ -93,7 +94,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
                  int G, int hd, float scale, float softcap, int window,
-                 int causal) {
+                 int causal, int q0) {
   extern __shared__ float4 smem4[];
   const int ld = hd + PAD;
   float* Qs = reinterpret_cast<float*>(smem4);   // [BM][ld]
@@ -127,12 +128,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // The KV positions any row of this tile may attend to.
   int kv_begin = 0, kv_end = Skv;
   if (causal) {
-    kv_end = min(Skv, r_last / G + 1);
-    if (window > 0) kv_begin = max(0, r0 / G - window + 1);
+    kv_end = min(Skv, q0 + r_last / G + 1);
+    if (window > 0) kv_begin = max(0, q0 + r0 / G - window + 1);
   }
 
   const int my_row = r0 + row;
-  const int my_pos = my_row / G;
+  const int my_pos = q0 + my_row / G;
   float m = NEG_INF, l = 0.f;
   float4 acc[CHUNKS];
 #pragma unroll
@@ -247,7 +248,7 @@ constexpr size_t smem_bytes(int hd) {
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int BK, int Sq, int Skv, int G, int hd, float scale,
-                   float softcap, int window, int causal,
+                   float softcap, int window, int causal, int q0,
                    cudaStream_t stream) {
   // The shared-memory limit is raised once per instantiation and device, to
   // what the largest head dim needs.
@@ -267,7 +268,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<T><<<grid, THREADS, smem_bytes(hd), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, G, hd, scale,
-      softcap, window, causal);
+      softcap, window, causal, q0);
   return cudaGetLastError();
 }
 
@@ -279,14 +280,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int BK, int Sq,
                                    int Skv, int G, int hd, float scale,
                                    float softcap, int window, int causal,
-                                   int is_bf16, void* stream) {
+                                   int q0, int is_bf16, void* stream) {
   if (BK <= 0 || BK > 65535 || Sq <= 0 || Skv <= 0 || G <= 0 || hd <= 0 ||
-      hd > MAX_HD || hd % 4 != 0)
+      hd > MAX_HD || hd % 4 != 0 || q0 < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return (int)launch<__nv_bfloat16>(q, k, v, o, BK, Sq, Skv, G, hd, scale,
-                                      softcap, window, causal, st);
+                                      softcap, window, causal, q0, st);
   return (int)launch<float>(q, k, v, o, BK, Sq, Skv, G, hd, scale, softcap,
-                            window, causal, st);
+                            window, causal, q0, st);
 }

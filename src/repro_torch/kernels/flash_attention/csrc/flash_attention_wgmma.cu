@@ -7,8 +7,9 @@
 // ops.py::variant).  It computes
 // the same function: q (BK, Sq, G, hd), k and v (BK, Skv, hd), output
 // (BK, Sq, G, hd) bf16; s = scale * q k^T, optionally
-// softcap * tanh(s / softcap); a causal mask aligned top-left
-// (col <= row / G) with an optional window (col > row / G - window); masked
+// softcap * tanh(s / softcap); a causal mask with row r of the block's
+// (Sq * G) rows at position q0 + r / G (col <= q0 + r / G; q0 = 0 aligns it
+// top-left) and an optional window (col > q0 + r / G - window); masked
 // scores -1e30, columns past Skv weigh exactly 0; online softmax with f32
 // m, l and acc; l clamped at 1e-30.  Both products run on the tensor cores
 // with f32 accumulation: q k^T is exact products of bf16 values summed in
@@ -250,7 +251,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    __nv_bfloat16* __restrict__ o, int BK, int Sq, int Skv,
-                   int G, float scale, float softcap, int window, int causal) {
+                   int G, float scale, float softcap, int window, int causal,
+                   int q0) {
   using P = Plan<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -271,8 +273,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // The KV positions any row of this block may attend to, in whole tiles.
   int kv_begin = 0, kv_end = Skv;
   if (causal) {
-    kv_end = min(Skv, r_last / G + 1);
-    if (window > 0) kv_begin = max(0, r0 / G - window + 1);
+    kv_end = min(Skv, q0 + r_last / G + 1);
+    if (window > 0) kv_begin = max(0, q0 + r0 / G - window + 1);
   }
   const int t_first = kv_begin / BN;
   const int n_tiles = (kv_end + BN - 1) / BN - t_first;
@@ -316,10 +318,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int g = lane >> 2, c = lane & 3;
   const int wr0 = r0 + wg * WG_ROWS;            // first row of this warpgroup
   const bool has_rows = wr0 < rows_total;
-  const int pmin = wr0 / G;
-  const int pmax = min(wr0 + WG_ROWS - 1, rows_total - 1) / G;
+  // positions of the warpgroup's first and last rows, and of this thread's
+  const int pmin = q0 + wr0 / G;
+  const int pmax = q0 + min(wr0 + WG_ROWS - 1, rows_total - 1) / G;
   const int row0 = wr0 + warp * 16 + g;         // rows row0 and row0 + 8
-  const int pos[2] = {row0 / G, (row0 + 8) / G};
+  const int pos[2] = {q0 + row0 / G, q0 + (row0 + 8) / G};
   const float scale_log2 = scale * LOG2E;
   // softcap * tanh(scale * s / softcap), in log2 units
   const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
@@ -527,7 +530,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int rows,
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int BK, int Sq, int Skv, int G, float scale, float softcap,
-                   int window, int causal, cudaStream_t stream) {
+                   int window, int causal, int q0, cudaStream_t stream) {
   using P = Plan<HD>;
   // The shared-memory limit is raised once per instantiation and device.
   static unsigned raised = 0;
@@ -553,7 +556,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const int row_tiles = (Sq * G + BM - 1) / BM;
   flash_wgmma_kernel<HD><<<row_tiles * BK, THREADS, P::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), BK, Sq, Skv, G, scale,
-      softcap, window, causal);
+      softcap, window, causal, q0);
   return cudaGetLastError();
 }
 
@@ -566,9 +569,9 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k,
                                          const void* v, void* o, int BK,
                                          int Sq, int Skv, int G, int hd,
                                          float scale, float softcap,
-                                         int window, int causal,
+                                         int window, int causal, int q0,
                                          void* stream) {
-  if (BK <= 0 || Sq <= 0 || Skv <= 0 || G <= 0 ||
+  if (BK <= 0 || Sq <= 0 || Skv <= 0 || G <= 0 || q0 < 0 ||
       (long long)Sq * G > (1ll << 30) ||
       ((long long)Sq * G + BM - 1) / BM * BK > (1ll << 30))
     return (int)cudaErrorInvalidValue;
@@ -576,7 +579,7 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k,
 #define FLASH_WGMMA_CASE(D)                                                   \
   case D:                                                                     \
     return (int)launch<D>(q, k, v, o, BK, Sq, Skv, G, scale, softcap, window, \
-                          causal, st);
+                          causal, q0, st);
   switch (hd) {
     FLASH_WGMMA_CASE(16)
     FLASH_WGMMA_CASE(32)

@@ -22,14 +22,17 @@ the output's shape and dtype and adds the kernel's work to the active
 
 ``flash_attention`` is the model-facing GQA wrapper: it folds (B, S, K, G,
 hd) into the kernel layout (B*K, S, G, hd), as the reference's ``ops.py``
-does, and unfolds the result.  On a CUDA tensor it goes through
-``FlashAttention``, an autograd function whose forward launches the kernel
-and whose backward is the gradient of the eager masked attention the
-reference trains through (``models.attention.plain_attention``, its
-``_sdpa``), recomputed from the saved q, k, v: the reference's kernel has
-no VJP, so no backward kernel is owed.  On a CPU tensor it calls the plain
-version directly, which autograd differentiates as it is.  On a DTensor it
-runs all of that on each rank's local shard through ``local_map``
+does, and unfolds the result.  Every call takes a q-row offset ``q0``: row
+i of q sits at position ``q0 + i`` under the causal mask (both kernels take
+it).  On a CUDA tensor it goes through ``FlashAttention``, an autograd
+function whose forward launches the kernel and whose backward is the
+gradient of the attention the reference trains through, recomputed from
+the saved q, k, v: ``models.attention.causal_attention``, the reference's
+q-block dispatch (its ``_sdpa``, ``_qblock_scan`` or ``_causal_packed``) at
+the layer's ``q_block`` and ``pack``.  The reference's kernel has no VJP,
+so no backward kernel is owed.  On a CPU tensor it calls the plain version
+directly, which autograd differentiates as it is.  On a DTensor it runs
+all of that on each rank's local shard through ``local_map``
 (``distributed.context.run_local``): the batch and the kv heads may be
 sharded, the sequence, the group and the head dim may not (a shard of
 those raises, with the placements in the message), and each rank launches
@@ -37,8 +40,11 @@ its kernel, and counts the launch, on its own shard.  Where a mesh dim
 cuts the q heads and not the kv heads (gemma2-9b's 16 heads and 8 kv heads
 over 16 ``model`` ranks), the model hands q over flat, (B, S, H, hd): each
 rank runs its H / tp q heads against the one kv head they read, and k's
-and v's gradients are summed over that dim (``head_split`` says which
-layouts split how; any other raises).
+and v's gradients are summed over that dim.  Where ``model`` has more
+ranks than q heads, a multiple of them (the internlm2-20b smoke config's 4
+heads over 16 ranks), q comes flat too and each rank runs one block of one
+head's rows at its ``q0`` (the q-rows route).  ``head_split`` says which
+layouts split how; any other raises.
 """
 from __future__ import annotations
 
@@ -72,16 +78,18 @@ def _kernel(name: str):
     if name == NAME:
         fn = cuda_lib.load(NAME).flash_attention_fwd
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-            [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     else:
         fn = cuda_lib.load(WGMMA).flash_attention_wgmma_fwd
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-            [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k, v):
+def _check(q, k, v, q0: int = 0):
+    if not isinstance(q0, int) or q0 < 0:
+        raise ValueError(f"q0 must be an int >= 0, got {q0!r}")
     if not (k.device == v.device == q.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
@@ -111,33 +119,37 @@ def _check(q, k, v):
 
 
 def flash_attention_bkg(q, k, v, *, scale: float, softcap: float = 0.0,
-                        window: int = 0, causal: bool = True):
-    """q: (BK, Sq, G, hd); k,v: (BK, Skv, hd) -> (BK, Sq, G, hd)."""
+                        window: int = 0, causal: bool = True, q0: int = 0):
+    """q: (BK, Sq, G, hd); k,v: (BK, Skv, hd) -> (BK, Sq, G, hd); row i of
+    q at position ``q0 + i`` under the causal mask."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale=scale, softcap=softcap,
-                                   window=window, causal=causal)
+                                   window=window, causal=causal, q0=q0)
     if q.device.type == "meta":
-        return flash_attention_meta(q, k, v, window=window, causal=causal)
+        return flash_attention_meta(q, k, v, window=window, causal=causal,
+                                    q0=q0)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda, cpu or meta, not "
                          f"{q.device}")
     launch = flash_attention_wgmma if variant(q.dtype, q.shape[-1]) == "wgmma" \
         else flash_attention_fma
     return launch(q, k, v, scale=scale, softcap=softcap, window=window,
-                  causal=causal)
+                  causal=causal, q0=q0)
 
 
-def flash_attention_meta(q, k, v, *, window: int = 0, causal: bool = True):
+def flash_attention_meta(q, k, v, *, window: int = 0, causal: bool = True,
+                         q0: int = 0):
     """The kernel's output on the meta device: launches nothing, and adds
     the kernel to the active ``OpTrace`` as one op doing the work of its
-    bound (the allowed (q, kv) pairs only; one exp a pair)."""
-    _check(q, k, v)
+    bound (the allowed (q, kv) pairs of the rows at ``q0``.. only; one exp
+    a pair)."""
+    _check(q, k, v, q0)
     BK, Sq, G, hd = q.shape
     Skv = k.shape[1]
     flops, nbytes = flash_work(BK, Sq, Skv, G, hd, window, causal,
-                               q.element_size())
+                               q.element_size(), q0)
     return record_kernel(NAME, flops, nbytes, torch.empty_like(q),
-                         BK * G * causal_pairs(Sq, Skv, window, causal))
+                         BK * G * causal_pairs(Sq, Skv, window, causal, q0))
 
 
 def _launched(err: int, which: str):
@@ -149,14 +161,14 @@ def _launched(err: int, which: str):
 
 
 def flash_attention_fma(q, k, v, *, scale: float, softcap: float = 0.0,
-                        window: int = 0, causal: bool = True):
+                        window: int = 0, causal: bool = True, q0: int = 0):
     """Launch the CUDA-core kernel on CUDA tensors (f32 or bf16)."""
-    _check(q, k, v)
+    _check(q, k, v, q0)
     BK, Sq, G, hd = q.shape
     o = torch.empty_like(q)
     err = _kernel(NAME)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                         BK, Sq, k.shape[1], G, hd, float(scale),
-                        float(softcap), int(window), int(causal),
+                        float(softcap), int(window), int(causal), q0,
                         int(q.dtype == torch.bfloat16),
                         torch.cuda.current_stream().cuda_stream)
     _launched(err, "fma")
@@ -164,10 +176,10 @@ def flash_attention_fma(q, k, v, *, scale: float, softcap: float = 0.0,
 
 
 def flash_attention_wgmma(q, k, v, *, scale: float, softcap: float = 0.0,
-                          window: int = 0, causal: bool = True):
+                          window: int = 0, causal: bool = True, q0: int = 0):
     """Launch the tensor-core kernel on CUDA bf16 tensors whose head dim is
     in ``WGMMA_HEAD_DIMS``."""
-    _check(q, k, v)
+    _check(q, k, v, q0)
     BK, Sq, G, hd = q.shape
     if variant(q.dtype, hd) != "wgmma":
         raise ValueError(f"the tensor-core flash kernel takes bf16 at head "
@@ -175,14 +187,14 @@ def flash_attention_wgmma(q, k, v, *, scale: float, softcap: float = 0.0,
     o = torch.empty_like(q)
     err = _kernel(WGMMA)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          o.data_ptr(), BK, Sq, k.shape[1], G, hd, float(scale),
-                         float(softcap), int(window), int(causal),
+                         float(softcap), int(window), int(causal), q0,
                          torch.cuda.current_stream().cuda_stream)
     _launched(err, "wgmma")
     return o
 
 
 def _flash_gqa(q, k, v, *, window: int, softcap: float, scale: float,
-               causal: bool):
+               causal: bool, q0: int = 0):
     """Fold (B,S,K,G,hd) into the kernel layout, run the wrapper, unfold."""
     B, Sq, K, G, hd = q.shape
     Skv = k.shape[1]
@@ -190,31 +202,41 @@ def _flash_gqa(q, k, v, *, window: int, softcap: float, scale: float,
     kf = k.permute(0, 2, 1, 3).reshape(B * K, Skv, hd).contiguous()
     vf = v.permute(0, 2, 1, 3).reshape(B * K, Skv, hd).contiguous()
     o = flash_attention_bkg(qf, kf, vf, scale=scale, softcap=softcap,
-                            window=window, causal=causal)
+                            window=window, causal=causal, q0=q0)
     return o.reshape(B, K, Sq, G, hd).permute(0, 2, 1, 3, 4)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Forward: the kernel.  Backward: autograd of the eager attention on
-    the saved inputs (f32 scores of the whole (Sq, Skv) square, a layer at a
-    time), under ``torch.enable_grad`` since backward runs without grad."""
+    """Forward: the kernel.  Backward: autograd of the attention the
+    reference trains through, recomputed from the saved inputs under
+    ``torch.enable_grad`` (backward runs without grad): for a causal mask
+    ``models.attention.causal_attention``, the reference's q-block
+    dispatch at the layer's ``q_block`` and ``pack`` (a masked ``_sdpa``
+    of the whole square where S <= 2 q_block, else the q-block scan or the
+    causal packing; the rows at ``q0`` against their keys where ``q0`` >
+    0); unmasked, the plain attention."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, softcap, scale, causal):
+    def forward(ctx, q, k, v, window, softcap, scale, causal, q0, q_block,
+                pack):
         ctx.save_for_backward(q, k, v)
-        ctx.kw = dict(window=window, softcap=softcap, scale=scale,
-                      causal=causal)
-        return _flash_gqa(q, k, v, **ctx.kw)
+        ctx.causal = causal
+        ctx.kw = dict(window=window, softcap=softcap, scale=scale, q0=q0)
+        ctx.dispatch = dict(q_block=q_block, pack=pack)
+        return _flash_gqa(q, k, v, causal=causal, **ctx.kw)
 
     @staticmethod
     def backward(ctx, grad_o):
-        from repro_torch.models.attention import plain_attention
+        from repro_torch.models.attention import (causal_attention,
+                                                  plain_attention)
         qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad(), \
                 torch.profiler.record_function("attention backward (eager)"):
-            grads = torch.autograd.grad(plain_attention(*qkv, **ctx.kw), qkv,
-                                        grad_o)
-        return (*grads, None, None, None, None)
+            o = causal_attention(*qkv, **ctx.kw, **ctx.dispatch) \
+                if ctx.causal else plain_attention(*qkv, **ctx.kw,
+                                                   causal=False)
+            grads = torch.autograd.grad(o, qkv, grad_o)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 # the axes a DTensor's shard may cut: batch and kv heads
@@ -223,6 +245,9 @@ _SPLITS = {"batch": 0, "kv_heads": 2}
 # (B,S,H,hd) cut on its heads, k and v whole there
 _Q_SPLITS = {"batch": 0, "q_heads": 2}
 _KV_SPLITS = {"batch": 0}
+# where ``model`` has more ranks than q heads: q as (B, H*S, hd), cut on
+# its rows (each rank one head's block of rows), k and v whole there
+_ROW_SPLITS = {"batch": 0, "q_rows": 1}
 
 
 def head_split(H: int, K: int, tp: int) -> str:
@@ -231,14 +256,19 @@ def head_split(H: int, K: int, tp: int) -> str:
     choose_layout``, put ``heads`` on ``model`` where ``tp`` divides ``H``,
     ``kv_heads`` where it divides ``K``): ``"kv_heads"`` where ``tp``
     divides ``K`` (each rank a whole group of kv heads and their q heads);
-    ``"replicated"`` where it does not divide ``H`` (attention whole on
-    every rank, as the reference's rules say); ``"q_heads"`` where each
-    rank's ``H / tp`` q heads read one kv head (``tp > K`` and the group
-    ``G = H / K`` a multiple of ``H / tp``).  Any other layout raises."""
+    ``"q_heads"`` where each rank's ``H / tp`` q heads read one kv head
+    (``tp > K`` and the group ``G = H / K`` a multiple of ``H / tp``; C3);
+    ``"q_rows"`` where ``tp`` is a multiple of ``H`` that ``H`` does not
+    reach (``heads`` on nothing; C5): each head spreads over ``n = tp / H``
+    ranks, the rank at ``model`` coordinate ``r`` runs q head ``r // n``'s
+    rows ``[j S / n, (j + 1) S / n)``, ``j = r % n``, against its kv head and
+    the keys up to its last row; ``"replicated"`` where neither count
+    divides the other (attention whole on every rank, as the reference's
+    rules say).  Any other layout raises."""
     if K % tp == 0:
         return "kv_heads"
     if H % tp:
-        return "replicated"
+        return "q_rows" if tp % H == 0 else "replicated"
     if tp > K and (H // K) % (H // tp) == 0:
         return "q_heads"
     raise ValueError(f"flash attention cannot split (H, K, tp) = "
@@ -255,6 +285,27 @@ def splits_q_heads(q, k) -> bool:
     return any(p.is_shard(2) and mesh.size(m) > 1
                and not k.placements[m].is_shard(2)
                for m, p in enumerate(q.placements))
+
+
+def _model_dim(mesh):
+    """The index of the mesh dim named ``model``, or None."""
+    names = mesh.mesh_dim_names or ()
+    return names.index("model") if "model" in names else None
+
+
+def splits_q_rows(q, k) -> bool:
+    """Whether the DTensors q (B,S,H,hd) and k (B,Skv,K,hd) take the q-rows
+    route: the mesh dim named ``model`` cuts neither, and its ``tp`` ranks
+    split (H, K) as ``"q_rows"`` (``head_split``)."""
+    if not (context.is_dtensor(q) and context.is_dtensor(k)):
+        return False
+    m = _model_dim(q.device_mesh)
+    if m is None:
+        return False
+    H, tp = q.shape[2], q.device_mesh.size(m)
+    return tp > 1 and H % tp != 0 and q.placements[m].is_replicate() and \
+        k.placements[m].is_replicate() and \
+        head_split(H, k.shape[2], tp) == "q_rows"
 
 
 def _q_heads_local(q, k, v, *, kv: int, **kw):
@@ -298,18 +349,71 @@ def _flash_q_heads(q, k, v, **kw):
         {"q": _Q_SPLITS, "k": _KV_SPLITS, "v": _KV_SPLITS}, _Q_SPLITS)
 
 
+def _q_rows_local(q, k, v, *, kv: int, q0: int, **kw):
+    """One rank's block of one q head's rows (B, rows, hd) at positions
+    ``q0``..: the kernel against kv head ``kv`` and the keys up to the
+    block's last row.  The narrows' gradients are zero elsewhere, so the
+    sum over ranks of k's and v's is theirs."""
+    B, rows, hd = q.shape
+    end = q0 + rows
+    o = flash_attention(q.reshape(B, rows, 1, 1, hd),
+                        k.narrow(1, 0, end).narrow(2, kv, 1),
+                        v.narrow(1, 0, end).narrow(2, kv, 1), q0=q0, **kw)
+    return o.reshape(B, rows, hd)
+
+
+def _flash_q_rows(q, k, v, **kw):
+    """The q-rows route (``head_split``'s ``"q_rows"``): q (B,S,H,hd) and
+    k, v whole over the mesh dim ``model`` of ``tp`` ranks, a multiple
+    ``n`` of H.  q is viewed as (B, H*S, hd) and cut on dim 1 there (no
+    data moves: it was whole), so the rank at coordinate r holds head
+    r // n, row block r % n; it runs them at ``q0`` = (r % n) S / n
+    through ``run_local`` (k's and v's gradients come back ``Partial``),
+    and the rows are gathered back to (B,S,H,hd) (an all-gather)."""
+    from torch.distributed.tensor import Shard
+    mesh = q.device_mesh
+    m = _model_dim(mesh)
+    B, S, H, hd = q.shape
+    K, tp = k.shape[2], mesh.size(m)
+    n = tp // H
+    if S % n:
+        raise ValueError(f"flash attention cannot split (H, K, tp, S) = "
+                         f"({H}, {K}, {tp}, {S}): the {S} rows of a head do "
+                         f"not split over its {n} ranks")
+    r = mesh.get_local_rank(m)
+    qf = q.permute(0, 2, 1, 3).reshape(B, H * S, hd)
+    qf = context.redistribute(qf, tuple(Shard(1) if d == m else p
+                                        for d, p in enumerate(qf.placements)))
+    o = context.run_local(
+        "flash attention", functools.partial(
+            _q_rows_local, kv=(r // n) // (H // K), q0=(r % n) * (S // n),
+            **kw),
+        {"q": qf, "k": k, "v": v},
+        {"q": _ROW_SPLITS, "k": _KV_SPLITS, "v": _KV_SPLITS}, _ROW_SPLITS)
+    return context.unflatten(o, 1, (H, S)).permute(0, 2, 1, 3)
+
+
 def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
-                    scale: float, causal: bool = True):
-    """q: (B,S,K,G,hd); k,v: (B,Skv,K,hd) -> (B,S,K,G,hd).  On DTensors q
-    may also be flat, (B,S,H,hd) -> (B,S,H,hd): the q-heads route
-    (``splits_q_heads``)."""
+                    scale: float, causal: bool = True, q0: int = 0,
+                    q_block: int, pack: bool):
+    """q: (B,S,K,G,hd); k,v: (B,Skv,K,hd) -> (B,S,K,G,hd); row i of q at
+    position ``q0 + i``.  ``q_block`` and ``pack`` (no defaults: every
+    caller names them) are the layer's ``attn_q_block`` and the reference's
+    ``pack_ok``: the dispatch the backward recomputes through
+    (``FlashAttention``).  On DTensors q may
+    also be flat, (B,S,H,hd) -> (B,S,H,hd): the q-heads route
+    (``splits_q_heads``) or the q-rows route (``splits_q_rows``)."""
     kw = dict(window=window, softcap=softcap, scale=scale, causal=causal)
+    dispatch = dict(q_block=q_block, pack=pack)
     if context.is_dtensor(q):
         if q.dim() == 4:
-            return _flash_q_heads(q, k, v, **kw)
+            route = _flash_q_rows if splits_q_rows(q, k) else _flash_q_heads
+            return route(q, k, v, **kw, **dispatch)
         return context.run_local(
-            "flash attention", functools.partial(flash_attention, **kw),
+            "flash attention", functools.partial(flash_attention, q0=q0,
+                                                 **kw, **dispatch),
             {"q": q, "k": k, "v": v}, dict.fromkeys("qkv", _SPLITS), _SPLITS)
     if q.device.type == "cpu":
-        return _flash_gqa(q, k, v, **kw)
-    return FlashAttention.apply(q, k, v, window, softcap, scale, causal)
+        return _flash_gqa(q, k, v, q0=q0, **kw)
+    return FlashAttention.apply(q, k, v, window, softcap, scale, causal, q0,
+                                q_block, pack)

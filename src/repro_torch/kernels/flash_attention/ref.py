@@ -19,18 +19,19 @@ KV_TILE = 64          # the tensor-core kernel's KV tile
 
 
 def flash_attention_ref(q, k, v, *, scale: float, softcap: float = 0.0,
-                        window: int = 0, causal: bool = True):
+                        window: int = 0, causal: bool = True, q0: int = 0):
     """q: (BK, Sq, G, hd); k,v: (BK, Skv, hd) -> (BK, Sq, G, hd).
 
-    Causality is aligned top-left: row i attends to kv positions <= i, and
-    with a window also to positions > i - window.
+    Row i of q sits at position q0 + i: it attends to kv positions
+    <= q0 + i, and with a window also only to positions > q0 + i - window
+    (``q0 = 0``: causality aligned top-left).
     """
     Sq, Skv = q.shape[1], k.shape[1]
     s = torch.einsum("bsgd,btd->bsgt", q.float(), k.float()) * scale
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     if causal:
-        q_pos = torch.arange(Sq, device=q.device)[:, None]
+        q_pos = q0 + torch.arange(Sq, device=q.device)[:, None]
         kv_pos = torch.arange(Skv, device=q.device)[None, :]
         allow = kv_pos <= q_pos
         if window:
@@ -42,14 +43,15 @@ def flash_attention_ref(q, k, v, *, scale: float, softcap: float = 0.0,
 
 
 def flash_attention_wgmma_ref(q, k, v, *, scale: float, softcap: float = 0.0,
-                              window: int = 0, causal: bool = True):
+                              window: int = 0, causal: bool = True,
+                              q0: int = 0):
     """q: (BK, Sq, G, hd); k,v: (BK, Skv, hd) -> (BK, Sq, G, hd), with P
     rounded to bf16 before each tile's P·V product, as the tensor-core
-    kernel does."""
+    kernel does; row i of q at position q0 + i."""
     BK, Sq, G, hd = q.shape
     Skv = k.shape[1]
     qf = q.float().reshape(BK, Sq * G, hd)
-    pos = torch.arange(Sq * G, device=q.device)[:, None] // G
+    pos = q0 + torch.arange(Sq * G, device=q.device)[:, None] // G
     m = torch.full((BK, Sq * G, 1), NEG_INF, device=q.device)
     l = torch.zeros((BK, Sq * G, 1), device=q.device)
     acc = torch.zeros((BK, Sq * G, hd), device=q.device)

@@ -16,27 +16,31 @@ computes.
 On a production mesh (``pod`` 16 x 16, ``multipod`` 2 x 16 x 16) the cell
 is the sharded step (``build_cell``: DTensor parameters, ZeRO grads and
 updates, the batch and caches at their specs, under the cell's rules),
-traced as rank 0 of a fake world of 256 or 512 ranks
-(``launch.mesh.fake_mesh``: torch's in-process ``"fake"`` process group on a
-``"cpu"`` mesh, every tensor on the meta device, no card).  The counts are
-rank 0's local work and the collectives it issues.  On a 1 x 1 mesh no
-group is started and the model stays plain.  The record keeps the
-reference's keys where they mean the same:
+traced as one rank of a fake world of 256 or 512 ranks
+(``launch.mesh.fake_mesh``: torch's in-process ``"fake"`` process group
+on a ``"cpu"`` mesh, every tensor on the meta device, no card): the rank
+with the most work, ``traced_rank``.  The counts are that rank's local
+work and the collectives it issues.  Ranks differ only on flash's q-rows
+route (more ``model`` ranks than q heads: a block of rows further down a
+head has more causal pairs), where the rank at ``model`` coordinate
+tp - 1 is traced; elsewhere rank 0.  On a 1 x 1 mesh no group is started
+and the model stays plain.  The record keeps the reference's keys where
+they mean the same (``rankN``: the rank traced):
 
 * ``memory``: ``argument_gb``, ``output_gb`` and ``alias_gb`` (the donated
   arguments) are per device and exact, each leaf's shard taken from its
   spec (a dim split n ways takes ceil(dim / n)).  ``temp_gb`` is the peak
-  of rank 0's live local storages made during the step (``temp_split:
-  "rank0"``; on one chip the trace's peak, ``"even"``), ``peak_gb`` the
-  reference's sum.
+  of the traced rank's live local storages made during the step
+  (``temp_split: "rankN"``; on one chip the trace's peak, ``"even"``),
+  ``peak_gb`` the reference's sum.
 * ``cost``: ``flops_per_device``, ``transcendentals`` and
   ``bytes_accessed`` (eager traffic: each op's operand and result bytes)
-  are rank 0's own (``split: "rank0"``; on one chip ``"even"``);
+  are the traced rank's own (``split: "rankN"``; on one chip ``"even"``);
   ``compulsory_bytes`` reads the arguments once and writes the outputs once
   (an argument updated in place counts the bytes written into it).
-* ``collectives``: ``collective_stats`` of rank 0's trace;
-  ``n_ranks_traced``: 1 on a production mesh.
-* ``rank0`` (a production mesh only): ``op_flops``, rank 0's flops by op
+* ``collectives``: ``collective_stats`` of the traced rank's trace;
+  ``n_ranks_traced``: 1 on a production mesh; ``rank_traced``: N.
+* ``rankN`` (a production mesh only): ``op_flops``, the rank's flops by op
   name; ``kernel_shapes``, each hand-written kernel's local output shapes
   (flash's: q's, in its (B*K, S, G, hd) layout); ``largest_collective``, the
   largest operand and output bytes of one collective of each kind.
@@ -56,6 +60,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import traceback
 from collections import Counter
 from dataclasses import replace
@@ -71,6 +76,7 @@ from repro_torch.distributed.layouts import (batch_pspecs, cache_pspecs,
                                              choose_layout, distribute_tree,
                                              opt_pspecs, param_placements,
                                              param_pspecs, shard_params)
+from repro_torch.kernels.flash_attention.ops import head_split
 from repro_torch.launch.mesh import (AbstractMesh, fake_mesh,
                                      make_production_mesh)
 from repro_torch.models import init_cache, init_params, weights
@@ -252,15 +258,37 @@ def tree_bytes(tree, specs, sizes: dict, cfg: ModelConfig) -> int:
     return 0
 
 
+def traced_rank(cfg: ModelConfig, shape: ShapeConfig, mesh) -> int:
+    """The rank of ``mesh`` (row-major over its dims) with the most work in
+    the cell's step.  Ranks differ only on flash's q-rows route
+    (``head_split``'s ``"q_rows"``, a train or prefill step; decode runs no
+    flash), where the rank at ``model`` coordinate r runs rows
+    ``[j S / n, (j + 1) S / n)`` of a head, ``j = r % n``: the rank at
+    coordinate tp - 1 (every other coordinate 0) runs the last block, the
+    most causal pairs.  Elsewhere rank 0."""
+    names, sizes = tuple(mesh.mesh_dim_names), tuple(mesh.shape)
+    if "model" not in names or shape.kind == "decode":
+        return 0
+    m = names.index("model")
+    try:
+        how = head_split(cfg.n_heads, cfg.n_kv_heads, sizes[m])
+    except ValueError:
+        return 0
+    return (sizes[m] - 1) * math.prod(sizes[m + 1:]) if how == "q_rows" \
+        else 0
+
+
 def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                grad_accum: int = TRAIN_GRAD_ACCUM) -> dict:
     """One call of the cell's step under ``OpTrace`` -> the record's
     ``n_chips``, ``lower_s``, ``memory``, ``cost``, ``collectives``,
     ``hlo_ops`` and ``hlo_len`` (module docstring).  On a mesh of more than
-    one chip, the sharded step traced as rank 0 of a fake world of the
-    mesh's ranks (``launch.mesh.fake_mesh``), and ``n_ranks_traced``."""
+    one chip, the sharded step traced as ``traced_rank`` of a fake world of
+    the mesh's ranks (``launch.mesh.fake_mesh``), ``n_ranks_traced``,
+    ``rank_traced`` and ``rankN``."""
     sharded = mesh.size() > 1
-    with fake_mesh(mesh) if sharded else contextlib.nullcontext(mesh) as m:
+    with fake_mesh(mesh, traced_rank(cfg, shape, mesh)) if sharded else \
+            contextlib.nullcontext(mesh) as m:
         trace, cell = run_step(cfg, shape, m, grad_accum)
         return record(cfg, m, trace, *cell)
 
@@ -283,8 +311,8 @@ def record(cfg: ModelConfig, mesh, trace, out, args, in_specs, out_specs,
            donate) -> dict:
     """The record's ``n_chips``, ``lower_s``, ``memory``, ``cost``,
     ``collectives``, ``hlo_ops`` and ``hlo_len`` from one traced call
-    (``run_step``): rank 0's own on a mesh of more than one chip, else the
-    whole program's."""
+    (``run_step``): the traced rank's own on a mesh of more than one chip
+    (``rankN``), else the whole program's."""
     sizes = axis_sizes(mesh)
     chips = 1
     for n in sizes.values():
@@ -297,9 +325,10 @@ def record(cfg: ModelConfig, mesh, trace, out, args, in_specs, out_specs,
     made_out = trace.made_bytes(out)
     written = sum(trace.written_bytes.values())
     if sharded:
-        # rank 0's own: its shards of the arguments, what it made and wrote
+        # the traced rank's own: its shards of the arguments, what it made
+        # and wrote
         compulsory, temp_b, split = arg_b + made_out + written, \
-            max(trace.peak_bytes - made_out, 0), "rank0"
+            max(trace.peak_bytes - made_out, 0), f"rank{mesh.get_rank()}"
     else:
         compulsory = tree_bytes(args, None, {}, cfg) + made_out + written
         temp_b, split = max(trace.peak_bytes - made_out, 0) / chips, "even"
@@ -323,14 +352,15 @@ def record(cfg: ModelConfig, mesh, trace, out, args, in_specs, out_specs,
     rec["collectives"] = collective_stats(trace)
     if sharded:
         rec["n_ranks_traced"] = 1
-        rec["rank0"] = rank0_work(trace)
+        rec["rank_traced"] = mesh.get_rank()
+        rec[split] = rank_work(trace)
     rec["hlo_ops"] = dict(op_census(trace, top=12))
     rec["hlo_len"] = len(trace.ops)
     return rec
 
 
-def rank0_work(trace) -> dict:
-    """A sharded record's ``rank0`` (module docstring)."""
+def rank_work(trace) -> dict:
+    """A sharded record's ``rankN`` (module docstring)."""
     flops, shapes, largest = Counter(), {}, {}
     for op in trace.ops:
         flops[op.name] += op.flops

@@ -7,9 +7,10 @@ a group of one).  ``make_production_mesh`` returns an ``AbstractMesh``,
 the names and sizes of the reference's production mesh with no devices
 behind them: what reads it (``distributed.layouts.choose_layout``,
 ``opt_pspecs``, a dry-run's layout) needs only the shape.  ``fake_mesh``
-makes one real: this process as rank 0 of a fake process group of the
-mesh's size (torch's in-process ``"fake"`` backend: every collective is
-issued, none moves data), for the dry-run to trace rank 0's program.
+makes one real: this process as one rank (0 unless asked) of a fake
+process group of the mesh's size (torch's in-process ``"fake"`` backend:
+every collective is issued, none moves data), for the dry-run to trace that
+rank's program.
 """
 from __future__ import annotations
 
@@ -68,11 +69,27 @@ def make_local_mesh(data: int = 2, model: int = 4, *, device="cuda"):
     return make_mesh((data, model), ("data", "model"), device=device)
 
 
+def _clear_dtensor_plans():
+    """DTensor's sharding-propagation and redistribute-plan caches emptied.
+    Their entries hold the mesh they were made on, which compares equal to
+    another world's mesh of the same shape; its group names follow the
+    rank (each names the group this rank is in), so a cached mesh of
+    another world would name groups this one does not have.  torch has no
+    public call for this: these two are its debug helper and the plan
+    cache's own ``cache_clear``."""
+    from torch.distributed.tensor import _redistribute
+    from torch.distributed.tensor.debug import _clear_sharding_prop_cache
+    _clear_sharding_prop_cache()
+    _redistribute._gen_transform_infos.cache_clear()
+
+
 @contextlib.contextmanager
-def fake_mesh(mesh):
+def fake_mesh(mesh, rank: int = 0):
     """A DeviceMesh of ``mesh``'s names and sizes on which this process is
-    rank 0 of a fake process group, under ``distributed.context.
-    native_alltoall``; the group is destroyed on the way out.  The mesh's
+    ``rank`` (row-major over the mesh's dims) of a fake process group,
+    under ``distributed.context.native_alltoall``; the group is destroyed
+    on the way out, and DTensor's cached plans are emptied on the way in
+    (``_clear_dtensor_plans``).  The mesh's
     device type is ``"cpu"`` (its tensors are the caller's: the dry-run's
     are on the meta device), so no card is needed.  Raises where the
     process already has a default process group."""
@@ -85,7 +102,11 @@ def fake_mesh(mesh):
             f"fake_mesh needs a process without a default process group; "
             f"this one has a {dist.get_backend()} group of "
             f"{dist.get_world_size()} ranks")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    if not 0 <= rank < mesh.size():
+        raise ValueError(f"rank {rank} is not one of the mesh's "
+                         f"{mesh.size()}")
+    _clear_dtensor_plans()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=mesh.size())
     try:
         with native_alltoall():

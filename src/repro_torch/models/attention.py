@@ -10,19 +10,31 @@ over a plain, ring or int8 (``cfg.kv_quant``: per-(token, head) absmax
 scales ``ksc``/``vsc``) KV cache.
 
 ``attention_seq`` hands causal attention to the hook set by
-``set_attention_impl``, as the reference does, and only causal attention:
-prefix and bidirectional masks and cross-attention run the plain ``_sdpa``
-in both packages.  By default the hook is the flash attention wrapper
-(``repro_torch.kernels``): on a CUDA tensor it runs the hand-written kernel,
-on a CPU tensor its plain version.  With the hook cleared, ``_sdpa`` is the
-plain path; it keeps the reference's cast of the probabilities to
-``v.dtype`` before the PV product.  ``plain_attention`` is that path under
-the causal (and window) mask at positions 0..S-1, with the hook's
-signature: it is the function the reference trains through (its flash
+``set_attention_impl``, as the reference does, and only causal attention.
+Every hook takes one signature: ``(q, k, v, *, window, softcap, scale,
+q_block, pack)``, the last two the layer's ``attn_q_block`` and
+``pack_ok``.
+By default the hook is the flash attention wrapper (``repro_torch.kernels``):
+on a CUDA tensor it runs the hand-written kernel, on a CPU tensor its plain
+version.  With the hook cleared, and for prefix and bidirectional masks and
+cross-attention in both packages, the plain path is the reference's q-block
+dispatch, branch for branch: ``_sdpa`` where S <= 2 ``attn_q_block``, S is
+no multiple of it, or the attention is cross; ``_rect_scan`` for a
+bidirectional mask; ``_causal_packed`` for a causal mask with no window
+where S is a multiple of 2 ``attn_q_block`` and ``pack_ok``
+(``attn_causal_pack``: ``"auto"`` is ``n_heads % tp == 0``); else
+``_qblock_scan``.  The scans keep score memory at O(S q_block).  They keep
+the reference's casts: f32 scores (``qk_scores``, whose dq and dk come back
+in the operands' dtype), the probabilities cast to ``v.dtype`` before the PV
+product, the merge of two partials in f32.  ``causal_attention`` is that
+dispatch for a causal mask, which the reference trains through (its flash
 kernel has no VJP and its hook is off by default), so it is the backward of
-the flash kernel's autograd function, and setting it as the hook gives the
-plain path.  Decode attention has no kernel in the reference and is plain
-torch here too.
+the flash kernel's autograd function.  ``plain_attention`` is ``_sdpa``
+under the causal (and window) mask at positions q0..q0+S-1, with the
+hook's signature (it ignores ``q_block`` and ``pack``): setting it as the
+hook gives the whole-square plain path.
+Decode attention has no kernel in the reference and is plain torch here
+too.
 """
 from __future__ import annotations
 
@@ -31,10 +43,12 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
-from repro_torch.distributed.context import (constrain, grad_like, is_dtensor,
+from repro_torch.distributed.context import (axis_size, constrain, grad_like,
+                                             is_dtensor, local_device,
                                              redistribute, unflatten)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ops import splits_q_heads
+from repro_torch.kernels.flash_attention.ops import (splits_q_heads,
+                                                     splits_q_rows)
 from repro_torch.models.modules import (ParamModule, init_norm, normal, pdtype,
                                         rms_norm, rope)
 
@@ -103,28 +117,174 @@ def make_mask_fn(mode: str = "causal", window: int = 0, prefix_len: int = 0):
     return fn
 
 
-def _sdpa(q, k, v, mask, softcap: float, scale: float):
-    """q: (B,Sq,K,G,hd)  k,v: (B,Skv,K,hd)  mask: (Sq,Skv) or None."""
-    s = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) * scale
+class QKScores(torch.autograd.Function):
+    """f32 scores q k^T whose gradients come back in the operands' dtype
+    (the reference's ``qk_scores`` custom VJP): the backward saves q and k
+    as they are, not their f32 copies.  The backward's products read the
+    scores' gradient (B,K,G,Sq,Skv) in place, as (B*K, G*Sq, Skv) and its
+    transpose: an einsum there copies it to another layout first, a
+    score-sized copy a call."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        return torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
+
+    @staticmethod
+    def backward(ctx, ds):
+        q, k = ctx.saved_tensors
+        B, Sq, K, G, hd = q.shape
+        Skv = k.shape[1]
+        ds = ds.reshape(B * K, G * Sq, Skv)
+        dq = dk = None
+        if ctx.needs_input_grad[0]:
+            kf = k.float().permute(0, 2, 1, 3).reshape(B * K, Skv, hd)
+            dq = torch.bmm(ds, kf).reshape(B, K, G, Sq, hd) \
+                .permute(0, 3, 1, 2, 4).to(q.dtype)
+        if ctx.needs_input_grad[1]:
+            qf = q.float().permute(0, 2, 3, 1, 4).reshape(B * K, G * Sq, hd)
+            dk = torch.bmm(ds.transpose(1, 2), qf).reshape(B, K, Skv, hd) \
+                .permute(0, 2, 1, 3).to(k.dtype)
+        return dq, dk
+
+
+def qk_scores(q, k):
+    """q: (B,Sq,K,G,hd), k: (B,Skv,K,hd) -> f32 (B,K,G,Sq,Skv)."""
+    return QKScores.apply(q, k)
+
+
+def _sdpa(q, k, v, mask, softcap: float, scale: float,
+          want_lse: bool = False):
+    """q: (B,Sq,K,G,hd)  k,v: (B,Skv,K,hd)  mask: (Sq,Skv) or (B,Sq,Skv)
+    or None (dense).  With ``want_lse`` also the scores' logsumexp
+    (B,K,G,Sq)."""
+    s = qk_scores(q, k) * scale
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     if mask is not None:
+        if mask.dim() == 3:
+            mask = mask[:, None, None]
         s = torch.where(mask, s, NEG_INF)
     a = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bkgst,btkd->bskgd", a, v)
+    o = torch.einsum("bkgst,btkd->bskgd", a, v)
+    if want_lse:
+        return o, torch.logsumexp(s, dim=-1)
+    return o
+
+
+def _lse_merge(o1, lse1, o2, lse2):
+    """Combine two attention partials over disjoint KV sets."""
+    m = torch.maximum(lse1, lse2)
+    w1 = torch.exp(lse1 - m)
+    w2 = torch.exp(lse2 - m)
+    # o: (B,Sq,K,G,hd); lse/w: (B,K,G,Sq) -> align to o
+    a1 = w1.permute(0, 3, 1, 2)[..., None]
+    a2 = w2.permute(0, 3, 1, 2)[..., None]
+    o = (o1.float() * a1 + o2.float() * a2) / (a1 + a2)
+    return o.to(o1.dtype), m + torch.log(w1 + w2)
+
+
+def _rect_scan(q, k, v, softcap, scale, qb: int):
+    """Dense (unmasked) attention of q against all of k/v, a q block at a
+    time; returns (o, lse)."""
+    S = q.shape[1]
+    nb = max(S // qb, 1)
+    qb = S // nb
+    if nb * qb != S:        # the reference's reshape refuses these too
+        raise ValueError(f"{S} q rows do not split into {nb} blocks")
+    parts = [_sdpa(q[:, i * qb:(i + 1) * qb], k, v, None, softcap, scale,
+                   want_lse=True) for i in range(nb)]
+    return (torch.cat([o for o, _ in parts], dim=1),
+            torch.cat([lse for _, lse in parts], dim=3))
+
+
+def _causal_packed(q, k, v, softcap, scale, qb: int, leaf: int):
+    """Recursive causal attention with no masked-rectangle waste:
+    attn(S) = [attn(S/2) over the first half,
+               merge(attn(S/2) over the second half's diagonal,
+                     dense rect(second-half q x first-half kv))],
+    about S^2 / 2 products instead of the q-block scan's S^2; returns (o,
+    lse)."""
+    S = q.shape[1]
+    if S <= leaf or S % 2 != 0:
+        pos = torch.arange(S, device=local_device(q))
+        return _sdpa(q, k, v, make_mask_fn("causal")(pos, pos), softcap,
+                     scale, want_lse=True)
+    h = S // 2
+    o1, lse1 = _causal_packed(q[:, :h], k[:, :h], v[:, :h], softcap, scale,
+                              qb, leaf)
+    od, lsed = _causal_packed(q[:, h:], k[:, h:], v[:, h:], softcap, scale,
+                              qb, leaf)
+    orr, lser = _rect_scan(q[:, h:], k[:, :h], v[:, :h], softcap, scale, qb)
+    o2, lse2 = _lse_merge(od, lsed, orr, lser)
+    return torch.cat([o1, o2], dim=1), torch.cat([lse1, lse2], dim=3)
+
+
+def _qblock_scan(q, k, v, mask_fn, softcap, scale, qb: int, window: int):
+    """A q block at a time against the keys (positions 0..S-1); with a
+    window shorter than S - qb, each block against a static slice of its
+    qb + window keys."""
+    S = q.shape[1]
+    if S % qb:
+        raise ValueError(f"{S} q rows do not split into blocks of {qb}")
+    dev = local_device(q)
+    L = qb + window if window and qb + window < S else S
+    out = []
+    for i in range(S // qb):
+        start = max(i * qb - window, 0) if L < S else 0
+        q_pos = i * qb + torch.arange(qb, device=dev)
+        kv_pos = start + torch.arange(L, device=dev)
+        out.append(_sdpa(q[:, i * qb:(i + 1) * qb], k[:, start:start + L],
+                         v[:, start:start + L], mask_fn(q_pos, kv_pos),
+                         softcap, scale))
+    return torch.cat(out, dim=1)
 
 
 def plain_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
-                    scale: float, causal: bool = True):
+                    scale: float, causal: bool = True, q0: int = 0,
+                    q_block: Optional[int] = None,
+                    pack: Optional[bool] = None):
     """q: (B,Sq,K,G,hd); k,v: (B,Skv,K,hd) -> (B,Sq,K,G,hd): ``_sdpa`` under
-    the causal mask (top-left, with ``window``) at positions 0..S-1, or
-    unmasked when ``causal`` is false."""
+    the causal mask (with ``window``) with q's rows at positions q0..q0+Sq-1
+    and k's at 0..Skv-1, or unmasked when ``causal`` is false.  It takes the
+    hook's signature; ``q_block`` and ``pack`` do not change it (one
+    square)."""
+    del q_block, pack
     mask = None
     if causal:
+        dev = local_device(q)
         mask = make_mask_fn("causal", window)(
-            torch.arange(q.shape[1], device=q.device),
-            torch.arange(k.shape[1], device=q.device))
+            q0 + torch.arange(q.shape[1], device=dev),
+            torch.arange(k.shape[1], device=dev))
     return _sdpa(q, k, v, mask, softcap, scale)
+
+
+def causal_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
+                     scale: float, q_block: int, pack: bool, q0: int = 0):
+    """The reference's dispatch (``attention_seq`` with its hook off) for a
+    causal mask: ``_sdpa`` where S <= 2 ``q_block`` or S is no multiple of
+    it; ``_causal_packed`` (leaf 2 ``q_block``) with no window where S is
+    a multiple of 2 ``q_block`` and ``pack``; else ``_qblock_scan``.  Rows
+    at ``q0`` > 0, or fewer keys than rows, are one rectangle: ``_sdpa``
+    under the mask at their positions."""
+    S = q.shape[1]
+    if q0 or k.shape[1] != S or S <= 2 * q_block or S % q_block:
+        return plain_attention(q, k, v, window=window, softcap=softcap,
+                               scale=scale, q0=q0)
+    if not window and S % (2 * q_block) == 0 and pack:
+        return _causal_packed(q, k, v, softcap, scale, q_block,
+                              leaf=2 * q_block)[0]
+    return _qblock_scan(q, k, v, make_mask_fn("causal", window), softcap,
+                        scale, q_block, window)
+
+
+def pack_ok(cfg: ModelConfig) -> bool:
+    """The reference's ``pack_ok``: ``attn_causal_pack`` ``"on"`` or
+    ``"off"``; ``"auto"`` packs where the heads split evenly over the
+    active rules' ``model`` axis (1 without rules)."""
+    if cfg.attn_causal_pack in ("on", "off"):
+        return cfg.attn_causal_pack == "on"
+    return cfg.n_heads % max(axis_size("model"), 1) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -184,24 +344,36 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
     v = constrain(v, ("batch", "seq", "kv_heads", None))
 
     scale = hd ** -0.5
+    softcap = cfg.attn_logit_softcap
+    qb, pack = cfg.attn_q_block, pack_ok(cfg)
     if _ATTN_IMPL is flash_attention and mask_mode == "causal" and \
-            splits_q_heads(q, k):
+            (splits_q_heads(q, k) or splits_q_rows(q, k)):
         # q's heads split where the kv heads do not (gemma2-9b: 16 heads, 8
-        # kv heads, 16 ranks): flash takes q flat, each rank its own heads
-        o = flash_attention(q, k, v, window=window,
-                            softcap=cfg.attn_logit_softcap, scale=scale)
+        # kv heads, 16 ranks), or more ranks than heads split each head's
+        # rows: flash takes q flat, each rank its own heads or rows
+        o = flash_attention(q, k, v, window=window, softcap=softcap,
+                            scale=scale, q_block=qb, pack=pack)
     else:
         # the GQA fold: a heads shard splits into (K, G) only where K
         # divides it; elsewhere (the plain path, a hook other than flash)
         # q is replicated here
         q = unflatten(q, 2, (K, G))
         if _ATTN_IMPL is not None and mask_mode == "causal":
-            o = _ATTN_IMPL(q, k, v, window=window,
-                           softcap=cfg.attn_logit_softcap, scale=scale)
-        else:
+            o = _ATTN_IMPL(q, k, v, window=window, softcap=softcap,
+                           scale=scale, q_block=qb, pack=pack)
+        elif S <= 2 * qb or S % qb or kv_override is not None:
             mask = make_mask_fn(mask_mode, window, prefix_len)(
                 _first_row(positions), _first_row(kv_pos))
-            o = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, scale)
+            o = _sdpa(q, k, v, mask, softcap, scale)
+        elif mask_mode == "bidir":
+            o, _ = _rect_scan(q, k, v, softcap, scale, qb)
+        elif mask_mode == "causal":
+            o = causal_attention(q, k, v, window=window, softcap=softcap,
+                                 scale=scale, q_block=qb, pack=pack)
+        else:
+            o = _qblock_scan(q, k, v, make_mask_fn(mask_mode, window,
+                                                   prefix_len),
+                             softcap, scale, qb, window)
     o = constrain(o.reshape(B, S, H * hd), ("batch", "seq", "heads_flat"))
     return o @ p.wo, (k, v)
 

@@ -6,9 +6,10 @@
 
 Port of ``repro.roofline.analysis``.  The records are ``launch/dryrun.py``'s
 (``experiments/dryrun_torch/``): flops, bytes and collectives counted op by
-op over an eager trace (``roofline.trace``), on a production mesh rank 0's
-own (``split: "rank0"``: the sharded step traced as rank 0 of a fake world
-of the mesh's ranks).  Two of the reference's corrections have no place
+op over an eager trace (``roofline.trace``), on a production mesh one
+rank's own (``split: "rankN"``: the sharded step traced as the rank with
+the most work, ``launch.dryrun.traced_rank``, of a fake world of the
+mesh's ranks).  Two of the reference's corrections have no place
 here:
 
 * ``CPU_BYTES_ADJ``: XLA's CPU backend turns bf16 dots into f32, which

@@ -26,21 +26,25 @@ def bound(flops: float, peak_flops: float, nbytes: float):
 
 
 def causal_pairs(Sq: int, Skv: int, window: int = 0,
-                 causal: bool = True) -> int:
-    """The (q, kv) pairs a top-left-aligned causal mask (with ``window``)
-    allows: query row s sees min(s + 1, Skv, window) keys."""
+                 causal: bool = True, q0: int = 0) -> int:
+    """The (q, kv) pairs a causal mask (with ``window``) allows to query
+    rows at positions q0..q0 + Sq - 1: the row at position p sees
+    min(p + 1, Skv, window) keys (``q0 = 0``: the mask aligned top-left)."""
     if not causal:
         return Sq * Skv
     cap = min(Skv, window) if window else Skv
-    if Sq <= cap:
-        return Sq * (Sq + 1) // 2
-    return cap * (cap + 1) // 2 + (Sq - cap) * cap
+
+    def first(n):               # the pairs of the rows at 0..n - 1
+        if n <= cap:
+            return n * (n + 1) // 2
+        return cap * (cap + 1) // 2 + (n - cap) * cap
+    return first(q0 + Sq) - first(q0)
 
 
-def flash_work(BK, Sq, Skv, G, hd, window=0, causal=True, itemsize=2):
+def flash_work(BK, Sq, Skv, G, hd, window=0, causal=True, itemsize=2, q0=0):
     """(flops, bytes) of one flash call: two products of 2*hd each over the
     allowed (q, kv) pairs; q, k, v read once and o written once."""
-    flops = 4 * hd * BK * G * causal_pairs(Sq, Skv, window, causal)
+    flops = 4 * hd * BK * G * causal_pairs(Sq, Skv, window, causal, q0)
     nbytes = (2 * BK * Sq * G * hd + 2 * BK * Skv * hd) * itemsize
     return flops, nbytes
 

@@ -5,7 +5,7 @@ devices before JAX starts, so each side runs in a process of its own).
 
     python tests/dryrun_records_worker.py {reference,port} ARCH[,ARCH...] \
         {smoke,full} {pod,multipod} [--layers N] [--seq S --batch B] \
-        [--accum A]
+        [--accum A] [--rank R]
 
 The train step of each ARCH's smoke or full config cut to N layers
 (default: one superblock, the fewest the reference's layer scan takes) on
@@ -13,16 +13,19 @@ the ``train_4k`` shape (or S x B tokens); an ARCH written
 ``ARCH@HxK[:PACK]`` takes H q heads and K kv heads (and the config's
 ``attn_causal_pack`` PACK): the reference's compiled as its
 ``run_cell`` does (``repro.launch.dryrun.build_cell``, XLA's cost analysis
-and HLO), the port's traced as rank 0 of a fake world
-(``repro_torch.launch.dryrun.run_step``).  Prints one JSON line an ARCH
+and HLO), the port's traced as rank R (default 0) of a fake world
+(``repro_torch.launch.dryrun.run_step``).  XLA compiles one program for
+every device; the port's ranks differ where their work does (flash's
+q-rows route).  Prints one JSON line an ARCH
 (``cell``: as written), with the same keys for both sides:
 ``flops_per_device``, ``collectives`` (each side's own
 ``collective_stats``), ``attention_flops`` and ``product_flops``.
 
 ``attention_flops`` are the products of q.k and p.v: in the reference the
 batched dots (its ``bskgd,btkd->bkgst`` einsums; its projections, MLPs and
-head are unbatched dots), in the port the ``flash_attention`` ops and the
-eager attention backward's ``bmm``.  ``product_flops`` are the other dots
+head are unbatched dots), in the port the ``flash_attention`` ops
+(``flash_flops``, the port's alone) and the eager attention backward's
+``bmm``.  ``product_flops`` are the other dots
 (the reference's unbatched dots, the port's ``mm``).  The split holds for
 the dense archs; a MoE's expert products are batched too.  XLA's cost
 analysis counts a loop's body once per trip where the trip count is known;
@@ -116,7 +119,7 @@ def reference(arch, width, mesh_name, layers=0, seq=0, batch=0,
 
 
 def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1,
-         heads="") -> dict:
+         heads="", rank=0) -> dict:
     import torch
     from repro_torch.configs import base as configs
     from repro_torch.launch import dryrun
@@ -124,7 +127,7 @@ def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1,
     cfg, shape = _cfg_shape(configs, arch, width, layers, seq, batch,
                             heads)
     with fake_mesh(make_production_mesh(
-            multi_pod=mesh_name == "multipod")) as mesh:
+            multi_pod=mesh_name == "multipod"), rank) as mesh:
         trace, cell = dryrun.run_step(cfg, shape, mesh, accum)
         rec = dryrun.record(cfg, mesh, trace, *cell)
     flops = collections.Counter()
@@ -132,10 +135,12 @@ def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1,
         flops[op.name] += op.flops
     return {"side": "port", "version": f"torch {torch.__version__}",
             "layers": cfg.n_layers, "n_chips": rec["n_chips"],
+            "rank": rec["rank_traced"],
             "seconds": trace.seconds,
             "flops_per_device": rec["cost"]["flops_per_device"],
             "collectives": rec["collectives"],
             "attention_flops": flops["flash_attention"] + flops["aten.bmm"],
+            "flash_flops": flops["flash_attention"],
             "product_flops": flops["aten.mm"]}
 
 
@@ -149,12 +154,15 @@ def main():
     ap.add_argument("--seq", type=int, default=0)
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--rank", type=int, default=0)
     a = ap.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
     for cell in a.arch.split(","):
         arch, _, heads = cell.partition("@")
-        rec = (reference if a.side == "reference" else port)(
-            arch, a.width, a.mesh, a.layers, a.seq, a.batch, a.accum, heads)
+        args = (arch, a.width, a.mesh, a.layers, a.seq, a.batch, a.accum,
+                heads)
+        rec = reference(*args) if a.side == "reference" else \
+            port(*args, rank=a.rank)
         print(json.dumps({"cell": cell, "arch": arch, "width": a.width,
                           "mesh": a.mesh, "accum": a.accum, "heads": heads,
                           **rec}),

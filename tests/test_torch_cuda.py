@@ -145,6 +145,38 @@ def test_kernel_matches_plain(cuda_device, BK, Sq, Skv, G, hd, win, cap,
     assert err.item() <= TOL[dtype]
 
 
+# (BK, S, G, hd, window): Sq = S / 4 rows at a q-row offset q0 in {S/4,
+# S/2, 3S/4} against S keys (a rank's block on flash's q-rows route)
+Q0_SHAPES = [(2, 512, 2, 64, 0), (2, 512, 4, 64, 96), (1, 512, 3, 128, 0),
+             (1, 512, 4, 128, 200), (1, 512, 2, 256, 0),
+             (1, 512, 2, 256, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BK,S,G,hd,win", Q0_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_a_row_offset_matches_plain(cuda_device, BK, S, G, hd, win,
+                                              dtype):
+    """Both kernels (f32: the CUDA-core one; bf16: the tensor-core one at hd
+    64, 128, 256) with q's rows at q0 against their plain versions at the
+    same q0, at flash's tolerances."""
+    from repro_torch.kernels.flash_attention import flash_attention_wgmma_ref
+    k = _randn((BK, S, hd), dtype, cuda_device, 1)
+    v = _randn((BK, S, hd), dtype, cuda_device, 2)
+    for i, q0 in enumerate((S // 4, S // 2, 3 * S // 4)):
+        q = _randn((BK, S // 4, G, hd), dtype, cuda_device, 10 + i)
+        kw = dict(scale=hd ** -0.5, window=win, q0=q0)
+        o = flash_attention_bkg(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert o.dtype == dtype and o.shape == q.shape
+        err = (o.float() - flash_attention_ref(q, k, v, **kw).float()).abs()
+        assert err.max().item() <= TOL[dtype], q0
+        if dtype == torch.bfloat16:
+            emu = flash_attention_wgmma_ref(q, k, v, **kw)
+            assert (o.float() - emu.float()).abs().max().item() <= \
+                TOL[dtype], q0
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     q = torch.zeros(1, 16, 1, 16, device=cuda_device)
@@ -422,13 +454,48 @@ def test_flash_attention_function_grads_match_plain(cuda_device, B, S, K, G,
            _randn((B, S, K, hd), dtype, cuda_device, 2))
     go = (_randn((B, S, K, G, hd), dtype, cuda_device, 3),)
     before = cuda_lib.launches["flash_attention"]
-    (o,), got = _grads(lambda *t: flash_attention(*t, **kw), ins, go)
+    (o,), got = _grads(lambda *t: flash_attention(*t, q_block=512, pack=True, **kw), ins,
+                        go)
     assert cuda_lib.launches["flash_attention"] == before + 1
     assert o.grad_fn is not None
     (ref,), want = _grads(lambda *t: plain_attention(*t, **kw), ins, go)
     torch.testing.assert_close(o.float(), ref.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
     _assert_grads_close(got, want, TOL[dtype])
+
+
+# (S, window, q0, q_block): the backward's dispatch packs (S 256, no
+# window), scans q blocks (a window) or takes the rows at q0 as one
+# rectangle
+FLASH_DISPATCH = [(256, 0, 0, 64), (256, 48, 0, 64), (192, 0, 0, 64),
+                  (64, 0, 192, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,win,q0,qb", FLASH_DISPATCH)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_through_the_dispatch(cuda_device, S, win, q0, qb,
+                                             dtype):
+    """The autograd function's backward recomputes through the reference's
+    q-block dispatch (``causal_attention`` at ``q_block``, packing on); its
+    output and gradients equal the whole-square eager attention's: at q0
+    > 0, of q0 + S rows (the first q0 fixed) with the last S sliced out of
+    its output, so no row offset is on that side."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import plain_attention
+    kw = dict(window=win, scale=64 ** -0.5)
+    ins = (_randn((2, S, 1, 4, 64), dtype, cuda_device, 0),
+           _randn((2, q0 + S, 1, 64), dtype, cuda_device, 1),
+           _randn((2, q0 + S, 1, 64), dtype, cuda_device, 2))
+    go = (_randn((2, S, 1, 4, 64), dtype, cuda_device, 3),)
+    head = _randn((2, q0, 1, 4, 64), dtype, cuda_device, 4)
+    before = cuda_lib.launches["flash_attention"]
+    (o,), got = _grads(lambda *t: flash_attention(*t, q0=q0, q_block=qb,
+                                                  pack=True, **kw), ins, go)
+    assert cuda_lib.launches["flash_attention"] == before + 1
+    (w,), want = _grads(lambda q, k, v: plain_attention(
+        torch.cat([head, q], dim=1), k, v, **kw)[:, q0:], ins, go)
+    _assert_grads_close((o, *got), (w, *want), TOL[dtype])
 
 
 @pytest.mark.cuda

@@ -240,7 +240,7 @@ def test_flash_records_its_local_shapes():
                                      (Shard(0), Shard(2)))
         q, k, v = dt((B, S, K, G, hd)), dt((B, S, K, hd)), dt((B, S, K, hd))
         with OpTrace() as trace:
-            o = flash_attention(q, k, v, scale=0.25)
+            o = flash_attention(q, k, v, scale=0.25, q_block=512, pack=True)
     assert tuple(o.to_local().shape) == (2, S, 1, G, hd)
     ops = [op for op in trace.ops if op.name == "flash_attention"]
     flops, nbytes = flash_work(2, S, S, G, hd, 0, True, 4)
@@ -314,16 +314,19 @@ def test_optimizer_state_takes_the_shards_device(arch):
 # ---------------------------------------------------------------------------
 # the 1 x 1 records of smoke cells (ShapeConfig("s", kind, 32, 4), the
 # default grad_accum 4), as the dry-run wrote them before it traced sharded
-# cells: flops, transcendentals, bytes, compulsory bytes, temp GB, ops
+# cells: flops, transcendentals, bytes, compulsory bytes, temp GB, ops.  The
+# train cells' bytes and ops since flash's backward recomputes through
+# ``qk_scores``, whose backward casts the saved bf16 q and k to f32 where
+# autograd of ``q.float()`` kept f32 copies (flops and temp memory equal)
 ONE_BY_ONE = {
     "h2o-danube-1.8b/decode": (917504, 2132, 791712, 313636, 3.8424e-05, 291),
     "h2o-danube-1.8b/prefill": (20217856, 58372, 4886704, 313616,
                                 0.000196848, 227),
-    "h2o-danube-1.8b/train": (89161728, 329154, 52626498, 3910692,
+    "h2o-danube-1.8b/train": (89161728, 329154, 53040194, 3910692,
                               0.000935452, 3632),
-    "qwen3-moe-235b-a22b/train": (99385344, 226689, 80656162, 1227748,
+    "qwen3-moe-235b-a22b/train": (99385344, 226689, 81069858, 1227748,
                                   0.001277544, 5818),
-    "recurrentgemma-2b/train": (224493568, 837570, 185795758, 8006692,
+    "recurrentgemma-2b/train": (224493568, 837570, 186184878, 8006692,
                                 0.00184618, 12301),
     "rwkv6-7b/prefill": (36978688, 108036, 13541040, 567568, 0.000720112,
                          350),
@@ -447,11 +450,22 @@ def smoke_train_record(arch: str, multi_pod: bool) -> dict:
 HEADS_CELL = "internlm2-20b@16x8:off"
 
 
-def heads_port_record() -> dict:
-    """The port's side of ``HEADS_CELL`` (tests/dryrun_records_worker.py)."""
+# the same with packing on (``"auto"``: 16 heads over 16 ranks): the
+# reference packs its causal products (``_causal_packed``), and so does the
+# port's backward, which recomputes through the same dispatch
+PACKED_CELL = "internlm2-20b@16x8"
+# C5's cell: the internlm2-20b smoke config's 4 heads over 16 ``model``
+# ranks (the q-rows route, 4 ranks a head), traced as rank 0 (rows 0-63 of
+# head 0, the least work) and rank 3 (rows 192-255, the most)
+ROWS_CELL, ROWS_RANKS = "internlm2-20b", (0, 3)
+
+
+def heads_port_record(cell: str = HEADS_CELL, rank: int = 0) -> dict:
+    """The port's side of a smoke cell on ``pod`` at 64 x 256 tokens,
+    traced as ``rank`` (tests/dryrun_records_worker.py)."""
     import dryrun_records_worker as worker
-    arch, _, heads = HEADS_CELL.partition("@")
-    return worker.port(arch, "smoke", "pod", 1, 256, 64, 1, heads)
+    arch, _, heads = cell.partition("@")
+    return worker.port(arch, "smoke", "pod", 1, 256, 64, 1, heads, rank)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -465,7 +479,11 @@ def smoke_records():
     pool = concurrent.futures.ProcessPoolExecutor(
         4, mp_context=multiprocessing.get_context("spawn"))
     try:
-        futures = {HEADS_CELL: pool.submit(heads_port_record)}
+        futures = {HEADS_CELL: pool.submit(heads_port_record),
+                   PACKED_CELL: pool.submit(heads_port_record, PACKED_CELL)}
+        futures.update({("rows", r): pool.submit(heads_port_record,
+                                                 ROWS_CELL, r)
+                        for r in ROWS_RANKS})
         futures.update({(a, mp): pool.submit(smoke_train_record, a, mp)
                         for a in list_archs() for mp in (False, True)})
         yield futures
@@ -484,6 +502,57 @@ def test_every_train_cell_communicates(smoke_records, arch, multi_pod):
     assert rec["n_ranks_traced"] == 1
     assert _total(rec) > 0
     assert rec["cost"]["flops_per_device"] > 0
+    # the record names the rank it traced, the heaviest
+    name = f"rank{rec['rank_traced']}"
+    assert rec["rank_traced"] == dryrun.traced_rank(
+        get_smoke_config(arch), LM_SHAPES["train_4k"],
+        make_production_mesh(multi_pod=multi_pod))
+    assert rec["cost"]["split"] == rec["memory"]["temp_split"] == name
+    assert set(rec[name]) == {"op_flops", "kernel_shapes",
+                              "largest_collective"}
+
+
+# (arch, heads, mesh, shape) -> the rank the dry-run traces: rank 0, or
+# on the q-rows route (more ``model`` ranks than q heads; train and
+# prefill) model coordinate tp - 1
+TRACED_RANKS = {("gemma3-1b", "smoke", "pod", "train_4k"): 15,
+                ("gemma3-1b", "smoke", "multipod", "prefill_32k"): 15,
+                ("gemma3-1b", "smoke", "multipod", "decode_32k"): 0,
+                ("internlm2-20b", "smoke", "pod", "train_4k"): 15,
+                ("internlm2-20b", "full", "pod", "train_4k"): 0,
+                ("gemma2-9b", "full", "multipod", "train_4k"): 0,
+                ("internlm2-20b", "2x2", "4x4", "train_4k"): 3,
+                ("internlm2-20b", "2x2", "model4", "train_4k"): 6,
+                ("internlm2-20b", "2x2", "data4", "train_4k"): 0}
+
+
+@pytest.mark.parametrize("cell", sorted(TRACED_RANKS))
+def test_traced_rank_is_the_heaviest(cell):
+    arch, heads, mesh, shape = cell
+    cfg = get_config(arch) if heads == "full" else get_smoke_config(arch)
+    if heads == "2x2":
+        cfg = dataclasses.replace(cfg, n_heads=2, n_kv_heads=2)
+    meshes = {"4x4": AbstractMesh(("data", "model"), (4, 4)),
+              "model4": AbstractMesh(("model", "data"), (4, 2)),
+              "data4": AbstractMesh(("data",), (4,))}
+    m = meshes.get(mesh) or make_production_mesh(multi_pod=mesh ==
+                                                 "multipod")
+    assert dryrun.traced_rank(cfg, LM_SHAPES[shape], m) == \
+        TRACED_RANKS[cell]
+
+
+def test_q_rows_record_is_the_heaviest_ranks(smoke_records):
+    """C5's smoke cell on ``pod`` as the dry-run records it: the rank at
+    ``model`` coordinate 15 (head 3's rows 192-255), whose work is rank
+    3's (head 0's same rows), above rank 0's."""
+    rec = smoke_records["internlm2-20b", False].result(timeout=SMOKE_JOIN_S)
+    rows = {r: smoke_records["rows", r].result(timeout=SMOKE_JOIN_S)
+            for r in ROWS_RANKS}
+    assert rec["rank_traced"] == 15
+    assert rec["cost"]["flops_per_device"] == rows[3]["flops_per_device"] > \
+        rows[0]["flops_per_device"]
+    assert rec["rank15"]["op_flops"]["flash_attention"] == \
+        rows[3]["flash_flops"]
 
 
 # the archs whose smoke train cell the reference compiles on ``pod`` (its
@@ -504,7 +573,7 @@ def reference_records():
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     proc = subprocess.Popen(
         [sys.executable, str(WORKER), "reference",
-         ",".join(REFERENCE_ARCHS + [HEADS_CELL]), "smoke", "pod",
+         ",".join(REFERENCE_ARCHS + [HEADS_CELL, PACKED_CELL]), "smoke", "pod",
          "--layers", "1", "--seq", "256", "--batch", "64"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     records = {}
@@ -558,6 +627,39 @@ def test_split_heads_hold_the_reference(smoke_records, reference_records):
         assert 0 < port[key] <= 1.25 * ref[key], (key, port[key], ref[key])
 
 
+def test_packed_attention_holds_the_reference(smoke_records,
+                                             reference_records):
+    """``PACKED_CELL`` beside the reference's own record: the port's
+    backward recomputes through the reference's packed dispatch, so its
+    eager products (``bmm``) are exactly the reference's attention
+    products, forward and backward; the flash forward's causal pairs come
+    on top.  With no remat in the smoke config that forward is 0.297 of the
+    reference's (half a square of two products, against 0.5625 of a square
+    of six: 1.297 in all; 2.08 when the backward computed whole squares)."""
+    ref = reference_records(PACKED_CELL)
+    port = smoke_records[PACKED_CELL].result(timeout=SMOKE_JOIN_S)
+    assert port["attention_flops"] - port["flash_flops"] == \
+        ref["attention_flops"] > 0
+    assert port["attention_flops"] <= 1.3 * ref["attention_flops"]
+
+
+def test_q_rows_hold_the_reference(smoke_records, reference_records):
+    """C5 beside the reference's own record of ``ROWS_CELL`` (4 heads on
+    16 ``model`` ranks): rank 0's attention and rank 3's (the last row
+    block of a head, the heaviest) at most the reference's a device (each
+    rank runs a quarter of one head's rows: 0.117 and 0.517 of it;
+    replicated heads were 7.5 times), rank 3's more than rank 0's."""
+    ref = reference_records(ROWS_CELL)
+    ports = [smoke_records["rows", r].result(timeout=SMOKE_JOIN_S)
+             for r in ROWS_RANKS]
+    assert [p["rank"] for p in ports] == list(ROWS_RANKS)
+    for port in ports:
+        assert 0 < port["attention_flops"] <= ref["attention_flops"], \
+            (port["rank"], port["attention_flops"], ref["attention_flops"])
+    assert ports[0]["attention_flops"] < ports[1]["attention_flops"]
+    assert ports[0]["product_flops"] == ports[1]["product_flops"]
+
+
 def test_one_rank_dtensor_step_traces_the_plain_step(tmp_path):
     """A smoke train step built by the dry-run on CPU tensors, as the
     DTensor step on a 1 x 1 gloo mesh and plain: equal flops, bytes and
@@ -580,6 +682,31 @@ def test_one_rank_dtensor_step_traces_the_plain_step(tmp_path):
     assert (dt.flops, dt.bytes_accessed) == (pt.flops, pt.bytes_accessed)
     assert dryrun.record(cfg, dm, dt, *dcell)["memory"] == \
         dryrun.record(cfg, pm, pt, *pcell)["memory"]
+
+
+def test_fake_worlds_of_two_ranks_trace_in_one_process():
+    """A train cell traced as rank 5 of a fake 4 x 4 world, then as rank 0
+    in the same process: each record names its rank, and the work (no
+    split depends on the rank here) is the same.  DTensor's cached plans
+    hold the first world's mesh, whose group names follow its rank;
+    ``fake_mesh`` empties them on every entry, else the second trace asks
+    for a group its world does not have."""
+    cfg = get_smoke_config("h2o-danube-1.8b")
+    shape = ShapeConfig("s", "train", 64, 16)
+    mesh = AbstractMesh(("data", "model"), (4, 4))
+    recs = []
+    for r in (5, 0):
+        with fake_mesh(mesh, r) as m:
+            trace, cell = dryrun.run_step(cfg, shape, m, grad_accum=1)
+            recs.append(dryrun.record(cfg, m, trace, *cell))
+    assert [r["rank_traced"] for r in recs] == [5, 0]
+    assert [r["cost"]["split"] for r in recs] == ["rank5", "rank0"]
+    assert "rank5" in recs[0] and "rank0" in recs[1]
+    assert recs[0]["cost"]["flops_per_device"] == \
+        recs[1]["cost"]["flops_per_device"] > 0
+    with pytest.raises(ValueError, match="rank 16"):
+        with fake_mesh(mesh, 16):
+            pass
 
 
 def test_fake_mesh_refuses_a_process_with_a_group(tmp_path):

@@ -80,7 +80,8 @@ def test_gqa_wrapper_matches_reference(window):
     B, S, K, G, hd = 2, 128, 2, 3, 32
     (jq, jk, jv), (tq, tk, tv), tol = _inputs((B, S, K, G, hd), (B, S, K, hd),
                                               "f32", seed=2)
-    o = flash_attention(tq, tk, tv, scale=hd ** -0.5, window=window)
+    o = flash_attention(tq, tk, tv, scale=hd ** -0.5, window=window,
+                        q_block=512, pack=True)
     assert o.shape == (B, S, K, G, hd)
     _close(o, jops.flash_attention(jq, jk, jv, scale=hd ** -0.5, window=window,
                                    bq=64, bk=64, interpret=True), tol)
@@ -145,6 +146,43 @@ def test_wgmma_numerics_ragged():
     kw = dict(scale=32 ** -0.5, softcap=30.0, window=40)
     _close(flash_attention_wgmma_ref(tq, tk, tv, **kw), jref(jq, jk, jv, **kw),
            tol)
+
+
+# (Sq, Skv, G, window): q's rows at q0 > 0, against all the keys and
+# against the keys up to the last row (the q-rows route's shape)
+Q0_CASES = [(64, 256, 2, 0), (64, 256, 2, 48), (90, 150, 10, 40),
+            (60, 200, 1, 0)]
+
+
+@pytest.mark.parametrize("Sq,Skv,G,window", Q0_CASES)
+@pytest.mark.parametrize("fn", ["flash_attention_ref",
+                                "flash_attention_wgmma_ref",
+                                "plain_attention"])
+def test_row_offset_gives_the_rows_of_the_whole(fn, Sq, Skv, G, window):
+    """Each plain version with q's rows at ``q0`` (row i at position q0 +
+    i) equals rows [q0, q0 + Sq) of its ``q0 = 0`` result on the whole q,
+    bit for bit, at several q0 (the last reaching past the keys' end)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models.attention import plain_attention
+    hd, S = 32, max(Skv, 3 * Sq)
+    dt = "f32" if fn == "flash_attention_ref" else "bf16"
+    _, (q, k, v), _ = _inputs((2, S, G, hd), (2, Skv, hd), dt, seed=8)
+    kw = dict(scale=hd ** -0.5, softcap=30.0 if G == 10 else 0.0,
+              window=window)
+    if fn == "plain_attention":
+        def run(q, **kw):          # the model's layout, one kv head
+            return plain_attention(q[:, :, None], k[:, :, None],
+                                   v[:, :, None], **kw)[:, :, 0]
+    else:
+        f = {"flash_attention_ref": flash_attention_ref,
+             "flash_attention_wgmma_ref": flash_attention_wgmma_ref}[fn]
+
+        def run(q, **kw):
+            return f(q, k, v, **kw)
+    whole = run(q, **kw)
+    for q0 in (Sq // 2, Sq, S - Sq):
+        got = run(q[:, q0:q0 + Sq].contiguous(), q0=q0, **kw)
+        assert torch.equal(got, whole[:, q0:q0 + Sq]), (q0, fn)
 
 
 def test_build_log_resources_per_instantiation(monkeypatch):

@@ -196,6 +196,23 @@ def test_causal_pairs_is_the_loop_it_replaces(S, window):
     assert bounds.causal_pairs(S, S, window) == loop
 
 
+@pytest.mark.parametrize("Sq,Skv,window,q0", [(64, 256, 0, 192),
+                                               (64, 256, 48, 64),
+                                               (16, 40, 0, 32), (8, 64, 4, 0)])
+def test_causal_pairs_at_a_row_offset(Sq, Skv, window, q0):
+    """Rows at positions q0..q0 + Sq - 1: the loop over the mask's allowed
+    pairs, and the flash meta path records them."""
+    loop = sum(1 for p in range(q0, q0 + Sq) for c in range(Skv)
+               if c <= p and (not window or c > p - window))
+    assert bounds.causal_pairs(Sq, Skv, window, q0=q0) == loop
+    with OpTrace() as trace:
+        flash_attention_bkg(_meta(2, Sq, 3, 16), _meta(2, Skv, 16),
+                            _meta(2, Skv, 16), scale=0.25, window=window,
+                            q0=q0)
+    assert _kernel_op(trace, "flash_attention").flops == \
+        4 * 16 * 2 * 3 * loop
+
+
 # ---------------------------------------------------------------------------
 # the trace: linearity, the kernels' meta paths, the MoE count
 # ---------------------------------------------------------------------------

@@ -190,6 +190,8 @@ def _port_model(cell):
 KERNEL_SHAPES = {"q": (8, 16, 4, 2, 16), "k": (8, 16, 4, 16),
                  "v": (8, 16, 4, 16), "qf": (8, 16, 8, 16),
                  "kf": (8, 16, 2, 16), "vf": (8, 16, 2, 16),
+                 "qr": (8, 16, 2, 16), "kr": (8, 16, 2, 16),
+                 "vr": (8, 16, 2, 16),
                  "a": (8, 16, 8), "b": (8, 16, 8),
                  "r": (8, 16, 4, 16), "wk": (8, 16, 4, 16),
                  "wv": (8, 16, 4, 16), "logw": (8, 16, 4, 16), "u": (4, 16)}
@@ -205,6 +207,7 @@ def _kernel_inputs():
         np.float32)
     for tag, shapes in (("flash", [KERNEL_SHAPES["q"]]),
                         ("flashq", [KERNEL_SHAPES["qf"]]),
+                        ("flashr", [KERNEL_SHAPES["qr"]]),
                         ("scan", [KERNEL_SHAPES["a"]]),
                         ("wkv6", [KERNEL_SHAPES["r"], (8, 4, 16, 16)])):
         for i, shape in enumerate(shapes):
@@ -219,12 +222,18 @@ def _kernel_plain(inp):
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rwkv6_chunk import wkv6
     def flat_q(qf, kf, vf):         # 8 q heads, 2 kv heads: G = 4
-        return flash_attention(qf.unflatten(2, (2, 4)), kf, vf,
-                               scale=0.25).flatten(2, 3)
+        return flash_attention(qf.unflatten(2, (2, 4)), kf, vf, scale=0.25,
+                               q_block=512, pack=True).flatten(2, 3)
+
+    def flat_r(qr, kr, vr):         # 2 q heads, 2 kv heads: G = 1
+        return flash_attention(qr.unflatten(2, (2, 1)), kr, vr, scale=0.25,
+                               window=6, q_block=512, pack=True).flatten(2, 3)
     out = {}
     for tag, fn, names in (
-            ("flash", functools.partial(flash_attention, scale=0.25), "qkv"),
+            ("flash", functools.partial(flash_attention, scale=0.25,
+                                        q_block=512, pack=True), "qkv"),
             ("flashq", flat_q, ("qf", "kf", "vf")),
+            ("flashr", flat_r, ("qr", "kr", "vr")),
             ("scan", rglru_scan, "ab"),
             ("wkv6", wkv6, ("r", "wk", "wv", "logw", "u"))):
         ins = {n: torch.from_numpy(inp[f"kern/{n}"]).requires_grad_()
@@ -671,14 +680,20 @@ def test_moe_fallback_matches_reference(sharded, arch):
                                        err_msg=k)
 
 
-@pytest.mark.parametrize("tag", ["flash", "flashq", "scan", "wkv6"])
+@pytest.mark.parametrize("tag", ["flash", "flashq", "flashr", "scan",
+                                 "wkv6"])
 def test_kernel_routes_on_eight_ranks(sharded, tag):
     """Each wrapper's DTensor route on the 2 x 4 mesh (some inputs cut
     locally, u's gradient a Partial over ``data``): its outputs and the
     gradients of its inputs equal the plain call's to 1e-5 relative, at
     the placements of the split axes.  ``flashq`` is flash's q-heads
     route: flat q of 8 heads cut over the 4 ``model`` ranks, k and v of 2
-    kv heads whole there (each rank reads one; their gradients summed)."""
+    kv heads whole there (each rank reads one; their gradients summed).
+    ``flashr`` is its q-rows route (C5): flat q of 2 heads over the 4
+    ``model`` ranks, whole there, each rank running rows [8 j, 8 j + 8) of
+    head r // 2 (j = r % 2) at its own q0 against the keys up to its last
+    row, with a window of 6; k's and v's gradients summed over ``model``,
+    the output gathered back."""
     res, port, _ = sharded
     want = port["kernels"]
     keys = [k for k in want if k.startswith(f"kern/{tag}/")]
@@ -687,11 +702,35 @@ def test_kernel_routes_on_eight_ranks(sharded, tag):
         assert _rel(res[k], want[k]) <= DIST_F32_TOL, k
     place = {"flash": ["(Shard(dim=0), Shard(dim=2))"],
              "flashq": ["(Shard(dim=0), Shard(dim=2))"],
+             "flashr": ["(Shard(dim=0), Replicate())"],
              "scan": ["(Shard(dim=0), Shard(dim=2))"],
              "wkv6": ["(Shard(dim=0), Shard(dim=2))",
                       "(Shard(dim=0), Shard(dim=1))"]}[tag]
     for i, pl in enumerate(place):
         assert str(res[f"kern/{tag}/place{i}"]) == pl
+
+
+def test_q_rows_route_matches_the_reference(sharded):
+    """C5's route on 8 ranks (``flashr``) against the reference's causal
+    attention with the same window (``_sdpa``, f32) and its ``jax.vjp``:
+    the output and q's, k's and v's gradients to the model tolerance."""
+    from repro.models import attention as jattn
+    res, _, _ = sharded
+    inp = _kernel_inputs()
+    q, k, v = (jnp.asarray(inp[f"kern/{n}r"]) for n in "qkv")
+    B_, S_, H, hd = q.shape
+    mask = jattn.make_mask_fn("causal", 6)(jnp.arange(S_), jnp.arange(S_))
+
+    def ref(q, k, v):
+        o = jattn._sdpa(q.reshape(B_, S_, H, 1, hd), k, v, mask, 0.0, 0.25)
+        return o.reshape(B_, S_, H, hd)
+    o, vjp = jax.vjp(ref, q, k, v)
+    grads = vjp(jnp.asarray(inp["kern/flashr/ct0"]))
+    np.testing.assert_allclose(res["kern/flashr/out0"], o, atol=MODEL_TOL,
+                               rtol=MODEL_TOL)
+    for n, g in zip(("qr", "kr", "vr"), grads):
+        np.testing.assert_allclose(res[f"kern/flashr/grad/{n}"], g,
+                                   atol=MODEL_TOL, rtol=MODEL_TOL, err_msg=n)
 
 
 def test_vocab_parallel_loss_matches_the_full_logits(sharded):
@@ -898,7 +937,7 @@ def test_flash_raises_on_a_placement_it_cannot_split(one_rank, bad):
         dq = _dt(mesh, q, (Replicate(), pl))
     dk, dv = (_dt(mesh, t, (Shard(0), Replicate())) for t in (k, v))
     with pytest.raises(ValueError, match="flash attention.*placements"):
-        flash_attention(dq, dk, dv, scale=0.25)
+        flash_attention(dq, dk, dv, scale=0.25, q_block=512, pack=True)
 
 
 def test_recurrent_kernels_raise_on_a_sequence_shard(one_rank):
@@ -930,9 +969,10 @@ def test_kernels_run_local_shards_of_splittable_dtensors(one_rank):
     k, v = (torch.randn(2, 16, 2, 16, generator=g) for _ in range(2))
     o = flash_attention(_dt(mesh, q, (Shard(0), Shard(2))),
                         _dt(mesh, k, (Shard(0), Replicate())),
-                        _dt(mesh, v, (Replicate(), Shard(2))), scale=0.25)
+                        _dt(mesh, v, (Replicate(), Shard(2))), scale=0.25,
+                        q_block=512, pack=True)
     assert o.placements == (Replicate(), Replicate())
-    _same(o, flash_attention(q, k, v, scale=0.25), "flash")
+    _same(o, flash_attention(q, k, v, scale=0.25, q_block=512, pack=True), "flash")
     r, kk, vv = (torch.randn(2, 16, 2, 16, generator=g) for _ in range(3))
     w, u = -torch.rand(2, 16, 2, 16, generator=g), torch.randn(2, 16,
                                                                generator=g)
@@ -968,10 +1008,10 @@ def test_collectives_copy_nothing_on_one_rank(one_rank, op):
 HEAD_SPLITS = {
     "arctic-480b": ("kv_heads", "replicated"),
     "gemma2-9b": ("kv_heads", "q_heads"),
-    "gemma3-1b": ("q_heads", "replicated"),
+    "gemma3-1b": ("q_heads", "q_rows"),
     "h2o-danube-1.8b": ("kv_heads", "q_heads"),
     "internlm2-20b": ("kv_heads", "q_heads"),
-    "paligemma-3b": ("q_heads", "replicated"),
+    "paligemma-3b": ("q_heads", "q_rows"),
     "qwen3-moe-235b-a22b": ("kv_heads", "q_heads"),
     "recurrentgemma-2b": ("replicated", "replicated"),
     "rwkv6-7b": ("kv_heads", "kv_heads"),
@@ -979,39 +1019,46 @@ HEAD_SPLITS = {
 }
 
 
-def _flash_local_q(H, K, hd, tp, kv_split):
-    """Rank 0's flash on meta DTensors of (2, 8) tokens on a fake
-    (1, tp) mesh: q cut on its heads over ``model`` (flat unless the kv
-    heads split too) -> (the local output's shape, the q shape the kernel
-    recorded)."""
+def _flash_local_q(H, K, hd, tp, kv_split, rank=0):
+    """``rank``'s flash on meta DTensors of (2, 8) tokens on a fake
+    (1, tp) mesh: q cut on its heads over ``model`` where ``tp`` divides
+    them (flat unless the kv heads split too), else whole there and flat
+    (the q-rows route) -> (the local output's shape, the q shape the kernel
+    recorded, the flops it recorded)."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.mesh import fake_mesh
     from repro_torch.roofline.trace import OpTrace
-    with fake_mesh(AbstractMesh(("data", "model"), (1, tp))) as mesh:
+    with fake_mesh(AbstractMesh(("data", "model"), (1, tp)), rank) as mesh:
         def dt(shape, d):
             return distribute_tensor(torch.empty(shape, device="meta"), mesh,
                                      (Replicate(), Shard(d) if d else
                                       Replicate()))
-        q = dt((2, 8, K, H // K, hd) if kv_split else (2, 8, H, hd), 2)
+        q = dt((2, 8, K, H // K, hd) if kv_split else (2, 8, H, hd),
+               2 if H % tp == 0 else None)
         k, v = (dt((2, 8, K, hd), 2 if kv_split else None) for _ in "kv")
         with OpTrace() as trace:
-            o = flash_attention(q, k, v, scale=0.25)
+            o = flash_attention(q, k, v, scale=0.25, q_block=512, pack=True)
     [op] = [op for op in trace.ops if op.name == "flash_attention"]
-    return tuple(o.to_local().shape), op.shape
+    return tuple(o.to_local().shape), op.shape, op.flops
 
 
 @pytest.mark.parametrize("tp", [4, 16])
 @pytest.mark.parametrize("arch", sorted(HEAD_SPLITS))
 def test_each_arch_takes_one_head_split(arch, tp):
-    """C3: each arch's full config at 4 and 16 ``model`` ranks takes
-    exactly one of flash's three layouts, the one the reference's rules
+    """C3 and C5: each arch's full config at 4 and 16 ``model`` ranks takes
+    exactly one of flash's four layouts, the one the reference's rules
     imply: kv heads split (``kv_heads`` on ``model``), attention
-    replicated (``heads`` on nothing), or q heads split with each rank's
-    H / tp heads reading one kv head, which rank 0 runs at those local
-    shapes (its q (B, S, 1 kv head, H / tp, hd) in the kernel's layout)."""
+    replicated (``heads`` on nothing, neither count dividing the other), q
+    heads split with each rank's H / tp heads reading one kv head, which
+    rank 0 runs at those local shapes (its q (B, S, 1 kv head, H / tp, hd)
+    in the kernel's layout), or each head's rows split over tp / H ranks
+    (``heads`` on nothing): rank 0 runs the first 8 / n rows of head 0 and
+    the last rank the last rows of the last head, with more causal pairs,
+    and the output is gathered whole."""
     from repro_torch.kernels.flash_attention.ops import head_split
+    from repro_torch.roofline.bounds import flash_work
     cfg = get_config(arch)
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     how = head_split(H, K, tp)
@@ -1019,16 +1066,24 @@ def test_each_arch_takes_one_head_split(arch, tp):
     rules = layouts.choose_layout(cfg, LM_SHAPES["train_4k"],
                                   AbstractMesh(("data", "model"), (16, tp)))
     assert (rules.rules["kv_heads"] == "model") == (how == "kv_heads")
-    assert (rules.rules["heads"] is None) == (how == "replicated")
+    assert (rules.rules["heads"] is None) == (how in ("replicated",
+                                                      "q_rows"))
     if how == "replicated":
         return
-    out, kernel_q = _flash_local_q(H, K, hd, tp, how == "kv_heads")
+    out, kernel_q, _ = _flash_local_q(H, K, hd, tp, how == "kv_heads")
     if how == "kv_heads":
         assert out == (2, 8, K // tp, H // K, hd)
         assert kernel_q == (2 * K // tp, 8, H // K, hd)
-    else:
+    elif how == "q_heads":
         assert out == (2, 8, H // tp, hd)
         assert kernel_q == (2, 8, H // tp, hd)
+    else:
+        rows = 8 // (tp // H)
+        last = _flash_local_q(H, K, hd, tp, False, rank=tp - 1)
+        assert out == last[0] == (2, 8, H, hd)
+        assert kernel_q == last[1] == (2, rows, 1, hd)
+        assert last[2] == flash_work(2, rows, 8, 1, hd, q0=8 - rows)[0] > \
+            flash_work(2, rows, rows, 1, hd)[0]
 
 
 @pytest.mark.parametrize("H,K,tp", [(24, 6, 4), (12, 4, 6)])
@@ -1042,6 +1097,21 @@ def test_other_head_layouts_raise(H, K, tp):
     with pytest.raises(ValueError, match=rf"\({H}, {K}, {tp}\).*"
                        "placements q"):
         _flash_local_q(H, K, 16, tp, False)
+
+
+def test_q_rows_route_raises_on_rows_that_do_not_split():
+    """4 q heads over 16 ``model`` ranks spread each head over 4 ranks: 6
+    rows do not split 4 ways, and the route raises with (H, K, tp, S)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import fake_mesh
+    with fake_mesh(AbstractMesh(("data", "model"), (1, 16))) as mesh:
+        q, k, v = (distribute_tensor(torch.empty(s, device="meta"), mesh,
+                                     (Replicate(), Replicate()))
+                   for s in ((2, 6, 4, 16), (2, 6, 2, 16), (2, 6, 2, 16)))
+        with pytest.raises(ValueError, match=r"\(4, 2, 16, 6\)"):
+            flash_attention(q, k, v, scale=0.25, q_block=512, pack=True)
 
 
 def test_layer_spec_moves_the_layer_axis():

@@ -245,7 +245,9 @@ def run_kernels(inp, mesh, res):
     that some are cut locally (flash's k, the scan's b, the wkv6's u over
     ``model``) and some gradients are ``Partial`` (u over ``data``), and
     flash's q-heads route (flat q cut on its heads over ``model``, k and v
-    whole there); the outputs, the input gradients of a random cotangent
+    whole there) and its q-rows route (flat q of fewer heads than ``model``
+    ranks, whole there, each rank one block of one head's rows); the
+    outputs, the input gradients of a random cotangent
     and the output placements, in full."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from repro_torch.kernels.flash_attention import flash_attention
@@ -270,12 +272,20 @@ def run_kernels(inp, mesh, res):
     ins = {"q": dt("q", Shard(0), Shard(2)),
            "k": dt("k", Shard(0), Replicate()),
            "v": dt("v", Replicate(), Shard(2))}
-    record("flash", flash_attention(*ins.values(), scale=0.25), ins)
+    record("flash", flash_attention(*ins.values(), scale=0.25, q_block=512, pack=True), ins)
     # the q-heads route: 8 flat q heads over 4 ranks, 2 kv heads whole
     ins = {"qf": dt("qf", Shard(0), Shard(2)),
            "kf": dt("kf", Shard(0), Replicate()),
            "vf": dt("vf", Replicate(), Replicate())}
-    record("flashq", flash_attention(*ins.values(), scale=0.25), ins)
+    record("flashq", flash_attention(*ins.values(), scale=0.25, q_block=512, pack=True),
+           ins)
+    # the q-rows route: 2 flat q heads over 4 ranks, each head's 16 rows
+    # split 2 ways, 2 kv heads whole; a window of 6
+    ins = {"qr": dt("qr", Shard(0), Replicate()),
+           "kr": dt("kr", Shard(0), Replicate()),
+           "vr": dt("vr", Replicate(), Replicate())}
+    record("flashr", flash_attention(*ins.values(), scale=0.25, window=6,
+                                     q_block=512, pack=True), ins)
     ins = {"a": dt("a", Shard(0), Shard(2)), "b": dt("b", Replicate(),
                                                      Replicate())}
     record("scan", rglru_scan(*ins.values()), ins)
