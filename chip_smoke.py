@@ -188,7 +188,12 @@ Phases:
      device, its largest all-gather and flash's local q; it fails unless
      flash runs on 1 local q head (the q-heads route) and every all-gather
      is smaller than the f32 logits of the rank's rows (the vocab-parallel
-     loss).
+     loss).  Then paligemma-3b's cell (8 heads on 16 ``model`` ranks, every
+     layer under the prefix-LM mask): one ``[dryrun]`` line with its
+     attention and other products' flops a device, the q-rows route's
+     local q and the k/v projections' local columns; it fails unless the
+     plain dispatch ran on one head's S / 2 rows (2 ranks a head) and the
+     k/v projections were cut by columns over the 16 ranks.
   Phase 2 also holds each kernel's autograd function (the kernel forward, the
   plain version's autograd backward) against autograd of the plain version
   over the kernel's sweep, at the kernel's tolerance.
@@ -303,6 +308,10 @@ DRYRUN_CELL = ("qwen3-moe-235b-a22b", "train_4k", "pod")
 # and gemma2-9b's, whose 8 kv heads do not split over 16 ``model`` ranks:
 # flash on each rank's own q head, the loss vocab-parallel
 DRYRUN_HEADS_CELL = ("gemma2-9b", "train_4k", "pod")
+# and paligemma-3b's, whose 8 heads spread over 16 ``model`` ranks under the
+# prefix-LM mask: the plain dispatch on each rank's block of one head's
+# rows (the q-rows route), the k and v projections cut by columns
+DRYRUN_ROWS_CELL = ("paligemma-3b", "train_4k", "pod")
 DRYRUN_LAYERS = 1
 DRYRUN_TIMEOUT_S = 90
 # the same cell's trace on a CPU host (torch 2.13.0+cpu): printed beside the
@@ -756,17 +765,17 @@ def recurrent_kernel(arch):
     return wkv6_ops, "wkv6_bh", wkv6_ops.wkv6_ref, WKV6_TOL
 
 
-def plain_flash(q, k, v, *, window, softcap, scale, q_block, pack):
+def plain_flash(q, k, v, *, window, softcap, scale, q_block, pack, q0=0):
     """The flash hook's plain version (``flash_attention_ref``, P·V in f32
-    as the kernels) in the model's layout; the hook's ``q_block`` and
-    ``pack`` do not change it."""
+    as the kernels) in the model's layout, q's rows at positions q0..; the
+    hook's ``q_block`` and ``pack`` do not change it."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
     Bq, Sq, K, Gq, hdq = q.shape
     qf = q.permute(0, 2, 1, 3, 4).reshape(Bq * K, Sq, Gq, hdq)
     kf = k.permute(0, 2, 1, 3).reshape(Bq * K, -1, hdq)
     vf = v.permute(0, 2, 1, 3).reshape(Bq * K, -1, hdq)
     o = flash_attention_ref(qf, kf, vf, scale=scale, softcap=softcap,
-                            window=window)
+                            window=window, q0=q0)
     return o.reshape(Bq, K, Sq, Gq, hdq).permute(0, 2, 1, 3, 4)
 
 
@@ -2883,7 +2892,12 @@ def dryrun_path(card) -> dict:
     ``DRYRUN_HEADS_CELL``'s: prints its attention flops a device (flash
     and the eager backward's ``bmm``), its largest all-gather and flash's
     local q; fails unless flash runs on one q head of the rank's rows, or
-    where an all-gather is as large as the f32 logits of those rows."""
+    where an all-gather is as large as the f32 logits of those rows.  Then
+    ``DRYRUN_ROWS_CELL``'s: prints its attention and other products' flops
+    a device, the q-rows route's local q and the k/v projections' local
+    columns (the record's ``q_rows:attention`` and ``kv_columns``); fails
+    unless the rank ran one head's S / n rows (n = 16 / heads) of its
+    microbatch rows and the projections' K * hd / 16 columns."""
     import torch
     from repro_torch.configs.base import LM_SHAPES, get_config
     from repro_torch.launch.dryrun import TRAIN_GRAD_ACCUM
@@ -2928,7 +2942,34 @@ def dryrun_path(card) -> dict:
     check(gather["output_bytes"] < logits,
           f"[dryrun] {arch}: an all-gather of {gather['output_bytes']} bytes "
           f"carries the logits ({logits} bytes)")
-    return {"dryrun": row, "heads": heads_row}
+
+    arch, shape, mesh = DRYRUN_ROWS_CELL
+    rec, wall = dryrun_record(DRYRUN_ROWS_CELL)
+    cfg, sh = get_config(arch), LM_SHAPES[shape]
+    rows = sh.global_batch // TRAIN_GRAD_ACCUM // 16    # 16 data ranks
+    work = rec[rec["cost"]["split"]]
+    shapes, ops = work["kernel_shapes"], work["op_flops"]
+    local_q = shapes.get("q_rows:attention")
+    columns = shapes.get("kv_columns")
+    rows_row = {
+        "cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
+        "rank_traced": rec["rank_traced"],
+        "flops_per_device": rec["cost"]["flops_per_device"],
+        "attention_flops_per_device":
+            ops.get("flash_attention", 0) + ops.get("aten.bmm", 0),
+        "product_flops_per_device": ops.get("aten.mm", 0),
+        "q_rows_local_q": local_q, "kv_columns_local": columns,
+        "collectives": rec["collectives"], "trace_s": rec["lower_s"],
+        "wall_s": wall, "card": card}
+    print("[dryrun] " + json.dumps(rows_row), flush=True)
+    n = 16 // cfg.n_heads
+    check(local_q == [[rows, sh.seq_len // n, cfg.head_dim]],
+          f"[dryrun] {arch}: the q-rows route's local q {local_q} is not "
+          f"one head's {sh.seq_len // n} rows of the rank's {rows} rows")
+    check(columns == [[cfg.d_model, cfg.n_kv_heads * cfg.head_dim // 16]],
+          f"[dryrun] {arch}: the k/v projections' local {columns} are not "
+          f"cut by columns over 16 ranks")
+    return {"dryrun": row, "heads": heads_row, "rows": rows_row}
 
 
 def train_launches(cfg, kernel) -> int:

@@ -43,8 +43,8 @@ rank runs its H / tp q heads against the one kv head they read, and k's
 and v's gradients are summed over that dim.  Where ``model`` has more
 ranks than q heads, a multiple of them (the internlm2-20b smoke config's 4
 heads over 16 ranks), q comes flat too and each rank runs one block of one
-head's rows at its ``q0`` (the q-rows route).  ``head_split`` says which
-layouts split how; any other raises.
+head's rows at its ``q0`` (the q-rows route).  ``distributed.heads.
+head_split`` says which layouts split how; any other raises.
 """
 from __future__ import annotations
 
@@ -53,7 +53,9 @@ import functools
 
 import torch
 
-from repro_torch.distributed import context
+from repro_torch.distributed import context, heads
+from repro_torch.distributed.heads import (KV_SPLITS, head_split,
+                                           splits_q_rows)
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.roofline.bounds import causal_pairs, flash_work
@@ -244,68 +246,6 @@ _SPLITS = {"batch": 0, "kv_heads": 2}
 # where a mesh dim splits the q heads and not the kv heads: q flat
 # (B,S,H,hd) cut on its heads, k and v whole there
 _Q_SPLITS = {"batch": 0, "q_heads": 2}
-_KV_SPLITS = {"batch": 0}
-# where ``model`` has more ranks than q heads: q as (B, H*S, hd), cut on
-# its rows (each rank one head's block of rows), k and v whole there
-_ROW_SPLITS = {"batch": 0, "q_rows": 1}
-
-
-def head_split(H: int, K: int, tp: int) -> str:
-    """How ``tp`` ranks of the ``model`` axis split an attention of ``H`` q
-    heads and ``K`` kv heads (the reference's rules, ``layouts.
-    choose_layout``, put ``heads`` on ``model`` where ``tp`` divides ``H``,
-    ``kv_heads`` where it divides ``K``): ``"kv_heads"`` where ``tp``
-    divides ``K`` (each rank a whole group of kv heads and their q heads);
-    ``"q_heads"`` where each rank's ``H / tp`` q heads read one kv head
-    (``tp > K`` and the group ``G = H / K`` a multiple of ``H / tp``; C3);
-    ``"q_rows"`` where ``tp`` is a multiple of ``H`` that ``H`` does not
-    reach (``heads`` on nothing; C5): each head spreads over ``n = tp / H``
-    ranks, the rank at ``model`` coordinate ``r`` runs q head ``r // n``'s
-    rows ``[j S / n, (j + 1) S / n)``, ``j = r % n``, against its kv head and
-    the keys up to its last row; ``"replicated"`` where neither count
-    divides the other (attention whole on every rank, as the reference's
-    rules say).  Any other layout raises."""
-    if K % tp == 0:
-        return "kv_heads"
-    if H % tp:
-        return "q_rows" if tp % H == 0 else "replicated"
-    if tp > K and (H // K) % (H // tp) == 0:
-        return "q_heads"
-    raise ValueError(f"flash attention cannot split (H, K, tp) = "
-                     f"({H}, {K}, {tp}): each rank's {H // tp} q heads read "
-                     f"more than one of the {K} kv heads")
-
-
-def splits_q_heads(q, k) -> bool:
-    """Whether the DTensors q (B,S,H,hd) and k (B,Skv,K,hd) take the q-heads
-    route: a mesh dim of more than one rank cuts q's heads and not k's."""
-    if not (context.is_dtensor(q) and context.is_dtensor(k)):
-        return False
-    mesh = q.device_mesh
-    return any(p.is_shard(2) and mesh.size(m) > 1
-               and not k.placements[m].is_shard(2)
-               for m, p in enumerate(q.placements))
-
-
-def _model_dim(mesh):
-    """The index of the mesh dim named ``model``, or None."""
-    names = mesh.mesh_dim_names or ()
-    return names.index("model") if "model" in names else None
-
-
-def splits_q_rows(q, k) -> bool:
-    """Whether the DTensors q (B,S,H,hd) and k (B,Skv,K,hd) take the q-rows
-    route: the mesh dim named ``model`` cuts neither, and its ``tp`` ranks
-    split (H, K) as ``"q_rows"`` (``head_split``)."""
-    if not (context.is_dtensor(q) and context.is_dtensor(k)):
-        return False
-    m = _model_dim(q.device_mesh)
-    if m is None:
-        return False
-    H, tp = q.shape[2], q.device_mesh.size(m)
-    return tp > 1 and H % tp != 0 and q.placements[m].is_replicate() and \
-        k.placements[m].is_replicate() and \
-        head_split(H, k.shape[2], tp) == "q_rows"
 
 
 def _q_heads_local(q, k, v, *, kv: int, **kw):
@@ -346,51 +286,22 @@ def _flash_q_heads(q, k, v, **kw):
     return context.run_local(
         "flash attention", functools.partial(_q_heads_local, kv=kv, **kw),
         {"q": q, "k": k, "v": v},
-        {"q": _Q_SPLITS, "k": _KV_SPLITS, "v": _KV_SPLITS}, _Q_SPLITS)
+        {"q": _Q_SPLITS, "k": KV_SPLITS, "v": KV_SPLITS}, _Q_SPLITS)
 
 
-def _q_rows_local(q, k, v, *, kv: int, q0: int, **kw):
-    """One rank's block of one q head's rows (B, rows, hd) at positions
-    ``q0``..: the kernel against kv head ``kv`` and the keys up to the
-    block's last row.  The narrows' gradients are zero elsewhere, so the
-    sum over ranks of k's and v's is theirs."""
-    B, rows, hd = q.shape
-    end = q0 + rows
-    o = flash_attention(q.reshape(B, rows, 1, 1, hd),
-                        k.narrow(1, 0, end).narrow(2, kv, 1),
-                        v.narrow(1, 0, end).narrow(2, kv, 1), q0=q0, **kw)
-    return o.reshape(B, rows, hd)
+def _flash_rows(q, k, v, *, q0: int, **kw):
+    """The kernel on one rank's rows at positions ``q0``.. against the keys
+    up to their last row."""
+    end = q0 + q.shape[1]
+    return flash_attention(q, k.narrow(1, 0, end), v.narrow(1, 0, end),
+                           q0=q0, **kw)
 
 
 def _flash_q_rows(q, k, v, **kw):
-    """The q-rows route (``head_split``'s ``"q_rows"``): q (B,S,H,hd) and
-    k, v whole over the mesh dim ``model`` of ``tp`` ranks, a multiple
-    ``n`` of H.  q is viewed as (B, H*S, hd) and cut on dim 1 there (no
-    data moves: it was whole), so the rank at coordinate r holds head
-    r // n, row block r % n; it runs them at ``q0`` = (r % n) S / n
-    through ``run_local`` (k's and v's gradients come back ``Partial``),
-    and the rows are gathered back to (B,S,H,hd) (an all-gather)."""
-    from torch.distributed.tensor import Shard
-    mesh = q.device_mesh
-    m = _model_dim(mesh)
-    B, S, H, hd = q.shape
-    K, tp = k.shape[2], mesh.size(m)
-    n = tp // H
-    if S % n:
-        raise ValueError(f"flash attention cannot split (H, K, tp, S) = "
-                         f"({H}, {K}, {tp}, {S}): the {S} rows of a head do "
-                         f"not split over its {n} ranks")
-    r = mesh.get_local_rank(m)
-    qf = q.permute(0, 2, 1, 3).reshape(B, H * S, hd)
-    qf = context.redistribute(qf, tuple(Shard(1) if d == m else p
-                                        for d, p in enumerate(qf.placements)))
-    o = context.run_local(
-        "flash attention", functools.partial(
-            _q_rows_local, kv=(r // n) // (H // K), q0=(r % n) * (S // n),
-            **kw),
-        {"q": qf, "k": k, "v": v},
-        {"q": _ROW_SPLITS, "k": _KV_SPLITS, "v": _KV_SPLITS}, _ROW_SPLITS)
-    return context.unflatten(o, 1, (H, S)).permute(0, 2, 1, 3)
+    """Flash's q-rows route (``distributed.heads.run_q_rows``): each
+    rank's block of one head's rows through the kernel at its ``q0``."""
+    return heads.run_q_rows("flash attention",
+                            functools.partial(_flash_rows, **kw), q, k, v)
 
 
 def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,

@@ -42,7 +42,12 @@ they mean the same (``rankN``: the rank traced):
   ``n_ranks_traced``: 1 on a production mesh; ``rank_traced``: N.
 * ``rankN`` (a production mesh only): ``op_flops``, the rank's flops by op
   name; ``kernel_shapes``, each hand-written kernel's local output shapes
-  (flash's: q's, in its (B*K, S, G, hd) layout); ``largest_collective``, the
+  (flash's: q's, in its (B*K, S, G, hd) layout), and the local shapes of
+  the routes that split a layer by hand (``roofline.trace.record_route``):
+  ``q_rows:<kernel>``, a rank's q rows (B, S / n, hd) on the q-rows route
+  (``"attention"``: the plain dispatch's; ``"flash attention"``), and
+  ``kv_columns``, the k and v projections' (D, local columns) where they
+  are cut by columns; ``largest_collective``, the
   largest operand and output bytes of one collective of each kind.
 * ``hlo_ops``: the op census (top 12); ``hlo_len``: the ops traced;
   ``lower_s``: the trace's seconds (eager has no ``compile_s``);
@@ -72,11 +77,11 @@ from torch import nn
 from repro_torch.configs.base import (LM_SHAPES, ModelConfig, ShapeConfig,
                                       get_config, list_archs, shapes_for)
 from repro_torch.distributed.context import axis_sizes, pspec, use_rules
+from repro_torch.distributed.heads import head_split
 from repro_torch.distributed.layouts import (batch_pspecs, cache_pspecs,
                                              choose_layout, distribute_tree,
                                              opt_pspecs, param_placements,
                                              param_pspecs, shard_params)
-from repro_torch.kernels.flash_attention.ops import head_split
 from repro_torch.launch.mesh import (AbstractMesh, fake_mesh,
                                      make_production_mesh)
 from repro_torch.models import init_cache, init_params, weights
@@ -371,6 +376,8 @@ def rank_work(trace) -> dict:
                                         "output_bytes": 0})
         big["operand_bytes"] = max(big["operand_bytes"], operand)
         big["output_bytes"] = max(big["output_bytes"], output)
+    for name, s in trace.route_shapes.items():
+        shapes.setdefault(name, set()).update(s)
     return {"op_flops": {n: f for n, f in flops.items() if f},
             "kernel_shapes": {n: sorted(map(list, s))
                               for n, s in shapes.items()},

@@ -12,8 +12,10 @@ scales ``ksc``/``vsc``) KV cache.
 ``attention_seq`` hands causal attention to the hook set by
 ``set_attention_impl``, as the reference does, and only causal attention.
 Every hook takes one signature: ``(q, k, v, *, window, softcap, scale,
-q_block, pack)``, the last two the layer's ``attn_q_block`` and
-``pack_ok``.
+q_block, pack, q0)``: ``q_block`` and ``pack`` the layer's
+``attn_q_block`` and ``pack_ok``, ``q0`` the position of q's first row
+(0 but on the q-rows route below, where k holds the keys up to q's last
+row).
 By default the hook is the flash attention wrapper (``repro_torch.kernels``):
 on a CUDA tensor it runs the hand-written kernel, on a CPU tensor its plain
 version.  With the hook cleared, and for prefix and bidirectional masks and
@@ -33,24 +35,39 @@ the flash kernel's autograd function.  ``plain_attention`` is ``_sdpa``
 under the causal (and window) mask at positions q0..q0+S-1, with the
 hook's signature (it ignores ``q_block`` and ``pack``): setting it as the
 hook gives the whole-square plain path.
+
+That dispatch is ``_dispatch``, in one place for both of its callers.
+
+Under DTensor, where ``model`` has more ranks than q heads, a multiple of
+them (``distributed.heads.head_split``'s ``"q_rows"``), attention is split
+by q rows (``heads.run_q_rows``: each rank one head's block of rows at its
+row offset ``q0``, the rows gathered back): the causal mask through
+flash's route where flash is the hook; everything else (the prefix and
+bidirectional masks, cross-attention, a causal mask with the hook off or
+another hook) through ``attention_q_rows``, ``_dispatch`` on each rank's
+rows, its branch chosen on the whole sequence.  There ``kv_columns`` cuts
+the k and v projections by columns over ``model``.
 Decode attention has no kernel in the reference and is plain torch here
 too.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
+from repro_torch.distributed import heads
 from repro_torch.distributed.context import (axis_size, constrain, grad_like,
                                              is_dtensor, local_device,
                                              redistribute, unflatten)
+from repro_torch.distributed.heads import (q_rows_dim, splits_q_heads,
+                                           splits_q_rows)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ops import (splits_q_heads,
-                                                     splits_q_rows)
 from repro_torch.models.modules import (ParamModule, init_norm, normal, pdtype,
                                         rms_norm, rope)
+from repro_torch.roofline.trace import record_route
 
 NEG_INF = -1e30
 
@@ -220,19 +237,21 @@ def _causal_packed(q, k, v, softcap, scale, qb: int, leaf: int):
     return torch.cat([o1, o2], dim=1), torch.cat([lse1, lse2], dim=3)
 
 
-def _qblock_scan(q, k, v, mask_fn, softcap, scale, qb: int, window: int):
-    """A q block at a time against the keys (positions 0..S-1); with a
-    window shorter than S - qb, each block against a static slice of its
-    qb + window keys."""
-    S = q.shape[1]
+def _qblock_scan(q, k, v, mask_fn, softcap, scale, qb: int, window: int,
+                 q0: int = 0):
+    """A q block at a time against the keys (positions 0..T-1), q's rows
+    at positions q0..; with a window shorter than T - qb, each block
+    against a static slice of its qb + window keys."""
+    S, T = q.shape[1], k.shape[1]
     if S % qb:
         raise ValueError(f"{S} q rows do not split into blocks of {qb}")
     dev = local_device(q)
-    L = qb + window if window and qb + window < S else S
+    L = qb + window if window and qb + window < T else T
     out = []
     for i in range(S // qb):
-        start = max(i * qb - window, 0) if L < S else 0
-        q_pos = i * qb + torch.arange(qb, device=dev)
+        p = q0 + i * qb
+        start = max(p - window, 0) if L < T else 0
+        q_pos = p + torch.arange(qb, device=dev)
         kv_pos = start + torch.arange(L, device=dev)
         out.append(_sdpa(q[:, i * qb:(i + 1) * qb], k[:, start:start + L],
                          v[:, start:start + L], mask_fn(q_pos, kv_pos),
@@ -297,20 +316,88 @@ def _first_row(pos):
 def kv_columns(w, q):
     """The k or v projection ``w`` (D, K*hd), cut on its columns over each
     mesh dim that cuts q's heads (B,S,H,hd) and leaves ``w`` whole there
-    (the q-heads route: more ranks than kv heads).  Each rank then
-    projects its share of the columns and ``unflatten`` gathers k, as the
-    reference's partitioner splits this product (each device its own kv
-    head) where a whole ``w`` is every rank's full product; ``w``'s
-    gradient is gathered back.  Elsewhere ``w`` as it is."""
+    (the q-heads route: more ranks than kv heads), and over ``model``
+    where q takes the q-rows route (``q_rows_dim``: more ranks than q
+    heads, q's and k's heads whole there).  Each rank then projects its
+    share of the columns and ``unflatten`` gathers k, as the reference's
+    partitioner splits this product where a whole ``w`` is every rank's
+    full product; ``w``'s gradient is gathered back.  Elsewhere, and where
+    the ranks do not divide K*hd, ``w`` as it is."""
     if not (is_dtensor(w) and is_dtensor(q)):
         return w
     from torch.distributed.tensor import Shard
     mesh = w.device_mesh
-    place = tuple(Shard(1) if p.is_shard(2) and mesh.size(m) > 1 and
-                  w.placements[m].is_replicate() and
+    rows = q_rows_dim(q, w.shape[1] // q.shape[-1])
+    place = tuple(Shard(1) if (p.is_shard(2) or m == rows) and
+                  mesh.size(m) > 1 and w.placements[m].is_replicate() and
                   w.shape[1] % mesh.size(m) == 0 else w.placements[m]
                   for m, p in enumerate(q.placements))
+    if tuple(place) != tuple(w.placements):
+        cols = w.shape[1]
+        for m, p in enumerate(place):
+            cols //= mesh.size(m) if p.is_shard(1) else 1
+        record_route("kv_columns", (w.shape[0], cols))
     return redistribute(w, place)
+
+
+def _dispatch(q, k, v, *, mask_mode: str, window: int, prefix_len: int,
+              softcap: float, scale: float, q_block: int, pack: bool,
+              cross: bool, q_pos, kv_pos, S: Optional[int] = None,
+              q0: int = 0):
+    """The reference's dispatch (its ``attention_seq``) on q (B,rows,K,G,hd)
+    at positions ``q_pos[q0:q0 + rows]`` against k, v (B,Skv,K,hd) at
+    ``kv_pos`` (each 1-D, or (B, ·) read at its first row), its branch
+    chosen on the whole sequence of ``S`` rows (q's own by default; a
+    rank's block of them on the q-rows route, ``attention_q_rows``).  A
+    causal block of rows reads no key past its last row.  A causal mask:
+    the hook (at ``q0``); else ``_sdpa`` under the layer's mask where S <=
+    2 ``q_block``, S is no multiple of it, or the attention is cross (the
+    decoder's rows against every encoder key); ``_rect_scan`` for a
+    bidirectional mask; ``causal_attention`` (at ``q0``) for a causal one;
+    else ``_qblock_scan`` at ``q0`` under the prefix mask, in blocks of
+    ``q_block`` rows or, fewer rows than that, one block."""
+    rows = q.shape[1]
+    S = rows if S is None else S
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    if mask_mode == "causal" and q0 + rows < k.shape[1]:
+        k, v = k.narrow(1, 0, q0 + rows), v.narrow(1, 0, q0 + rows)
+    if _ATTN_IMPL is not None and mask_mode == "causal":
+        return _ATTN_IMPL(q, k, v, **kw, q_block=q_block, pack=pack, q0=q0)
+    if S <= 2 * q_block or S % q_block or cross:
+        q_pos, kv_pos = _first_row(q_pos), _first_row(kv_pos)
+        if q0 or rows != q_pos.shape[0]:
+            q_pos = q_pos.narrow(0, q0, rows)
+        if kv_pos.shape[0] != k.shape[1]:
+            kv_pos = kv_pos.narrow(0, 0, k.shape[1])
+        return _sdpa(q, k, v, make_mask_fn(mask_mode, window, prefix_len)(
+            q_pos, kv_pos), softcap, scale)
+    if mask_mode == "bidir":
+        return _rect_scan(q, k, v, softcap, scale, q_block)[0]
+    if mask_mode == "causal":
+        return causal_attention(q, k, v, **kw, q_block=q_block, pack=pack,
+                                q0=q0)
+    return _qblock_scan(q, k, v, make_mask_fn(mask_mode, window, prefix_len),
+                        softcap, scale, min(q_block, rows), window, q0=q0)
+
+
+def attention_q_rows(q, k, v, *, mask_mode: str, scale: float, q_block: int,
+                     pack: bool, window: int = 0, prefix_len: int = 0,
+                     softcap: float = 0.0, cross: bool = False, q_pos=None,
+                     kv_pos=None):
+    """The plain dispatch on the q-rows route (``splits_q_rows``): the
+    DTensors q (B,S,H,hd) and k, v (B,Skv,K,hd) -> (B,S,H,hd), each rank
+    ``_dispatch`` on one head's block of rows (``heads.run_q_rows``).
+    ``q_pos``, ``kv_pos``: the positions of q's and k's rows, as
+    ``_dispatch`` takes them (default 0..S-1 and 0..Skv-1)."""
+    S, Skv = q.shape[1], k.shape[1]
+    dev = local_device(q)
+    q_pos = torch.arange(S, device=dev) if q_pos is None else q_pos
+    kv_pos = torch.arange(Skv, device=dev) if kv_pos is None else kv_pos
+    return heads.run_q_rows("attention", functools.partial(
+        _dispatch, S=S, mask_mode=mask_mode, window=window,
+        prefix_len=prefix_len, softcap=softcap, scale=scale,
+        q_block=q_block, pack=pack, cross=cross, q_pos=q_pos,
+        kv_pos=kv_pos), q, k, v)
 
 
 def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
@@ -346,6 +433,10 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
     scale = hd ** -0.5
     softcap = cfg.attn_logit_softcap
     qb, pack = cfg.attn_q_block, pack_ok(cfg)
+    dispatch = dict(mask_mode=mask_mode, window=window,
+                    prefix_len=prefix_len, softcap=softcap, scale=scale,
+                    q_block=qb, pack=pack, cross=kv_override is not None,
+                    q_pos=positions, kv_pos=kv_pos)
     if _ATTN_IMPL is flash_attention and mask_mode == "causal" and \
             (splits_q_heads(q, k) or splits_q_rows(q, k)):
         # q's heads split where the kv heads do not (gemma2-9b: 16 heads, 8
@@ -353,27 +444,16 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
         # rows: flash takes q flat, each rank its own heads or rows
         o = flash_attention(q, k, v, window=window, softcap=softcap,
                             scale=scale, q_block=qb, pack=pack)
+    elif splits_q_rows(q, k):
+        # more ranks than heads and no flash route (prefix, bidirectional,
+        # cross, a causal mask with the hook off or another hook): each
+        # rank the dispatch on one head's block of rows
+        o = attention_q_rows(q, k, v, **dispatch)
     else:
         # the GQA fold: a heads shard splits into (K, G) only where K
-        # divides it; elsewhere (the plain path, a hook other than flash)
-        # q is replicated here
-        q = unflatten(q, 2, (K, G))
-        if _ATTN_IMPL is not None and mask_mode == "causal":
-            o = _ATTN_IMPL(q, k, v, window=window, softcap=softcap,
-                           scale=scale, q_block=qb, pack=pack)
-        elif S <= 2 * qb or S % qb or kv_override is not None:
-            mask = make_mask_fn(mask_mode, window, prefix_len)(
-                _first_row(positions), _first_row(kv_pos))
-            o = _sdpa(q, k, v, mask, softcap, scale)
-        elif mask_mode == "bidir":
-            o, _ = _rect_scan(q, k, v, softcap, scale, qb)
-        elif mask_mode == "causal":
-            o = causal_attention(q, k, v, window=window, softcap=softcap,
-                                 scale=scale, q_block=qb, pack=pack)
-        else:
-            o = _qblock_scan(q, k, v, make_mask_fn(mask_mode, window,
-                                                   prefix_len),
-                             softcap, scale, qb, window)
+        # divides it (kv heads split); a shard of q's heads alone (the
+        # q-heads route off flash) is gathered here
+        o = _dispatch(unflatten(q, 2, (K, G)), k, v, **dispatch)
     o = constrain(o.reshape(B, S, H * hd), ("batch", "seq", "heads_flat"))
     return o @ p.wo, (k, v)
 

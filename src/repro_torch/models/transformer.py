@@ -62,8 +62,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV,
                                       ModelConfig)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.context import (constrain, grad_like,
-                                             replicate_made_tensors)
+from repro_torch.distributed.context import (constrain, grad_like, is_dtensor,
+                                             replicate_made_tensors, run_local)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -367,6 +367,15 @@ def _embed(model: Transformer, cfg: ModelConfig, tokens):
     return x
 
 
+def _embed_summed(model: Transformer, cfg: ModelConfig, tokens):
+    """``_embed`` summed over the vocab's shards, for an embedding that
+    meets another tensor before the residual stream's layout (whisper's
+    positions, paligemma's patches): DTensor (torch 2.11) cannot join a
+    replicated tensor to the vocab-parallel embedding's partial sums
+    (``MaskPartial``, whose mask would have to cover it too)."""
+    return _gathered(_embed(model, cfg, tokens))
+
+
 def _unembed(model: Transformer, cfg: ModelConfig, x):
     x = _gathered(rms_norm(x, model.final_norm, cfg.norm_eps))
     w = model.embed if cfg.tie_embeddings else model.lm_head
@@ -377,11 +386,28 @@ def _unembed(model: Transformer, cfg: ModelConfig, x):
     return constrain(logits, ("batch", None, "vocab"))
 
 
+def _rows_product(x, w):
+    """x (B,S,D) @ w, w whole: on a DTensor x laid out as the residual
+    stream, each rank's rows on their own (``run_local``; w's gradient
+    summed over the ranks), as the reference's partitioner splits
+    whisper's frontend projection.  DTensor's own product refuses x's
+    sequence shard on torch 2.11 (it cannot flatten (B, S) there)."""
+    if not is_dtensor(x):
+        return x @ w
+    rows = {"batch": 0, "seq": 1}
+    return run_local("frontend projection", torch.matmul, {"x": x, "w": w},
+                     {"x": rows, "w": {}}, rows)
+
+
 def _encode(model: Transformer, cfg: ModelConfig, frames):
     """Whisper's encoder over precomputed frame embeddings (B,S,D) ->
     (encoder output, its positions)."""
     B, S, D = frames.shape
-    x = grad_like(frames.to(pdtype(cfg)) @ model.frontend_proj)
+    # the frames laid out as the residual stream (``act_seq``: a local cut,
+    # no data moves) before the projection, whose rows then split over
+    # ``model``
+    x = grad_like(_rows_product(_residual(frames.to(pdtype(cfg))),
+                                model.frontend_proj))
     x = x + sinusoidal_pos_emb(S, D, x.dtype, x.device)[None]
     pos = torch.arange(S, device=x.device).expand(B, S)
     for layer in model.enc_blocks:
@@ -399,13 +425,13 @@ def _prep_inputs(model: Transformer, cfg: ModelConfig, batch):
     mask_mode, prefix_len = "causal", 0
     if cfg.encoder_decoder:
         enc_out = _encode(model, cfg, batch["frames"])
-        x = _embed(model, cfg, tokens)
+        x = _embed_summed(model, cfg, tokens)
         x = x + sinusoidal_pos_emb(tokens.shape[1], cfg.d_model, x.dtype,
                                    x.device)[None]
     elif cfg.frontend == "vision":
         patches = grad_like(batch["patches"].to(pdtype(cfg)) @
                             model.frontend_proj)
-        x = torch.cat([patches, _embed(model, cfg, tokens)], dim=1)
+        x = torch.cat([patches, _embed_summed(model, cfg, tokens)], dim=1)
         mask_mode, prefix_len = "prefix", cfg.n_prefix_tokens
     else:
         x = _embed(model, cfg, tokens)

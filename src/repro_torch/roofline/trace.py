@@ -13,7 +13,8 @@ elements of ``exp``, ``log``, ``tanh``, ``sigmoid``, ``rsqrt``, ``erf``,
 ``sin``, ``cos`` and the like).  View ops move no data and allocations
 (``empty``) write none: both count 0 bytes.  A hand-written kernel adds
 itself as one op through ``record_kernel`` with the work its bound formula
-counts (``roofline.analysis``).
+counts (``roofline.analysis``); a route that splits a layer by hand notes
+the local shapes it ran at through ``record_route`` (no op).
 
 Live memory is counted by storage, so views count once: a storage is alive
 from the op that makes it until it is freed, which a weak reference tells
@@ -207,6 +208,7 @@ class Op:
     flops: int
     transcendentals: int
     shape: tuple = ()       # a hand-written kernel's first output's shape
+    operands: tuple = ()    # a product's (``aten.mm``) operand shapes
 
     @property
     def bytes(self) -> int:
@@ -221,7 +223,9 @@ class OpTrace(TorchDispatchMode):
     for point-to-point halves and None otherwise; ``peak_bytes``: the peak
     of the live storages made under the trace; ``written_bytes``: bytes
     written into storages made before it, by storage, at most each one's
-    size; ``seconds``: the trace's wall time."""
+    size; ``seconds``: the trace's wall time; ``route_shapes``: {name:
+    the local shapes} a route that splits a layer by hand ran at
+    (``record_route``)."""
 
     def __init__(self):
         super().__init__()
@@ -230,6 +234,7 @@ class OpTrace(TorchDispatchMode):
         self.peak_bytes = 0
         self.written_bytes: dict = {}
         self.seconds = 0.0
+        self.route_shapes: dict = {}
         self._made: dict = {}       # storage key -> (weak ref, bytes)
         self._outside: dict = {}    # storage key -> (weak ref, bytes)
         self._bookkeeping: dict = {}  # storage key -> weak ref
@@ -287,7 +292,10 @@ class OpTrace(TorchDispatchMode):
         formula = flop_registry.get(func.overloadpacket)
         flops = formula(*args, **kwargs, out_val=out) if formula else 0
         trans = sum(t.numel() for t in outs) if name in TRANSCENDENTAL else 0
-        self.ops.append(Op(f"{ns}.{name}", in_b, out_b, flops, trans))
+        operands = tuple(tuple(a.shape) for a in args[:2]) \
+            if name == "mm" else ()
+        self.ops.append(Op(f"{ns}.{name}", in_b, out_b, flops, trans,
+                           operands=operands))
         return out
 
     def add_op(self, name: str, flops: int, nbytes: int, outputs,
@@ -414,6 +422,15 @@ def record_kernel(name: str, flops, nbytes, outputs,
     if trace is not None:
         trace.add_op(name, flops, nbytes, outputs, transcendentals)
     return outputs
+
+
+def record_route(name: str, shape):
+    """A route that splits a layer by hand (the q-rows route, the k/v
+    projections' columns) notes the local shape it ran at in the active
+    trace's ``route_shapes``: no op, no work."""
+    trace = active_trace()
+    if trace is not None:
+        trace.route_shapes.setdefault(name, set()).add(tuple(shape))
 
 
 def collective_stats(trace: OpTrace) -> dict:

@@ -30,6 +30,12 @@ head are unbatched dots), in the port the ``flash_attention`` ops
 the dense archs; a MoE's expert products are batched too.  XLA's cost
 analysis counts a loop's body once per trip where the trip count is known;
 one superblock keeps the layer scan to one trip.
+
+Each side also reports ``products_by_shape``: its ``product_flops`` split
+by the product's operand shapes, ``"MxK @ KxN"`` (the reference's dots by
+their HLO operands, the port's ``mm`` by its local operands, ``Op.
+operands``), so that a product whole on every port rank and split in the
+reference's record shows by name.
 """
 import argparse
 import collections
@@ -41,7 +47,8 @@ import time
 from pathlib import Path
 
 _SHAPE = re.compile(r"^\s*(?:ROOT\s+)?%([\w.\-]+)\s*=\s*\w+\[([\d,]*)\]")
-_DOT = re.compile(r"=\s*\w+\[([\d,]*)\]\S*\s+dot\(%([\w.\-]+),")
+_DOT = re.compile(r"=\s*\w+\[([\d,]*)\]\S*\s+dot\(%([\w.\-]+),\s*"
+                  r"%([\w.\-]+)\)")
 _DIMS = re.compile(r"(lhs_batch_dims|lhs_contracting_dims)=\{([\d,]*)\}")
 
 
@@ -49,13 +56,19 @@ def _dims(s: str) -> list:
     return [int(d) for d in s.split(",") if d]
 
 
+def _shape_key(a, b) -> str:
+    return " @ ".join("x".join(map(str, s)) for s in (a, b))
+
+
 def dot_flops(hlo: str) -> dict:
-    """{"attention_flops", "product_flops"}: 2 x output elements x
-    contracted size of every dot of the HLO, batched and unbatched."""
+    """{"attention_flops", "product_flops", "products_by_shape"}: 2 x
+    output elements x contracted size of every dot of the HLO, batched and
+    unbatched, and the unbatched ones by their operands' shapes."""
     lines = hlo.splitlines()
     shapes = {m.group(1): _dims(m.group(2))
               for m in map(_SHAPE.match, lines) if m}
     out = {"attention_flops": 0, "product_flops": 0}
+    by_shape = collections.Counter()
     for line in lines:
         m = _DOT.search(line)
         if not m:
@@ -68,7 +81,9 @@ def dot_flops(hlo: str) -> dict:
             n *= lhs[d]
         batched = bool(_dims(dims.get("lhs_batch_dims", "")))
         out["attention_flops" if batched else "product_flops"] += n
-    return out
+        if not batched:
+            by_shape[_shape_key(lhs, shapes[m.group(3)])] += n
+    return {**out, "products_by_shape": dict(by_shape)}
 
 
 def _cfg_shape(configs, arch, width, layers, seq, batch, heads=""):
@@ -130,9 +145,11 @@ def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1,
             multi_pod=mesh_name == "multipod"), rank) as mesh:
         trace, cell = dryrun.run_step(cfg, shape, mesh, accum)
         rec = dryrun.record(cfg, mesh, trace, *cell)
-    flops = collections.Counter()
+    flops, by_shape = collections.Counter(), collections.Counter()
     for op in trace.ops:
         flops[op.name] += op.flops
+        if op.operands:
+            by_shape[_shape_key(*op.operands)] += op.flops
     return {"side": "port", "version": f"torch {torch.__version__}",
             "layers": cfg.n_layers, "n_chips": rec["n_chips"],
             "rank": rec["rank_traced"],
@@ -141,7 +158,8 @@ def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1,
             "collectives": rec["collectives"],
             "attention_flops": flops["flash_attention"] + flops["aten.bmm"],
             "flash_flops": flops["flash_attention"],
-            "product_flops": flops["aten.mm"]}
+            "product_flops": flops["aten.mm"],
+            "products_by_shape": dict(by_shape)}
 
 
 def main():

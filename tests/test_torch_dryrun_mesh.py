@@ -37,6 +37,11 @@ meta device), on the CPU.
 * C3 and C4 in rank 0's full-width records of gemma2-9b and internlm2-20b
   (one layer, both meshes): flash on the rank's H / 16 q heads, no
   all-gather of the logits.
+* C6 and C7 beside the reference's own records: paligemma-3b's and
+  whisper-small's smoke cells split their prefix-LM, bidirectional and
+  cross-attention by q rows (attention at most the reference's a device),
+  and their products, and C5's cell's, are at most 1.25 times its (the k
+  and v projections cut by columns on that route).
 
 Rank 0 of a fake world against rank 0 of 8 real gloo ranks is
 tests/test_torch_sharded.py's (its 8-process spawn runs the real side).
@@ -658,6 +663,46 @@ def test_q_rows_hold_the_reference(smoke_records, reference_records):
             (port["rank"], port["attention_flops"], ref["attention_flops"])
     assert ports[0]["attention_flops"] < ports[1]["attention_flops"]
     assert ports[0]["product_flops"] == ports[1]["product_flops"]
+
+
+def _flops(rec) -> dict:
+    """A sharded record's attention (flash and the eager ``bmm``) and other
+    products (``mm``) at its traced rank, keyed as the worker's."""
+    ops = rec[f"rank{rec['rank_traced']}"]["op_flops"]
+    return {"attention_flops": ops.get("flash_attention", 0) +
+            ops.get("aten.bmm", 0), "product_flops": ops.get("aten.mm", 0)}
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-small"])
+def test_plain_q_rows_hold_the_reference(smoke_records, reference_records,
+                                         arch):
+    """C6 and C7 beside the reference's own record of the smoke train cell
+    (4 heads on 16 ``model`` ranks): at the traced rank, attention at most
+    the reference's a device (each rank one head's quarter of the rows of
+    the prefix-LM mask, the bidirectional encoder and cross-attention
+    through the plain dispatch, whisper's decoder through flash: 0.400 and
+    0.344 of it; replicated they were 6.40 and 5.31 times), and the other
+    products at most 1.25 times (1.008 and 1.000: the k and v projections
+    cut by columns, whisper's ``frontend_proj`` by rows as the residual
+    stream; whole they were 1.46 and 3.95 times)."""
+    ref = reference_records(arch)
+    port = _flops(smoke_records[arch, False].result(timeout=SMOKE_JOIN_S))
+    assert 0 < port["attention_flops"] <= ref["attention_flops"], \
+        (port, ref["attention_flops"])
+    assert 0 < port["product_flops"] <= 1.25 * ref["product_flops"], \
+        (port, ref["product_flops"])
+
+
+def test_q_rows_products_hold_the_reference(smoke_records,
+                                            reference_records):
+    """C7 on C5's cell: rank 0's and rank 3's products at most 1.25 times
+    the reference's a device (1.000: the k and v projections cut by
+    columns over ``model``; whole they were 1.88 times)."""
+    ref = reference_records(ROWS_CELL)
+    for r in ROWS_RANKS:
+        port = smoke_records["rows", r].result(timeout=SMOKE_JOIN_S)
+        assert 0 < port["product_flops"] <= 1.25 * ref["product_flops"], \
+            (r, port["product_flops"], ref["product_flops"])
 
 
 def test_one_rank_dtensor_step_traces_the_plain_step(tmp_path):

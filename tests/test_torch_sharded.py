@@ -22,7 +22,15 @@ sequence 32, global batch 8.  The cells:
   scan under ``local_map``); ``rgt`` its train step (``grad_accum=1``);
 * ``rw``: rwkv6-7b prefill (the wkv6 under ``local_map``);
 * ``qw``: qwen3-moe-235b-a22b, one train step with Adafactor and
-  ``moe_sharded`` inside the DTensor model.
+  ``moe_sharded`` inside the DTensor model;
+* ``pg``: paligemma-3b prefill and ``pgt`` its train step, with 2 q heads
+  and 1 kv head; ``wh``: whisper-small's train step, with 2 q heads and 2
+  kv heads (``CELL_CONFIG``; the reference's synthetic batches, with
+  ``patches`` and ``frames``).  2 heads on the 4 ``model`` ranks take the
+  q-rows route (C6): the prefix mask, the bidirectional encoder and
+  cross-attention each rank's block of one head's rows, the k and v
+  projections cut by columns (C7), whisper's decoder self-attention
+  through flash's q-rows route in the same layer.
 
 On this mesh gemma2-9b's 4 q heads split over ``model`` and its 2 kv
 heads do not: flash runs on each rank's own q head (the q-heads route,
@@ -135,6 +143,18 @@ CELLS = {
     "rgt": ("recurrentgemma-2b", "train", False, 1),
     "rw": ("rwkv6-7b", "prefill", False, 0),
     "qw": ("qwen3-moe-235b-a22b", "train", False, 1),
+    "pg": ("paligemma-3b", "prefill", False, 0),
+    "pgt": ("paligemma-3b", "train", False, 1),
+    "wh": ("whisper-small", "train", False, 1),
+}
+# cell -> the config fields it replaces: the q-rows cells (C6, C7), whose
+# 2 q heads spread over the 4 ``model`` ranks, each head's rows over 2;
+# a q block of 8, so that paligemma's 32 positions take the prefix mask's
+# q-block scan and whisper's 32 encoder positions the bidirectional scan
+CELL_CONFIG = {
+    "pg": {"n_heads": 2, "n_kv_heads": 1, "attn_q_block": 8},
+    "pgt": {"n_heads": 2, "n_kv_heads": 1, "attn_q_block": 8},
+    "wh": {"n_heads": 2, "n_kv_heads": 2, "attn_q_block": 8},
 }
 TRAIN = [c for c, v in CELLS.items() if v[1] == "train"]
 SERVE = [c for c, v in CELLS.items() if v[1] != "train"]
@@ -155,14 +175,22 @@ def _rel(t, j) -> float:
 
 def _cfgs(cell):
     arch, _, kv_quant, _ = CELLS[cell]
-    kw = dict(param_dtype="float32", attn_q_block=16, kv_quant=kv_quant)
+    kw = {"param_dtype": "float32", "attn_q_block": 16,
+          "kv_quant": kv_quant, **CELL_CONFIG.get(cell, {})}
     return (dataclasses.replace(jax_smoke(arch), **kw),
             dataclasses.replace(get_smoke_config(arch), **kw))
 
 
+def _heads(cell) -> tuple:
+    """The cell's (n_heads, n_kv_heads) replacements, as items."""
+    return tuple((k, v) for k, v in CELL_CONFIG.get(cell, {}).items()
+                 if k in ("n_heads", "n_kv_heads"))
+
+
 @functools.cache
-def _jax_params(arch, seed=0):
-    jc = dataclasses.replace(jax_smoke(arch), param_dtype="float32")
+def _jax_params(arch, seed=0, heads=()):
+    jc = dataclasses.replace(jax_smoke(arch), param_dtype="float32",
+                             **dict(heads))
     params = jtf.init_params(jax.random.PRNGKey(seed), jc)
     rng = np.random.default_rng(seed)
 
@@ -181,10 +209,26 @@ def _tokens(cell):
         2, cfg.vocab_size, (B, S + 1)).astype(np.int64)
 
 
+def _batch(cell, kind) -> dict:
+    """The cell's train or prefill batch, numpy: the reference's synthetic
+    batch (with whisper's ``frames`` or paligemma's ``patches``; prefill
+    without ``labels``) for a ``CELL_CONFIG`` cell, else its tokens."""
+    if cell in CELL_CONFIG:
+        from repro.data import SyntheticTokens
+        batch = SyntheticTokens(_cfgs(cell)[0], B, S, seed=0) \
+            .batch_for_step(0)
+        return batch if kind == "train" else \
+            {k: v for k, v in batch.items() if k != "labels"}
+    tokens = _tokens(cell)
+    if kind == "train":
+        return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    return {"tokens": tokens[:, :-1]}
+
+
 def _port_model(cell):
     jc, tc = _cfgs(cell)
     return params_from_jax(jax.tree.map(np.asarray, _jax_params(
-        CELLS[cell][0])), tc, device="cpu")
+        CELLS[cell][0], heads=_heads(cell))), tc, device="cpu")
 
 
 KERNEL_SHAPES = {"q": (8, 16, 4, 2, 16), "k": (8, 16, 4, 16),
@@ -192,6 +236,12 @@ KERNEL_SHAPES = {"q": (8, 16, 4, 2, 16), "k": (8, 16, 4, 16),
                  "kf": (8, 16, 2, 16), "vf": (8, 16, 2, 16),
                  "qr": (8, 16, 2, 16), "kr": (8, 16, 2, 16),
                  "vr": (8, 16, 2, 16),
+                 "pq": (8, 16, 2, 16), "pk": (8, 16, 1, 16),
+                 "pv": (8, 16, 1, 16), "bq": (8, 16, 2, 16),
+                 "bk": (8, 16, 2, 16), "bv": (8, 16, 2, 16),
+                 "xq": (8, 16, 2, 16), "xk": (8, 24, 2, 16),
+                 "xv": (8, 24, 2, 16), "cq": (8, 16, 2, 16),
+                 "ck": (8, 16, 2, 16), "cv": (8, 16, 2, 16),
                  "a": (8, 16, 8), "b": (8, 16, 8),
                  "r": (8, 16, 4, 16), "wk": (8, 16, 4, 16),
                  "wv": (8, 16, 4, 16), "logw": (8, 16, 4, 16), "u": (4, 16)}
@@ -208,19 +258,62 @@ def _kernel_inputs():
     for tag, shapes in (("flash", [KERNEL_SHAPES["q"]]),
                         ("flashq", [KERNEL_SHAPES["qf"]]),
                         ("flashr", [KERNEL_SHAPES["qr"]]),
+                        ("plainp", [KERNEL_SHAPES["pq"]]),
+                        ("plainb", [KERNEL_SHAPES["bq"]]),
+                        ("plainx", [KERNEL_SHAPES["xq"]]),
+                        ("plainc", [KERNEL_SHAPES["cq"]]),
                         ("scan", [KERNEL_SHAPES["a"]]),
-                        ("wkv6", [KERNEL_SHAPES["r"], (8, 4, 16, 16)])):
+                        ("wkv6", [KERNEL_SHAPES["r"], (8, 4, 16, 16)]),
+                        ("plainh", [KERNEL_SHAPES["cq"]])):
         for i, shape in enumerate(shapes):
             inp[f"kern/{tag}/ct{i}"] = rng.standard_normal(shape).astype(
                 np.float32)
     return inp
 
 
+def _whole_rows_case(attn, xp, tag, q, k, v):
+    """The dispatch branch that ``tag`` of ``worker.PLAIN_ROWS`` takes, on
+    whole tensors: flat q (B,S,H,hd) -> (B,S,H,hd) through ``attn``'s
+    ``_qblock_scan`` under the prefix mask, ``_rect_scan``, ``_sdpa``
+    (cross) or ``_qblock_scan`` under the causal mask with its window (no
+    packing with a window) at q blocks of 4, or with ``plain_attention``
+    as the hook, ``_sdpa`` under that mask; ``attn``, ``xp``: the port's
+    attention module and torch, or the reference's and ``jax.numpy``."""
+    import torch_dist_worker as worker
+    kw = worker.PLAIN_ROWS[tag][1]
+    B_, S_, H, hd = q.shape
+    Kh = k.shape[2]
+    q5 = q.reshape(B_, S_, Kh, H // Kh, hd)
+    qb, scale = worker.PLAIN_ROWS_KW["q_block"], \
+        worker.PLAIN_ROWS_KW["scale"]
+    if tag == "plainp":
+        o = attn._qblock_scan(q5, k, v, attn.make_mask_fn(
+            "prefix", 0, kw["prefix_len"]), 0.0, scale, qb, 0)
+    elif tag == "plainb":
+        o = attn._rect_scan(q5, k, v, 0.0, scale, qb)[0]
+    elif tag == "plainc":
+        o = attn._qblock_scan(q5, k, v, attn.make_mask_fn(
+            "causal", kw["window"]), 0.0, scale, qb, kw["window"])
+    elif tag == "plainh":
+        mask = attn.make_mask_fn("causal", kw["window"])(xp.arange(S_),
+                                                         xp.arange(S_))
+        o = attn._sdpa(q5, k, v, mask, 0.0, scale)
+    else:
+        mask = attn.make_mask_fn("bidir")(xp.arange(S_),
+                                          xp.arange(k.shape[1]))
+        o = attn._sdpa(q5, k, v, mask, 0.0, scale)
+    return o.reshape(B_, S_, H, hd)
+
+
 def _kernel_plain(inp):
-    """Each kernel wrapper on plain tensors: outputs and input grads."""
+    """Each kernel wrapper on plain tensors: outputs and input grads; and
+    the plain dispatch's branches on whole tensors."""
+    import torch_dist_worker as worker
+
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rwkv6_chunk import wkv6
+    from repro_torch.models import attention as tattn
     def flat_q(qf, kf, vf):         # 8 q heads, 2 kv heads: G = 4
         return flash_attention(qf.unflatten(2, (2, 4)), kf, vf, scale=0.25,
                                q_block=512, pack=True).flatten(2, 3)
@@ -234,6 +327,8 @@ def _kernel_plain(inp):
                                         q_block=512, pack=True), "qkv"),
             ("flashq", flat_q, ("qf", "kf", "vf")),
             ("flashr", flat_r, ("qr", "kr", "vr")),
+            *((tag, functools.partial(_whole_rows_case, tattn, torch, tag),
+               names) for tag, (names, *_) in worker.PLAIN_ROWS.items()),
             ("scan", rglru_scan, "ab"),
             ("wkv6", wkv6, ("r", "wk", "wv", "logw", "u"))):
         ins = {n: torch.from_numpy(inp[f"kern/{n}"]).requires_grad_()
@@ -380,6 +475,10 @@ def _inputs():
         inp[f"{cell}/kv_quant"] = np.array(kv_quant)
         inp[f"{cell}/accum"] = np.array(accum)
         inp[f"{cell}/tokens"] = _tokens(cell)
+        if cell in CELL_CONFIG:
+            inp[f"{cell}/config"] = np.array(json.dumps(CELL_CONFIG[cell]))
+            inp.update({f"{cell}/batch/{k}": v
+                        for k, v in _batch(cell, kinds).items()})
         for n, p in _port_model(cell).named_parameters():
             inp[f"{cell}/p/{n}"] = p.detach().numpy()
     return inp
@@ -427,7 +526,8 @@ def _port_run(cell):
     model = _port_model(cell)
     out = {}
     if kinds == "train":
-        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        batch = {k: torch.from_numpy(v)
+                 for k, v in _batch(cell, "train").items()}
         opt = make_optimizer(tc.optimizer, cfg=tc)
         if tc.moe is not None:
             metrics = _per_shard_step(tc, model, opt, batch, accum)
@@ -443,7 +543,8 @@ def _port_run(cell):
             for k in ("m", "v"):
                 out[k] = {n: t.numpy() for n, t in state["opt"][k].items()}
         return out
-    logits, cache = forward_prefill(model, tc, {"tokens": tokens[:, :-1]})
+    logits, cache = forward_prefill(model, tc, {
+        k: torch.from_numpy(v) for k, v in _batch(cell, "prefill").items()})
     # copies: decode writes into the cache in place
     out["prefill"] = [logits.numpy()] + [t.numpy().copy()
                                          for t in _leaves(cache)]
@@ -458,11 +559,11 @@ def _jax_run(cell):
     """The reference's outputs, keyed as ``_port_run``'s."""
     jc, _ = _cfgs(cell)
     arch, kinds, _, accum = CELLS[cell]
-    params = _jax_params(arch)
+    params = _jax_params(arch, heads=_heads(cell))
     tokens = jnp.asarray(_tokens(cell), jnp.int32)
     out = {}
     if kinds == "train":
-        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        batch = {k: jnp.asarray(v) for k, v in _batch(cell, "train").items()}
         opt = jax_make_optimizer(jc.optimizer)
         if jc.moe is None:
             state = {"params": params, "opt": opt.init(params),
@@ -491,7 +592,8 @@ def _jax_run(cell):
         out["old"] = jax.tree.map(np.asarray, params)
         return out
     logits, cache = jax.jit(functools.partial(jtf.forward_prefill, cfg=jc))(
-        params, batch={"tokens": tokens[:, :-1]})
+        params, batch={k: jnp.asarray(v)
+                       for k, v in _batch(cell, "prefill").items()})
 
     def leaves(c):
         return [np.asarray(e[n]) for part in ("blocks", "tail")
@@ -582,6 +684,31 @@ def test_sharded_serving_matches_reference(sharded, cell, kind):
     for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_allclose(g, w, atol=MODEL_TOL, rtol=MODEL_TOL,
                                    err_msg=f"output {i}")
+
+
+# cell -> the q-rows routes its model takes, by kernel name: paligemma's
+# prefix-LM mask through the plain dispatch; whisper's encoder and its
+# cross-attention too, its decoder self-attention through flash's
+Q_ROWS_CELLS = {"pg": {"attention"}, "pgt": {"attention"},
+                "wh": {"attention", "flash attention"}}
+
+
+@pytest.mark.parametrize("cell", sorted(Q_ROWS_CELLS))
+def test_q_rows_cells_take_the_route(sharded, cell):
+    """C6 and C7 in the ``CELL_CONFIG`` cells: their attention takes the
+    q-rows routes ``Q_ROWS_CELLS`` names (2 q heads on 4 ``model`` ranks)
+    and no other, and every k and v projection is cut by columns over
+    ``model``; the module's other cells take no q-rows route."""
+    res, _, _ = sharded
+    seen = json.loads(str(res[f"{cell}/routes"]))
+    assert {k for k in seen if not k.startswith("kv/")} == \
+        Q_ROWS_CELLS[cell], seen
+    assert {k for k in seen if k.startswith("kv/")} == {"kv/columns"}, \
+        seen
+    for other in set(CELLS) - set(CELL_CONFIG):
+        seen = json.loads(str(res[f"{other}/routes"]))
+        assert not any(k in seen for k in ("attention", "flash attention")), \
+            (other, seen)
 
 
 def _adamw_ratio(m, v, count=1, b1=0.9, b2=0.95, eps=1e-8):
@@ -680,8 +807,9 @@ def test_moe_fallback_matches_reference(sharded, arch):
                                        err_msg=k)
 
 
-@pytest.mark.parametrize("tag", ["flash", "flashq", "flashr", "scan",
-                                 "wkv6"])
+@pytest.mark.parametrize("tag", ["flash", "flashq", "flashr", "plainp",
+                                 "plainb", "plainx", "plainc", "plainh",
+                                 "scan", "wkv6"])
 def test_kernel_routes_on_eight_ranks(sharded, tag):
     """Each wrapper's DTensor route on the 2 x 4 mesh (some inputs cut
     locally, u's gradient a Partial over ``data``): its outputs and the
@@ -693,7 +821,16 @@ def test_kernel_routes_on_eight_ranks(sharded, tag):
     ``model`` ranks, whole there, each rank running rows [8 j, 8 j + 8) of
     head r // 2 (j = r % 2) at its own q0 against the keys up to its last
     row, with a window of 6; k's and v's gradients summed over ``model``,
-    the output gathered back."""
+    the output gathered back.  ``plainp``, ``plainb`` and ``plainx`` are
+    the plain dispatch's q-rows route (C6, ``attention_q_rows``) on the
+    same layout: the prefix mask over 5 positions (the q-block scan at q
+    blocks of 4, each rank's 8 rows at their q0 against all 16 keys of its
+    kv head, 1 kv head for 2 q heads), the bidirectional mask (the
+    rectangle scan), cross-attention (``_sdpa``, 24 keys for 16 rows) and,
+    ``plainc``, a causal mask with a window of 6 and the hook off (each
+    rank's rectangle at its q0 against the keys up to its last row), and
+    ``plainh``, the same with ``plain_attention`` as the hook (handed each
+    rank's q0), against the port's branch on the whole tensors."""
     res, port, _ = sharded
     want = port["kernels"]
     keys = [k for k in want if k.startswith(f"kern/{tag}/")]
@@ -703,6 +840,11 @@ def test_kernel_routes_on_eight_ranks(sharded, tag):
     place = {"flash": ["(Shard(dim=0), Shard(dim=2))"],
              "flashq": ["(Shard(dim=0), Shard(dim=2))"],
              "flashr": ["(Shard(dim=0), Replicate())"],
+             "plainp": ["(Shard(dim=0), Replicate())"],
+             "plainb": ["(Shard(dim=0), Replicate())"],
+             "plainx": ["(Shard(dim=0), Replicate())"],
+             "plainc": ["(Shard(dim=0), Replicate())"],
+             "plainh": ["(Shard(dim=0), Replicate())"],
              "scan": ["(Shard(dim=0), Shard(dim=2))"],
              "wkv6": ["(Shard(dim=0), Shard(dim=2))",
                       "(Shard(dim=0), Shard(dim=1))"]}[tag]
@@ -730,6 +872,32 @@ def test_q_rows_route_matches_the_reference(sharded):
                                rtol=MODEL_TOL)
     for n, g in zip(("qr", "kr", "vr"), grads):
         np.testing.assert_allclose(res[f"kern/flashr/grad/{n}"], g,
+                                   atol=MODEL_TOL, rtol=MODEL_TOL, err_msg=n)
+
+
+@pytest.mark.parametrize("tag", ["plainp", "plainb", "plainx", "plainc",
+                                 "plainh"])
+def test_plain_q_rows_route_matches_the_reference(sharded, tag):
+    """C6's route on 8 ranks against the reference's branch of its
+    dispatch on the whole tensors (``_qblock_scan`` under the prefix mask,
+    ``_rect_scan``, ``_sdpa`` for cross-attention, ``_qblock_scan`` under
+    the causal mask with a window, ``_sdpa`` under it for the
+    ``plain_attention`` hook; f32) and its
+    ``jax.vjp``: the output and q's, k's and v's gradients to the model
+    tolerance."""
+    import torch_dist_worker as worker
+
+    from repro.models import attention as jattn
+    res, _, _ = sharded
+    inp = _kernel_inputs()
+    names = worker.PLAIN_ROWS[tag][0]
+    o, vjp = jax.vjp(functools.partial(_whole_rows_case, jattn, jnp, tag),
+                     *(jnp.asarray(inp[f"kern/{n}"]) for n in names))
+    grads = vjp(jnp.asarray(inp[f"kern/{tag}/ct0"]))
+    np.testing.assert_allclose(res[f"kern/{tag}/out0"], o, atol=MODEL_TOL,
+                               rtol=MODEL_TOL)
+    for n, g in zip(names, grads):
+        np.testing.assert_allclose(res[f"kern/{tag}/grad/{n}"], g,
                                    atol=MODEL_TOL, rtol=MODEL_TOL, err_msg=n)
 
 
@@ -1057,7 +1225,7 @@ def test_each_arch_takes_one_head_split(arch, tp):
     (``heads`` on nothing): rank 0 runs the first 8 / n rows of head 0 and
     the last rank the last rows of the last head, with more causal pairs,
     and the output is gathered whole."""
-    from repro_torch.kernels.flash_attention.ops import head_split
+    from repro_torch.distributed.heads import head_split
     from repro_torch.roofline.bounds import flash_work
     cfg = get_config(arch)
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -1091,7 +1259,7 @@ def test_other_head_layouts_raise(H, K, tp):
     """q heads that split over ``model`` where each rank's H / tp heads
     read more than one kv head: ``head_split`` and flash's DTensor route
     raise with (H, K, tp) and the placements; nothing is replicated."""
-    from repro_torch.kernels.flash_attention.ops import head_split
+    from repro_torch.distributed.heads import head_split
     with pytest.raises(ValueError, match=rf"\({H}, {K}, {tp}\)"):
         head_split(H, K, tp)
     with pytest.raises(ValueError, match=rf"\({H}, {K}, {tp}\).*"
@@ -1112,6 +1280,26 @@ def test_q_rows_route_raises_on_rows_that_do_not_split():
                    for s in ((2, 6, 4, 16), (2, 6, 2, 16), (2, 6, 2, 16)))
         with pytest.raises(ValueError, match=r"\(4, 2, 16, 6\)"):
             flash_attention(q, k, v, scale=0.25, q_block=512, pack=True)
+
+
+@pytest.mark.parametrize("mask_mode", ["prefix", "bidir"])
+def test_plain_q_rows_route_raises_on_rows_that_do_not_split(mask_mode):
+    """The plain dispatch's q-rows route (C6) on 4 q heads over 16
+    ``model`` ranks: 6 rows do not split over a head's 4 ranks, and it
+    raises with (H, K, tp, S); nothing is replicated."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models.attention import attention_q_rows
+    with fake_mesh(AbstractMesh(("data", "model"), (1, 16))) as mesh:
+        q, k, v = (distribute_tensor(torch.empty(s, device="meta"), mesh,
+                                     (Replicate(), Replicate()))
+                   for s in ((2, 6, 4, 16), (2, 6, 2, 16), (2, 6, 2, 16)))
+        with pytest.raises(ValueError,
+                           match=r"attention cannot split \(H, K, tp, S\) = "
+                           r"\(4, 2, 16, 6\)"):
+            attention_q_rows(q, k, v, mask_mode=mask_mode, prefix_len=2,
+                             scale=0.25, q_block=4, pack=True)
 
 
 def test_layer_spec_moves_the_layer_axis():

@@ -16,7 +16,8 @@ cell of INPUTS (its weights in the port's names, its tokens) as DTensors on
 the (2, 4) ("data", "model") mesh, and writes each output in full; the
 MoE whose experts do not split over ``model`` (``run_moe_dense``); the
 kernels' DTensor routes (``run_kernels``) and the vocab-parallel
-cross-entropy (``run_loss``).  Then
+cross-entropy (``run_loss``); each cell's q-rows routes and the cut of its
+k and v projections are noted as it runs (``seeing_q_rows``).  Then
 what the dry-run's fake world is held against (``run_dryrun_checks``):
 ``train.steps._microbatch`` on a batch sharded over 8 data ranks, a
 shard-to-shard ``redistribute`` under ``native_alltoall`` (gloo's
@@ -24,6 +25,7 @@ all-to-all, values and trace), and rank 0's ``OpTrace`` of one sharded
 train step (``launch.dryrun.run_step`` on CPU tensors).
 """
 import collections
+import contextlib
 import dataclasses
 import json
 import sys
@@ -143,10 +145,28 @@ def main(rank, world, store, inputs, out):
 # ---------------------------------------------------------------------------
 def cell_config(inp, cell):
     """The f32 smoke config of a cell (``<cell>/arch``, ``<cell>/kv_quant``)
-    with the reference's ``attn_q_block=16`` of TRAIN_LOWERS."""
+    with the reference's ``attn_q_block=16`` of TRAIN_LOWERS, and the
+    fields ``<cell>/config`` (JSON) replaces, where the cell has it."""
     cfg = get_smoke_config(str(inp[f"{cell}/arch"]))
-    return dataclasses.replace(cfg, param_dtype="float32", attn_q_block=16,
-                               kv_quant=bool(inp[f"{cell}/kv_quant"]))
+    over = json.loads(str(inp.get(f"{cell}/config", "{}")))
+    return dataclasses.replace(cfg, **{
+        "param_dtype": "float32", "attn_q_block": 16,
+        "kv_quant": bool(inp[f"{cell}/kv_quant"]), **over})
+
+
+def cell_batch(inp, cell, tokens, kind):
+    """The cell's train or prefill batch: its ``<cell>/batch/*`` arrays
+    where it has them (whisper's ``frames``, paligemma's ``patches``;
+    prefill without ``labels``), else from its tokens."""
+    pre = f"{cell}/batch/"
+    given = {k[len(pre):]: torch.from_numpy(v) for k, v in inp.items()
+             if k.startswith(pre) and (kind == "train" or
+                                       not k.endswith("/labels"))}
+    if given:
+        return given
+    if kind == "train":
+        return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    return {"tokens": tokens[:, :-1]}
 
 
 def cell_model(inp, cell, cfg):
@@ -176,7 +196,44 @@ def cache_leaves(cache):
             for n in sorted(e)]
 
 
+@contextlib.contextmanager
+def seeing_q_rows(seen):
+    """Note in the Counter ``seen`` each q-rows route the model takes, by
+    kernel name (``heads.run_q_rows``: flash's and the plain dispatch's),
+    and each k or v projection by its placement on ``model``
+    (``kv_columns``), under ``kv/columns`` (cut by columns) or
+    ``kv/whole``."""
+    from repro_torch.distributed import heads
+    from repro_torch.models import attention as tattn
+    run, cols = heads.run_q_rows, tattn.kv_columns
+
+    def route(kernel, *args):
+        seen[kernel] += 1
+        return run(kernel, *args)
+
+    def columns(w, q):
+        out = cols(w, q)
+        cut = out.placements[1].is_shard(1)
+        seen["kv/" + ("columns" if cut else "whole")] += 1
+        return out
+    heads.run_q_rows = route
+    tattn.kv_columns = columns
+    try:
+        yield seen
+    finally:
+        heads.run_q_rows = run
+        tattn.kv_columns = cols
+
+
 def run_cell(inp, cell, mesh, res, grad_accum=2, lr=1e-3):
+    """``run_cell_at`` under ``seeing_q_rows``; what it saw as JSON in
+    ``<cell>/routes``."""
+    with seeing_q_rows(collections.Counter()) as seen:
+        run_cell_at(inp, cell, mesh, res, grad_accum, lr)
+    res[f"{cell}/routes"] = np.array(json.dumps(seen))
+
+
+def run_cell_at(inp, cell, mesh, res, grad_accum=2, lr=1e-3):
     """Prefill (and decode at the next position), or one train step with
     ``grad_shardings`` and ``update_constraint`` set (ZeRO, from
     ``opt_pspecs``), of the cell's sharded model; the outputs in full."""
@@ -202,7 +259,7 @@ def run_cell(inp, cell, mesh, res, grad_accum=2, lr=1e-3):
         step = tsteps.build_train_step(cfg, opt, lambda s: lr,
                                        grad_accum=int(inp[f"{cell}/accum"]),
                                        grad_shardings=gshard)
-        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        batch = cell_batch(inp, cell, tokens, "train")
         batch = distribute_tree(batch, batch_pspecs(batch, rules), mesh)
         with context.use_rules(rules):
             state, metrics = step(state, batch)
@@ -218,7 +275,7 @@ def run_cell(inp, cell, mesh, res, grad_accum=2, lr=1e-3):
         return
     rules = choose_layout(cfg, cell_shape("prefill", B, S), mesh)
     shard_params(model, cfg, rules, mesh)
-    batch = {"tokens": tokens[:, :-1]}
+    batch = cell_batch(inp, cell, tokens, "prefill")
     batch = distribute_tree(batch, batch_pspecs(batch, rules), mesh)
     with context.use_rules(rules):
         logits, cache = forward_prefill(model, cfg, batch)
@@ -240,6 +297,28 @@ def run_cell(inp, cell, mesh, res, grad_accum=2, lr=1e-3):
         res[f"{cell}/decode/cache{i}"] = full(t).numpy()
 
 
+# the plain dispatch's q-rows route (``models.attention.attention_q_rows``)
+# on flat q of 2 heads over the 4 ``model`` ranks, each head's 16 rows
+# split 2 ways: tag -> (the inputs q, k, v, the route's keywords, the
+# attention hook: None, or the name of one in ``models.attention``).  The
+# prefix mask's 5 positions fill no row block (8) nor q block (4); cross
+# attention's 24 keys are not q's 16 rows; the causal mask with a window
+# of 6, with the hook off and with ``plain_attention`` as the hook (handed
+# each rank's q0)
+PLAIN_ROWS = {
+    "plainp": (("pq", "pk", "pv"), {"mask_mode": "prefix", "prefix_len": 5},
+               None),
+    "plainb": (("bq", "bk", "bv"), {"mask_mode": "bidir"}, None),
+    "plainx": (("xq", "xk", "xv"), {"mask_mode": "bidir", "cross": True},
+               None),
+    "plainc": (("cq", "ck", "cv"), {"mask_mode": "causal", "window": 6},
+               None),
+    "plainh": (("cq", "ck", "cv"), {"mask_mode": "causal", "window": 6},
+               "plain_attention"),
+}
+PLAIN_ROWS_KW = {"scale": 0.25, "q_block": 4, "pack": True}
+
+
 def run_kernels(inp, mesh, res):
     """Each kernel wrapper on DTensors of the inputs ``kern/*`` placed so
     that some are cut locally (flash's k, the scan's b, the wkv6's u over
@@ -248,11 +327,13 @@ def run_kernels(inp, mesh, res):
     whole there) and its q-rows route (flat q of fewer heads than ``model``
     ranks, whole there, each rank one block of one head's rows); the
     outputs, the input gradients of a random cotangent
-    and the output placements, in full."""
+    and the output placements, in full; and the plain dispatch's q-rows
+    route (``PLAIN_ROWS``)."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rwkv6_chunk import wkv6
+    from repro_torch.models import attention as tattn
 
     def dt(name, *place):
         t = distribute_tensor(torch.from_numpy(inp[f"kern/{name}"]), mesh,
@@ -286,6 +367,17 @@ def run_kernels(inp, mesh, res):
            "vr": dt("vr", Replicate(), Replicate())}
     record("flashr", flash_attention(*ins.values(), scale=0.25, window=6,
                                      q_block=512, pack=True), ins)
+    hook = tattn._ATTN_IMPL
+    try:
+        for tag, (names, kw, use) in PLAIN_ROWS.items():
+            tattn.set_attention_impl(use and getattr(tattn, use))
+            ins = dict(zip(names, (dt(names[0], Shard(0), Replicate()),
+                                   dt(names[1], Shard(0), Replicate()),
+                                   dt(names[2], Replicate(), Replicate()))))
+            record(tag, tattn.attention_q_rows(*ins.values(), **kw,
+                                               **PLAIN_ROWS_KW), ins)
+    finally:
+        tattn.set_attention_impl(hook)
     ins = {"a": dt("a", Shard(0), Shard(2)), "b": dt("b", Replicate(),
                                                      Replicate())}
     record("scan", rglru_scan(*ins.values()), ins)
