@@ -193,7 +193,16 @@ Phases:
      attention and other products' flops a device, the q-rows route's
      local q and the k/v projections' local columns; it fails unless the
      plain dispatch ran on one head's S / 2 rows (2 ranks a head) and the
-     k/v projections were cut by columns over the 16 ranks.
+     k/v projections were cut by columns over the 16 ranks.  Then
+     recurrentgemma-2b's cell at one superblock (10 heads on 16 ``model``
+     ranks: 2 groups of 5 heads, each group's rows over 8 ranks): one
+     ``[dryrun]`` line with the traced rank, flash's local q and the
+     attention flops a device; it fails unless rank 15 ran flash on 5
+     heads' S / 8 rows.  Then rwkv6-7b's cell: one ``[dryrun]`` line with
+     its products' flops a device beside the reference's compiled record's
+     and their largest shapes; it fails unless they are within 1.05 of the
+     reference's and the d x d products ran on the rank's S / 16 rows.
+     Each line gives its wall seconds.
   Phase 2 also holds each kernel's autograd function (the kernel forward, the
   plain version's autograd backward) against autograd of the plain version
   over the kernel's sweep, at the kernel's tolerance.
@@ -312,6 +321,18 @@ DRYRUN_HEADS_CELL = ("gemma2-9b", "train_4k", "pod")
 # prefix-LM mask: the plain dispatch on each rank's block of one head's
 # rows (the q-rows route), the k and v projections cut by columns
 DRYRUN_ROWS_CELL = ("paligemma-3b", "train_4k", "pod")
+# and recurrentgemma-2b's at one superblock (3 layers), whose 10 heads do
+# not divide 16 ``model`` ranks: flash on 5 heads' S / 8 rows a rank (2 head
+# groups, each group's rows over 8 ranks), the heaviest rank traced
+DRYRUN_GROUPS_CELL = ("recurrentgemma-2b", "train_4k", "pod")
+DRYRUN_GROUPS_LAYERS = 3
+# and rwkv6-7b's, whose mixes run each rank's rows of the residual stream:
+# its products a device against the reference's compiled record of the
+# same cell (jax 0.9.0 on a CPU host, PERF.md section 7; the grad_accum of
+# 4 moves no product flops), the d x d products on the rank's S / 16 rows
+DRYRUN_RWKV_CELL = ("rwkv6-7b", "train_4k", "pod")
+DRYRUN_RWKV_REFERENCE_PRODUCTS = 13782550052864
+DRYRUN_PRODUCTS_SLACK = 1.05
 DRYRUN_LAYERS = 1
 DRYRUN_TIMEOUT_S = 90
 # the same cell's trace on a CPU host (torch 2.13.0+cpu): printed beside the
@@ -2854,9 +2875,9 @@ def roofline_path(torch, steps, card) -> list:
     return rows
 
 
-def dryrun_record(cell) -> tuple:
+def dryrun_record(cell, layers: int = DRYRUN_LAYERS) -> tuple:
     """``python -m repro_torch.launch.dryrun`` on ``cell`` cut to
-    ``DRYRUN_LAYERS`` layers, in a subprocess (a fake world needs a process
+    ``layers`` layers, in a subprocess (a fake world needs a process
     without a process group) under ``DRYRUN_TIMEOUT_S`` -> (its record,
     the wall seconds); fails on a non-zero exit or a timeout."""
     arch, shape, mesh = cell
@@ -2865,7 +2886,7 @@ def dryrun_record(cell) -> tuple:
         f"{arch}__{shape}__{mesh}.json"
     path.unlink(missing_ok=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-           "--shape", shape, "--mesh", mesh, "--layers", str(DRYRUN_LAYERS)]
+           "--shape", shape, "--mesh", mesh, "--layers", str(layers)]
     t0 = time.perf_counter()
     try:
         run = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
@@ -2897,7 +2918,16 @@ def dryrun_path(card) -> dict:
     a device, the q-rows route's local q and the k/v projections' local
     columns (the record's ``q_rows:attention`` and ``kv_columns``); fails
     unless the rank ran one head's S / n rows (n = 16 / heads) of its
-    microbatch rows and the projections' K * hd / 16 columns."""
+    microbatch rows and the projections' K * hd / 16 columns.  Then
+    ``DRYRUN_GROUPS_CELL``'s at its superblock: prints the traced rank,
+    flash's local q and the attention flops a device; fails unless the
+    rank at ``model`` coordinate 15 ran flash on one head group's S / n
+    rows (g = gcd(heads, 16) groups, n = 16 / g).  Then
+    ``DRYRUN_RWKV_CELL``'s: prints its products' flops a device and their
+    largest shapes; fails unless they are within ``DRYRUN_PRODUCTS_SLACK``
+    of the reference's and the d x d products ran on the rank's S / 16
+    rows of its microbatch.  Each line gives its wall seconds: these are
+    the runs of the routes under the card machine's torch."""
     import torch
     from repro_torch.configs.base import LM_SHAPES, get_config
     from repro_torch.launch.dryrun import TRAIN_GRAD_ACCUM
@@ -2963,13 +2993,65 @@ def dryrun_path(card) -> dict:
         "wall_s": wall, "card": card}
     print("[dryrun] " + json.dumps(rows_row), flush=True)
     n = 16 // cfg.n_heads
-    check(local_q == [[rows, sh.seq_len // n, cfg.head_dim]],
+    check(local_q == [[rows, sh.seq_len // n, 1, cfg.head_dim]],
           f"[dryrun] {arch}: the q-rows route's local q {local_q} is not "
           f"one head's {sh.seq_len // n} rows of the rank's {rows} rows")
     check(columns == [[cfg.d_model, cfg.n_kv_heads * cfg.head_dim // 16]],
           f"[dryrun] {arch}: the k/v projections' local {columns} are not "
           f"cut by columns over 16 ranks")
-    return {"dryrun": row, "heads": heads_row, "rows": rows_row}
+
+    arch, shape, mesh = DRYRUN_GROUPS_CELL
+    rec, wall = dryrun_record(DRYRUN_GROUPS_CELL, DRYRUN_GROUPS_LAYERS)
+    cfg, sh = get_config(arch), LM_SHAPES[shape]
+    rows = sh.global_batch // TRAIN_GRAD_ACCUM // 16    # 16 data ranks
+    work = rec[rec["cost"]["split"]]
+    ops = work["op_flops"]
+    local_q = work["kernel_shapes"].get("q_rows:flash attention")
+    groups_row = {
+        "cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
+        "rank_traced": rec["rank_traced"],
+        "flops_per_device": rec["cost"]["flops_per_device"],
+        "attention_flops_per_device":
+            ops.get("flash_attention", 0) + ops.get("aten.bmm", 0),
+        "flash_flops_per_device": ops.get("flash_attention", 0),
+        "q_rows_local_q": local_q,
+        "flash_local_q": work["kernel_shapes"].get("flash_attention"),
+        "collectives": rec["collectives"], "trace_s": rec["lower_s"],
+        "wall_s": wall, "card": card}
+    print("[dryrun] " + json.dumps(groups_row), flush=True)
+    g = math.gcd(cfg.n_heads, 16)
+    check(rec["rank_traced"] == 15 and local_q == [
+        [rows, sh.seq_len * g // 16, cfg.n_heads // g, cfg.head_dim]],
+          f"[dryrun] {arch}: rank {rec['rank_traced']}'s flash local q "
+          f"{local_q} is not {cfg.n_heads // g} heads' "
+          f"{sh.seq_len * g // 16} rows of the rank's {rows} rows")
+
+    arch, shape, mesh = DRYRUN_RWKV_CELL
+    rec, wall = dryrun_record(DRYRUN_RWKV_CELL)
+    cfg, sh = get_config(arch), LM_SHAPES[shape]
+    rows = sh.global_batch // TRAIN_GRAD_ACCUM // 16 * sh.seq_len
+    work = rec[rec["cost"]["split"]]
+    products = work["op_flops"].get("aten.mm", 0)
+    rwkv_row = {
+        "cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
+        "rank_traced": rec["rank_traced"],
+        "flops_per_device": rec["cost"]["flops_per_device"],
+        "product_flops_per_device": products,
+        "reference_product_flops": DRYRUN_RWKV_REFERENCE_PRODUCTS,
+        "largest_products": dict(list(work["product_shapes"].items())[:4]),
+        "collectives": rec["collectives"], "trace_s": rec["lower_s"],
+        "wall_s": wall, "card": card}
+    print("[dryrun] " + json.dumps(rwkv_row), flush=True)
+    d = cfg.d_model
+    check(0 < products <= DRYRUN_PRODUCTS_SLACK *
+          DRYRUN_RWKV_REFERENCE_PRODUCTS,
+          f"[dryrun] {arch}: {products} product flops a device against the "
+          f"reference's {DRYRUN_RWKV_REFERENCE_PRODUCTS}")
+    check(f"{rows // 16}x{d} @ {d}x{d}" in work["product_shapes"],
+          f"[dryrun] {arch}: no d x d product on the rank's {rows // 16} "
+          f"rows: {list(work['product_shapes'])}")
+    return {"dryrun": row, "heads": heads_row, "rows": rows_row,
+            "groups": groups_row, "rwkv": rwkv_row}
 
 
 def train_launches(cfg, kernel) -> int:

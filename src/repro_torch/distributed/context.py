@@ -26,7 +26,9 @@ updates run under ``replicate_made_tensors``, which is torch's
 ``implicit_replication`` (a plain tensor taken as replicated on the
 DTensor's mesh) where the model holds DTensors and nothing otherwise.
 ``local_placements`` is what a kernel wrapper's DTensor route checks
-before it runs its kernel on the local shards (``local_map``).
+before it runs its kernel on the local shards (``local_map``); ``on_rows``
+runs any function so on each rank's rows of an activation whose rows
+stay cut (``rows_cut``), against weights gathered whole.
 ``unflatten``/``flatten``, ``replicate_dim``, ``grad_like`` and
 ``native_alltoall`` keep a DTensor's layout where DTensor's own rules would
 refuse a reshape, scatter a gradient onto strided rows, or gather a whole
@@ -359,6 +361,65 @@ def run_local(kernel: str, fn, inputs: dict, splits: dict, out_splits):
                     in_grad_placements=tuple(grad[n] for n in inputs),
                     device_mesh=mesh, redistribute_inputs=True)
     return run(*inputs.values())
+
+
+# the rows of a (B, S, ...) activation: its batch and its sequence
+ROWS = {"batch": 0, "seq": 1}
+
+
+def rows_cut(t) -> bool:
+    """Whether the DTensor ``t`` (B, S, ...) cuts its sequence over a mesh
+    dim of more than one rank (the residual stream's ``act_seq``)."""
+    return is_dtensor(t) and any(
+        p.is_shard(1) and t.device_mesh.size(m) > 1
+        for m, p in enumerate(t.placements))
+
+
+def row_block(t) -> int:
+    """The index of this rank's block of the DTensor ``t``'s sequence
+    (dim 1), the mesh dims that cut it taken in mesh order, the first
+    major (as ``placements`` lays a dim over several)."""
+    j = 0
+    for m in _sharding(t, 1):
+        j = j * t.device_mesh.size(m) + t.device_mesh.get_local_rank(m)
+    return j
+
+
+def replicated(t):
+    """The DTensor ``t`` whole on every rank (an all-gather of each mesh dim
+    that shards it; its gradient is scattered back); a plain ``t``, or one
+    already whole, as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return redistribute(t, (Replicate(),) * t.device_mesh.ndim)
+
+
+def on_rows(name: str, fn, rows: tuple, whole: dict, n_out: int = 1):
+    """``fn(*rows, *whole.values())`` on each rank's rows: the DTensors
+    ``rows`` (B, S, ...) at their cuts of the batch and the sequence, each
+    tensor of ``whole`` (a weight) gathered to every rank first.  Through
+    ``run_local``, so a whole tensor's gradient comes back summed over the
+    ranks (and is scattered to its own layout by its gather's backward).
+    This is how the reference's partitioner runs a product whose rows stay
+    cut as the residual stream's: each rank its rows against the whole
+    weight, where DTensor's own product would gather the rows (it cannot
+    flatten a batch and a sequence cut over two mesh dims into one dim of
+    rows).  ``n_out`` outputs, each (B, S, ...) at the rows' cuts."""
+    ins = {f"rows{i}": t for i, t in enumerate(rows)}
+    ins.update({n: replicated(t) for n, t in whole.items()})
+    splits = {n: ROWS if n.startswith("rows") else {} for n in ins}
+    return run_local(name, fn, ins, splits,
+                     ROWS if n_out == 1 else (ROWS,) * n_out)
+
+
+def rows_product(x, w, name: str):
+    """x (B, S, D) @ w: on a DTensor x, each rank's rows against the whole
+    w (``on_rows``); else the product itself."""
+    if not is_dtensor(x):
+        return x @ w
+    import torch
+    return on_rows(name, torch.matmul, (x,), {"w": w})
 
 
 def axis_size(mesh_axis: str) -> int:

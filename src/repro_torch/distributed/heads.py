@@ -3,26 +3,36 @@ more ranks than one kind of head, and the q-rows route.
 
 ``head_split`` says how ``tp`` ranks split H q heads and K kv heads:
 ``"kv_heads"`` (the layout's own cut), ``"q_heads"`` (C3: q's heads cut, k
-and v whole, each rank reading one kv head: flash's ``_flash_q_heads``),
-``"q_rows"`` (C5, C6: more ranks than q heads, a multiple of them) or
-``"replicated"``.  ``run_q_rows`` is the q-rows route of any attention
-that takes a row offset ``q0``: each rank one block of one head's rows,
-the rows gathered back.  Flash's causal route and the plain dispatch of
-``models.attention`` (the prefix and bidirectional masks,
+and v whole, each rank reading one kv head: flash's ``_flash_q_heads``) or
+``"q_rows"`` (C5, C6, C10: ``tp`` does not divide H; each rank one group
+of heads' block of rows).  ``run_q_rows`` is the q-rows route of any
+attention that takes a row offset ``q0``: each rank one head group's block
+of rows, the rows gathered back.  Flash's causal route and the plain
+dispatch of ``models.attention`` (the prefix and bidirectional masks,
 cross-attention, a causal mask off flash) both run through it.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 from repro_torch.distributed import context
 from repro_torch.roofline.trace import record_route
 
 # where a mesh dim leaves k and v whole: only the batch may be cut
 KV_SPLITS = {"batch": 0}
-# where ``model`` has more ranks than q heads: q as (B, H*S, hd), cut on
-# its rows (each rank one head's block of rows), k and v whole there
+# where ``model`` does not divide the q heads: q as (B, g*n, S/n, H/g, hd),
+# cut on dim 1 (each rank one head group's block of rows), k and v whole
+# there
 ROW_SPLITS = {"batch": 0, "q_rows": 1}
+
+
+def row_groups(H: int, tp: int) -> tuple:
+    """The q-rows route's cut of H q heads over ``tp`` ranks: (g, n), g =
+    gcd(H, tp) groups of H / g heads, each group's rows in n = tp / g
+    blocks."""
+    g = math.gcd(H, tp)
+    return g, tp // g
 
 
 def head_split(H: int, K: int, tp: int) -> str:
@@ -33,17 +43,23 @@ def head_split(H: int, K: int, tp: int) -> str:
     divides ``K`` (each rank a whole group of kv heads and their q heads);
     ``"q_heads"`` where each rank's ``H / tp`` q heads read one kv head
     (``tp > K`` and the group ``G = H / K`` a multiple of ``H / tp``; C3);
-    ``"q_rows"`` where ``tp`` is a multiple of ``H`` that ``H`` does not
-    reach (``heads`` on nothing; C5): each head spreads over ``n = tp / H``
-    ranks, the rank at ``model`` coordinate ``r`` runs q head ``r // n``'s
-    rows ``[j S / n, (j + 1) S / n)``, ``j = r % n``, against its kv head and
-    the keys up to its last row; ``"replicated"`` where neither count
-    divides the other (attention whole on every rank, as the reference's
-    rules say).  Any other layout raises."""
+    ``"q_rows"`` where ``tp`` does not divide ``H`` (``heads`` on nothing;
+    C5, C10): the heads fall into g = gcd(H, tp) groups of H / g, each
+    group's rows into n = tp / g blocks (``row_groups``), and the rank at
+    ``model`` coordinate ``r`` runs group ``r // n``'s rows ``[j S / n,
+    (j + 1) S / n)``, ``j = r % n``, against its kv heads and the keys up
+    to its last row; a group must hold whole kv groups or lie inside one
+    kv head.  Any other layout raises, naming (H, K, tp)."""
     if K % tp == 0:
         return "kv_heads"
     if H % tp:
-        return "q_rows" if tp % H == 0 else "replicated"
+        h = H // row_groups(H, tp)[0]
+        G = H // K
+        if h % G == 0 or G % h == 0:
+            return "q_rows"
+        raise ValueError(f"attention cannot split (H, K, tp) = ({H}, {K}, "
+                         f"{tp}): a group of {h} q heads holds no whole kv "
+                         f"groups of {G} and lies in more than one kv head")
     if tp > K and (H // K) % (H // tp) == 0:
         return "q_heads"
     raise ValueError(f"flash attention cannot split (H, K, tp) = "
@@ -95,30 +111,32 @@ def splits_q_rows(q, k) -> bool:
     return m is not None and k.placements[m].is_replicate()
 
 
-def _rows_local(q, k, v, *, fn, kernel: str, kv: int, q0: int):
-    """One rank's block of one q head's rows (B, rows, hd): ``fn`` on them,
-    as (B, rows, 1 kv head, 1, hd), against kv head ``kv``.  The narrows'
-    gradients are zero on the other kv heads, so the sum over ranks of k's
-    and v's is theirs.  The rows' shape goes to the trace as
-    ``q_rows:<kernel>``."""
-    B, rows, hd = q.shape
-    record_route(f"q_rows:{kernel}", q.shape)
-    o = fn(q.reshape(B, rows, 1, 1, hd), k.narrow(2, kv, 1),
-           v.narrow(2, kv, 1), q0=q0)
-    return o.reshape(B, rows, hd)
+def _rows_local(q, k, v, *, fn, kernel: str, kv: int, nk: int, q0: int):
+    """One rank's block of one head group's rows (B, 1, rows, h, hd): ``fn``
+    on them as (B, rows, nk kv heads, h / nk, hd) against kv heads ``kv``
+    to ``kv + nk``.  The narrows' gradients are zero on the other kv heads,
+    so the sum over ranks of k's and v's is theirs.  The rows' shape (B,
+    rows, h, hd) goes to the trace as ``q_rows:<kernel>``."""
+    B, _, rows, h, hd = q.shape
+    record_route(f"q_rows:{kernel}", (B, rows, h, hd))
+    o = fn(q.reshape(B, rows, nk, h // nk, hd), k.narrow(2, kv, nk),
+           v.narrow(2, kv, nk), q0=q0)
+    return o.reshape(B, 1, rows, h, hd)
 
 
 def run_q_rows(kernel: str, fn, q, k, v):
     """The q-rows route (``head_split``'s ``"q_rows"``) of the attention
     ``fn(q, k, v, *, q0)``: q (B,S,H,hd) and k, v (B,Skv,K,hd) whole over
-    the mesh dim ``model`` of ``tp`` ranks, a multiple ``n`` of H.  q is
-    viewed as (B, H*S, hd) and cut on dim 1 there (no data moves: it was
-    whole), so the rank at coordinate r holds head r // n, row block
-    j = r % n; through ``run_local`` it calls ``fn`` on those rows at
-    ``q0`` = j S / n against its kv head, all Skv keys of it (k's and v's
-    gradients come back ``Partial``), and the rows are gathered back to
-    (B,S,H,hd) (an all-gather).  Rows that do not split over n raise,
-    naming (H, K, tp, S).  Flash's route
+    the mesh dim ``model`` of ``tp`` ranks, which do not divide H: g head
+    groups of h = H / g heads, each group's rows in n blocks
+    (``row_groups``).  q is viewed as (B, g*n, S/n, h, hd) (group major)
+    and cut on dim 1 there (no data moves: it was whole), so the rank at
+    coordinate r holds group r // n's row block j = r % n; through
+    ``run_local`` it calls ``fn`` on those rows at ``q0`` = j S / n against
+    its group's kv heads, all Skv keys of them (k's and v's gradients come
+    back ``Partial``), and the rows are gathered back to (B,S,H,hd) (an
+    all-gather).  Where g = H, one head a group, this is C5's route.  Rows
+    that do not split over n raise, naming (H, K, tp, S).  Flash's route
     (``kernels.flash_attention.ops._flash_q_rows``) and the plain dispatch
     (``models.attention.attention_q_rows``) both take it."""
     from torch.distributed.tensor import Shard
@@ -131,19 +149,22 @@ def run_q_rows(kernel: str, fn, q, k, v):
     m = _model_dim(mesh)
     B, S, H, hd = q.shape
     K, tp = k.shape[2], mesh.size(m)
-    n = tp // H
+    g, n = row_groups(H, tp)
+    h, G = H // g, H // K
     if S % n:
         raise ValueError(f"{kernel} cannot split (H, K, tp, S) = "
-                         f"({H}, {K}, {tp}, {S}): the {S} rows of a head do "
-                         f"not split over its {n} ranks")
+                         f"({H}, {K}, {tp}, {S}): the {S} rows of a head "
+                         f"group do not split over its {n} ranks")
     r = mesh.get_local_rank(m)
-    qf = q.permute(0, 2, 1, 3).reshape(B, H * S, hd)
+    qf = q.reshape(B, n, S // n, g, h, hd).permute(0, 3, 1, 2, 4, 5) \
+        .reshape(B, g * n, S // n, h, hd)
     qf = context.redistribute(qf, tuple(Shard(1) if d == m else p
                                         for d, p in enumerate(qf.placements)))
     o = context.run_local(
         kernel, functools.partial(_rows_local, fn=fn, kernel=kernel,
-                                  kv=(r // n) // (H // K),
+                                  kv=(r // n) * h // G, nk=max(h // G, 1),
                                   q0=(r % n) * (S // n)),
         {"q": qf, "k": k, "v": v},
         {"q": ROW_SPLITS, "k": KV_SPLITS, "v": KV_SPLITS}, ROW_SPLITS)
-    return context.unflatten(o, 1, (H, S)).permute(0, 2, 1, 3)
+    o = context.replicate_dim(o, 1).reshape(B, g, n, S // n, h, hd)
+    return o.permute(0, 2, 3, 1, 4, 5).reshape(B, S, H, hd)

@@ -40,11 +40,12 @@ its kernel, and counts the launch, on its own shard.  Where a mesh dim
 cuts the q heads and not the kv heads (gemma2-9b's 16 heads and 8 kv heads
 over 16 ``model`` ranks), the model hands q over flat, (B, S, H, hd): each
 rank runs its H / tp q heads against the one kv head they read, and k's
-and v's gradients are summed over that dim.  Where ``model`` has more
-ranks than q heads, a multiple of them (the internlm2-20b smoke config's 4
-heads over 16 ranks), q comes flat too and each rank runs one block of one
-head's rows at its ``q0`` (the q-rows route).  ``distributed.heads.
-head_split`` says which layouts split how; any other raises.
+and v's gradients are summed over that dim.  Where ``model`` does not
+divide the q heads (the internlm2-20b smoke config's 4 heads over 16
+ranks; recurrentgemma-2b's 10), q comes flat too and each rank runs one
+block of one group of heads' rows at its ``q0`` (the q-rows route).
+``distributed.heads.head_split`` says which layouts split how; any other
+raises.
 """
 from __future__ import annotations
 
@@ -299,7 +300,8 @@ def _flash_rows(q, k, v, *, q0: int, **kw):
 
 def _flash_q_rows(q, k, v, **kw):
     """Flash's q-rows route (``distributed.heads.run_q_rows``): each
-    rank's block of one head's rows through the kernel at its ``q0``."""
+    rank's block of one head group's rows through the kernel at its
+    ``q0``."""
     return heads.run_q_rows("flash attention",
                             functools.partial(_flash_rows, **kw), q, k, v)
 

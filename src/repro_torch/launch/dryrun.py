@@ -44,10 +44,13 @@ they mean the same (``rankN``: the rank traced):
   name; ``kernel_shapes``, each hand-written kernel's local output shapes
   (flash's: q's, in its (B*K, S, G, hd) layout), and the local shapes of
   the routes that split a layer by hand (``roofline.trace.record_route``):
-  ``q_rows:<kernel>``, a rank's q rows (B, S / n, hd) on the q-rows route
+  ``q_rows:<kernel>``, a rank's q rows (B, S / n, H / g, hd) on the q-rows
+  route (g head groups, n row blocks: ``distributed.heads.row_groups``)
   (``"attention"``: the plain dispatch's; ``"flash attention"``), and
   ``kv_columns``, the k and v projections' (D, local columns) where they
-  are cut by columns; ``largest_collective``, the
+  are cut by columns; ``product_shapes``, the flops of the products
+  (``aten.mm``) by their local operands' shapes, ``"MxK @ KxN"``, the
+  largest first; ``largest_collective``, the
   largest operand and output bytes of one collective of each kind.
 * ``hlo_ops``: the op census (top 12); ``hlo_len``: the ops traced;
   ``lower_s``: the trace's seconds (eager has no ``compile_s``);
@@ -268,9 +271,9 @@ def traced_rank(cfg: ModelConfig, shape: ShapeConfig, mesh) -> int:
     the cell's step.  Ranks differ only on flash's q-rows route
     (``head_split``'s ``"q_rows"``, a train or prefill step; decode runs no
     flash), where the rank at ``model`` coordinate r runs rows
-    ``[j S / n, (j + 1) S / n)`` of a head, ``j = r % n``: the rank at
-    coordinate tp - 1 (every other coordinate 0) runs the last block, the
-    most causal pairs.  Elsewhere rank 0."""
+    ``[j S / n, (j + 1) S / n)`` of a group of heads, ``j = r % n``: the
+    rank at coordinate tp - 1 (every other coordinate 0) runs the last
+    block, the most causal pairs.  Elsewhere rank 0."""
     names, sizes = tuple(mesh.mesh_dim_names), tuple(mesh.shape)
     if "model" not in names or shape.kind == "decode":
         return 0
@@ -367,10 +370,14 @@ def record(cfg: ModelConfig, mesh, trace, out, args, in_specs, out_specs,
 def rank_work(trace) -> dict:
     """A sharded record's ``rankN`` (module docstring)."""
     flops, shapes, largest = Counter(), {}, {}
+    products = Counter()
     for op in trace.ops:
         flops[op.name] += op.flops
         if op.shape:
             shapes.setdefault(op.name, set()).add(op.shape)
+        if op.operands:
+            products[" @ ".join("x".join(map(str, s))
+                                for s in op.operands)] += op.flops
     for kind, operand, output, _ in trace.collectives:
         big = largest.setdefault(kind, {"operand_bytes": 0,
                                         "output_bytes": 0})
@@ -381,6 +388,7 @@ def rank_work(trace) -> dict:
     return {"op_flops": {n: f for n, f in flops.items() if f},
             "kernel_shapes": {n: sorted(map(list, s))
                               for n, s in shapes.items()},
+            "product_shapes": dict(products.most_common()),
             "largest_collective": largest}
 
 

@@ -38,10 +38,11 @@ hook gives the whole-square plain path.
 
 That dispatch is ``_dispatch``, in one place for both of its callers.
 
-Under DTensor, where ``model`` has more ranks than q heads, a multiple of
-them (``distributed.heads.head_split``'s ``"q_rows"``), attention is split
-by q rows (``heads.run_q_rows``: each rank one head's block of rows at its
-row offset ``q0``, the rows gathered back): the causal mask through
+Under DTensor, where ``model`` does not divide the q heads
+(``distributed.heads.head_split``'s ``"q_rows"``), attention is split by
+head groups and q rows (``heads.run_q_rows``: each rank one head group's
+block of rows at its row offset ``q0``, the rows gathered back): the
+causal mask through
 flash's route where flash is the hook; everything else (the prefix and
 bidirectional masks, cross-attention, a causal mask with the hook off or
 another hook) through ``attention_q_rows``, ``_dispatch`` on each rank's
@@ -317,11 +318,11 @@ def kv_columns(w, q):
     """The k or v projection ``w`` (D, K*hd), cut on its columns over each
     mesh dim that cuts q's heads (B,S,H,hd) and leaves ``w`` whole there
     (the q-heads route: more ranks than kv heads), and over ``model``
-    where q takes the q-rows route (``q_rows_dim``: more ranks than q
-    heads, q's and k's heads whole there).  Each rank then projects its
-    share of the columns and ``unflatten`` gathers k, as the reference's
-    partitioner splits this product where a whole ``w`` is every rank's
-    full product; ``w``'s gradient is gathered back.  Elsewhere, and where
+    where q takes the q-rows route (``q_rows_dim``: ranks that do not
+    divide the q heads, q's and k's heads whole there).  Each rank then
+    projects its share of the columns and ``unflatten`` gathers k, as the
+    reference's partitioner splits this product where a whole ``w`` is
+    every rank's full product; ``w``'s gradient is gathered back.  Elsewhere, and where
     the ranks do not divide K*hd, ``w`` as it is."""
     if not (is_dtensor(w) and is_dtensor(q)):
         return w
@@ -386,7 +387,8 @@ def attention_q_rows(q, k, v, *, mask_mode: str, scale: float, q_block: int,
                      kv_pos=None):
     """The plain dispatch on the q-rows route (``splits_q_rows``): the
     DTensors q (B,S,H,hd) and k, v (B,Skv,K,hd) -> (B,S,H,hd), each rank
-    ``_dispatch`` on one head's block of rows (``heads.run_q_rows``).
+    ``_dispatch`` on one head group's block of rows
+    (``heads.run_q_rows``).
     ``q_pos``, ``kv_pos``: the positions of q's and k's rows, as
     ``_dispatch`` takes them (default 0..S-1 and 0..Skv-1)."""
     S, Skv = q.shape[1], k.shape[1]
@@ -440,14 +442,15 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
     if _ATTN_IMPL is flash_attention and mask_mode == "causal" and \
             (splits_q_heads(q, k) or splits_q_rows(q, k)):
         # q's heads split where the kv heads do not (gemma2-9b: 16 heads, 8
-        # kv heads, 16 ranks), or more ranks than heads split each head's
-        # rows: flash takes q flat, each rank its own heads or rows
+        # kv heads, 16 ranks), or ranks that do not divide the heads split
+        # head groups' rows: flash takes q flat, each rank its own heads or
+        # rows
         o = flash_attention(q, k, v, window=window, softcap=softcap,
                             scale=scale, q_block=qb, pack=pack)
     elif splits_q_rows(q, k):
-        # more ranks than heads and no flash route (prefix, bidirectional,
-        # cross, a causal mask with the hook off or another hook): each
-        # rank the dispatch on one head's block of rows
+        # ranks that do not divide the heads and no flash route (prefix,
+        # bidirectional, cross, a causal mask with the hook off or another
+        # hook): each rank the dispatch on one head group's block of rows
         o = attention_q_rows(q, k, v, **dispatch)
     else:
         # the GQA fold: a heads shard splits into (K, G) only where K

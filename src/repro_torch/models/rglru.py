@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import (constrain, is_dtensor,
+                                             replicate_dim)
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.models.modules import ParamModule, normal, pdtype
 
@@ -49,8 +50,14 @@ def init_rglru(cfg: ModelConfig, generator: torch.Generator, device) -> RGLRU:
 
 
 def _gates(p: RGLRU, xi):
-    r = torch.sigmoid((xi @ p.wa).float() + p.ba)
-    i = torch.sigmoid((xi @ p.wi).float() + p.bi)
+    # on a DTensor the gates' products take xi's channels whole (an
+    # all-gather where ``rnn`` cuts them) against wa's and wi's columns, so
+    # that r and i are cut by channels as ba and bi are: torch 2.11's
+    # DTensor cannot add a channel-cut bias to the partial sums of a
+    # product cut on its contraction, which it picks otherwise
+    xg = replicate_dim(xi, -1) if is_dtensor(xi) else xi
+    r = torch.sigmoid((xg @ p.wa).float() + p.ba)
+    i = torch.sigmoid((xg @ p.wi).float() + p.bi)
     log_a = -_C * F.softplus(p.lam) * r                  # < 0
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))

@@ -10,18 +10,34 @@ reference, and updates its cache in place.  ``log w`` is clamped to
 sequential oracle, a loop over time in plain torch, which
 ``forward_train(seq_exact=True)`` runs.
 
+Under DTensor, where the input's rows are cut as the residual stream's
+(``act_seq``: ``context.rows_cut``), the mixes run each rank's own rows, as
+the reference's partitioner does: the token shift takes the row before a
+rank's block from the rank before it (``_shifted_rows``), and the
+products whose rows the reference keeps cut run there against the whole
+weight (``context.on_rows``: the time mix's LoRAs and its five d x d
+projections, the channel mix's receptance); only the wkv6 lays its
+inputs out by heads, and its output comes back to the rows.  The channel
+mix's ``wk`` and ``wv`` stay split on ``ff`` over all rows (Megatron), as
+in the reference.
+
 Recurrence (per head, k/v/r in R^hd):
     y_t = r_t^T (S_{t-1} + diag(u*k_t) v_t^T)
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
 """
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.context import (constrain, flatten, grad_like,
-                                             unflatten)
+from repro_torch.distributed.context import (ROWS, constrain, flatten,
+                                             grad_like, on_rows, redistribute,
+                                             replicate_dim, row_block,
+                                             rows_cut, run_local, unflatten)
 from repro_torch.kernels.rwkv6_chunk import wkv6
 from repro_torch.models.modules import (ParamModule, group_norm_heads, normal,
                                         pdtype)
@@ -117,6 +133,45 @@ def _shifted(x, x_prev):
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
+def _shift_local(x, tails, *, j: int):
+    """Block ``j`` of the rows (B, s, D) shifted by one: its first row is
+    the last row of block j - 1 (``tails`` (B, blocks, D)), zero for the
+    first block.  Every block reads ``tails`` (the first its zero row), so
+    that every rank's backward issues the same collectives."""
+    return torch.cat([_shifted(tails, None)[:, j:j + 1], x[:, :-1]], dim=1)
+
+
+def _shifted_rows(x):
+    """The token shift of the DTensor x (B,S,D) whose rows are cut
+    (``rows_cut``) -> (x shifted by one row, a zero first row; x's last
+    row (B,D)).  Each rank's block needs one row of the block before it:
+    the blocks' last rows are gathered (B x blocks x D, no more), and the
+    gradient of the row a rank lent comes back summed."""
+    tails = run_local("rwkv token shift", lambda t: t[:, -1:], {"x": x},
+                      {"x": ROWS}, ROWS)
+    tails = replicate_dim(tails, 1)
+    xs = run_local("rwkv token shift",
+                   functools.partial(_shift_local, j=row_block(x)),
+                   {"x": x, "tails": tails},
+                   {"x": ROWS, "tails": {"batch": 0}}, ROWS)
+    return xs, tails[:, -1]
+
+
+def _weights_on_rows(name: str, fn, p, weights: tuple, *rows, n_out=1):
+    """``fn(p', *rows)`` on each rank's rows (``context.on_rows``), where
+    ``p'`` holds the named ``weights`` of ``p`` whole."""
+    def local(*ts):
+        return fn(SimpleNamespace(**dict(zip(weights, ts[len(rows):]))),
+                  *ts[:len(rows)])
+    return on_rows(name, local, rows, {n: getattr(p, n) for n in weights},
+                   n_out)
+
+
+_PROJECTION_WEIGHTS = ("mu_x", "mu", "tm_w1", "tm_w2", "w0", "dw1", "dw2",
+                       "wr", "wk", "wv", "wg")
+_FINISH_WEIGHTS = ("lnx_s", "lnx_b", "wo")
+
+
 def time_mix_seq(p: TimeMix, x, cfg: ModelConfig, state0=None, x_prev=None):
     """x: (B,S,D) -> (out (B,S,D), S_last (B,H,hd,hd) f32, x_last (B,D)),
     as the reference's ``wkv_chunked`` returns them.
@@ -128,7 +183,16 @@ def time_mix_seq(p: TimeMix, x, cfg: ModelConfig, state0=None, x_prev=None):
     B, S, D = x.shape
     hd = cfg.rwkv_head_dim
     H = D // hd
-    r, k, v, g, logw = _projections(p, x, _shifted(x, x_prev), H, hd)
+    rows = x_prev is None and rows_cut(x)
+    if rows:
+        xs, x_last = _shifted_rows(x)
+        r, k, v, g, logw = _weights_on_rows(
+            "rwkv time mix", functools.partial(_projections, n_heads=H,
+                                               hd=hd),
+            p, _PROJECTION_WEIGHTS, x, xs, n_out=5)
+    else:
+        r, k, v, g, logw = _projections(p, x, _shifted(x, x_prev), H, hd)
+        x_last = x[:, -1].clone()
     # the kernel cannot split the sequence, which the residual stream
     # shards (act_seq): its inputs are laid out by heads first
     r, k, v, logw = (constrain(t, ("batch", "seq", "heads", None))
@@ -139,7 +203,13 @@ def time_mix_seq(p: TimeMix, x, cfg: ModelConfig, state0=None, x_prev=None):
         y = y + torch.einsum("bshi,bhij->bshj", r.float() * torch.exp(lp - logw),
                              state0)
         st = torch.exp(lp[:, -1])[..., None] * state0 + st
-    return _finish(p, y, g, x.dtype, H), st, x[:, -1].clone()
+    if rows:
+        # back to the rows (an all-to-all) for the norm, the gate and wo
+        return _weights_on_rows(
+            "rwkv time mix", functools.partial(_finish, x_dtype=x.dtype,
+                                               n_heads=H),
+            p, _FINISH_WEIGHTS, redistribute(y, x.placements), g), st, x_last
+    return _finish(p, y, g, x.dtype, H), st, x_last
 
 
 def wkv_scan(p: TimeMix, x, cfg: ModelConfig, state0=None, x_prev=None):
@@ -193,14 +263,26 @@ def time_mix_decode(p: TimeMix, x, cfg: ModelConfig, cache: dict):
     return _finish(p, y[:, None], g[:, None], x.dtype, H), cache
 
 
-def channel_mix(p: ChannelMix, x, x_prev=None):
-    """x: (B,S,D) (or (B,1,D) in decode with x_prev (B,D) from the cache)
-    -> (out (B,S,D), x_last (B,D))."""
-    xs = _shifted(x, x_prev)
+def _mixes(p: ChannelMix, x, xs):
+    """The channel mix's key input and its receptance gate."""
     diff = xs - x
     xk = x + diff * p.mu_k.to(x.dtype)
     xr = x + diff * p.mu_r.to(x.dtype)
+    return xk, torch.sigmoid(grad_like(xr @ p.wr).float()).to(x.dtype)
+
+
+def channel_mix(p: ChannelMix, x, x_prev=None):
+    """x: (B,S,D) (or (B,1,D) in decode with x_prev (B,D) from the cache)
+    -> (out (B,S,D), x_last (B,D)).  Rows cut (module docstring): the
+    gate on each rank's rows, the keys' input gathered for ``wk`` and
+    ``wv`` (split on ``ff``), their product reduce-scattered to the
+    rows."""
+    if x_prev is None and rows_cut(x):
+        xs, x_last = _shifted_rows(x)
+        xk, gate = _weights_on_rows("rwkv channel mix", _mixes, p,
+                                    ("mu_k", "mu_r", "wr"), x, xs, n_out=2)
+        k = torch.square(F.relu(replicate_dim(xk, 1) @ p.wk))
+        return gate * redistribute(k @ p.wv, x.placements), x_last
+    xk, gate = _mixes(p, x, _shifted(x, x_prev))
     k = torch.square(F.relu(xk @ p.wk))
-    return torch.sigmoid(grad_like(xr @ p.wr).float()).to(x.dtype) * \
-        (k @ p.wv), \
-        x[:, -1].clone()
+    return gate * (k @ p.wv), x[:, -1].clone()

@@ -62,8 +62,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV,
                                       ModelConfig)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.context import (constrain, grad_like, is_dtensor,
-                                             replicate_made_tensors, run_local)
+from repro_torch.distributed.context import (constrain, grad_like,
+                                             replicate_made_tensors,
+                                             rows_product)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -174,7 +175,8 @@ def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions,
                want_cache: bool = True, seq_exact: bool = False):
     """Returns (x, aux, cache_entry): ``aux`` is the MoE load-balance loss
     (0.0 without MoE); the entry is None without ``want_cache``."""
-    h = _gathered(rms_norm(x, p.ln1, cfg.norm_eps))
+    hn = rms_norm(x, p.ln1, cfg.norm_eps)
+    h = _gathered(hn)
     if kind == RGLRU:
         o, h_last, conv_tail = rglru_mod.rglru_seq(p.rec, h, cfg)
         x = x + _scattered(o)
@@ -183,12 +185,17 @@ def _layer_seq(p: Layer, x, cfg: ModelConfig, kind: str, positions,
             {"h": h_last, "conv": conv_tail}
     if kind == RWKV:
         # tm_x and cm_x are the last rows of the ln1 and ln2 outputs (the
-        # mixes' inputs), not of the residual
-        seq = rwkv_mod.wkv_scan if seq_exact else rwkv_mod.time_mix_seq
-        o, st, tm_x = seq(p.tm, h, cfg)
+        # mixes' inputs), not of the residual.  The mixes take their input
+        # as the residual stream lays it out (``act_seq``): each rank runs
+        # its own rows, as the reference's partitioner does
+        # (``rwkv.time_mix_seq``)
+        if seq_exact:
+            o, st, tm_x = rwkv_mod.wkv_scan(p.tm, h, cfg)
+        else:
+            o, st, tm_x = rwkv_mod.time_mix_seq(p.tm, hn, cfg)
         x = x + _scattered(o)
-        h2 = _gathered(rms_norm(x, p.ln2, cfg.norm_eps))
-        o2, cm_x = rwkv_mod.channel_mix(p.cm, h2)
+        o2, cm_x = rwkv_mod.channel_mix(p.cm, rms_norm(x, p.ln2,
+                                                        cfg.norm_eps))
         return _residual(x + _scattered(o2)), 0.0, {
             "state": st, "tm_x": tm_x, "cm_x": cm_x}
     cache = {}
@@ -386,19 +393,6 @@ def _unembed(model: Transformer, cfg: ModelConfig, x):
     return constrain(logits, ("batch", None, "vocab"))
 
 
-def _rows_product(x, w):
-    """x (B,S,D) @ w, w whole: on a DTensor x laid out as the residual
-    stream, each rank's rows on their own (``run_local``; w's gradient
-    summed over the ranks), as the reference's partitioner splits
-    whisper's frontend projection.  DTensor's own product refuses x's
-    sequence shard on torch 2.11 (it cannot flatten (B, S) there)."""
-    if not is_dtensor(x):
-        return x @ w
-    rows = {"batch": 0, "seq": 1}
-    return run_local("frontend projection", torch.matmul, {"x": x, "w": w},
-                     {"x": rows, "w": {}}, rows)
-
-
 def _encode(model: Transformer, cfg: ModelConfig, frames):
     """Whisper's encoder over precomputed frame embeddings (B,S,D) ->
     (encoder output, its positions)."""
@@ -406,8 +400,8 @@ def _encode(model: Transformer, cfg: ModelConfig, frames):
     # the frames laid out as the residual stream (``act_seq``: a local cut,
     # no data moves) before the projection, whose rows then split over
     # ``model``
-    x = grad_like(_rows_product(_residual(frames.to(pdtype(cfg))),
-                                model.frontend_proj))
+    x = grad_like(rows_product(_residual(frames.to(pdtype(cfg))),
+                               model.frontend_proj, "frontend projection"))
     x = x + sinusoidal_pos_emb(S, D, x.dtype, x.device)[None]
     pos = torch.arange(S, device=x.device).expand(B, S)
     for layer in model.enc_blocks:

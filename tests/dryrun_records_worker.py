@@ -3,15 +3,16 @@ or from the port, for tests/test_torch_dryrun_mesh.py and the side-by-side
 of PERF.md §7 (not a test module: the reference's dry-run forces 512 host
 devices before JAX starts, so each side runs in a process of its own).
 
-    python tests/dryrun_records_worker.py {reference,port} ARCH[,ARCH...] \
+    python tests/dryrun_records_worker.py {reference,port} CELL[,CELL...] \
         {smoke,full} {pod,multipod} [--layers N] [--seq S --batch B] \
         [--accum A] [--rank R]
 
 The train step of each ARCH's smoke or full config cut to N layers
 (default: one superblock, the fewest the reference's layer scan takes) on
 the ``train_4k`` shape (or S x B tokens); an ARCH written
-``ARCH@HxK[:PACK]`` takes H q heads and K kv heads (and the config's
-``attn_causal_pack`` PACK): the reference's compiled as its
+``ARCH@HxK[:PACK][/L]`` takes H q heads and K kv heads (and the
+config's ``attn_causal_pack`` PACK; L layers in the place of N): the
+reference's compiled as its
 ``run_cell`` does (``repro.launch.dryrun.build_cell``, XLA's cost analysis
 and HLO), the port's traced as rank R (default 0) of a fake world
 (``repro_torch.launch.dryrun.run_step``).  XLA compiles one program for
@@ -33,9 +34,9 @@ one superblock keeps the layer scan to one trip.
 
 Each side also reports ``products_by_shape``: its ``product_flops`` split
 by the product's operand shapes, ``"MxK @ KxN"`` (the reference's dots by
-their HLO operands, the port's ``mm`` by its local operands, ``Op.
-operands``), so that a product whole on every port rank and split in the
-reference's record shows by name.
+their HLO operands, the port's ``mm`` by its local operands: the
+record's ``rankN.product_shapes``), so that a product whole on every port
+rank and split in the reference's record shows by name.
 """
 import argparse
 import collections
@@ -145,11 +146,9 @@ def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1,
             multi_pod=mesh_name == "multipod"), rank) as mesh:
         trace, cell = dryrun.run_step(cfg, shape, mesh, accum)
         rec = dryrun.record(cfg, mesh, trace, *cell)
-    flops, by_shape = collections.Counter(), collections.Counter()
+    flops = collections.Counter()
     for op in trace.ops:
         flops[op.name] += op.flops
-        if op.operands:
-            by_shape[_shape_key(*op.operands)] += op.flops
     return {"side": "port", "version": f"torch {torch.__version__}",
             "layers": cfg.n_layers, "n_chips": rec["n_chips"],
             "rank": rec["rank_traced"],
@@ -159,7 +158,8 @@ def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1,
             "attention_flops": flops["flash_attention"] + flops["aten.bmm"],
             "flash_flops": flops["flash_attention"],
             "product_flops": flops["aten.mm"],
-            "products_by_shape": dict(by_shape)}
+            "products_by_shape":
+                rec[f"rank{rec['rank_traced']}"]["product_shapes"]}
 
 
 def main():
@@ -177,8 +177,9 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
     for cell in a.arch.split(","):
         arch, _, heads = cell.partition("@")
-        args = (arch, a.width, a.mesh, a.layers, a.seq, a.batch, a.accum,
-                heads)
+        heads, _, layers = heads.partition("/")
+        args = (arch, a.width, a.mesh, int(layers or a.layers), a.seq,
+                a.batch, a.accum, heads)
         rec = reference(*args) if a.side == "reference" else \
             port(*args, rank=a.rank)
         print(json.dumps({"cell": cell, "arch": arch, "width": a.width,

@@ -42,6 +42,11 @@ meta device), on the CPU.
   cross-attention by q rows (attention at most the reference's a device),
   and their products, and C5's cell's, are at most 1.25 times its (the k
   and v projections cut by columns on that route).
+* C9 and C10 beside the reference's own records: rwkv6-7b's smoke
+  products at most 1.25 times its (the mixes on each rank's rows), and
+  recurrentgemma-2b's smoke config with 10 × 1 heads at 3 layers split by
+  head groups and row blocks (attention at most the reference's, products
+  at most 1.25 times, the traced rank 15 the heaviest).
 
 Rank 0 of a fake world against rank 0 of 8 real gloo ranks is
 tests/test_torch_sharded.py's (its 8-process spawn runs the real side).
@@ -463,14 +468,23 @@ PACKED_CELL = "internlm2-20b@16x8"
 # ranks (the q-rows route, 4 ranks a head), traced as rank 0 (rows 0-63 of
 # head 0, the least work) and rank 3 (rows 192-255, the most)
 ROWS_CELL, ROWS_RANKS = "internlm2-20b", (0, 3)
+# C10's cell: the recurrentgemma-2b smoke config with 10 q heads and 1 kv
+# head over 16 ``model`` ranks (2 groups of 5 heads, each group's rows over
+# 8 ranks), at its superblock's 3 layers (the reference's layer scan takes
+# no fewer); traced as rank 0 (rows 0-31 of group 0) and rank 15 (rows
+# 224-255 of group 1, the most causal pairs)
+GROUPS_CELL, GROUPS_RANKS = "recurrentgemma-2b@10x1/3", (0, 15)
 
 
 def heads_port_record(cell: str = HEADS_CELL, rank: int = 0) -> dict:
     """The port's side of a smoke cell on ``pod`` at 64 x 256 tokens,
-    traced as ``rank`` (tests/dryrun_records_worker.py)."""
+    traced as ``rank`` (tests/dryrun_records_worker.py): one layer, or the
+    cell's ``/L``."""
     import dryrun_records_worker as worker
     arch, _, heads = cell.partition("@")
-    return worker.port(arch, "smoke", "pod", 1, 256, 64, 1, heads, rank)
+    heads, _, layers = heads.partition("/")
+    return worker.port(arch, "smoke", "pod", int(layers or 1), 256, 64, 1,
+                       heads, rank)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -489,6 +503,9 @@ def smoke_records():
         futures.update({("rows", r): pool.submit(heads_port_record,
                                                  ROWS_CELL, r)
                         for r in ROWS_RANKS})
+        futures.update({("groups", r): pool.submit(heads_port_record,
+                                                   GROUPS_CELL, r)
+                        for r in GROUPS_RANKS})
         futures.update({(a, mp): pool.submit(smoke_train_record, a, mp)
                         for a in list_archs() for mp in (False, True)})
         yield futures
@@ -514,7 +531,7 @@ def test_every_train_cell_communicates(smoke_records, arch, multi_pod):
         make_production_mesh(multi_pod=multi_pod))
     assert rec["cost"]["split"] == rec["memory"]["temp_split"] == name
     assert set(rec[name]) == {"op_flops", "kernel_shapes",
-                              "largest_collective"}
+                              "product_shapes", "largest_collective"}
 
 
 # (arch, heads, mesh, shape) -> the rank the dry-run traces: rank 0, or
@@ -528,15 +545,20 @@ TRACED_RANKS = {("gemma3-1b", "smoke", "pod", "train_4k"): 15,
                 ("gemma2-9b", "full", "multipod", "train_4k"): 0,
                 ("internlm2-20b", "2x2", "4x4", "train_4k"): 3,
                 ("internlm2-20b", "2x2", "model4", "train_4k"): 6,
-                ("internlm2-20b", "2x2", "data4", "train_4k"): 0}
+                ("internlm2-20b", "2x2", "data4", "train_4k"): 0,
+                ("recurrentgemma-2b", "10x1", "pod", "train_4k"): 15,
+                ("recurrentgemma-2b", "full", "pod", "train_4k"): 15,
+                ("whisper-small", "full", "pod", "train_4k"): 15,
+                ("arctic-480b", "full", "pod", "decode_32k"): 0}
 
 
 @pytest.mark.parametrize("cell", sorted(TRACED_RANKS))
 def test_traced_rank_is_the_heaviest(cell):
     arch, heads, mesh, shape = cell
     cfg = get_config(arch) if heads == "full" else get_smoke_config(arch)
-    if heads == "2x2":
-        cfg = dataclasses.replace(cfg, n_heads=2, n_kv_heads=2)
+    if "x" in heads:
+        H, K = map(int, heads.split("x"))
+        cfg = dataclasses.replace(cfg, n_heads=H, n_kv_heads=K)
     meshes = {"4x4": AbstractMesh(("data", "model"), (4, 4)),
               "model4": AbstractMesh(("model", "data"), (4, 2)),
               "data4": AbstractMesh(("data",), (4,))}
@@ -578,7 +600,8 @@ def reference_records():
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     proc = subprocess.Popen(
         [sys.executable, str(WORKER), "reference",
-         ",".join(REFERENCE_ARCHS + [HEADS_CELL, PACKED_CELL]), "smoke", "pod",
+         ",".join(REFERENCE_ARCHS + [HEADS_CELL, PACKED_CELL, GROUPS_CELL]),
+         "smoke", "pod",
          "--layers", "1", "--seq", "256", "--batch", "64"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     records = {}
@@ -703,6 +726,43 @@ def test_q_rows_products_hold_the_reference(smoke_records,
         port = smoke_records["rows", r].result(timeout=SMOKE_JOIN_S)
         assert 0 < port["product_flops"] <= 1.25 * ref["product_flops"], \
             (r, port["product_flops"], ref["product_flops"])
+
+
+def test_rwkv_products_hold_the_reference(smoke_records, reference_records):
+    """C9 beside the reference's own record of rwkv6-7b's smoke train cell:
+    rank 0's products at most 1.25 times the reference's a device (1.000:
+    the time mix's LoRAs and d x d projections and the channel mix's
+    receptance on the rank's rows of the residual stream; on all the data
+    shard's rows, whole on every rank, they were 4.67 times)."""
+    ref = reference_records("rwkv6-7b")
+    port = _flops(smoke_records["rwkv6-7b", False].result(
+        timeout=SMOKE_JOIN_S))
+    assert 0 < port["product_flops"] <= 1.25 * ref["product_flops"], \
+        (port, ref["product_flops"])
+
+
+def test_head_groups_hold_the_reference(smoke_records, reference_records):
+    """C10 beside the reference's own record of ``GROUPS_CELL`` (10 heads,
+    1 kv head, 16 ``model`` ranks): at rank 0 and at rank 15, the rank the
+    dry-run traces, attention at most the reference's a device (each rank
+    5 heads' 32 rows through flash, 0.098 and 0.694 of it; replicated
+    heads were 2.42 times) and the other products at most 1.25 times
+    (1.000; 1.18 with the k and v projections whole); rank 15 runs the
+    most causal pairs."""
+    ref = reference_records(GROUPS_CELL)
+    ports = {r: smoke_records["groups", r].result(timeout=SMOKE_JOIN_S)
+             for r in GROUPS_RANKS}
+    for r, port in ports.items():
+        assert port["rank"] == r
+        assert 0 < port["attention_flops"] <= ref["attention_flops"], \
+            (r, port["attention_flops"], ref["attention_flops"])
+        assert 0 < port["product_flops"] <= 1.25 * ref["product_flops"], \
+            (r, port["product_flops"], ref["product_flops"])
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"),
+                              n_heads=10, n_kv_heads=1)
+    assert dryrun.traced_rank(cfg, LM_SHAPES["train_4k"], POD) == 15
+    assert ports[15]["flops_per_device"] > ports[0]["flops_per_device"]
+    assert ports[15]["flash_flops"] > ports[0]["flash_flops"]
 
 
 def test_one_rank_dtensor_step_traces_the_plain_step(tmp_path):

@@ -30,7 +30,11 @@ sequence 32, global batch 8.  The cells:
   q-rows route (C6): the prefix mask, the bidirectional encoder and
   cross-attention each rank's block of one head's rows, the k and v
   projections cut by columns (C7), whisper's decoder self-attention
-  through flash's q-rows route in the same layer.
+  through flash's q-rows route in the same layer;
+* ``rg6t`` and ``wh6t``: the train steps of recurrentgemma-2b (1 kv head)
+  and whisper-small (6 kv heads) with 6 q heads, which 4 ``model`` ranks
+  split by head groups and row blocks (C10: 2 groups of 3 heads, each
+  group's rows over 2 ranks).
 
 On this mesh gemma2-9b's 4 q heads split over ``model`` and its 2 kv
 heads do not: flash runs on each rank's own q head (the q-heads route,
@@ -38,6 +42,12 @@ C3) and the loss of the vocab-sharded logits is vocab-parallel (C4), in
 ``g2``, ``g2t`` and the traced step; both are also held alone (flash's
 routes beside the other kernels', the loss against the full logits), and
 ``head_split`` over every arch at 4 and 16 ``model`` ranks.
+
+Beside the cells: C10's route alone (flash and the plain dispatch, 1 and 6
+kv heads) and in ``attention_seq`` (the gradients of the projections);
+C9's rwkv6-7b time mix and channel mix on the residual stream's rows,
+against the unsharded port and the reference's ``wkv_chunked`` and
+``channel_mix`` (``jax.vjp``), and the shapes of the rank's products.
 
 Beside the cells, ``moe_layer`` on DTensors where the experts do not split
 over ``model`` (qwen3-moe and arctic smoke MoEs with 6 experts on 4
@@ -125,7 +135,9 @@ from repro_torch.train import steps as tsteps  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 8
-JOIN_S = 240
+# the 8 ranks' time limit: under the tier-1 run's 6 xdist workers the
+# spawn and the unsharded runs beside it took 227 s of 240
+JOIN_S = 360
 B, S = 8, 32
 LR = 1e-3
 DIST_F32_TOL = 1e-5
@@ -146,6 +158,8 @@ CELLS = {
     "pg": ("paligemma-3b", "prefill", False, 0),
     "pgt": ("paligemma-3b", "train", False, 1),
     "wh": ("whisper-small", "train", False, 1),
+    "rg6t": ("recurrentgemma-2b", "train", False, 1),
+    "wh6t": ("whisper-small", "train", False, 1),
 }
 # cell -> the config fields it replaces: the q-rows cells (C6, C7), whose
 # 2 q heads spread over the 4 ``model`` ranks, each head's rows over 2;
@@ -155,6 +169,13 @@ CELL_CONFIG = {
     "pg": {"n_heads": 2, "n_kv_heads": 1, "attn_q_block": 8},
     "pgt": {"n_heads": 2, "n_kv_heads": 1, "attn_q_block": 8},
     "wh": {"n_heads": 2, "n_kv_heads": 2, "attn_q_block": 8},
+    # C10: 6 q heads on the 4 ``model`` ranks, 2 groups of 3, each group's
+    # rows over 2: recurrentgemma-2b's one kv head (each group inside it),
+    # its local attention through flash; whisper-small's 6 kv heads (each
+    # group 3 whole ones), its encoder and cross-attention through the
+    # plain dispatch, its decoder self-attention through flash
+    "rg6t": {"n_heads": 6, "n_kv_heads": 1},
+    "wh6t": {"n_heads": 6, "n_kv_heads": 6, "attn_q_block": 8},
 }
 TRAIN = [c for c, v in CELLS.items() if v[1] == "train"]
 SERVE = [c for c, v in CELLS.items() if v[1] != "train"]
@@ -242,6 +263,9 @@ KERNEL_SHAPES = {"q": (8, 16, 4, 2, 16), "k": (8, 16, 4, 16),
                  "xq": (8, 16, 2, 16), "xk": (8, 24, 2, 16),
                  "xv": (8, 24, 2, 16), "cq": (8, 16, 2, 16),
                  "ck": (8, 16, 2, 16), "cv": (8, 16, 2, 16),
+                 "gq": (8, 16, 6, 16), "gk1": (8, 16, 1, 16),
+                 "gv1": (8, 16, 1, 16), "gk6": (8, 16, 6, 16),
+                 "gv6": (8, 16, 6, 16),
                  "a": (8, 16, 8), "b": (8, 16, 8),
                  "r": (8, 16, 4, 16), "wk": (8, 16, 4, 16),
                  "wv": (8, 16, 4, 16), "logw": (8, 16, 4, 16), "u": (4, 16)}
@@ -264,7 +288,9 @@ def _kernel_inputs():
                         ("plainc", [KERNEL_SHAPES["cq"]]),
                         ("scan", [KERNEL_SHAPES["a"]]),
                         ("wkv6", [KERNEL_SHAPES["r"], (8, 4, 16, 16)]),
-                        ("plainh", [KERNEL_SHAPES["cq"]])):
+                        ("plainh", [KERNEL_SHAPES["cq"]]),
+                        *((tag, [KERNEL_SHAPES["gq"]])
+                          for tag in GROUP_TAGS)):
         for i, shape in enumerate(shapes):
             inp[f"kern/{tag}/ct{i}"] = rng.standard_normal(shape).astype(
                 np.float32)
@@ -305,6 +331,40 @@ def _whole_rows_case(attn, xp, tag, q, k, v):
     return o.reshape(B_, S_, H, hd)
 
 
+# the q-rows route by head groups (``worker.GROUP_ROWS``)
+GROUP_TAGS = ["flashg1", "flashg6", "plaing1", "plaing6"]
+
+
+def _whole_group_case(attn, xp, tag, q, k, v):
+    """What ``tag`` of ``worker.GROUP_ROWS`` computes, on whole tensors:
+    flat q (B,S,6,hd) -> (B,S,6,hd) under the causal mask with a window of 6
+    (``_sdpa``: the flash tags) or the bidirectional one (``_rect_scan`` at
+    q blocks of 4: the plain dispatch's branch); ``attn``, ``xp``: the
+    port's attention module and torch, or the reference's and
+    ``jax.numpy``."""
+    import torch_dist_worker as worker
+    B_, S_, H, hd = q.shape
+    q5 = q.reshape(B_, S_, k.shape[2], H // k.shape[2], hd)
+    scale = worker.PLAIN_ROWS_KW["scale"]
+    if tag.startswith("flash"):
+        mask = attn.make_mask_fn("causal", 6)(xp.arange(S_), xp.arange(S_))
+        o = attn._sdpa(q5, k, v, mask, 0.0, scale)
+    else:
+        o = attn._rect_scan(q5, k, v, 0.0, scale,
+                            worker.PLAIN_ROWS_KW["q_block"])[0]
+    return o.reshape(B_, S_, H, hd)
+
+
+def _flash_groups(q, k, v):
+    """Flash's plain version on whole tensors: flat q (B,S,6,hd) folded
+    over k's kv heads, a window of 6."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    K = k.shape[2]
+    return flash_attention(q.unflatten(2, (K, q.shape[2] // K)), k, v,
+                           scale=0.25, window=6, q_block=512,
+                           pack=True).flatten(2, 3)
+
+
 def _kernel_plain(inp):
     """Each kernel wrapper on plain tensors: outputs and input grads; and
     the plain dispatch's branches on whole tensors."""
@@ -329,6 +389,9 @@ def _kernel_plain(inp):
             ("flashr", flat_r, ("qr", "kr", "vr")),
             *((tag, functools.partial(_whole_rows_case, tattn, torch, tag),
                names) for tag, (names, *_) in worker.PLAIN_ROWS.items()),
+            *((tag, _flash_groups if tag.startswith("flash") else
+               functools.partial(_whole_group_case, tattn, torch, tag),
+               ("gq", *kv)) for tag, kv in worker.GROUP_ROWS.items()),
             ("scan", rglru_scan, "ab"),
             ("wkv6", wkv6, ("r", "wk", "wv", "logw", "u"))):
         ins = {n: torch.from_numpy(inp[f"kern/{n}"]).requires_grad_()
@@ -341,6 +404,157 @@ def _kernel_plain(inp):
             out[f"kern/{tag}/out{i}"] = o.detach().numpy()
         for n, t in ins.items():
             out[f"kern/{tag}/grad/{n}"] = t.grad.numpy()
+    return out
+
+
+def _group_layer_inputs():
+    """``<tag>/*`` of ``worker.GROUP_LAYERS``: the reference's
+    ``init_attention`` weights, x and the output's cotangent."""
+    import torch_dist_worker as worker
+
+    from repro.models import attention as jattn
+    inp = {}
+    for i, tag in enumerate(worker.GROUP_LAYERS):
+        jc = worker.group_layer_config(tag, jax_smoke)
+        inp.update({f"{tag}/{n}": np.array(v) for n, v in
+                    jattn.init_attention(jax.random.PRNGKey(30 + i),
+                                         jc).items()})
+        rng = np.random.default_rng(30 + i)
+        for n in ("x", "ct"):
+            inp[f"{tag}/{n}"] = rng.standard_normal(
+                (B, 16, jc.d_model)).astype(np.float32)
+    return inp
+
+
+def _group_layer_port(inp):
+    """The unsharded port's ``attention_seq``: outputs and gradients,
+    keyed as ``worker.run_group_layers``'s."""
+    import torch_dist_worker as worker
+
+    from repro_torch.models import attention as tattn
+    out = {}
+    for tag, (_, _, kind, mask) in worker.GROUP_LAYERS.items():
+        cfg = worker.group_layer_config(tag, get_smoke_config)
+        p = tattn.Attention({n: torch.from_numpy(inp[f"{tag}/{n}"])
+                             for n in ("wq", "wk", "wv", "wo")})
+        p.requires_grad_()
+        x = torch.from_numpy(inp[f"{tag}/x"]).requires_grad_()
+        pos = torch.arange(x.shape[1]).expand(x.shape[:2])
+        o, _ = tattn.attention_seq(p, x, cfg, kind, pos, mask)
+        o.backward(torch.from_numpy(inp[f"{tag}/ct"]))
+        out[f"{tag}/out"] = o.detach().numpy()
+        out[f"{tag}/grad/x"] = x.grad.numpy()
+        out.update({f"{tag}/grad/{n}": t.grad.numpy()
+                    for n, t in p.named_parameters()})
+    return out
+
+
+def _group_layer_jax(inp):
+    """The reference's ``attention_seq`` (its plain dispatch, f32) and its
+    ``jax.vjp``, keyed as ``_group_layer_port``'s."""
+    import torch_dist_worker as worker
+
+    from repro.models import attention as jattn
+    out = {}
+    for tag, (_, _, kind, mask) in worker.GROUP_LAYERS.items():
+        jc = worker.group_layer_config(tag, jax_smoke)
+        params = {n: jnp.asarray(inp[f"{tag}/{n}"])
+                  for n in ("wq", "wk", "wv", "wo")}
+        x = jnp.asarray(inp[f"{tag}/x"])
+        pos = jnp.broadcast_to(jnp.arange(x.shape[1]), x.shape[:2])
+
+        @jax.jit
+        def with_grads(params, x, ct):
+            o, vjp = jax.vjp(lambda p, x: jattn.attention_seq(
+                p, x, jc, kind, pos, mask)[0], params, x)
+            return o, vjp(ct)
+        o, (gp, gx) = with_grads(params, x, jnp.asarray(inp[f"{tag}/ct"]))
+        out[f"{tag}/out"] = np.asarray(o)
+        out[f"{tag}/grad/x"] = np.asarray(gx)
+        out.update({f"{tag}/grad/{n}": np.asarray(g) for n, g in gp.items()})
+    return out
+
+
+# rwkv6-7b's mixes on the residual stream's rows (C9): the smoke config's
+# one layer in f32, the reference's weights
+RWKV_LAYER = (("n_layers", 1),)
+
+
+def _rwkv_cfgs():
+    return tuple(dataclasses.replace(c, param_dtype="float32", n_layers=1)
+                 for c in (jax_smoke("rwkv6-7b"), get_smoke_config(
+                     "rwkv6-7b")))
+
+
+def _rwkv_inputs():
+    """``rwkv/p/*``: the port's one-layer model from the reference's
+    weights; x for each mix and the cotangents of their outputs."""
+    _, tc = _rwkv_cfgs()
+    model = params_from_jax(jax.tree.map(np.asarray, _jax_params(
+        "rwkv6-7b", seed=5, heads=RWKV_LAYER)), tc, device="cpu")
+    inp = {f"rwkv/p/{n}": p.detach().numpy()
+           for n, p in model.named_parameters()}
+    rng = np.random.default_rng(13)
+    for n in ("x_tm", "x_cm", "ct_tm", "ct_cm"):
+        inp[f"rwkv/{n}"] = rng.standard_normal((B, S, tc.d_model)).astype(
+            np.float32)
+    return inp
+
+
+def _rwkv_port(inp):
+    """The unsharded port's time mix and channel mix: outputs and
+    gradients, keyed as ``worker.run_rwkv``'s."""
+    from repro_torch.models import rwkv as trwkv
+    _, tc = _rwkv_cfgs()
+    model = init_params(tc, None, device="meta")
+    model.load_state_dict({k[len("rwkv/p/"):]: torch.from_numpy(v)
+                           for k, v in inp.items()
+                           if k.startswith("rwkv/p/")}, assign=True)
+    layer = model.layers[0].requires_grad_()
+    xs = [torch.from_numpy(inp[f"rwkv/x_{n}"]).requires_grad_()
+          for n in ("tm", "cm")]
+    outs = (*trwkv.time_mix_seq(layer.tm, xs[0], tc),
+            *trwkv.channel_mix(layer.cm, xs[1]))
+    torch.autograd.backward([outs[0], outs[3]], [
+        torch.from_numpy(inp[f"rwkv/ct_{n}"]) for n in ("tm", "cm")])
+    out = {f"rwkv/out/{n}": o.detach().numpy() for n, o in zip(
+        ("tm", "state", "tm_last", "cm", "cm_last"), outs)}
+    out.update({f"rwkv/grad/x_{n}": x.grad.numpy()
+                for n, x in zip(("tm", "cm"), xs)})
+    out.update({f"rwkv/grad/{n}": p.grad.numpy() for n, p in (
+        *layer.tm.named_parameters(prefix="tm"),
+        *layer.cm.named_parameters(prefix="cm"))})
+    return out
+
+
+def _rwkv_jax(inp):
+    """The reference's ``wkv_chunked`` and ``channel_mix`` on the same
+    weights and x, and their ``jax.vjp``: keyed as ``_rwkv_port``'s."""
+    from repro.models import rwkv as jrwkv
+    jc, _ = _rwkv_cfgs()
+    block = _jax_params("rwkv6-7b", seed=5, heads=RWKV_LAYER)["blocks"][0]
+    tm, cm = ({n: v[0] for n, v in block[m].items()} for m in ("tm", "cm"))
+
+    def mixes(tm, cm, x_tm, x_cm):
+        return (*jrwkv.wkv_chunked(tm, x_tm, jc),
+                *jrwkv.channel_mix(cm, x_cm))
+
+    @jax.jit
+    def with_grads(tm, cm, x_tm, x_cm, ct_tm, ct_cm):
+        outs, vjp = jax.vjp(mixes, tm, cm, x_tm, x_cm)
+        cts = [jnp.zeros_like(o) for o in outs]
+        cts[0], cts[3] = ct_tm, ct_cm
+        return outs, vjp(tuple(cts))
+    outs, (g_tm, g_cm, g_xtm, g_xcm) = with_grads(
+        tm, cm, *(jnp.asarray(inp[f"rwkv/{n}"])
+                  for n in ("x_tm", "x_cm", "ct_tm", "ct_cm")))
+    out = {f"rwkv/out/{n}": np.asarray(o) for n, o in zip(
+        ("tm", "state", "tm_last", "cm", "cm_last"), outs)}
+    out.update({"rwkv/grad/x_tm": np.asarray(g_xtm),
+                "rwkv/grad/x_cm": np.asarray(g_xcm)})
+    for m, g in (("tm", g_tm), ("cm", g_cm)):
+        out.update({f"rwkv/grad/{m}.{n}": np.asarray(v)
+                    for n, v in g.items()})
     return out
 
 
@@ -468,7 +682,8 @@ def _moe_dense_jax(inp):
 
 def _inputs():
     inp = {"cells": np.array(",".join(CELLS)), **_kernel_inputs(),
-           **_xent_inputs(), **_moe_dense_inputs()}
+           **_xent_inputs(), **_moe_dense_inputs(), **_rwkv_inputs(),
+           **_group_layer_inputs()}
     for cell, (arch, kinds, kv_quant, accum) in CELLS.items():
         inp[f"{cell}/arch"] = np.array(arch)
         inp[f"{cell}/kinds"] = np.array(kinds)
@@ -627,9 +842,13 @@ def sharded(tmp_path_factory):
         port = {c: _port_run(c) for c in CELLS}
         port["kernels"] = _kernel_plain(_kernel_inputs())
         port["xent"] = _xent_plain(_xent_inputs())
+        port["rwkv"] = _rwkv_port(_rwkv_inputs())
+        port["layers"] = _group_layer_port(_group_layer_inputs())
         ref = {c: _jax_run(c) for c in CELLS}
         port["moed"] = _moe_dense_port(_moe_dense_inputs())
         ref["moed"] = _moe_dense_jax(_moe_dense_inputs())
+        ref["rwkv"] = _rwkv_jax(_rwkv_inputs())
+        ref["layers"] = _group_layer_jax(_group_layer_inputs())
         for p in procs:
             out, _ = p.communicate(timeout=max(deadline - time.monotonic(),
                                                1))
@@ -690,7 +909,9 @@ def test_sharded_serving_matches_reference(sharded, cell, kind):
 # prefix-LM mask through the plain dispatch; whisper's encoder and its
 # cross-attention too, its decoder self-attention through flash's
 Q_ROWS_CELLS = {"pg": {"attention"}, "pgt": {"attention"},
-                "wh": {"attention", "flash attention"}}
+                "wh": {"attention", "flash attention"},
+                "rg6t": {"flash attention"},
+                "wh6t": {"attention", "flash attention"}}
 
 
 @pytest.mark.parametrize("cell", sorted(Q_ROWS_CELLS))
@@ -705,7 +926,7 @@ def test_q_rows_cells_take_the_route(sharded, cell):
         Q_ROWS_CELLS[cell], seen
     assert {k for k in seen if k.startswith("kv/")} == {"kv/columns"}, \
         seen
-    for other in set(CELLS) - set(CELL_CONFIG):
+    for other in sorted(set(CELLS) - set(CELL_CONFIG)):
         seen = json.loads(str(res[f"{other}/routes"]))
         assert not any(k in seen for k in ("attention", "flash attention")), \
             (other, seen)
@@ -809,7 +1030,7 @@ def test_moe_fallback_matches_reference(sharded, arch):
 
 @pytest.mark.parametrize("tag", ["flash", "flashq", "flashr", "plainp",
                                  "plainb", "plainx", "plainc", "plainh",
-                                 "scan", "wkv6"])
+                                 *GROUP_TAGS, "scan", "wkv6"])
 def test_kernel_routes_on_eight_ranks(sharded, tag):
     """Each wrapper's DTensor route on the 2 x 4 mesh (some inputs cut
     locally, u's gradient a Partial over ``data``): its outputs and the
@@ -830,7 +1051,12 @@ def test_kernel_routes_on_eight_ranks(sharded, tag):
     ``plainc``, a causal mask with a window of 6 and the hook off (each
     rank's rectangle at its q0 against the keys up to its last row), and
     ``plainh``, the same with ``plain_attention`` as the hook (handed each
-    rank's q0), against the port's branch on the whole tensors."""
+    rank's q0), against the port's branch on the whole tensors.  The
+    ``GROUP_TAGS`` are the route by head groups (C10): 6 flat q heads over
+    the 4 ranks, 2 groups of 3, each group's 16 rows split 2 ways, against
+    1 kv head (a group inside it) and 6 (3 whole ones a group); flash under
+    a causal mask with a window of 6 (``flashg*``), the plain dispatch
+    under the bidirectional one (``plaing*``)."""
     res, port, _ = sharded
     want = port["kernels"]
     keys = [k for k in want if k.startswith(f"kern/{tag}/")]
@@ -845,6 +1071,7 @@ def test_kernel_routes_on_eight_ranks(sharded, tag):
              "plainx": ["(Shard(dim=0), Replicate())"],
              "plainc": ["(Shard(dim=0), Replicate())"],
              "plainh": ["(Shard(dim=0), Replicate())"],
+             **dict.fromkeys(GROUP_TAGS, ["(Shard(dim=0), Replicate())"]),
              "scan": ["(Shard(dim=0), Shard(dim=2))"],
              "wkv6": ["(Shard(dim=0), Shard(dim=2))",
                       "(Shard(dim=0), Shard(dim=1))"]}[tag]
@@ -899,6 +1126,121 @@ def test_plain_q_rows_route_matches_the_reference(sharded, tag):
     for n, g in zip(names, grads):
         np.testing.assert_allclose(res[f"kern/{tag}/grad/{n}"], g,
                                    atol=MODEL_TOL, rtol=MODEL_TOL, err_msg=n)
+
+
+@pytest.mark.parametrize("tag", GROUP_TAGS)
+def test_group_rows_route_matches_the_reference(sharded, tag):
+    """C10's route on 8 ranks against the reference on the whole tensors
+    (``_sdpa`` under the causal mask with a window of 6 for flash,
+    ``_rect_scan`` for the plain dispatch's bidirectional branch; f32) and
+    its ``jax.vjp``: the output and q's, k's and v's gradients to the model
+    tolerance."""
+    import torch_dist_worker as worker
+
+    from repro.models import attention as jattn
+    res, _, _ = sharded
+    inp = _kernel_inputs()
+    names = ("gq", *worker.GROUP_ROWS[tag])
+    o, vjp = jax.vjp(functools.partial(_whole_group_case, jattn, jnp, tag),
+                     *(jnp.asarray(inp[f"kern/{n}"]) for n in names))
+    grads = vjp(jnp.asarray(inp[f"kern/{tag}/ct0"]))
+    np.testing.assert_allclose(res[f"kern/{tag}/out0"], o, atol=MODEL_TOL,
+                               rtol=MODEL_TOL)
+    for n, g in zip(names, grads):
+        np.testing.assert_allclose(res[f"kern/{tag}/grad/{n}"], g,
+                                   atol=MODEL_TOL, rtol=MODEL_TOL, err_msg=n)
+
+
+GROUP_LAYER_TAGS = ["attng1", "attng6"]
+
+
+def _group_layer_keys(want, tag):
+    keys = sorted(k for k in want if k.startswith(f"{tag}/"))
+    assert {f"{tag}/out", f"{tag}/grad/x", f"{tag}/grad/wq",
+            f"{tag}/grad/wk", f"{tag}/grad/wv", f"{tag}/grad/wo"} == \
+        set(keys), keys
+    return keys
+
+
+@pytest.mark.parametrize("tag", GROUP_LAYER_TAGS)
+def test_group_rows_layer_matches_unsharded_port(sharded, tag):
+    """C10 in the attention layer (``attention_seq``, 6 q heads on the 4
+    ``model`` ranks: recurrentgemma-2b's local attention through flash's
+    route with 1 kv head, whisper-small's bidirectional attention through
+    the plain dispatch's with 6): the output and the gradients of x, wq,
+    wk, wv and wo equal the unsharded port's to 1e-5 relative."""
+    res, port, _ = sharded
+    for k in _group_layer_keys(port["layers"], tag):
+        assert _rel(res[k], port["layers"][k]) <= DIST_F32_TOL, \
+            (k, _rel(res[k], port["layers"][k]))
+
+
+@pytest.mark.parametrize("tag", GROUP_LAYER_TAGS)
+def test_group_rows_layer_matches_reference(sharded, tag):
+    """The same against the reference's ``attention_seq`` (f32) and its
+    ``jax.vjp``, to the model tolerance."""
+    res, _, ref = sharded
+    for k in _group_layer_keys(ref["layers"], tag):
+        np.testing.assert_allclose(res[k], ref["layers"][k], atol=MODEL_TOL,
+                                   rtol=MODEL_TOL, err_msg=k)
+
+
+def _rwkv_keys(want):
+    keys = sorted(k for k in want if k.startswith("rwkv/"))
+    assert {"rwkv/out/tm", "rwkv/out/cm", "rwkv/grad/x_tm",
+            "rwkv/grad/tm.wr", "rwkv/grad/tm.tm_w1", "rwkv/grad/cm.wr",
+            "rwkv/grad/cm.wk"} <= set(keys), keys
+    return keys
+
+
+def test_rwkv_mixes_on_rows_match_unsharded_port(sharded):
+    """C9: rwkv6-7b's time mix and channel mix on x laid out as the
+    residual stream (its rows cut over the 4 ``model`` ranks, each rank's
+    LoRAs and d x d products on its own rows, the token shift across the
+    ranks' blocks, the wkv6 by heads): the outputs, the final state, the
+    last rows and the gradients of x and of every weight equal the
+    unsharded port's to 1e-5 relative."""
+    res, port, _ = sharded
+    for k in _rwkv_keys(port["rwkv"]):
+        assert res[k].shape == port["rwkv"][k].shape, k
+        assert _rel(res[k], port["rwkv"][k]) <= DIST_F32_TOL, \
+            (k, _rel(res[k], port["rwkv"][k]))
+
+
+RWKV_TOL = 1e-4             # tests/test_torch_rwkv.py's f32 blocks
+RWKV_GRAD_TOL = 5e-4        # tests/test_torch_train.py's rwkv6-7b grads
+
+
+def test_rwkv_mixes_on_rows_match_reference(sharded):
+    """The same against the reference's ``wkv_chunked`` and
+    ``channel_mix`` and their ``jax.vjp``: the values to the rwkv tests' f32
+    tolerance (1e-4, elementwise), the gradients to the train test's for
+    rwkv6-7b's chunked path (5e-4 in relative norm: the plain chunked wkv
+    rounds in another order, which the per-head group norm amplifies)."""
+    res, _, ref = sharded
+    for k in _rwkv_keys(ref["rwkv"]):
+        if k.startswith("rwkv/out/"):
+            np.testing.assert_allclose(res[k], ref["rwkv"][k], atol=RWKV_TOL,
+                                       rtol=RWKV_TOL, err_msg=k)
+        else:
+            assert _rel(res[k], ref["rwkv"][k]) <= RWKV_GRAD_TOL, \
+                (k, _rel(res[k], ref["rwkv"][k]))
+
+
+def test_rwkv_products_run_on_the_ranks_rows(sharded):
+    """C9: rank 0 runs every product with a d x d weight (64 x 64: the
+    time mix's five projections, its decay LoRA, the channel mix's
+    receptance) on its own 32 rows (4 sequences x 8 positions), forward
+    and backward; the data shard's 128 rows meet only the channel mix's
+    ``ff`` columns (Megatron, as in the reference)."""
+    res, _, _ = sharded
+    prods = json.loads(str(res["rwkv/products"]))
+    d = get_smoke_config("rwkv6-7b").d_model
+    rows, shard_rows = B // 2 * S // 4, B // 2 * S
+    dd = [p for p in prods if [d, d] in p]
+    assert dd and all(rows in p[0] + p[1] for p in dd), dd
+    assert all(shard_rows not in p[0] + p[1] for p in dd), dd
+    assert any(shard_rows in p[0] + p[1] for p in prods)
 
 
 def test_vocab_parallel_loss_matches_the_full_logits(sharded):
@@ -1174,16 +1516,16 @@ def test_collectives_copy_nothing_on_one_rank(one_rank, op):
 
 # arch -> how flash splits its heads over 4 and over 16 ``model`` ranks
 HEAD_SPLITS = {
-    "arctic-480b": ("kv_heads", "replicated"),
+    "arctic-480b": ("kv_heads", "q_rows"),
     "gemma2-9b": ("kv_heads", "q_heads"),
     "gemma3-1b": ("q_heads", "q_rows"),
     "h2o-danube-1.8b": ("kv_heads", "q_heads"),
     "internlm2-20b": ("kv_heads", "q_heads"),
     "paligemma-3b": ("q_heads", "q_rows"),
     "qwen3-moe-235b-a22b": ("kv_heads", "q_heads"),
-    "recurrentgemma-2b": ("replicated", "replicated"),
+    "recurrentgemma-2b": ("q_rows", "q_rows"),
     "rwkv6-7b": ("kv_heads", "kv_heads"),
-    "whisper-small": ("kv_heads", "replicated"),
+    "whisper-small": ("kv_heads", "q_rows"),
 }
 
 
@@ -1215,17 +1557,21 @@ def _flash_local_q(H, K, hd, tp, kv_split, rank=0):
 @pytest.mark.parametrize("tp", [4, 16])
 @pytest.mark.parametrize("arch", sorted(HEAD_SPLITS))
 def test_each_arch_takes_one_head_split(arch, tp):
-    """C3 and C5: each arch's full config at 4 and 16 ``model`` ranks takes
-    exactly one of flash's four layouts, the one the reference's rules
-    imply: kv heads split (``kv_heads`` on ``model``), attention
-    replicated (``heads`` on nothing, neither count dividing the other), q
-    heads split with each rank's H / tp heads reading one kv head, which
-    rank 0 runs at those local shapes (its q (B, S, 1 kv head, H / tp, hd)
-    in the kernel's layout), or each head's rows split over tp / H ranks
-    (``heads`` on nothing): rank 0 runs the first 8 / n rows of head 0 and
-    the last rank the last rows of the last head, with more causal pairs,
-    and the output is gathered whole."""
-    from repro_torch.distributed.heads import head_split
+    """C3, C5 and C10: each arch's full config at 4 and 16 ``model`` ranks
+    takes exactly one of flash's three layouts, the one the reference's
+    rules imply: kv heads split (``kv_heads`` on ``model``), q heads split
+    with each rank's H / tp heads reading one kv head, which rank 0 runs at
+    those local shapes (its q (B, S, 1 kv head, H / tp, hd) in the kernel's
+    layout), or, where ``tp`` does not divide the heads (``heads`` on
+    nothing), g = gcd(H, tp) groups of H / g heads, each group's rows split
+    over n = tp / g ranks: rank 0 runs the first 8 / n rows of group 0 and
+    the last rank the last rows of the last group, with more causal pairs,
+    in the kernel's layout (B * kv heads, rows, q heads a kv head, hd): the
+    group's kv heads where it holds whole kv groups (whisper-small's 3 of
+    12), else the one kv head it lies in (recurrentgemma-2b's 5 of 10 q
+    heads, arctic-480b's 7 of 56 on one of 8), and the output is gathered
+    whole.  No arch replicates its attention any more."""
+    from repro_torch.distributed.heads import head_split, row_groups
     from repro_torch.roofline.bounds import flash_work
     cfg = get_config(arch)
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -1234,10 +1580,7 @@ def test_each_arch_takes_one_head_split(arch, tp):
     rules = layouts.choose_layout(cfg, LM_SHAPES["train_4k"],
                                   AbstractMesh(("data", "model"), (16, tp)))
     assert (rules.rules["kv_heads"] == "model") == (how == "kv_heads")
-    assert (rules.rules["heads"] is None) == (how in ("replicated",
-                                                      "q_rows"))
-    if how == "replicated":
-        return
+    assert (rules.rules["heads"] is None) == (how == "q_rows")
     out, kernel_q, _ = _flash_local_q(H, K, hd, tp, how == "kv_heads")
     if how == "kv_heads":
         assert out == (2, 8, K // tp, H // K, hd)
@@ -1246,12 +1589,16 @@ def test_each_arch_takes_one_head_split(arch, tp):
         assert out == (2, 8, H // tp, hd)
         assert kernel_q == (2, 8, H // tp, hd)
     else:
-        rows = 8 // (tp // H)
+        g, n = row_groups(H, tp)
+        rows, h = 8 // n, H // g
+        nk = max(h // (H // K), 1)
+        first = _flash_local_q(H, K, hd, tp, False)
         last = _flash_local_q(H, K, hd, tp, False, rank=tp - 1)
         assert out == last[0] == (2, 8, H, hd)
-        assert kernel_q == last[1] == (2, rows, 1, hd)
-        assert last[2] == flash_work(2, rows, 8, 1, hd, q0=8 - rows)[0] > \
-            flash_work(2, rows, rows, 1, hd)[0]
+        assert kernel_q == last[1] == (2 * nk, rows, h // nk, hd)
+        assert first[2] == flash_work(2 * nk, rows, rows, h // nk, hd)[0]
+        assert last[2] == flash_work(2 * nk, rows, 8, h // nk, hd,
+                                     q0=8 - rows)[0] > first[2]
 
 
 @pytest.mark.parametrize("H,K,tp", [(24, 6, 4), (12, 4, 6)])
@@ -1300,6 +1647,38 @@ def test_plain_q_rows_route_raises_on_rows_that_do_not_split(mask_mode):
                            r"\(4, 2, 16, 6\)"):
             attention_q_rows(q, k, v, mask_mode=mask_mode, prefix_len=2,
                              scale=0.25, q_block=4, pack=True)
+
+
+@pytest.mark.parametrize("route", ["flash", "plain"])
+def test_head_groups_raise_on_rows_that_do_not_split(route):
+    """C10's route: 6 q heads over 4 ``model`` ranks fall into 2 groups of
+    3, each group's rows over 2 ranks; 5 rows do not split 2 ways, and
+    flash's route and the plain dispatch's raise with (H, K, tp, S);
+    nothing is replicated."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models.attention import attention_q_rows
+    with fake_mesh(AbstractMesh(("data", "model"), (1, 4))) as mesh:
+        q, k, v = (distribute_tensor(torch.empty(s, device="meta"), mesh,
+                                     (Replicate(), Replicate()))
+                   for s in ((2, 5, 6, 16), (2, 5, 1, 16), (2, 5, 1, 16)))
+        with pytest.raises(ValueError, match=r"\(6, 1, 4, 5\)"):
+            if route == "flash":
+                flash_attention(q, k, v, scale=0.25, q_block=512, pack=True)
+            else:
+                attention_q_rows(q, k, v, mask_mode="bidir", scale=0.25,
+                                 q_block=4, pack=True)
+
+
+def test_head_groups_across_kv_heads_raise():
+    """10 q heads over 4 ``model`` ranks: 2 groups of 5 q heads, which
+    hold no whole kv group of 2 (5 kv heads) and lie in more than one kv
+    head: ``head_split`` raises with (H, K, tp)."""
+    from repro_torch.distributed.heads import head_split
+    with pytest.raises(ValueError, match=r"\(10, 5, 4\)"):
+        head_split(10, 5, 4)
 
 
 def test_layer_spec_moves_the_layer_axis():

@@ -15,7 +15,9 @@ With ``sharded`` it runs the sharded model instead (``sharded_main``): each
 cell of INPUTS (its weights in the port's names, its tokens) as DTensors on
 the (2, 4) ("data", "model") mesh, and writes each output in full; the
 MoE whose experts do not split over ``model`` (``run_moe_dense``); the
-kernels' DTensor routes (``run_kernels``) and the vocab-parallel
+kernels' DTensor routes (``run_kernels``), attention by head groups in the
+layer (``run_group_layers``), rwkv6-7b's time mix and channel mix on the
+residual stream's rows (``run_rwkv``) and the vocab-parallel
 cross-entropy (``run_loss``); each cell's q-rows routes and the cut of its
 k and v projections are noted as it runs (``seeing_q_rows``).  Then
 what the dry-run's fake world is held against (``run_dryrun_checks``):
@@ -317,6 +319,12 @@ PLAIN_ROWS = {
                "plain_attention"),
 }
 PLAIN_ROWS_KW = {"scale": 0.25, "q_block": 4, "pack": True}
+# the q-rows route by head groups: tag -> its k and v inputs (q is ``gq``,
+# 6 heads): flash under a causal mask with a window of 6, the plain
+# dispatch under the bidirectional one (the rectangle scan at q blocks of
+# 4), each with 1 kv head and with 6
+GROUP_ROWS = {"flashg1": ("gk1", "gv1"), "flashg6": ("gk6", "gv6"),
+              "plaing1": ("gk1", "gv1"), "plaing6": ("gk6", "gv6")}
 
 
 def run_kernels(inp, mesh, res):
@@ -367,6 +375,20 @@ def run_kernels(inp, mesh, res):
            "vr": dt("vr", Replicate(), Replicate())}
     record("flashr", flash_attention(*ins.values(), scale=0.25, window=6,
                                      q_block=512, pack=True), ins)
+    # the q-rows route by head groups (C10): 6 flat q heads over 4 ranks,
+    # 2 groups of 3, each group's 16 rows split 2 ways; 1 kv head (a group
+    # inside it) or 6 (a group of 3 whole kv heads)
+    for tag, kv in GROUP_ROWS.items():
+        ins = {"gq": dt("gq", Shard(0), Replicate()),
+               kv[0]: dt(kv[0], Shard(0), Replicate()),
+               kv[1]: dt(kv[1], Replicate(), Replicate())}
+        if tag.startswith("flash"):
+            record(tag, flash_attention(*ins.values(), scale=0.25, window=6,
+                                        q_block=512, pack=True), ins)
+        else:
+            record(tag, tattn.attention_q_rows(*ins.values(),
+                                               mask_mode="bidir",
+                                               **PLAIN_ROWS_KW), ins)
     hook = tattn._ATTN_IMPL
     try:
         for tag, (names, kw, use) in PLAIN_ROWS.items():
@@ -384,6 +406,96 @@ def run_kernels(inp, mesh, res):
     ins = {n: dt(n, Shard(0), Shard(2)) for n in ("r", "wk", "wv", "logw")}
     ins["u"] = dt("u", Replicate(), Replicate())
     record("wkv6", wkv6(*ins.values()), ins)
+
+
+# the q-rows route by head groups in the attention layer (C10): tag ->
+# (arch, kv heads, the layer's kind, its mask); 6 q heads on the 4
+# ``model`` ranks: recurrentgemma-2b's local attention (a window of 6)
+# through flash, whisper-small's bidirectional encoder attention through
+# the plain dispatch (the rectangle scan at q blocks of 4)
+GROUP_LAYERS = {"attng1": ("recurrentgemma-2b", 1, "local", "causal"),
+                "attng6": ("whisper-small", 6, "global", "bidir")}
+
+
+def group_layer_config(tag, base):
+    """``GROUP_LAYERS[tag]``'s f32 config from ``base`` (a smoke config
+    getter: the port's or the reference's)."""
+    arch, K, _, _ = GROUP_LAYERS[tag]
+    return dataclasses.replace(base(arch), param_dtype="float32", n_heads=6,
+                               n_kv_heads=K, window_size=6, attn_q_block=4)
+
+
+def run_group_layers(inp, mesh, res):
+    """``attention_seq`` of each ``GROUP_LAYERS`` cell on x (``<tag>/x``)
+    as the layer hands it over (whole over ``model``), the projections
+    placed by the rules (wq and wo split on ``heads_flat``, wk and wv
+    whole: the kv heads do not split over 4); the output, reduced over
+    ``model``, and the gradients of x and of each projection for the
+    cotangent ``<tag>/ct``, in full."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models import attention as tattn
+    for tag, (_, _, kind, mask) in GROUP_LAYERS.items():
+        cfg = group_layer_config(tag, get_smoke_config)
+        x = torch.from_numpy(inp[f"{tag}/x"])
+        rules = choose_layout(cfg, cell_shape("train", *x.shape[:2]), mesh)
+        logical = {"wq": (None, "heads_flat"), "wk": (None, None),
+                   "wv": (None, None), "wo": ("heads_flat", None)}
+        p = tattn.Attention({
+            n: distribute_tensor(torch.from_numpy(inp[f"{tag}/{n}"]), mesh,
+                                 rules.placements(lg))
+            for n, lg in logical.items()}).requires_grad_()
+        rows = rules.placements(("batch", "seq", None))
+        xd = distribute_tensor(x, mesh, rows).requires_grad_()
+        ct = distribute_tensor(torch.from_numpy(inp[f"{tag}/ct"]), mesh, rows)
+        pos = torch.arange(x.shape[1]).expand(x.shape[:2])
+        with context.use_rules(rules), context.replicate_made_tensors(p.wq):
+            o, _ = tattn.attention_seq(p, xd, cfg, kind, pos, mask)
+            o = context.constrain(o, ("batch", "seq", None))
+            o.backward(ct)
+        res[f"{tag}/out"] = full(o.detach()).numpy()
+        res[f"{tag}/grad/x"] = full(xd.grad).numpy()
+        for n, t in p.named_parameters():
+            res[f"{tag}/grad/{n}"] = full(t.grad).numpy()
+
+
+def run_rwkv(inp, mesh, res):
+    """rwkv6-7b's time mix and channel mix (the smoke config's one layer,
+    f32, its weights ``rwkv/p/*`` placed by the model's rules) on x
+    (``rwkv/x_tm``, ``rwkv/x_cm``) laid out as the residual stream (rows
+    cut over ``model``, C9): the outputs, the state and last rows, and the
+    gradients of x and of every weight for the cotangents ``rwkv/ct_*``,
+    in full; the operand shapes of the rank's products."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed.layouts import shard_params
+    from repro_torch.models import rwkv as trwkv
+    from repro_torch.roofline.trace import OpTrace
+    cfg = dataclasses.replace(get_smoke_config("rwkv6-7b"), n_layers=1,
+                              param_dtype="float32")
+    model = cell_model(inp, "rwkv", cfg)
+    x_tm, x_cm = (torch.from_numpy(inp[f"rwkv/x_{n}"]) for n in ("tm", "cm"))
+    rules = choose_layout(cfg, cell_shape("train", *x_tm.shape[:2]), mesh)
+    shard_params(model, cfg, rules, mesh)
+    layer = model.layers[0].requires_grad_()
+    rows = rules.placements(("batch", "act_seq", None))
+    xs = [distribute_tensor(x, mesh, rows).requires_grad_()
+          for x in (x_tm, x_cm)]
+    cts = [distribute_tensor(torch.from_numpy(inp[f"rwkv/ct_{n}"]), mesh,
+                             rows) for n in ("tm", "cm")]
+    with context.use_rules(rules), context.replicate_made_tensors(
+            layer.tm.wr), context.native_alltoall(), OpTrace() as trace:
+        outs = (*trwkv.time_mix_seq(layer.tm, xs[0], cfg),
+                *trwkv.channel_mix(layer.cm, xs[1]))
+        # the outputs at the residual stream's rows, as x
+        torch.autograd.backward([outs[0], outs[3]], cts)
+    for name, o in zip(("tm", "state", "tm_last", "cm", "cm_last"), outs):
+        res[f"rwkv/out/{name}"] = full(o.detach()).numpy()
+    for n, x in zip(("tm", "cm"), xs):
+        res[f"rwkv/grad/x_{n}"] = full(x.grad).numpy()
+    for n, p in (*layer.tm.named_parameters(prefix="tm"),
+                 *layer.cm.named_parameters(prefix="cm")):
+        res[f"rwkv/grad/{n}"] = full(p.grad).numpy()
+    res["rwkv/products"] = np.array(json.dumps(
+        [op.operands for op in trace.ops if op.operands]))
 
 
 def run_loss(inp, mesh, res):
@@ -534,6 +646,8 @@ def sharded_main(rank, world, store, inputs, out):
     for cell in str(inp["cells"]).split(","):
         run_cell(inp, cell, mesh, res)
     run_kernels(inp, mesh, res)
+    run_group_layers(inp, mesh, res)
+    run_rwkv(inp, mesh, res)
     run_loss(inp, mesh, res)
     run_moe_dense(inp, mesh, res)
     run_dryrun_checks(mesh, res)
