@@ -333,14 +333,30 @@ DRYRUN_GROUPS_LAYERS = 3
 DRYRUN_RWKV_CELL = ("rwkv6-7b", "train_4k", "pod")
 DRYRUN_RWKV_REFERENCE_PRODUCTS = 13782550052864
 DRYRUN_PRODUCTS_SLACK = 1.05
+# and whisper-small's, whose vocab of 51865 does not split over 16 ``model``
+# ranks: its head on each rank's rows (the forward, dx and dW each on S / 16
+# of them), the traced rank 15's products a device against the reference's
+# compiled record of the same cell (jax 0.9.0 on a CPU host, PERF.md
+# section 7)
+DRYRUN_WHISPER_CELL = ("whisper-small", "train_4k", "pod")
+DRYRUN_WHISPER_REFERENCE_PRODUCTS = 3666865029120
+# the gemma2-9b and rwkv6-7b cells' reduce-scatter and all-reduce operand
+# bytes at rank 0 at a grad_accum of 1 (tests/dryrun_records_worker.py
+# ``--accum 1``, torch 2.13.0+cpu on a CPU host): the step reduces each
+# parameter's gradient once, so the dry-run's grad_accum of 4 reduce-
+# scatters no more than these (within DRYRUN_REDUCE_SLACK)
+DRYRUN_ACCUM1_BYTES = {
+    "gemma2-9b": {"reduce-scatter": 2985629696, "all-reduce": 537661844},
+    "rwkv6-7b": {"reduce-scatter": 2452849664, "all-reduce": 3356692}}
+DRYRUN_REDUCE_SLACK = 1.01
 DRYRUN_LAYERS = 1
 DRYRUN_TIMEOUT_S = 90
 # the same cell's trace on a CPU host (torch 2.13.0+cpu): printed beside the
 # card machine's, so that a torch whose DTensor issues other ops or
 # collectives, or whose bookkeeping the trace filters otherwise, shows
-DRYRUN_CPU = {"torch": "2.13.0+cpu", "ops": 11003,
-              "collective_counts": {"all-gather": 112, "all-reduce": 119,
-                                    "reduce-scatter": 49, "all-to-all": 8,
+DRYRUN_CPU = {"torch": "2.13.0+cpu", "ops": 10957,
+              "collective_counts": {"all-gather": 106, "all-reduce": 111,
+                                    "reduce-scatter": 51, "all-to-all": 8,
                                     "collective-permute": 0}}
 NO_LIBRARY = ("no single PyTorch call computes the RG-LRU scan or the wkv6 "
               "recurrence, so their library_ms is null")
@@ -2926,8 +2942,15 @@ def dryrun_path(card) -> dict:
     ``DRYRUN_RWKV_CELL``'s: prints its products' flops a device and their
     largest shapes; fails unless they are within ``DRYRUN_PRODUCTS_SLACK``
     of the reference's and the d x d products ran on the rank's S / 16
-    rows of its microbatch.  Each line gives its wall seconds: these are
-    the runs of the routes under the card machine's torch."""
+    rows of its microbatch.  The gemma2-9b and rwkv6-7b lines give their
+    reduce-scatter and all-reduce bytes at the dry-run's grad_accum beside
+    the CPU trace's at 1 (``reductions``), and fail unless the
+    reduce-scatter is within ``DRYRUN_REDUCE_SLACK`` of it (C8).  Then
+    ``DRYRUN_WHISPER_CELL``'s: prints rank 15's products' flops a device
+    beside the reference's and their largest shapes; fails unless they
+    are within ``DRYRUN_PRODUCTS_SLACK`` of it (C14: the head on each
+    rank's rows).  Each line gives its wall seconds: these are the runs of
+    the routes under the card machine's torch."""
     import torch
     from repro_torch.configs.base import LM_SHAPES, get_config
     from repro_torch.launch.dryrun import TRAIN_GRAD_ACCUM
@@ -2963,9 +2986,10 @@ def dryrun_path(card) -> dict:
             ops.get("flash_attention", 0) + ops.get("aten.bmm", 0),
         "flash_local_q": flash_q, "flash_local_q_heads": heads,
         "largest_all_gather": gather, "logits_rows_bytes": logits,
-        "collectives": rec["collectives"], "trace_s": rec["lower_s"],
-        "wall_s": wall, "card": card}
+        **reductions(arch, rec), "collectives": rec["collectives"],
+        "trace_s": rec["lower_s"], "wall_s": wall, "card": card}
     print("[dryrun] " + json.dumps(heads_row), flush=True)
+    check_reductions(heads_row)
     check(heads == [1] and all(s == sh.seq_len for _, s, _, _ in flash_q),
           f"[dryrun] {arch}: flash's local q {flash_q} is not 1 head of "
           f"the rank's {rows} rows")
@@ -3039,9 +3063,10 @@ def dryrun_path(card) -> dict:
         "product_flops_per_device": products,
         "reference_product_flops": DRYRUN_RWKV_REFERENCE_PRODUCTS,
         "largest_products": dict(list(work["product_shapes"].items())[:4]),
-        "collectives": rec["collectives"], "trace_s": rec["lower_s"],
-        "wall_s": wall, "card": card}
+        **reductions(arch, rec), "collectives": rec["collectives"],
+        "trace_s": rec["lower_s"], "wall_s": wall, "card": card}
     print("[dryrun] " + json.dumps(rwkv_row), flush=True)
+    check_reductions(rwkv_row)
     d = cfg.d_model
     check(0 < products <= DRYRUN_PRODUCTS_SLACK *
           DRYRUN_RWKV_REFERENCE_PRODUCTS,
@@ -3050,8 +3075,54 @@ def dryrun_path(card) -> dict:
     check(f"{rows // 16}x{d} @ {d}x{d}" in work["product_shapes"],
           f"[dryrun] {arch}: no d x d product on the rank's {rows // 16} "
           f"rows: {list(work['product_shapes'])}")
+
+    arch, shape, mesh = DRYRUN_WHISPER_CELL
+    rec, wall = dryrun_record(DRYRUN_WHISPER_CELL)
+    work = rec[rec["cost"]["split"]]
+    products = work["op_flops"].get("aten.mm", 0)
+    shapes = work["product_shapes"]
+    whisper_row = {
+        "cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
+        "rank_traced": rec["rank_traced"],
+        "flops_per_device": rec["cost"]["flops_per_device"],
+        "product_flops_per_device": products,
+        "reference_product_flops": DRYRUN_WHISPER_REFERENCE_PRODUCTS,
+        "largest_products": dict(list(shapes.items())[:4]),
+        "collectives": rec["collectives"], "trace_s": rec["lower_s"],
+        "wall_s": wall, "card": card}
+    print("[dryrun] " + json.dumps(whisper_row), flush=True)
+    check(rec["rank_traced"] == 15 and 0 < products <=
+          DRYRUN_PRODUCTS_SLACK * DRYRUN_WHISPER_REFERENCE_PRODUCTS,
+          f"[dryrun] {arch}: rank {rec['rank_traced']}'s {products} product "
+          f"flops a device against the reference's "
+          f"{DRYRUN_WHISPER_REFERENCE_PRODUCTS}")
     return {"dryrun": row, "heads": heads_row, "rows": rows_row,
-            "groups": groups_row, "rwkv": rwkv_row}
+            "groups": groups_row, "rwkv": rwkv_row, "whisper": whisper_row}
+
+
+def reductions(arch: str, rec) -> dict:
+    """A [dryrun] record's reduce-scatter and all-reduce operand bytes at
+    the dry-run's grad_accum, beside the CPU trace's at a grad_accum of 1
+    (``DRYRUN_ACCUM1_BYTES``)."""
+    from repro_torch.launch.dryrun import TRAIN_GRAD_ACCUM
+    return {"grad_accum": TRAIN_GRAD_ACCUM,
+            "reduce_scatter_bytes":
+                rec["collectives"]["reduce-scatter"]["operand_bytes"],
+            "all_reduce_bytes":
+                rec["collectives"]["all-reduce"]["operand_bytes"],
+            "accum1_cpu_bytes": DRYRUN_ACCUM1_BYTES[arch]}
+
+
+def check_reductions(row):
+    """C8: fails unless the reduce-scatter at the dry-run's grad_accum is
+    within ``DRYRUN_REDUCE_SLACK`` of the CPU trace's at 1 (a gradient
+    reduced in every microbatch's backward would add its bytes three
+    times over)."""
+    want = row["accum1_cpu_bytes"]["reduce-scatter"]
+    check(0 < row["reduce_scatter_bytes"] <= DRYRUN_REDUCE_SLACK * want,
+          f"[dryrun] {row['cell']}: {row['reduce_scatter_bytes']} "
+          f"reduce-scatter bytes at grad_accum {row['grad_accum']} against "
+          f"{want} at 1")
 
 
 def train_launches(cfg, kernel) -> int:

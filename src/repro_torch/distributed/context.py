@@ -386,21 +386,51 @@ def row_block(t) -> int:
 
 
 def replicated(t):
-    """The DTensor ``t`` whole on every rank (an all-gather of each mesh dim
-    that shards it; its gradient is scattered back); a plain ``t``, or one
+    """The DTensor weight ``t`` whole on every rank (an all-gather of each
+    mesh dim that shards it), through ``weight_at``; a plain ``t``, or one
     already whole, as it is."""
     if not is_dtensor(t):
         return t
     from torch.distributed.tensor import Replicate
-    return redistribute(t, (Replicate(),) * t.device_mesh.ndim)
+    return weight_at(t, (Replicate(),) * t.device_mesh.ndim)
+
+
+def weight_at(w, place):
+    """The DTensor weight ``w`` at the placements ``place`` (a gather, or a
+    local cut), whose gradient comes back as its use leaves it: ``Partial``
+    over the ranks that hold its partial sums, cut where its use cut it.
+    A redistribution's own backward would reduce it to ``w``'s placements
+    in every microbatch's backward; this one leaves that to the train step,
+    which sums the microbatches' gradients where they lie and reduces the
+    sum once (``train.steps``).  A plain ``w``, or one at ``place``, as it
+    is."""
+    if not is_dtensor(w) or tuple(w.placements) == tuple(place):
+        return w
+    return _weight_at_fn().apply(w, tuple(place))
+
+
+@functools.cache
+def _weight_at_fn():
+    import torch
+
+    class WeightAt(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, w, place):
+            return w.redistribute(w.device_mesh, place)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+    return WeightAt
 
 
 def on_rows(name: str, fn, rows: tuple, whole: dict, n_out: int = 1):
     """``fn(*rows, *whole.values())`` on each rank's rows: the DTensors
     ``rows`` (B, S, ...) at their cuts of the batch and the sequence, each
-    tensor of ``whole`` (a weight) gathered to every rank first.  Through
-    ``run_local``, so a whole tensor's gradient comes back summed over the
-    ranks (and is scattered to its own layout by its gather's backward).
+    tensor of ``whole`` (a weight) gathered to every rank first
+    (``replicated``).  Through ``run_local``, so a whole tensor's gradient
+    comes back ``Partial`` over the ranks that cut the rows, and stays so
+    (``weight_at``): the train step reduces it once a step.
     This is how the reference's partitioner runs a product whose rows stay
     cut as the residual stream's: each rank its rows against the whole
     weight, where DTensor's own product would gather the rows (it cannot

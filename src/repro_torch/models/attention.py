@@ -62,7 +62,7 @@ from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
 from repro_torch.distributed import heads
 from repro_torch.distributed.context import (axis_size, constrain, grad_like,
                                              is_dtensor, local_device,
-                                             redistribute, unflatten)
+                                             unflatten, weight_at)
 from repro_torch.distributed.heads import (q_rows_dim, splits_q_heads,
                                            splits_q_rows)
 from repro_torch.kernels.flash_attention import flash_attention
@@ -322,7 +322,8 @@ def kv_columns(w, q):
     divide the q heads, q's and k's heads whole there).  Each rank then
     projects its share of the columns and ``unflatten`` gathers k, as the
     reference's partitioner splits this product where a whole ``w`` is
-    every rank's full product; ``w``'s gradient is gathered back.  Elsewhere, and where
+    every rank's full product; ``w``'s gradient stays cut by columns
+    (``weight_at``: the train step gathers it once).  Elsewhere, and where
     the ranks do not divide K*hd, ``w`` as it is."""
     if not (is_dtensor(w) and is_dtensor(q)):
         return w
@@ -338,7 +339,7 @@ def kv_columns(w, q):
         for m, p in enumerate(place):
             cols //= mesh.size(m) if p.is_shard(1) else 1
         record_route("kv_columns", (w.shape[0], cols))
-    return redistribute(w, place)
+    return weight_at(w, place)
 
 
 def _dispatch(q, k, v, *, mask_mode: str, window: int, prefix_len: int,

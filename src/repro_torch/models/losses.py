@@ -7,33 +7,44 @@ and the ranks of the vocab's mesh dim exchange three (B, S) f32 tensors
 (a max, a sum of exponentials, the label's logit), never the logits.  Its
 backward is local, so the logits' gradient stays sharded on the vocab and
 the head's backward products stay on each rank's columns, as the
-reference's partitioner keeps its ``take_along_axis``.
+reference's partitioner keeps its ``take_along_axis``.  Logits whose
+vocab is whole and whose rows are cut (a vocab that does not split, its
+head on each rank's rows) take each rank's rows' loss, with no collective
+but the sum.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.context import is_dtensor
+from repro_torch.distributed.context import (is_dtensor, redistribute,
+                                             rows_cut)
 
 
 def softmax_xent(logits, labels, ignore_index: int = -1):
     """logits: (B,S,V); labels: (B,S) integer with ignore_index masked out.
 
     Computed in f32; returns (mean loss, token count).  On DTensor logits
-    sharded on the vocab, the per-token loss is ``vocab_parallel_nll``'s.
+    sharded on the vocab, the per-token loss is ``vocab_parallel_nll``'s;
+    on DTensor logits whose rows are cut (the head on each rank's rows,
+    ``transformer._unembed``), each rank's rows' loss against its rows of
+    the labels.
     """
     lf = logits.float()
     mask = labels != ignore_index
     safe = torch.where(mask, labels, 0).long()
+    n = torch.clamp(mask.sum(), min=1)
     if is_dtensor(lf) and any(p.is_shard(lf.dim() - 1)
                               for p in lf.placements):
         nll = vocab_parallel_nll(lf, safe)
     else:
+        if rows_cut(lf):
+            # the labels at the logits' rows: a local cut
+            mask, safe = (redistribute(t, lf.placements)
+                          for t in (mask, safe))
         lse = torch.logsumexp(lf, dim=-1)
         nll = lse - torch.gather(lf, -1, safe[..., None])[..., 0]
     per_tok = nll * mask
-    n = torch.clamp(mask.sum(), min=1)
     return per_tok.sum() / n, n
 
 

@@ -63,8 +63,9 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV,
                                       ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.distributed.context import (constrain, grad_like,
+                                             is_dtensor, on_rows,
                                              replicate_made_tensors,
-                                             rows_product)
+                                             rows_cut, rows_product)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -367,11 +368,76 @@ def _train_stack(model: Transformer, x, cfg: ModelConfig, positions,
 
 
 def _embed(model: Transformer, cfg: ModelConfig, tokens):
-    x = F.embedding(tokens, model.embed)
-    if cfg.embedding_scale:
+    w = model.embed
+    scale = torch.tensor(cfg.d_model ** 0.5, dtype=w.dtype) \
+        if cfg.embedding_scale else None
+    if is_dtensor(w) and w.requires_grad and torch.is_grad_enabled():
+        if _vocab_dim(w) is not None:
+            return _vocab_parallel_lookup(w, tokens, scale)
+        if cfg.tie_embeddings:
+            # the table whole over ``model`` (a vocab that does not split),
+            # its head on each rank's rows (``_unembed``): the lookup too,
+            # so that both uses leave the table's gradient ``Partial``
+            # over the rows' ranks
+            return on_rows("embedding", functools.partial(
+                _lookup, scale=scale), (constrain(tokens, (
+                    "batch", "act_seq")),), {"w": w})
+    return _lookup(tokens, w, scale)
+
+
+def _lookup(tokens, w, scale):
+    x = F.embedding(tokens, w)
+    if scale is not None:
         # the reference casts sqrt(d_model) to the activation dtype first
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        x = x * scale
     return x
+
+
+def _vocab_dim(w):
+    """The mesh dim of more than one rank that cuts the DTensor table
+    ``w`` (V, D) on its vocab, or None."""
+    on = [m for m, p in enumerate(w.placements)
+          if p.is_shard(0) and w.device_mesh.size(m) > 1]
+    return on[0] if on else None
+
+
+def _vocab_parallel_lookup(w, tokens, scale):
+    """The lookup of ``tokens`` (B,S) in the DTensor table ``w`` cut on its
+    vocab over one mesh dim: each rank looks every token up in its own
+    rows, a token of another rank's rows giving zeros, so the output is
+    ``Partial`` there (what DTensor's own lookup gives, there a
+    ``MaskPartial``).  Its backward is local: the gradient of the output,
+    gathered, lands in the rank's own rows, so the table's gradient is
+    cut on the vocab as the tied head's is (``_unembed``) and ``Partial``
+    over the batch's ranks.  DTensor's own backward instead gives every
+    rank the whole table's gradient of its rows of the sequence, which has
+    to be reduce-scattered to be added to the head's: once a microbatch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh, m = w.device_mesh, _vocab_dim(w)
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+    tok = tuple(Replicate() if i == m else p
+                for i, p in enumerate(tokens.placements))
+    grad = tuple(p if i == m else Partial() if tok[i].is_shard()
+                 else Replicate() for i, p in enumerate(w.placements))
+    rows = w.shape[0] // mesh.size(m)
+    offset = mesh.get_local_rank(m) * rows
+
+    def lookup(w, tokens):
+        local = tokens - offset
+        hit = (local >= 0) & (local < rows)
+        x = torch.where(hit[..., None],
+                        F.embedding(torch.where(hit, local, 0), w), 0)
+        return x if scale is None else x * scale
+    run = local_map(lookup, out_placements=(tuple(
+                        Partial() if i == m else p
+                        for i, p in enumerate(tok)),),
+                    in_placements=(tuple(w.placements), tok),
+                    in_grad_placements=(grad, tok), device_mesh=mesh,
+                    redistribute_inputs=True)
+    return run(w, tokens)
 
 
 def _embed_summed(model: Transformer, cfg: ModelConfig, tokens):
@@ -379,18 +445,29 @@ def _embed_summed(model: Transformer, cfg: ModelConfig, tokens):
     meets another tensor before the residual stream's layout (whisper's
     positions, paligemma's patches): DTensor (torch 2.11) cannot join a
     replicated tensor to the vocab-parallel embedding's partial sums
-    (``MaskPartial``, whose mask would have to cover it too)."""
-    return _gathered(_embed(model, cfg, tokens))
+    (``MaskPartial``, whose mask would have to cover it too).  A lookup on
+    each rank's rows holds no partial sums and stays on its rows."""
+    x = _embed(model, cfg, tokens)
+    return x if rows_cut(x) else _gathered(x)
 
 
 def _unembed(model: Transformer, cfg: ModelConfig, x):
-    x = _gathered(rms_norm(x, model.final_norm, cfg.norm_eps))
+    """The final norm and the head -> logits (B,S,V).  Where the rows of
+    the residual stream ``x`` are cut (``act_seq``) and the vocab is not,
+    each rank runs its own rows against the whole table (``rows_product``)
+    and the logits stay on those rows (``models.losses.softmax_xent`` takes
+    them there): the forward, dx and dW each on a rank's share of the
+    rows, where gathering the rows would run all three whole on every
+    rank."""
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
     w = model.embed if cfg.tie_embeddings else model.lm_head
-    logits = x @ w.t()
+    rows = rows_cut(x) and _vocab_dim(w) is None
+    logits = rows_product(x, w.t(), "unembedding") if rows \
+        else _gathered(x) @ w.t()
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = (c * torch.tanh(logits.float() / c)).to(logits.dtype)
-    return constrain(logits, ("batch", None, "vocab"))
+    return logits if rows else constrain(logits, ("batch", None, "vocab"))
 
 
 def _encode(model: Transformer, cfg: ModelConfig, frames):

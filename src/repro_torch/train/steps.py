@@ -7,22 +7,28 @@ and returns it updated in place with the step's metrics.  Gradient
 accumulation runs the loss over the microbatches one after another, adds
 their grads (``.grad`` accumulates across the backward passes, in each
 parameter's dtype, as the reference's ``jnp.add``) and divides the sum by
-``grad_accum``.  The reference's ``optimization_barrier`` (keeping one
-microbatch's activations from overlapping the next's) has no eager
-counterpart and needs none: eager execution finishes microbatch i's
-backward before microbatch i+1's forward begins.
+``grad_accum``, after the sharded step's one reduction.  The
+reference's ``optimization_barrier`` (keeping one microbatch's
+activations from overlapping the next's) has no eager counterpart and
+needs none: eager execution finishes microbatch i's backward before
+microbatch i+1's forward begins.
 
 The sharded step is this one on the DTensor model
 (``distributed.layouts.shard_params``, the batch by
 ``distributed.layouts.distribute_tree``), under
 ``distributed.context.use_rules``; the step runs under
 ``replicate_made_tensors``, its backward too.  A microbatch is laid out as
-the batch (rows over ``batch``) before it runs.  ``grad_shardings``
+the batch (rows over ``batch``) before it runs.  A microbatch's backward
+reduces no parameter's gradient: each comes back as its use leaves it,
+``Partial`` over the ranks that hold its partial sums (the batch's and
+the residual stream's rows; ``context.weight_at``, ``on_rows``, the tied
+table's vocab-parallel lookup), and ``.grad`` adds the microbatches'
+where they lie.  The sum is then reduced once, to ``grad_shardings``
 ({parameter name: DTensor placements}, ``layouts.param_placements`` of
-``opt_pspecs``: ZeRO) redistributes the summed grads before the optimizer,
-as the reference's ``with_sharding_constraint`` does, so that the update
-runs at the optimizer state's sharding (a reduce-scatter of ``Partial``
-grads); on plain grads it changes nothing.
+``opt_pspecs``: ZeRO) as the reference's ``with_sharding_constraint``
+does, so that the update runs at the optimizer state's sharding (a
+reduce-scatter of ``Partial`` grads), or without them to each
+parameter's own placements; on plain grads nothing changes.
 """
 from __future__ import annotations
 
@@ -102,17 +108,17 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, lr_fn,
                 met = one_grad(model, mb)
                 metrics = met if metrics is None else \
                     {k: metrics[k] + met[k] for k in metrics}
-            for p in params.values():
-                if p.grad is not None:
-                    p.grad.div_(grad_accum)
             metrics = {k: v / grad_accum for k, v in metrics.items()}
         else:
             metrics = one_grad(model, batch)
 
-        grads = {n: p.grad for n, p in params.items()}
-        if grad_shardings is not None:
-            grads = {n: context.redistribute(g, grad_shardings[n])
-                     for n, g in grads.items()}
+        grads = {}
+        for n, p in params.items():
+            place = grad_shardings[n] if grad_shardings is not None else \
+                getattr(p, "placements", None)
+            grads[n] = context.redistribute(p.grad, place)
+            if grad_accum > 1 and grads[n] is not None:
+                grads[n].div_(grad_accum)
         lr = lr_fn(state["step"])
         with torch.profiler.record_function("optimizer"):
             _, _, gnorm = optimizer.update(grads, state["opt"], params, lr)

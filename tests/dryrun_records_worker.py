@@ -11,7 +11,10 @@ The train step of each ARCH's smoke or full config cut to N layers
 (default: one superblock, the fewest the reference's layer scan takes) on
 the ``train_4k`` shape (or S x B tokens); an ARCH written
 ``ARCH@HxK[:PACK][/L]`` takes H q heads and K kv heads (and the
-config's ``attn_causal_pack`` PACK; L layers in the place of N): the
+config's ``attn_causal_pack`` PACK; L layers in the place of N), and one
+ending ``~V`` (``whisper-small~515``) a vocab of V tokens (C14's cell: a
+vocab that the 16 ``model`` ranks do not divide, so the head is not cut
+on it): the
 reference's compiled as its
 ``run_cell`` does (``repro.launch.dryrun.build_cell``, XLA's cost analysis
 and HLO), the port's traced as rank R (default 0) of a fake world
@@ -87,12 +90,14 @@ def dot_flops(hlo: str) -> dict:
     return {**out, "products_by_shape": dict(by_shape)}
 
 
-def _cfg_shape(configs, arch, width, layers, seq, batch, heads=""):
+def _cfg_shape(configs, arch, width, layers, seq, batch, heads="", vocab=0):
     """The cell's config and shape; ``heads``: "HxK" or "HxK:PACK", the q
-    and kv heads and the config's ``attn_causal_pack`` replaced."""
+    and kv heads and the config's ``attn_causal_pack`` replaced;
+    ``vocab``: the vocab's size, where it is not 0."""
     base = configs.get_smoke_config(arch) if width == "smoke" \
         else configs.get_config(arch)
-    cfg = dataclasses.replace(base, n_layers=layers or base.pattern_len)
+    cfg = dataclasses.replace(base, n_layers=layers or base.pattern_len,
+                              vocab_size=vocab or base.vocab_size)
     if heads:
         hk, _, pack = heads.partition(":")
         H, K = (int(h) for h in hk.split("x"))
@@ -106,7 +111,7 @@ def _cfg_shape(configs, arch, width, layers, seq, batch, heads=""):
 
 
 def reference(arch, width, mesh_name, layers=0, seq=0, batch=0,
-              accum=1, heads="") -> dict:
+              accum=1, heads="", vocab=0) -> dict:
     from repro.launch import dryrun as ref    # first: forces 512 devices
     import jax
     from repro.configs import base as configs
@@ -115,7 +120,7 @@ def reference(arch, width, mesh_name, layers=0, seq=0, batch=0,
     from repro.launch.mesh import make_production_mesh
     from repro.roofline.hlo import collective_stats
     cfg, shape = _cfg_shape(configs, arch, width, layers, seq, batch,
-                            heads)
+                            heads, vocab)
     mesh = make_production_mesh(multi_pod=mesh_name == "multipod")
     rules = choose_layout(cfg, shape, mesh)
     t0 = time.perf_counter()
@@ -135,13 +140,13 @@ def reference(arch, width, mesh_name, layers=0, seq=0, batch=0,
 
 
 def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1,
-         heads="", rank=0) -> dict:
+         heads="", vocab=0, rank=0) -> dict:
     import torch
     from repro_torch.configs import base as configs
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_mesh, make_production_mesh
     cfg, shape = _cfg_shape(configs, arch, width, layers, seq, batch,
-                            heads)
+                            heads, vocab)
     with fake_mesh(make_production_mesh(
             multi_pod=mesh_name == "multipod"), rank) as mesh:
         trace, cell = dryrun.run_step(cfg, shape, mesh, accum)
@@ -162,6 +167,15 @@ def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1,
                 rec[f"rank{rec['rank_traced']}"]["product_shapes"]}
 
 
+def parse_cell(cell: str) -> tuple:
+    """``ARCH[@HxK[:PACK][/L]][~V]`` -> (ARCH, "HxK[:PACK]", L, V); an
+    absent L or V is 0."""
+    name, _, vocab = cell.partition("~")
+    arch, _, heads = name.partition("@")
+    heads, _, layers = heads.partition("/")
+    return arch, heads, int(layers or 0), int(vocab or 0)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("side", choices=("reference", "port"))
@@ -176,10 +190,9 @@ def main():
     a = ap.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
     for cell in a.arch.split(","):
-        arch, _, heads = cell.partition("@")
-        heads, _, layers = heads.partition("/")
-        args = (arch, a.width, a.mesh, int(layers or a.layers), a.seq,
-                a.batch, a.accum, heads)
+        arch, heads, layers, vocab = parse_cell(cell)
+        args = (arch, a.width, a.mesh, layers or a.layers, a.seq, a.batch,
+                a.accum, heads, vocab)
         rec = reference(*args) if a.side == "reference" else \
             port(*args, rank=a.rank)
         print(json.dumps({"cell": cell, "arch": arch, "width": a.width,

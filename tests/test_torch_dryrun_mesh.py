@@ -474,6 +474,14 @@ ROWS_CELL, ROWS_RANKS = "internlm2-20b", (0, 3)
 # no fewer); traced as rank 0 (rows 0-31 of group 0) and rank 15 (rows
 # 224-255 of group 1, the most causal pairs)
 GROUPS_CELL, GROUPS_RANKS = "recurrentgemma-2b@10x1/3", (0, 15)
+# C14's cell: the whisper-small smoke config with a vocab of 515, which the
+# 16 ``model`` ranks do not divide (the full config's 51865 does not
+# either), traced at rank 15 (its heads take the q-rows route)
+VOCAB_CELL, VOCAB_RANK = "whisper-small~515", 15
+# C8's cells: gemma2-9b (its tied table, the vocab-parallel lookup and
+# head) and rwkv6-7b (its mixes' weights gathered whole onto each rank's
+# rows), at these ``grad_accum``
+ACCUM_ARCHS, ACCUMS = ("gemma2-9b", "rwkv6-7b"), (1, 4)
 
 
 def heads_port_record(cell: str = HEADS_CELL, rank: int = 0) -> dict:
@@ -481,10 +489,16 @@ def heads_port_record(cell: str = HEADS_CELL, rank: int = 0) -> dict:
     traced as ``rank`` (tests/dryrun_records_worker.py): one layer, or the
     cell's ``/L``."""
     import dryrun_records_worker as worker
-    arch, _, heads = cell.partition("@")
-    heads, _, layers = heads.partition("/")
-    return worker.port(arch, "smoke", "pod", int(layers or 1), 256, 64, 1,
-                       heads, rank)
+    arch, heads, layers, vocab = worker.parse_cell(cell)
+    return worker.port(arch, "smoke", "pod", layers or 1, 256, 64, 1,
+                       heads, vocab, rank=rank)
+
+
+def accum_port_record(arch: str, accum: int) -> dict:
+    """The port's side of ``arch``'s smoke train cell on ``pod`` (one
+    layer, 64 x 256 tokens) at ``grad_accum`` ``accum``, rank 0."""
+    import dryrun_records_worker as worker
+    return worker.port(arch, "smoke", "pod", 1, 256, 64, accum)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -506,6 +520,10 @@ def smoke_records():
         futures.update({("groups", r): pool.submit(heads_port_record,
                                                    GROUPS_CELL, r)
                         for r in GROUPS_RANKS})
+        futures[VOCAB_CELL] = pool.submit(heads_port_record, VOCAB_CELL,
+                                          VOCAB_RANK)
+        futures.update({("accum", a, n): pool.submit(accum_port_record, a, n)
+                        for a in ACCUM_ARCHS for n in ACCUMS})
         futures.update({(a, mp): pool.submit(smoke_train_record, a, mp)
                         for a in list_archs() for mp in (False, True)})
         yield futures
@@ -600,7 +618,8 @@ def reference_records():
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     proc = subprocess.Popen(
         [sys.executable, str(WORKER), "reference",
-         ",".join(REFERENCE_ARCHS + [HEADS_CELL, PACKED_CELL, GROUPS_CELL]),
+         ",".join(REFERENCE_ARCHS + [HEADS_CELL, PACKED_CELL, GROUPS_CELL,
+                                     VOCAB_CELL]),
          "smoke", "pod",
          "--layers", "1", "--seq", "256", "--batch", "64"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -763,6 +782,51 @@ def test_head_groups_hold_the_reference(smoke_records, reference_records):
     assert dryrun.traced_rank(cfg, LM_SHAPES["train_4k"], POD) == 15
     assert ports[15]["flops_per_device"] > ports[0]["flops_per_device"]
     assert ports[15]["flash_flops"] > ports[0]["flash_flops"]
+
+
+def test_unembedding_runs_on_each_ranks_rows(smoke_records,
+                                            reference_records):
+    """C14 beside the reference's own record of ``VOCAB_CELL`` (a vocab
+    of 515 on 16 ``model`` ranks): at rank 15, the products at most 1.05
+    times the reference's a device (0.665: the head's forward, dx and dW
+    each on the rank's 16 of the 256 rows; whole on every rank they were
+    1.671 times), and the products whose operands hold the vocab at most
+    the reference's (its forward whole, its dx and dW cut)."""
+    ref = reference_records(VOCAB_CELL)
+    port = smoke_records[VOCAB_CELL].result(timeout=SMOKE_JOIN_S)
+    assert port["rank"] == VOCAB_RANK
+    assert 0 < port["product_flops"] <= 1.05 * ref["product_flops"], \
+        (port["product_flops"], ref["product_flops"])
+
+    def head(rec):
+        return sum(f for k, f in rec["products_by_shape"].items()
+                   if "515" in k.replace(" @ ", "x").split("x"))
+    assert 0 < head(port) <= head(ref), (port["products_by_shape"],
+                                         ref["products_by_shape"])
+
+
+# the all-reduces a microbatch adds, by operand (shape, dtype) -> bytes:
+# the loss's token count (``models.losses.softmax_xent``: the labels' mask
+# summed over the batch's ranks), no parameter's gradient
+MICROBATCH_ALL_REDUCES = {"(), int64": 8}
+
+
+@pytest.mark.parametrize("arch", ACCUM_ARCHS)
+def test_gradients_reduce_once_a_step(smoke_records, arch):
+    """C8: the step reduces each parameter's gradient once, after the
+    microbatches' are summed, so at ``grad_accum`` 4 the reduce-scatter
+    bytes are those at 1, and the all-reduce bytes those at 1 plus three
+    microbatches' ``MICROBATCH_ALL_REDUCES``; the flops do not move.
+    Reduced in every microbatch's backward, gemma2-9b's tied table
+    (512 x 64) and rwkv6-7b's gathered mixes grew both (PERF.md §7)."""
+    one, four = (smoke_records["accum", arch, n].result(
+        timeout=SMOKE_JOIN_S) for n in ACCUMS)
+    rs, ar = ([r["collectives"][k]["operand_bytes"] for r in (one, four)]
+              for k in ("reduce-scatter", "all-reduce"))
+    assert rs[0] == rs[1] > 0, rs
+    extra = (ACCUMS[1] - ACCUMS[0]) * sum(MICROBATCH_ALL_REDUCES.values())
+    assert ar[1] <= ar[0] + extra, (ar, extra)
+    assert one["flops_per_device"] == four["flops_per_device"]
 
 
 def test_one_rank_dtensor_step_traces_the_plain_step(tmp_path):

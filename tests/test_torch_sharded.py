@@ -34,7 +34,15 @@ sequence 32, global batch 8.  The cells:
 * ``rg6t`` and ``wh6t``: the train steps of recurrentgemma-2b (1 kv head)
   and whisper-small (6 kv heads) with 6 q heads, which 4 ``model`` ranks
   split by head groups and row blocks (C10: 2 groups of 3 heads, each
-  group's rows over 2 ranks).
+  group's rows over 2 ranks);
+* ``whv``: whisper-small's train step with a vocab of 514, which the 4
+  ``model`` ranks do not divide (C14: the tied table whole on every rank,
+  its lookup and its head on each rank's rows, the logits and the loss
+  there), and ``rwt``: rwkv6-7b's train step (its mixes' weights gathered
+  whole onto each rank's rows), each at ``grad_accum=2``: every
+  parameter's gradient is reduced once a step, after the microbatches'
+  are summed (C8), as in ``g2t`` (the tied table's vocab-parallel
+  lookup).
 
 On this mesh gemma2-9b's 4 q heads split over ``model`` and its 2 kv
 heads do not: flash runs on each rank's own q head (the q-heads route,
@@ -136,8 +144,9 @@ from repro_torch.train import steps as tsteps  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 8
 # the 8 ranks' time limit: under the tier-1 run's 6 xdist workers the
-# spawn and the unsharded runs beside it took 227 s of 240
-JOIN_S = 360
+# spawn and the unsharded runs beside it took 227 s of 240, and 305 s of
+# 360 once the ``whv`` and ``rwt`` train cells were in
+JOIN_S = 480
 B, S = 8, 32
 LR = 1e-3
 DIST_F32_TOL = 1e-5
@@ -160,6 +169,8 @@ CELLS = {
     "wh": ("whisper-small", "train", False, 1),
     "rg6t": ("recurrentgemma-2b", "train", False, 1),
     "wh6t": ("whisper-small", "train", False, 1),
+    "whv": ("whisper-small", "train", False, 2),
+    "rwt": ("rwkv6-7b", "train", False, 2),
 }
 # cell -> the config fields it replaces: the q-rows cells (C6, C7), whose
 # 2 q heads spread over the 4 ``model`` ranks, each head's rows over 2;
@@ -176,6 +187,9 @@ CELL_CONFIG = {
     # plain dispatch, its decoder self-attention through flash
     "rg6t": {"n_heads": 6, "n_kv_heads": 1},
     "wh6t": {"n_heads": 6, "n_kv_heads": 6, "attn_q_block": 8},
+    # C14: a vocab that the 4 ``model`` ranks do not divide, so the tied
+    # table is whole on every rank and its head runs on each rank's rows
+    "whv": {"vocab_size": 514},
 }
 TRAIN = [c for c, v in CELLS.items() if v[1] == "train"]
 SERVE = [c for c, v in CELLS.items() if v[1] != "train"]
@@ -203,9 +217,10 @@ def _cfgs(cell):
 
 
 def _heads(cell) -> tuple:
-    """The cell's (n_heads, n_kv_heads) replacements, as items."""
+    """The cell's replacements of the fields that shape its weights
+    (n_heads, n_kv_heads, vocab_size), as items."""
     return tuple((k, v) for k, v in CELL_CONFIG.get(cell, {}).items()
-                 if k in ("n_heads", "n_kv_heads"))
+                 if k in ("n_heads", "n_kv_heads", "vocab_size"))
 
 
 @functools.cache
@@ -932,6 +947,16 @@ def test_q_rows_cells_take_the_route(sharded, cell):
             (other, seen)
 
 
+# cell -> the relative tolerance of AdamW's m and v (the grads) where it is
+# not DIST_F32_TOL: rwkv6-7b's two layers run the chunked wkv on each
+# rank's batch and heads and the mixes' products on each rank's rows,
+# which round in another order than the whole tensors' and which the
+# per-head group norm amplifies (3.8e-5 at most, the same whether the
+# gradients are reduced once a step or once a microbatch); the rwkv
+# tests' f32 tolerance
+GRAD_TOL = {"rwt": 1e-4}
+
+
 def _adamw_ratio(m, v, count=1, b1=0.9, b2=0.95, eps=1e-8):
     """AdamW's step direction from its state (optimizers.adamw)."""
     m, v = np.asarray(m, np.float64), np.asarray(v, np.float64)
@@ -960,7 +985,7 @@ def test_sharded_train_step_matches_unsharded_port(sharded, cell):
     for n, w in want["new"].items():
         for k in ("m", "v"):
             assert _rel(res[f"{cell}/{k}/{n}"], want[k][n]) <= \
-                DIST_F32_TOL, (k, n)
+                GRAD_TOL.get(cell, DIST_F32_TOL), (k, n)
         moved = LR * np.abs(_adamw_ratio(res[f"{cell}/m/{n}"],
                                          res[f"{cell}/v/{n}"]) -
                             _adamw_ratio(want["m"][n], want["v"][n]))
@@ -1358,7 +1383,7 @@ def _same(got, want, what):
     assert torch.equal(got, want), what
 
 
-ONE_RANK = ["g2", "g2q", "rg", "rw", "g2t", "rgt", "qw"]
+ONE_RANK = ["g2", "g2q", "rg", "rw", "g2t", "rgt", "qw", "rwt"]
 
 
 @pytest.mark.parametrize("cell", ONE_RANK)
