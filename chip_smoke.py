@@ -202,7 +202,15 @@ Phases:
      its products' flops a device beside the reference's compiled record's
      and their largest shapes; it fails unless they are within 1.05 of the
      reference's and the d x d products ran on the rank's S / 16 rows.
-     Each line gives its wall seconds.
+     Then whisper-small's cell (rank 15's products beside the
+     reference's), gemma2-9b's decode_32k cell (rank 0's products a device
+     beside the reference's; it fails above 1.05 of them) and gemma2-9b's
+     train_4k cell on ``multipod`` (512 ranks) at the dry-run's grad_accum
+     of 4: one ``[dryrun]`` line with its reductions over ``pod`` and
+     ``data`` flattened, its parameters and the collectives over ``pod``
+     alone; it fails unless each parameter's gradient and each
+     microbatch's token count took one reduction there and no all-reduce
+     ran over ``pod`` alone.  Each line gives its wall seconds.
   Phase 2 also holds each kernel's autograd function (the kernel forward, the
   plain version's autograd backward) against autograd of the plain version
   over the kernel's sweep, at the kernel's tolerance.
@@ -346,17 +354,31 @@ DRYRUN_WHISPER_REFERENCE_PRODUCTS = 3666865029120
 # parameter's gradient once, so the dry-run's grad_accum of 4 reduce-
 # scatters no more than these (within DRYRUN_REDUCE_SLACK)
 DRYRUN_ACCUM1_BYTES = {
-    "gemma2-9b": {"reduce-scatter": 2985629696, "all-reduce": 537661844},
-    "rwkv6-7b": {"reduce-scatter": 2452849664, "all-reduce": 3356692}}
+    "gemma2-9b": {"reduce-scatter": 2985558016, "all-reduce": 537729040},
+    "rwkv6-7b": {"reduce-scatter": 2233467904, "all-reduce": 209682448}}
 DRYRUN_REDUCE_SLACK = 1.01
+# and gemma2-9b's decode_32k cell at full width and one superblock (its
+# local and global layers; the reference's layer scan takes no fewer):
+# rank 0's products a device against the reference's compiled record of
+# the same cell (jax 0.9.0 on a CPU host, PERF.md section 7; C16: a decode
+# step's residual stream laid out replicated over ``model`` after each
+# sublayer)
+DRYRUN_DECODE_CELL = ("gemma2-9b", "decode_32k", "pod")
+DRYRUN_DECODE_LAYERS = 2
+DRYRUN_DECODE_REFERENCE_PRODUCTS = 1754267648
+# and gemma2-9b's train_4k cell on ``multipod`` at the dry-run's grad_accum:
+# each parameter's gradient reduced in one collective over ``pod`` and
+# ``data`` flattened (32 ranks, 512 with ``model``), none over ``pod``
+# alone (C15)
+DRYRUN_MULTIPOD_CELL = ("gemma2-9b", "train_4k", "multipod")
 DRYRUN_LAYERS = 1
 DRYRUN_TIMEOUT_S = 90
 # the same cell's trace on a CPU host (torch 2.13.0+cpu): printed beside the
 # card machine's, so that a torch whose DTensor issues other ops or
 # collectives, or whose bookkeeping the trace filters otherwise, shows
-DRYRUN_CPU = {"torch": "2.13.0+cpu", "ops": 10957,
-              "collective_counts": {"all-gather": 106, "all-reduce": 111,
-                                    "reduce-scatter": 51, "all-to-all": 8,
+DRYRUN_CPU = {"torch": "2.13.0+cpu", "ops": 10971,
+              "collective_counts": {"all-gather": 106, "all-reduce": 110,
+                                    "reduce-scatter": 47, "all-to-all": 8,
                                     "collective-permute": 0}}
 NO_LIBRARY = ("no single PyTorch call computes the RG-LRU scan or the wkv6 "
               "recurrence, so their library_ms is null")
@@ -2915,10 +2937,24 @@ def dryrun_record(cell, layers: int = DRYRUN_LAYERS) -> tuple:
     check(run.returncode == 0, f"[dryrun] {' '.join(cmd[1:])} exited "
           f"{run.returncode}: {run.stderr[-3000:]}")
     rec = json.loads(path.read_text())
+    chips = 512 if mesh == "multipod" else 256
     check(rec["cost"]["split"] == f"rank{rec['rank_traced']}" and
-          rec["n_chips"] == 256, f"[dryrun] the record does not name the "
-          f"rank it traced of 256: {rec['cost']}")
+          rec["n_chips"] == chips, f"[dryrun] the record does not name the "
+          f"rank it traced of {chips}: {rec['cost']}")
     return rec, wall
+
+
+def dryrun_records(cells: dict) -> dict:
+    """``dryrun_record`` of each of ``cells`` ({name: (cell, layers)}) at
+    once, each in its own subprocess -> {name: (record, wall seconds)}.
+    The traces are independent and each spends most of its wall time
+    starting Python and torch, so together they take about the longest
+    one's time, not their sum."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(len(cells)) as pool:
+        runs = {name: pool.submit(dryrun_record, *cell)
+                for name, cell in cells.items()}
+        return {name: run.result() for name, run in runs.items()}
 
 
 def dryrun_path(card) -> dict:
@@ -2949,13 +2985,30 @@ def dryrun_path(card) -> dict:
     ``DRYRUN_WHISPER_CELL``'s: prints rank 15's products' flops a device
     beside the reference's and their largest shapes; fails unless they
     are within ``DRYRUN_PRODUCTS_SLACK`` of it (C14: the head on each
-    rank's rows).  Each line gives its wall seconds: these are the runs of
-    the routes under the card machine's torch."""
+    rank's rows).  Then ``DRYRUN_DECODE_CELL``'s the same way, against
+    ``DRYRUN_DECODE_REFERENCE_PRODUCTS`` (C16).  Then
+    ``DRYRUN_MULTIPOD_CELL``'s: prints its reductions
+    (``multipod_reductions``); fails unless every parameter's gradient and
+    every microbatch's token count took one collective over ``pod`` and
+    ``data`` flattened and no all-reduce ran over ``pod`` alone (C15;
+    ``DeviceMesh._flatten`` under the card machine's torch).  The eight
+    cells run at once (``dryrun_records``); each line gives its
+    subprocess's wall seconds: these are the runs of the routes under the
+    card machine's torch."""
     import torch
     from repro_torch.configs.base import LM_SHAPES, get_config
     from repro_torch.launch.dryrun import TRAIN_GRAD_ACCUM
+    runs = dryrun_records({
+        "dryrun": (DRYRUN_CELL, DRYRUN_LAYERS),
+        "heads": (DRYRUN_HEADS_CELL, DRYRUN_LAYERS),
+        "rows": (DRYRUN_ROWS_CELL, DRYRUN_LAYERS),
+        "groups": (DRYRUN_GROUPS_CELL, DRYRUN_GROUPS_LAYERS),
+        "rwkv": (DRYRUN_RWKV_CELL, DRYRUN_LAYERS),
+        "whisper": (DRYRUN_WHISPER_CELL, DRYRUN_LAYERS),
+        "decode": (DRYRUN_DECODE_CELL, DRYRUN_DECODE_LAYERS),
+        "multipod": (DRYRUN_MULTIPOD_CELL, DRYRUN_LAYERS)})
     arch, shape, mesh = DRYRUN_CELL
-    rec, wall = dryrun_record(DRYRUN_CELL)
+    rec, wall = runs["dryrun"]
     row = {"cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
            "n_chips": rec["n_chips"], "n_ranks_traced": rec["n_ranks_traced"],
            "flops_per_device": rec["cost"]["flops_per_device"],
@@ -2970,7 +3023,7 @@ def dryrun_path(card) -> dict:
           f"[dryrun] {arch} {shape} on {mesh} issued no reduce-scatter")
 
     arch, shape, mesh = DRYRUN_HEADS_CELL
-    rec, wall = dryrun_record(DRYRUN_HEADS_CELL)
+    rec, wall = runs["heads"]
     cfg, sh = get_config(arch), LM_SHAPES[shape]
     rows = sh.global_batch // TRAIN_GRAD_ACCUM // 16    # 16 data ranks
     work = rec[rec["cost"]["split"]]
@@ -2998,7 +3051,7 @@ def dryrun_path(card) -> dict:
           f"carries the logits ({logits} bytes)")
 
     arch, shape, mesh = DRYRUN_ROWS_CELL
-    rec, wall = dryrun_record(DRYRUN_ROWS_CELL)
+    rec, wall = runs["rows"]
     cfg, sh = get_config(arch), LM_SHAPES[shape]
     rows = sh.global_batch // TRAIN_GRAD_ACCUM // 16    # 16 data ranks
     work = rec[rec["cost"]["split"]]
@@ -3025,7 +3078,7 @@ def dryrun_path(card) -> dict:
           f"cut by columns over 16 ranks")
 
     arch, shape, mesh = DRYRUN_GROUPS_CELL
-    rec, wall = dryrun_record(DRYRUN_GROUPS_CELL, DRYRUN_GROUPS_LAYERS)
+    rec, wall = runs["groups"]
     cfg, sh = get_config(arch), LM_SHAPES[shape]
     rows = sh.global_batch // TRAIN_GRAD_ACCUM // 16    # 16 data ranks
     work = rec[rec["cost"]["split"]]
@@ -3051,7 +3104,7 @@ def dryrun_path(card) -> dict:
           f"{sh.seq_len * g // 16} rows of the rank's {rows} rows")
 
     arch, shape, mesh = DRYRUN_RWKV_CELL
-    rec, wall = dryrun_record(DRYRUN_RWKV_CELL)
+    rec, wall = runs["rwkv"]
     cfg, sh = get_config(arch), LM_SHAPES[shape]
     rows = sh.global_batch // TRAIN_GRAD_ACCUM // 16 * sh.seq_len
     work = rec[rec["cost"]["split"]]
@@ -3077,7 +3130,7 @@ def dryrun_path(card) -> dict:
           f"rows: {list(work['product_shapes'])}")
 
     arch, shape, mesh = DRYRUN_WHISPER_CELL
-    rec, wall = dryrun_record(DRYRUN_WHISPER_CELL)
+    rec, wall = runs["whisper"]
     work = rec[rec["cost"]["split"]]
     products = work["op_flops"].get("aten.mm", 0)
     shapes = work["product_shapes"]
@@ -3096,8 +3149,71 @@ def dryrun_path(card) -> dict:
           f"[dryrun] {arch}: rank {rec['rank_traced']}'s {products} product "
           f"flops a device against the reference's "
           f"{DRYRUN_WHISPER_REFERENCE_PRODUCTS}")
+    arch, shape, mesh = DRYRUN_DECODE_CELL
+    rec, wall = runs["decode"]
+    work = rec[rec["cost"]["split"]]
+    products = work["op_flops"].get("aten.mm", 0)
+    decode_row = {
+        "cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
+        "rank_traced": rec["rank_traced"],
+        "flops_per_device": rec["cost"]["flops_per_device"],
+        "product_flops_per_device": products,
+        "reference_product_flops": DRYRUN_DECODE_REFERENCE_PRODUCTS,
+        "largest_products": dict(list(work["product_shapes"].items())[:4]),
+        "collectives": rec["collectives"], "trace_s": rec["lower_s"],
+        "wall_s": wall, "card": card}
+    print("[dryrun] " + json.dumps(decode_row), flush=True)
+    check(0 < products <= DRYRUN_PRODUCTS_SLACK *
+          DRYRUN_DECODE_REFERENCE_PRODUCTS,
+          f"[dryrun] {arch} {shape}: {products} product flops a device "
+          f"against the reference's {DRYRUN_DECODE_REFERENCE_PRODUCTS}")
+
+    arch, shape, mesh = DRYRUN_MULTIPOD_CELL
+    rec, wall = runs["multipod"]
+    multipod_row = {
+        "cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
+        **multipod_reductions(rec), "collectives": rec["collectives"],
+        "trace_s": rec["lower_s"], "wall_s": wall, "card": card}
+    print("[dryrun] " + json.dumps(multipod_row), flush=True)
+    check(multipod_row["all_reduce_over_pod_alone"] == 0 and
+          multipod_row["flattened_reductions"] ==
+          multipod_row["parameters"] + multipod_row["grad_accum"],
+          f"[dryrun] {arch} on {mesh}: {multipod_row['flattened_reductions']}"
+          f" reductions over pod and data flattened for "
+          f"{multipod_row['parameters']} parameters and "
+          f"{multipod_row['grad_accum']} token counts, "
+          f"{multipod_row['all_reduce_over_pod_alone']} all-reduces over "
+          f"pod alone")
     return {"dryrun": row, "heads": heads_row, "rows": rows_row,
-            "groups": groups_row, "rwkv": rwkv_row, "whisper": whisper_row}
+            "groups": groups_row, "rwkv": rwkv_row, "whisper": whisper_row,
+            "decode": decode_row, "multipod": multipod_row}
+
+
+def multipod_reductions(rec) -> dict:
+    """A ``multipod`` train record's reductions (C15): the collectives over
+    ``pod`` and ``data`` flattened (32 ranks, or 512 with ``model``: one a
+    parameter's gradient and one a microbatch's token count), the
+    parameters of the cell's model, and the count and bytes of each kind
+    over ``pod`` alone (2 ranks)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import TRAIN_GRAD_ACCUM
+    from repro_torch.models import init_params
+    groups = rec[rec["cost"]["split"]]["collective_groups"]
+    cfg = dataclasses.replace(get_config(rec["arch"]),
+                              n_layers=rec["layers"])
+    pod = {kind: by["2"] for kind, by in groups.items() if "2" in by}
+    return {"grad_accum": TRAIN_GRAD_ACCUM,
+            "parameters": len(list(init_params(cfg, None,
+                                               device="meta").parameters())),
+            "flattened_reductions": sum(
+                groups.get(kind, {}).get(n, {"count": 0})["count"]
+                for kind in ("all-reduce", "reduce-scatter")
+                for n in ("32", "512")),
+            "all_reduce_over_pod_alone":
+                pod.get("all-reduce", {"count": 0})["count"],
+            "over_pod_alone": pod}
 
 
 def reductions(arch: str, rec) -> dict:

@@ -122,12 +122,19 @@ def use_rules(rules: Optional[ShardingRules]):
 def constrain(x, logical: tuple):
     """Lay ``x`` out as the logical axes say: ``redistribute`` a DTensor to
     the active rules' placements; a plain tensor (the unsharded model's),
-    or no active rules, leaves ``x`` as it is."""
+    or no active rules, leaves ``x`` as it is.  A dim of size 1 stays
+    whole (a decode step's one row where the rules cut the sequence:
+    ``long_500k``'s batch of 1), as the reference's partitioner pads it:
+    DTensor would give one rank the row and the others none, and refuse
+    to view the rows flat."""
     r = current()
     if r is None or not is_dtensor(x):
         return x
-    return x.redistribute(x.device_mesh, placements(r.spec(logical),
-                                                    x.device_mesh))
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    place = tuple(Replicate() if p.is_shard() and x.shape[p.dim] == 1
+                  else p for p in placements(r.spec(logical), mesh))
+    return x.redistribute(mesh, place)
 
 
 def is_dtensor(t) -> bool:
@@ -139,11 +146,77 @@ def is_dtensor(t) -> bool:
 
 def redistribute(t, place):
     """``t`` at the placements ``place`` where it is a DTensor and they
-    differ; else ``t`` itself."""
+    differ; else ``t`` itself.  Partial sums over several mesh dims that
+    ``place`` reduces are reduced in one collective (``reduce_flat``)."""
     if place is None or not is_dtensor(t) or tuple(t.placements) == \
             tuple(place):
         return t
+    t = reduce_flat(t, place)
+    if tuple(t.placements) == tuple(place):
+        return t
     return t.redistribute(t.device_mesh, tuple(place))
+
+
+def summed(t):
+    """The DTensor ``t`` whole on every rank, its partial sums reduced in
+    one collective (``reduce_flat``); a plain ``t`` as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return redistribute(t, (Replicate(),) * t.device_mesh.ndim)
+
+
+def _flat_mesh(mesh, dims: tuple):
+    """The 1-D mesh of ``mesh``'s dims ``dims`` flattened (rank order as
+    ``placements`` lays a tensor dim over them, the first major), made
+    once a mesh (``DeviceMesh._flatten``) and kept on it.  It is taken out
+    of the root mesh's register of flattened meshes, where DTensor (torch
+    2.13) would find it and merge its own collectives over those dims from
+    then on: what a step issues would then depend on what ran before it
+    in the process.  Made under no dispatch mode."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    made = mesh.__dict__.setdefault("_flat_meshes", {})
+    if dims not in made:
+        names = tuple(mesh.mesh_dim_names[m] for m in dims)
+        # the mesh's own index arithmetic is no op of the step that
+        # first reduces over it (an ``OpTrace`` would count it there)
+        with _disable_current_modes():
+            flat = mesh[names]._flatten()
+        root = getattr(mesh, "_get_root_mesh", lambda: mesh)()
+        getattr(root, "_flatten_mapping", {}).pop(flat.mesh_dim_names[0],
+                                                  None)
+        made[dims] = flat
+    return made[dims]
+
+
+def reduce_flat(t, place):
+    """The DTensor ``t`` with its partial sums over the mesh dims of more
+    than one rank that ``place`` does not keep ``Partial`` reduced in one
+    all-reduce over those dims flattened into one (``DeviceMesh._flatten``:
+    ``pod`` and ``data`` of ``multipod``, 32 ranks), where there are two or
+    more of them; else ``t`` as it is.  DTensor reduces one mesh dim at a
+    time, a reduce-scatter over ``data`` and an all-reduce of the shard
+    over ``pod``: two collectives a gradient where the reference's
+    partitioner issues one.  The local sum is moved onto the flattened
+    mesh, reduced there and moved back replicated on those dims (no data
+    moves either way); ``redistribute`` then cuts it locally where
+    ``place`` shards it."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = t.device_mesh
+    dims = [m for m, p in enumerate(t.placements)
+            if p.is_partial() and mesh.size(m) > 1
+            and not place[m].is_partial()]
+    ops = {t.placements[m].reduce_op for m in dims}
+    if len(dims) < 2 or len(ops) > 1:
+        return t
+    flat = _flat_mesh(mesh, tuple(dims))
+    total = DTensor.from_local(t.to_local(), flat, (t.placements[dims[0]],),
+                               run_check=False).redistribute(
+        flat, (Replicate(),)).to_local()
+    return DTensor.from_local(
+        total, mesh, tuple(Replicate() if m in dims else p
+                            for m, p in enumerate(t.placements)),
+        run_check=False, shape=t.shape, stride=t.stride())
 
 
 def unflatten(t, dim: int, sizes: tuple):

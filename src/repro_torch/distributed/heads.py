@@ -5,11 +5,13 @@ more ranks than one kind of head, and the q-rows route.
 ``"kv_heads"`` (the layout's own cut), ``"q_heads"`` (C3: q's heads cut, k
 and v whole, each rank reading one kv head: flash's ``_flash_q_heads``) or
 ``"q_rows"`` (C5, C6, C10: ``tp`` does not divide H; each rank one group
-of heads' block of rows).  ``run_q_rows`` is the q-rows route of any
-attention that takes a row offset ``q0``: each rank one head group's block
-of rows, the rows gathered back.  Flash's causal route and the plain
-dispatch of ``models.attention`` (the prefix and bidirectional masks,
-cross-attention, a causal mask off flash) both run through it.
+of heads' block of rows).  ``run_q_heads`` is the q-heads route of any
+attention (C3, C11): each rank its own q heads against the one kv head
+they read.  ``run_q_rows`` is the q-rows route of any attention that takes
+a row offset ``q0``: each rank one head group's block of rows, the rows
+gathered back.  Flash's causal route and the plain dispatch of
+``models.attention`` (the prefix and bidirectional masks, cross-attention,
+a causal mask off flash) both run through each.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from repro_torch.roofline.trace import record_route
 
 # where a mesh dim leaves k and v whole: only the batch may be cut
 KV_SPLITS = {"batch": 0}
+# the q-heads route: q (B,S,H,hd) cut on its heads, k and v whole there
+HEAD_SPLITS = {"batch": 0, "q_heads": 2}
 # where ``model`` does not divide the q heads: q as (B, g*n, S/n, H/g, hd),
 # cut on dim 1 (each rank one head group's block of rows), k and v whole
 # there
@@ -109,6 +113,54 @@ def splits_q_rows(q, k) -> bool:
         return False
     m = q_rows_dim(q, k.shape[2])
     return m is not None and k.placements[m].is_replicate()
+
+
+def _heads_local(q, k, v, *, fn, kernel: str, kv: int):
+    """One rank's q heads (B,S,h,hd), all of them in kv head ``kv``: ``fn``
+    on them as (B,S,1,h,hd) against that kv head alone.  The narrow's
+    gradient is zero on the other kv heads, so the sum over ranks of k's
+    and v's is theirs.  The heads' shape (B,S,h,hd) goes to the trace as
+    ``q_heads:<kernel>``."""
+    B, S, h, hd = q.shape
+    record_route(f"q_heads:{kernel}", (B, S, h, hd))
+    o = fn(q.reshape(B, S, 1, h, hd), k.narrow(2, kv, 1), v.narrow(2, kv, 1))
+    return o.reshape(B, S, h, hd)
+
+
+def run_q_heads(kernel: str, fn, q, k, v):
+    """The q-heads route (``head_split``'s ``"q_heads"``) of the attention
+    ``fn(q, k, v)`` (q (B,S,K,G,hd)): q (B,S,H,hd) cut on its heads over
+    one mesh dim whose ranks hold k and v (B,Skv,K,hd) whole; the rank at
+    coordinate r there runs q heads [r h, (r + 1) h) against kv head r h //
+    G (h = H / tp) through ``run_local``, and k's and v's gradients come
+    back ``Partial`` there.  The output (B,S,H,hd) stays cut on its heads.
+    Any other layout raises, naming the placements.  Flash's route
+    (``kernels.flash_attention.ops._flash_q_heads``) and the plain dispatch
+    (``models.attention.attention_q_heads``) both take it."""
+    mesh = q.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    on = [m for m, p in enumerate(q.placements)
+          if p.is_shard(2) and mesh.size(m) > 1]
+    where = (f"placements q {tuple(q.placements)}, k {tuple(k.placements)}, "
+             f"v {tuple(v.placements)}")
+    if len(on) != 1 or H % K or any(t.placements[on[0]].is_shard(2)
+                                    for t in (k, v)):
+        raise ValueError(f"{kernel}: q's {H} heads are cut on mesh dims "
+                         f"{on}, the route takes one that leaves k and v "
+                         f"whole; {where}")
+    tp = mesh.size(on[0])
+    try:
+        how = head_split(H, K, tp)
+    except ValueError as e:
+        raise ValueError(f"{e}; {where}") from None
+    if how != "q_heads":
+        raise ValueError(f"{kernel}: (H, K, tp) = ({H}, {K}, {tp}) splits "
+                         f"{how}, not q heads; {where}")
+    kv = mesh.get_local_rank(on[0]) * (H // tp) // (H // K)
+    return context.run_local(
+        kernel, functools.partial(_heads_local, fn=fn, kernel=kernel, kv=kv),
+        {"q": q, "k": k, "v": v},
+        {"q": HEAD_SPLITS, "k": KV_SPLITS, "v": KV_SPLITS}, HEAD_SPLITS)
 
 
 def _rows_local(q, k, v, *, fn, kernel: str, kv: int, nk: int, q0: int):

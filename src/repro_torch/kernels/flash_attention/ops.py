@@ -55,8 +55,7 @@ import functools
 import torch
 
 from repro_torch.distributed import context, heads
-from repro_torch.distributed.heads import (KV_SPLITS, head_split,
-                                           splits_q_rows)
+from repro_torch.distributed.heads import splits_q_rows
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.roofline.bounds import causal_pairs, flash_work
@@ -244,50 +243,15 @@ class FlashAttention(torch.autograd.Function):
 
 # the axes a DTensor's shard may cut: batch and kv heads
 _SPLITS = {"batch": 0, "kv_heads": 2}
-# where a mesh dim splits the q heads and not the kv heads: q flat
-# (B,S,H,hd) cut on its heads, k and v whole there
-_Q_SPLITS = {"batch": 0, "q_heads": 2}
-
-
-def _q_heads_local(q, k, v, *, kv: int, **kw):
-    """One rank's q heads (B,S,h,hd), all of them in kv head ``kv``: the
-    kernel on that kv head alone.  The narrow's gradient is zero on the
-    other kv heads, so the sum over ranks of k's and v's is theirs."""
-    B, S, h, hd = q.shape
-    o = flash_attention(q.reshape(B, S, 1, h, hd), k.narrow(2, kv, 1),
-                        v.narrow(2, kv, 1), **kw)
-    return o.reshape(B, S, h, hd)
 
 
 def _flash_q_heads(q, k, v, **kw):
-    """The q-heads route: q (B,S,H,hd) cut on its heads over one mesh dim
-    whose ranks hold k and v whole; the rank at coordinate r there runs q
-    heads [r h, (r + 1) h) against kv head r h // G (h = H / tp) through
-    ``run_local``, and k's and v's gradients come back ``Partial`` there."""
-    mesh = q.device_mesh
-    H, K = q.shape[2], k.shape[2]
-    on = [m for m, p in enumerate(q.placements)
-          if p.is_shard(2) and mesh.size(m) > 1]
-    where = (f"placements q {tuple(q.placements)}, k {tuple(k.placements)}, "
-             f"v {tuple(v.placements)}")
-    if len(on) != 1 or H % K or any(t.placements[on[0]].is_shard(2)
-                                    for t in (k, v)):
-        raise ValueError(f"flash attention: q's {H} heads are cut on mesh "
-                         f"dims {on}, the route takes one that leaves k and "
-                         f"v whole; {where}")
-    tp = mesh.size(on[0])
-    try:
-        how = head_split(H, K, tp)
-    except ValueError as e:
-        raise ValueError(f"{e}; {where}") from None
-    if how != "q_heads":
-        raise ValueError(f"flash attention: (H, K, tp) = ({H}, {K}, {tp}) "
-                         f"splits {how}, not q heads; {where}")
-    kv = mesh.get_local_rank(on[0]) * (H // tp) // (H // K)
-    return context.run_local(
-        "flash attention", functools.partial(_q_heads_local, kv=kv, **kw),
-        {"q": q, "k": k, "v": v},
-        {"q": _Q_SPLITS, "k": KV_SPLITS, "v": KV_SPLITS}, _Q_SPLITS)
+    """Flash's q-heads route (``distributed.heads.run_q_heads``): each
+    rank's own q heads through the kernel against the one kv head they
+    read."""
+    return heads.run_q_heads("flash attention",
+                             functools.partial(flash_attention, **kw), q, k,
+                             v)
 
 
 def _flash_rows(q, k, v, *, q0: int, **kw):

@@ -51,7 +51,10 @@ they mean the same (``rankN``: the rank traced):
   are cut by columns; ``product_shapes``, the flops of the products
   (``aten.mm``) by their local operands' shapes, ``"MxK @ KxN"``, the
   largest first; ``largest_collective``, the
-  largest operand and output bytes of one collective of each kind.
+  largest operand and output bytes of one collective of each kind;
+  ``collective_groups``, the count and operand bytes of each kind by the
+  number of ranks of the group it runs over (on ``multipod``: 2 is
+  ``pod`` alone, 32 ``pod`` and ``data`` flattened).
 * ``hlo_ops``: the op census (top 12); ``hlo_len``: the ops traced;
   ``lower_s``: the trace's seconds (eager has no ``compile_s``);
   ``layers``: the depth a cell was cut to (``--layers``), where it was.
@@ -378,18 +381,23 @@ def rank_work(trace) -> dict:
         if op.operands:
             products[" @ ".join("x".join(map(str, s))
                                 for s in op.operands)] += op.flops
-    for kind, operand, output, _ in trace.collectives:
+    groups = {}
+    for kind, operand, output, _, ranks in trace.collectives:
         big = largest.setdefault(kind, {"operand_bytes": 0,
                                         "output_bytes": 0})
         big["operand_bytes"] = max(big["operand_bytes"], operand)
         big["output_bytes"] = max(big["output_bytes"], output)
+        by = groups.setdefault(kind, {}).setdefault(
+            str(ranks), {"count": 0, "operand_bytes": 0})
+        by["count"] += 1
+        by["operand_bytes"] += operand
     for name, s in trace.route_shapes.items():
         shapes.setdefault(name, set()).update(s)
     return {"op_flops": {n: f for n, f in flops.items() if f},
             "kernel_shapes": {n: sorted(map(list, s))
                               for n, s in shapes.items()},
             "product_shapes": dict(products.most_common()),
-            "largest_collective": largest}
+            "largest_collective": largest, "collective_groups": groups}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,

@@ -47,7 +47,11 @@ flash's route where flash is the hook; everything else (the prefix and
 bidirectional masks, cross-attention, a causal mask with the hook off or
 another hook) through ``attention_q_rows``, ``_dispatch`` on each rank's
 rows, its branch chosen on the whole sequence.  There ``kv_columns`` cuts
-the k and v projections by columns over ``model``.
+the k and v projections by columns over ``model``.  Where ``model`` cuts
+q's heads and not the kv heads (``head_split``'s ``"q_heads"``), each rank
+runs its own q heads against the one kv head they read
+(``heads.run_q_heads``): the causal mask through flash's route, the rest
+through ``attention_q_heads``.
 Decode attention has no kernel in the reference and is plain torch here
 too.
 """
@@ -403,6 +407,25 @@ def attention_q_rows(q, k, v, *, mask_mode: str, scale: float, q_block: int,
         kv_pos=kv_pos), q, k, v)
 
 
+def attention_q_heads(q, k, v, *, mask_mode: str, scale: float,
+                      q_block: int, pack: bool, window: int = 0,
+                      prefix_len: int = 0, softcap: float = 0.0,
+                      cross: bool = False, q_pos=None, kv_pos=None):
+    """The plain dispatch on the q-heads route (``splits_q_heads``): the
+    DTensors q (B,S,H,hd), cut on its heads, and k, v (B,Skv,K,hd), whole
+    there -> (B,S,H,hd) cut as q is, each rank ``_dispatch`` on its own q
+    heads against the one kv head they read (``heads.run_q_heads``).
+    ``q_pos``, ``kv_pos``: as ``attention_q_rows`` takes them."""
+    S, Skv = q.shape[1], k.shape[1]
+    dev = local_device(q)
+    q_pos = torch.arange(S, device=dev) if q_pos is None else q_pos
+    kv_pos = torch.arange(Skv, device=dev) if kv_pos is None else kv_pos
+    return heads.run_q_heads("attention", functools.partial(
+        _dispatch, mask_mode=mask_mode, window=window, prefix_len=prefix_len,
+        softcap=softcap, scale=scale, q_block=q_block, pack=pack,
+        cross=cross, q_pos=q_pos, kv_pos=kv_pos), q, k, v)
+
+
 def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
                   mask_mode: str = "causal", prefix_len: int = 0,
                   kv_override=None):
@@ -453,10 +476,13 @@ def attention_seq(p: Attention, x, cfg: ModelConfig, kind: str, positions,
         # bidirectional, cross, a causal mask with the hook off or another
         # hook): each rank the dispatch on one head group's block of rows
         o = attention_q_rows(q, k, v, **dispatch)
+    elif splits_q_heads(q, k):
+        # q's heads split where the kv heads do not and no flash route:
+        # each rank the dispatch on its own heads
+        o = attention_q_heads(q, k, v, **dispatch)
     else:
-        # the GQA fold: a heads shard splits into (K, G) only where K
-        # divides it (kv heads split); a shard of q's heads alone (the
-        # q-heads route off flash) is gathered here
+        # the GQA fold: a heads shard splits into (K, G) where K divides it
+        # (kv heads split)
         o = _dispatch(unflatten(q, 2, (K, G)), k, v, **dispatch)
     o = constrain(o.reshape(B, S, H * hd), ("batch", "seq", "heads_flat"))
     return o @ p.wo, (k, v)

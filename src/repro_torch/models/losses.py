@@ -18,7 +18,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.context import (is_dtensor, redistribute,
-                                             rows_cut)
+                                             rows_cut, summed)
 
 
 def softmax_xent(logits, labels, ignore_index: int = -1):
@@ -33,7 +33,7 @@ def softmax_xent(logits, labels, ignore_index: int = -1):
     lf = logits.float()
     mask = labels != ignore_index
     safe = torch.where(mask, labels, 0).long()
-    n = torch.clamp(mask.sum(), min=1)
+    n = torch.clamp(summed(mask.sum()), min=1)
     if is_dtensor(lf) and any(p.is_shard(lf.dim() - 1)
                               for p in lf.placements):
         nll = vocab_parallel_nll(lf, safe)

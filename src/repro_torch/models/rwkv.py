@@ -34,10 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.context import (ROWS, constrain, flatten,
-                                             grad_like, on_rows, redistribute,
-                                             replicate_dim, row_block,
-                                             rows_cut, run_local, unflatten)
+from repro_torch.distributed.context import (ROWS, axis_size, constrain,
+                                             flatten, grad_like, on_rows,
+                                             redistribute, replicate_dim,
+                                             replicated, row_block, rows_cut,
+                                             run_local, unflatten)
 from repro_torch.kernels.rwkv6_chunk import wkv6
 from repro_torch.models.modules import (ParamModule, group_norm_heads, normal,
                                         pdtype)
@@ -172,6 +173,64 @@ _PROJECTION_WEIGHTS = ("mu_x", "mu", "tm_w1", "tm_w2", "w0", "dw1", "dw2",
 _FINISH_WEIGHTS = ("lnx_s", "lnx_b", "wo")
 
 
+def _wkv6_block(r, k, v, logw, u):
+    """One rank's block of rows (B, s, H, hd): the wkv6 from a zero state
+    -> (y, its final state (B, 1, H, hd, hd), its summed logw (B, 1, H,
+    hd))."""
+    y, st = wkv6(r, k, v, logw, u)
+    return y, st[:, None], logw.float().sum(1, keepdim=True)
+
+
+def _carry_in(y, r, logw, states, decays, *, j: int):
+    """Block ``j``'s output with the state carried into it, and the state
+    after it: the blocks' final states from zero ``states`` (B, n, H, hd,
+    hd) and summed logw ``decays`` (B, n, H, hd) make the incoming states
+    S_in(0) = 0, S_in(i + 1) = exp(L_i) * S_in(i) + S_i (the decay on the
+    key dim), of which step t of block j sees S_in(j) decayed by exp(sum
+    of its logw before t), as ``time_mix_seq`` adds a ``state0``.  Every
+    rank runs the whole chain and takes its own entries: its graph reads
+    every block's state and decay, so that every rank's backward issues
+    the same collectives."""
+    carried = [torch.zeros_like(states[:, 0])]
+    for i in range(states.shape[1]):
+        carried.append(torch.exp(decays[:, i])[..., None] * carried[-1] +
+                       states[:, i])
+    carried = torch.stack(carried, 1)
+    lw = logw.float()
+    y = y + torch.einsum("bshi,bhij->bshj",
+                         r.float() * torch.exp(torch.cumsum(lw, 1) - lw),
+                         carried[:, j])
+    return y, carried[:, j + 1:j + 2]
+
+
+def _wkv6_rows(r, k, v, logw, u):
+    """The wkv6 of the DTensors r, k, v, logw (B,S,H,hd) at the rows' cuts
+    (``rows_cut``) where ``model`` does not divide the heads -> (y (B,S,H,hd)
+    at the same cuts, the final state (B,H,hd,hd)).  Each rank runs the
+    kernel on its own block of rows from a zero state (``run_local``); the
+    blocks' final states and summed logw, (B, H, hd, hd) and (B, H, hd) f32
+    a rank, are gathered over the blocks' ranks, and each rank adds the
+    state carried into its block (``_carry_in``), as the reference's
+    partitioner splits its chunked scan over ``model``.  The sequence's
+    final state is the last block's.  Gradients flow through the kernel's
+    autograd function, the gather and the correction; the kernel's
+    contract does not change."""
+    u = replicated(u)
+    y, states, decays = run_local(
+        "the wkv6 kernel", _wkv6_block,
+        {"r": r, "k": k, "v": v, "logw": logw, "u": u},
+        dict.fromkeys(("r", "k", "v", "logw"), ROWS) | {"u": {}},
+        (ROWS, ROWS, ROWS))
+    states, decays = replicate_dim(states, 1), replicate_dim(decays, 1)
+    batch = {"batch": 0}
+    y, out = run_local(
+        "rwkv state carry", functools.partial(_carry_in, j=row_block(r)),
+        {"y": y, "r": r, "logw": logw, "states": states, "decays": decays},
+        {"y": ROWS, "r": ROWS, "logw": ROWS, "states": batch,
+         "decays": batch}, (ROWS, ROWS))
+    return y, replicate_dim(out, 1)[:, -1]
+
+
 def time_mix_seq(p: TimeMix, x, cfg: ModelConfig, state0=None, x_prev=None):
     """x: (B,S,D) -> (out (B,S,D), S_last (B,H,hd,hd) f32, x_last (B,D)),
     as the reference's ``wkv_chunked`` returns them.
@@ -193,11 +252,16 @@ def time_mix_seq(p: TimeMix, x, cfg: ModelConfig, state0=None, x_prev=None):
     else:
         r, k, v, g, logw = _projections(p, x, _shifted(x, x_prev), H, hd)
         x_last = x[:, -1].clone()
-    # the kernel cannot split the sequence, which the residual stream
-    # shards (act_seq): its inputs are laid out by heads first
-    r, k, v, logw = (constrain(t, ("batch", "seq", "heads", None))
-                     for t in (r, k, v, logw))
-    y, st = wkv6(r, k, v, logw, p.u)
+    if rows and H % axis_size("model"):
+        # ``model`` does not divide the heads: each rank the wkv of its own
+        # block of rows, the state carried across the blocks
+        y, st = _wkv6_rows(r, k, v, logw, p.u)
+    else:
+        # the kernel cannot split the sequence, which the residual stream
+        # shards (act_seq): its inputs are laid out by heads first
+        r, k, v, logw = (constrain(t, ("batch", "seq", "heads", None))
+                         for t in (r, k, v, logw))
+        y, st = wkv6(r, k, v, logw, p.u)
     if state0 is not None:
         lp = torch.cumsum(logw, dim=1)                     # (B,S,H,hd)
         y = y + torch.einsum("bshi,bhij->bshj", r.float() * torch.exp(lp - logw),

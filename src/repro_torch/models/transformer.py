@@ -261,21 +261,28 @@ def _residual(x):
 
 def _layer_decode(p: Layer, x, cfg: ModelConfig, kind: str, cache, pos,
                   prefix_len: int = 0):
-    """x: (B,1,D); updates ``cache`` in place; returns x."""
+    """x: (B,1,D); updates ``cache`` in place; returns x.  Each sublayer's
+    output is laid out as the residual stream (``_residual``: its partial
+    sums over ``model``, from the row-parallel output projection, reduced)
+    before it is added: a residual stream left ``Partial`` reaches the next
+    products, where DTensor may gather a column-parallel weight (the MLP's
+    gate and up) or the cache's slots rather than reduce the rows, and so
+    run them whole on every rank."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == RGLRU:
         o, _ = rglru_mod.rglru_decode(p.rec, h, cfg, cache)
-        x = x + o
+        x = x + _residual(o)
         h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-        return x + mlp(p.mlp, h2, cfg.act)
+        return x + _residual(mlp(p.mlp, h2, cfg.act))
     if kind == RWKV:
         o, _ = rwkv_mod.time_mix_decode(p.tm, h, cfg, cache)
-        x = x + o
+        x = x + _residual(o)
         h2 = rms_norm(x, p.ln2, cfg.norm_eps)
         o2, cm_x = rwkv_mod.channel_mix(p.cm, h2, cache["cm_x"])
         cache["cm_x"].copy_(cm_x)
-        return x + o2
+        return x + _residual(o2)
     o, _ = attn.attention_decode(p.attn, h, cfg, kind, cache, pos, prefix_len)
+    o = _residual(o)
     if cfg.post_norms:
         o = rms_norm(o, p.post_ln1, cfg.norm_eps)
     x = x + o
@@ -283,12 +290,13 @@ def _layer_decode(p: Layer, x, cfg: ModelConfig, kind: str, cache, pos,
         hx = rms_norm(x, p.ln_x, cfg.norm_eps)
         ox, _ = attn.attention_decode(p.xattn, hx, cfg, ATTN_GLOBAL, cache,
                                       pos, cross=True)
-        x = x + ox
+        x = x + _residual(ox)
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
     if hasattr(p, "moe"):
         f, _ = moe_mod.moe_layer(p.moe, h2, cfg, decode=True)
     else:
         f = mlp(p.mlp, h2, cfg.act)
+    f = _residual(f)
     if cfg.post_norms:
         f = rms_norm(f, p.post_ln2, cfg.norm_eps)
     return x + f

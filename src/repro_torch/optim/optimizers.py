@@ -79,12 +79,13 @@ _CHUNK = 1 << 28  # elements of a chunk's f32 temporaries (1 GiB)
 
 
 def _reduced(g):
-    """A DTensor's ``Partial`` placements reduced (to ``Replicate``)."""
+    """A DTensor's ``Partial`` placements reduced (to ``Replicate``), in
+    one collective (``context.redistribute``)."""
     if not context.is_dtensor(g) or not any(p.is_partial()
                                              for p in g.placements):
         return g
     from torch.distributed.tensor import Replicate
-    return g.redistribute(g.device_mesh, tuple(
+    return context.redistribute(g, tuple(
         Replicate() if p.is_partial() else p for p in g.placements))
 
 
@@ -93,7 +94,8 @@ def global_norm(tree: dict):
     elements: an f32 copy of a whole leaf (arctic-480b's expert grads, 4.5e9
     elements) does not fit beside the params and grads.  A DTensor leaf is
     summed on its local shard, and the sums of the leaves sharded over the
-    same mesh dims are added over those ranks in one reduction."""
+    same mesh dims are added over those ranks in one reduction (one
+    collective over those dims, ``context.summed``)."""
     sums = {}
     for x in tree.values():
         group = None
@@ -112,9 +114,9 @@ def global_norm(tree: dict):
         if group is not None and group[1]:
             from torch.distributed.tensor import DTensor, Partial, Replicate
             mesh, on = group
-            part = DTensor.from_local(part, mesh, tuple(
+            part = context.summed(DTensor.from_local(part, mesh, tuple(
                 Partial() if m in on else Replicate()
-                for m in range(mesh.ndim)), run_check=False).full_tensor()
+                for m in range(mesh.ndim)), run_check=False)).to_local()
         total = total + part
     return torch.sqrt(total)
 

@@ -219,8 +219,10 @@ class OpTrace(TorchDispatchMode):
     """Records every aten op run under it (module docstring).
 
     ``ops``: the ``Op`` of each op in order; ``collectives``: ``(kind,
-    operand bytes, output bytes, side)``, ``side`` ``"send"``/``"recv"``
-    for point-to-point halves and None otherwise; ``peak_bytes``: the peak
+    operand bytes, output bytes, side, ranks)``, ``side``
+    ``"send"``/``"recv"`` for point-to-point halves and None otherwise,
+    ``ranks`` the size of the process group it runs over
+    (``group_size``); ``peak_bytes``: the peak
     of the live storages made under the trace; ``written_bytes``: bytes
     written into storages made before it, by storage, at most each one's
     size; ``seconds``: the trace's wall time; ``route_shapes``: {name:
@@ -390,7 +392,8 @@ class OpTrace(TorchDispatchMode):
             kind, side = known[name], None
             operand = sum(tensor_bytes(t) for t in _tensors(args[0]))
             output = sum(tensor_bytes(t) for t in _tensors(out))
-        self.collectives.append((kind, operand, output, side))
+        self.collectives.append((kind, operand, output, side,
+                                 group_size(args)))
 
     # ---- totals ------------------------------------------------------------
     @property
@@ -404,6 +407,22 @@ class OpTrace(TorchDispatchMode):
     @property
     def transcendentals(self) -> int:
         return sum(op.transcendentals for op in self.ops)
+
+
+def group_size(args) -> int:
+    """The number of ranks of the process group a collective's arguments
+    name: a boxed ``ProcessGroup`` (the ``c10d`` ops), or a group's name
+    (the functional and ``_dtensor`` ops); 0 where they name none."""
+    from torch.distributed import distributed_c10d as c10d
+    for a in args:
+        if isinstance(a, str):
+            try:
+                return c10d._resolve_process_group(a).size()
+            except (KeyError, ValueError, RuntimeError):
+                continue
+        if isinstance(a, torch.ScriptObject):     # a c10d op's group
+            return c10d.ProcessGroup.unbox(a).size()
+    return 0
 
 
 def active_trace():
@@ -438,7 +457,7 @@ def collective_stats(trace: OpTrace) -> dict:
     stats = {k: {"count": 0, "operand_bytes": 0, "output_bytes": 0}
              for k in COLLECTIVES}
     sides = Counter()
-    for kind, operand, output, side in trace.collectives:
+    for kind, operand, output, side, _ in trace.collectives:
         st = stats[kind]
         if side is None:
             st["count"] += 1

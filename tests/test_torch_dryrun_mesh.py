@@ -47,6 +47,20 @@ meta device), on the CPU.
   recurrentgemma-2b's smoke config with 10 × 1 heads at 3 layers split by
   head groups and row blocks (attention at most the reference's, products
   at most 1.25 times, the traced rank 15 the heaviest).
+* C12 and C16 beside the reference's own records of the smoke serving
+  cells (``SERVING_CELLS``: five archs' decode and prefill steps at one
+  superblock, and a ``long_500k`` decode step at a batch of 1): a decode
+  step's products at most 1.05 times the reference's and its attention at
+  most 1.25 times (the residual stream reduced over ``model`` after each
+  sublayer), a prefill step's products equal.
+* C11 and C13 beside the reference's own records: 16 q heads over 8 kv
+  heads under the prefix-LM and bidirectional masks and cross-attention
+  (each rank the plain dispatch on its own q head), rwkv6-7b's 4 heads on
+  16 ranks (each rank the wkv6 of its own rows, the state carried):
+  attention at most 1.25 times, products at most 1.05 times.
+* C15 in gemma2-9b's smoke record on ``multipod``: no collective over
+  ``pod`` alone, one reduction over ``pod`` and ``data`` flattened a
+  parameter.
 
 Rank 0 of a fake world against rank 0 of 8 real gloo ranks is
 tests/test_torch_sharded.py's (its 8-process spawn runs the real side).
@@ -482,16 +496,33 @@ VOCAB_CELL, VOCAB_RANK = "whisper-small~515", 15
 # head) and rwkv6-7b (its mixes' weights gathered whole onto each rank's
 # rows), at these ``grad_accum``
 ACCUM_ARCHS, ACCUMS = ("gemma2-9b", "rwkv6-7b"), (1, 4)
+# C12's and C16's serving cells: the smoke configs' decode and prefill
+# steps at 64 x 256 (4 sequences a rank), at one superblock (gemma2-9b's
+# local and global layers, gemma3-1b's five local and one global,
+# recurrentgemma-2b's two RG-LRU and one local)
+SERVING_ARCHS = ("h2o-danube-1.8b", "internlm2-20b", "gemma2-9b/2",
+                 "gemma3-1b/6", "recurrentgemma-2b/3")
+# and internlm2-20b's ``long_500k`` decode step at a batch of 1, 4096
+# tokens (the rules cut the sequence over ``data``, the one new row
+# whole), whose ring-free cache the reference splits over all 256 ranks
+SERVING_CELLS = [f"{a}+{s}" for s in ("decode_32k", "prefill_32k")
+                 for a in SERVING_ARCHS] + ["internlm2-20b+long_500k:4096x1"]
+# C11's cells: 16 q heads and 8 kv heads on the 16 ``model`` ranks (the
+# q-heads route) under the prefix-LM mask (paligemma-3b) and the
+# bidirectional encoder and cross-attention (whisper-small), off flash
+Q_HEADS_CELLS = ("paligemma-3b@16x8", "whisper-small@16x8")
 
 
 def heads_port_record(cell: str = HEADS_CELL, rank: int = 0) -> dict:
     """The port's side of a smoke cell on ``pod`` at 64 x 256 tokens,
     traced as ``rank`` (tests/dryrun_records_worker.py): one layer, or the
-    cell's ``/L``."""
+    cell's ``/L``; the train step, or the cell's ``+SHAPE`` (at its
+    ``:SxB`` tokens, where it has them)."""
     import dryrun_records_worker as worker
-    arch, heads, layers, vocab = worker.parse_cell(cell)
-    return worker.port(arch, "smoke", "pod", layers or 1, 256, 64, 1,
-                       heads, vocab, rank=rank)
+    arch, heads, layers, vocab, shape, seq, batch = worker.parse_cell(cell)
+    return worker.port(arch, "smoke", "pod", layers or 1, seq or 256,
+                       batch or 64, 1, heads, vocab, rank=rank,
+                       shape_name=shape or "train_4k")
 
 
 def accum_port_record(arch: str, accum: int) -> dict:
@@ -522,6 +553,8 @@ def smoke_records():
                         for r in GROUPS_RANKS})
         futures[VOCAB_CELL] = pool.submit(heads_port_record, VOCAB_CELL,
                                           VOCAB_RANK)
+        futures.update({c: pool.submit(heads_port_record, c)
+                        for c in (*SERVING_CELLS, *Q_HEADS_CELLS)})
         futures.update({("accum", a, n): pool.submit(accum_port_record, a, n)
                         for a in ACCUM_ARCHS for n in ACCUMS})
         futures.update({(a, mp): pool.submit(smoke_train_record, a, mp)
@@ -549,7 +582,8 @@ def test_every_train_cell_communicates(smoke_records, arch, multi_pod):
         make_production_mesh(multi_pod=multi_pod))
     assert rec["cost"]["split"] == rec["memory"]["temp_split"] == name
     assert set(rec[name]) == {"op_flops", "kernel_shapes",
-                              "product_shapes", "largest_collective"}
+                              "product_shapes", "largest_collective",
+                              "collective_groups"}
 
 
 # (arch, heads, mesh, shape) -> the rank the dry-run traces: rank 0, or
@@ -613,13 +647,15 @@ COLLECTIVE_CLASSES = {"gather": ("all-gather",),
 def reference_records():
     """The reference's records of ``REFERENCE_ARCHS``' smoke train cells on
     ``pod`` (tests/dryrun_records_worker.py: the cells of
-    ``smoke_train_record``) and of ``HEADS_CELL``, compiled one after the
-    other by one process started while the module's other tests run."""
+    ``smoke_train_record``), of the module's other smoke cells and of the
+    serving cells (each at its ``+SHAPE``), compiled one after the other
+    by one process started while the module's other tests run."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     proc = subprocess.Popen(
         [sys.executable, str(WORKER), "reference",
          ",".join(REFERENCE_ARCHS + [HEADS_CELL, PACKED_CELL, GROUPS_CELL,
-                                     VOCAB_CELL]),
+                                     VOCAB_CELL, *SERVING_CELLS,
+                                     *Q_HEADS_CELLS]),
          "smoke", "pod",
          "--layers", "1", "--seq", "256", "--batch", "64"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -803,6 +839,79 @@ def test_unembedding_runs_on_each_ranks_rows(smoke_records,
                    if "515" in k.replace(" @ ", "x").split("x"))
     assert 0 < head(port) <= head(ref), (port["products_by_shape"],
                                          ref["products_by_shape"])
+
+
+@pytest.mark.parametrize("cell", SERVING_CELLS)
+def test_serving_records_hold_the_reference(smoke_records,
+                                            reference_records, cell):
+    """C12 and C16 beside the reference's own records of the smoke serving
+    cells on ``pod`` (64 x 256, 4 sequences a rank): a decode step's
+    products at most 1.05 times the reference's a device (1.000; 2.87-5.89
+    times when its residual stream was left ``Partial`` over ``model``,
+    and DTensor gathered the MLP's gate and up weights whole onto every
+    rank), its attention at most 1.25 times (1.000; 7.67-7.92 times where
+    a layer after a local one gathered the cache's slots); a prefill
+    step's products equal to the reference's.  The ``long_500k`` step
+    (1.000 and 1.000) did not trace: DTensor cut its one row over the 16
+    ``data`` ranks and refused to view it flat."""
+    ref = reference_records(cell)
+    port = smoke_records[cell].result(timeout=SMOKE_JOIN_S)
+    assert ref["shape"] == port["shape"] == \
+        cell.split("+")[1].split(":")[0]
+    assert (ref["layers"], ref["n_chips"]) == (port["layers"], 256)
+    if port["shape"] == "prefill_32k":
+        assert port["product_flops"] == ref["product_flops"] > 0
+        return
+    assert 0 < port["product_flops"] <= 1.05 * ref["product_flops"], \
+        (port["products_by_shape"], ref["products_by_shape"])
+    assert 0 < port["attention_flops"] <= 1.25 * ref["attention_flops"], \
+        (port["attention_flops"], ref["attention_flops"])
+
+
+@pytest.mark.parametrize("cell", [*Q_HEADS_CELLS, "rwkv6-7b"])
+def test_split_attention_off_flash_holds_the_reference(
+        smoke_records, reference_records, cell):
+    """C11 and C13 beside the reference's own records of smoke train cells
+    on ``pod``: attention at most 1.25 times the reference's a device and
+    products at most 1.05 times.  C11 (``Q_HEADS_CELLS``): the plain
+    dispatch on each rank's own q head against its one kv head
+    (``q_heads:attention``; 1.000 and 1.005 of the reference's; every rank
+    ran all 16 heads, 16.0 and 15.7 times).  C13 (rwkv6-7b's 4 heads on 16
+    ranks): the wkv6 on each rank's block of rows, the state carried
+    across the blocks (1.049; every rank ran all 4 heads on the whole
+    sequence, 5.67 times)."""
+    ref = reference_records(cell)
+    if cell in Q_HEADS_CELLS:
+        port = smoke_records[cell].result(timeout=SMOKE_JOIN_S)
+        # each attention's q at the rank's 4 sequences, 1 head: prefix-LM
+        # over 256 rows; the encoder's 256 and the decoder's 64
+        assert {(b, h) for b, _, h, _ in
+                port["kernel_shapes"]["q_heads:attention"]} == {(4, 1)}
+    else:
+        port = _flops(smoke_records[cell, False].result(
+            timeout=SMOKE_JOIN_S))
+    assert 0 < port["attention_flops"] <= 1.25 * ref["attention_flops"], \
+        (port["attention_flops"], ref["attention_flops"])
+    assert 0 < port["product_flops"] <= 1.05 * ref["product_flops"], \
+        (port["product_flops"], ref["product_flops"])
+
+
+def test_multipod_reduces_each_gradient_once(smoke_records):
+    """C15: gemma2-9b's smoke train step on ``multipod`` (2 x 16 x 16)
+    issues no collective over ``pod`` alone (a group of 2 ranks), and its
+    reductions over ``pod`` and ``data`` flattened (32 ranks, or 512 with
+    ``model``) are one for each parameter's gradient and one for the
+    loss's token count: DTensor reduced them one mesh dim at a time, a
+    reduce-scatter over ``data`` and an all-reduce over ``pod`` each."""
+    rec = smoke_records["gemma2-9b", True].result(timeout=SMOKE_JOIN_S)
+    groups = rec[f"rank{rec['rank_traced']}"]["collective_groups"]
+    assert all("2" not in by for by in groups.values()), groups
+    flat = sum(by.get(n, {"count": 0})["count"]
+               for kind in ("all-reduce", "reduce-scatter")
+               for by in (groups.get(kind, {}),) for n in ("32", "512"))
+    cfg = dataclasses.replace(get_smoke_config("gemma2-9b"), n_layers=1)
+    n_params = len(list(init_params(cfg, None, device="meta").parameters()))
+    assert flat == n_params + 1, (flat, n_params, groups)
 
 
 # the all-reduces a microbatch adds, by operand (shape, dtype) -> bytes:

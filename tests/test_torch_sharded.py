@@ -53,9 +53,14 @@ routes beside the other kernels', the loss against the full logits), and
 
 Beside the cells: C10's route alone (flash and the plain dispatch, 1 and 6
 kv heads) and in ``attention_seq`` (the gradients of the projections);
-C9's rwkv6-7b time mix and channel mix on the residual stream's rows,
-against the unsharded port and the reference's ``wkv_chunked`` and
-``channel_mix`` (``jax.vjp``), and the shapes of the rank's products.
+C11's q-heads route of the plain dispatch (2 q heads on 2 ranks, 1 kv
+head; the prefix and bidirectional masks); C9's rwkv6-7b time mix and
+channel mix on the residual stream's rows, and C13's with 2 heads that
+the 4 ``model`` ranks do not divide (each rank's block of rows, the state
+carried across the blocks), against the unsharded port and the
+reference's ``wkv_chunked`` and ``channel_mix`` (``jax.vjp``), and the
+shapes of the rank's products; C15's partial sums over ``pod`` and
+``data`` reduced in one collective, on a (2, 2, 2) mesh of the 8 ranks.
 
 Beside the cells, ``moe_layer`` on DTensors where the experts do not split
 over ``model`` (qwen3-moe and arctic smoke MoEs with 6 experts on 4
@@ -281,6 +286,8 @@ KERNEL_SHAPES = {"q": (8, 16, 4, 2, 16), "k": (8, 16, 4, 16),
                  "gq": (8, 16, 6, 16), "gk1": (8, 16, 1, 16),
                  "gv1": (8, 16, 1, 16), "gk6": (8, 16, 6, 16),
                  "gv6": (8, 16, 6, 16),
+                 "hq": (8, 16, 2, 16), "hk": (8, 16, 1, 16),
+                 "hv": (8, 16, 1, 16),
                  "a": (8, 16, 8), "b": (8, 16, 8),
                  "r": (8, 16, 4, 16), "wk": (8, 16, 4, 16),
                  "wv": (8, 16, 4, 16), "logw": (8, 16, 4, 16), "u": (4, 16)}
@@ -305,7 +312,9 @@ def _kernel_inputs():
                         ("wkv6", [KERNEL_SHAPES["r"], (8, 4, 16, 16)]),
                         ("plainh", [KERNEL_SHAPES["cq"]]),
                         *((tag, [KERNEL_SHAPES["gq"]])
-                          for tag in GROUP_TAGS)):
+                          for tag in GROUP_TAGS),
+                        *((tag, [KERNEL_SHAPES["hq"]])
+                          for tag in HEAD_TAGS)):
         for i, shape in enumerate(shapes):
             inp[f"kern/{tag}/ct{i}"] = rng.standard_normal(shape).astype(
                 np.float32)
@@ -313,24 +322,24 @@ def _kernel_inputs():
 
 
 def _whole_rows_case(attn, xp, tag, q, k, v):
-    """The dispatch branch that ``tag`` of ``worker.PLAIN_ROWS`` takes, on
-    whole tensors: flat q (B,S,H,hd) -> (B,S,H,hd) through ``attn``'s
+    """The dispatch branch that ``tag`` of ``worker.PLAIN_ROWS`` (or of
+    ``worker.PLAIN_HEADS``, the same masks) takes, on whole tensors: flat q (B,S,H,hd) -> (B,S,H,hd) through ``attn``'s
     ``_qblock_scan`` under the prefix mask, ``_rect_scan``, ``_sdpa``
     (cross) or ``_qblock_scan`` under the causal mask with its window (no
     packing with a window) at q blocks of 4, or with ``plain_attention``
     as the hook, ``_sdpa`` under that mask; ``attn``, ``xp``: the port's
     attention module and torch, or the reference's and ``jax.numpy``."""
     import torch_dist_worker as worker
-    kw = worker.PLAIN_ROWS[tag][1]
+    kw = {**worker.PLAIN_ROWS, **worker.PLAIN_HEADS}[tag][1]
     B_, S_, H, hd = q.shape
     Kh = k.shape[2]
     q5 = q.reshape(B_, S_, Kh, H // Kh, hd)
     qb, scale = worker.PLAIN_ROWS_KW["q_block"], \
         worker.PLAIN_ROWS_KW["scale"]
-    if tag == "plainp":
+    if tag in ("plainp", "plainqp"):
         o = attn._qblock_scan(q5, k, v, attn.make_mask_fn(
             "prefix", 0, kw["prefix_len"]), 0.0, scale, qb, 0)
-    elif tag == "plainb":
+    elif tag in ("plainb", "plainqb"):
         o = attn._rect_scan(q5, k, v, 0.0, scale, qb)[0]
     elif tag == "plainc":
         o = attn._qblock_scan(q5, k, v, attn.make_mask_fn(
@@ -348,6 +357,8 @@ def _whole_rows_case(attn, xp, tag, q, k, v):
 
 # the q-rows route by head groups (``worker.GROUP_ROWS``)
 GROUP_TAGS = ["flashg1", "flashg6", "plaing1", "plaing6"]
+# the plain dispatch's q-heads route (``worker.PLAIN_HEADS``)
+HEAD_TAGS = ["plainqp", "plainqb"]
 
 
 def _whole_group_case(attn, xp, tag, q, k, v):
@@ -403,7 +414,8 @@ def _kernel_plain(inp):
             ("flashq", flat_q, ("qf", "kf", "vf")),
             ("flashr", flat_r, ("qr", "kr", "vr")),
             *((tag, functools.partial(_whole_rows_case, tattn, torch, tag),
-               names) for tag, (names, *_) in worker.PLAIN_ROWS.items()),
+               names) for tag, (names, *_) in (*worker.PLAIN_ROWS.items(),
+                                               *worker.PLAIN_HEADS.items())),
             *((tag, _flash_groups if tag.startswith("flash") else
                functools.partial(_whole_group_case, tattn, torch, tag),
                ("gq", *kv)) for tag, kv in worker.GROUP_ROWS.items()),
@@ -490,29 +502,40 @@ def _group_layer_jax(inp):
     return out
 
 
-# rwkv6-7b's mixes on the residual stream's rows (C9): the smoke config's
-# one layer in f32, the reference's weights
-RWKV_LAYER = (("n_layers", 1),)
+# rwkv6-7b's mixes on the residual stream's rows: the smoke config's one
+# layer in f32 (C9), and with 2 heads, which the 4 ``model`` ranks do not
+# divide (C13; ``worker.RWKV_CONFIG``), the reference's weights
+RWKV_TAGS = ["rwkv", "rwkv2"]
 
 
-def _rwkv_cfgs():
-    return tuple(dataclasses.replace(c, param_dtype="float32", n_layers=1)
-                 for c in (jax_smoke("rwkv6-7b"), get_smoke_config(
-                     "rwkv6-7b")))
+def _rwkv_cfgs(tag):
+    import torch_dist_worker as worker
+    return tuple(worker.rwkv_config(tag, base)
+                 for base in (jax_smoke, get_smoke_config))
+
+
+def _rwkv_params(tag):
+    """The reference's weights of ``tag``'s config (its fields that shape
+    them given as ``heads``)."""
+    import torch_dist_worker as worker
+    return _jax_params("rwkv6-7b", seed=5, heads=(
+        ("n_layers", 1), *worker.RWKV_CONFIG[tag].items()))
 
 
 def _rwkv_inputs():
-    """``rwkv/p/*``: the port's one-layer model from the reference's
+    """``<tag>/p/*``: the port's one-layer model from the reference's
     weights; x for each mix and the cotangents of their outputs."""
-    _, tc = _rwkv_cfgs()
-    model = params_from_jax(jax.tree.map(np.asarray, _jax_params(
-        "rwkv6-7b", seed=5, heads=RWKV_LAYER)), tc, device="cpu")
-    inp = {f"rwkv/p/{n}": p.detach().numpy()
-           for n, p in model.named_parameters()}
-    rng = np.random.default_rng(13)
-    for n in ("x_tm", "x_cm", "ct_tm", "ct_cm"):
-        inp[f"rwkv/{n}"] = rng.standard_normal((B, S, tc.d_model)).astype(
-            np.float32)
+    inp = {}
+    for i, tag in enumerate(RWKV_TAGS):
+        _, tc = _rwkv_cfgs(tag)
+        model = params_from_jax(jax.tree.map(np.asarray, _rwkv_params(tag)),
+                                tc, device="cpu")
+        inp.update({f"{tag}/p/{n}": p.detach().numpy()
+                    for n, p in model.named_parameters()})
+        rng = np.random.default_rng(13 + i)
+        for n in ("x_tm", "x_cm", "ct_tm", "ct_cm"):
+            inp[f"{tag}/{n}"] = rng.standard_normal(
+                (B, S, tc.d_model)).astype(np.float32)
     return inp
 
 
@@ -520,25 +543,28 @@ def _rwkv_port(inp):
     """The unsharded port's time mix and channel mix: outputs and
     gradients, keyed as ``worker.run_rwkv``'s."""
     from repro_torch.models import rwkv as trwkv
-    _, tc = _rwkv_cfgs()
-    model = init_params(tc, None, device="meta")
-    model.load_state_dict({k[len("rwkv/p/"):]: torch.from_numpy(v)
-                           for k, v in inp.items()
-                           if k.startswith("rwkv/p/")}, assign=True)
-    layer = model.layers[0].requires_grad_()
-    xs = [torch.from_numpy(inp[f"rwkv/x_{n}"]).requires_grad_()
-          for n in ("tm", "cm")]
-    outs = (*trwkv.time_mix_seq(layer.tm, xs[0], tc),
-            *trwkv.channel_mix(layer.cm, xs[1]))
-    torch.autograd.backward([outs[0], outs[3]], [
-        torch.from_numpy(inp[f"rwkv/ct_{n}"]) for n in ("tm", "cm")])
-    out = {f"rwkv/out/{n}": o.detach().numpy() for n, o in zip(
-        ("tm", "state", "tm_last", "cm", "cm_last"), outs)}
-    out.update({f"rwkv/grad/x_{n}": x.grad.numpy()
-                for n, x in zip(("tm", "cm"), xs)})
-    out.update({f"rwkv/grad/{n}": p.grad.numpy() for n, p in (
-        *layer.tm.named_parameters(prefix="tm"),
-        *layer.cm.named_parameters(prefix="cm"))})
+    out = {}
+    for tag in RWKV_TAGS:
+        _, tc = _rwkv_cfgs(tag)
+        model = init_params(tc, None, device="meta")
+        pre = f"{tag}/p/"
+        model.load_state_dict({k[len(pre):]: torch.from_numpy(v)
+                               for k, v in inp.items()
+                               if k.startswith(pre)}, assign=True)
+        layer = model.layers[0].requires_grad_()
+        xs = [torch.from_numpy(inp[f"{tag}/x_{n}"]).requires_grad_()
+              for n in ("tm", "cm")]
+        outs = (*trwkv.time_mix_seq(layer.tm, xs[0], tc),
+                *trwkv.channel_mix(layer.cm, xs[1]))
+        torch.autograd.backward([outs[0], outs[3]], [
+            torch.from_numpy(inp[f"{tag}/ct_{n}"]) for n in ("tm", "cm")])
+        out.update({f"{tag}/out/{n}": o.detach().numpy() for n, o in zip(
+            ("tm", "state", "tm_last", "cm", "cm_last"), outs)})
+        out.update({f"{tag}/grad/x_{n}": x.grad.numpy()
+                    for n, x in zip(("tm", "cm"), xs)})
+        out.update({f"{tag}/grad/{n}": p.grad.numpy() for n, p in (
+            *layer.tm.named_parameters(prefix="tm"),
+            *layer.cm.named_parameters(prefix="cm"))})
     return out
 
 
@@ -546,30 +572,33 @@ def _rwkv_jax(inp):
     """The reference's ``wkv_chunked`` and ``channel_mix`` on the same
     weights and x, and their ``jax.vjp``: keyed as ``_rwkv_port``'s."""
     from repro.models import rwkv as jrwkv
-    jc, _ = _rwkv_cfgs()
-    block = _jax_params("rwkv6-7b", seed=5, heads=RWKV_LAYER)["blocks"][0]
-    tm, cm = ({n: v[0] for n, v in block[m].items()} for m in ("tm", "cm"))
+    out = {}
+    for tag in RWKV_TAGS:
+        jc, _ = _rwkv_cfgs(tag)
+        block = _rwkv_params(tag)["blocks"][0]
+        tm, cm = ({n: v[0] for n, v in block[m].items()}
+                  for m in ("tm", "cm"))
 
-    def mixes(tm, cm, x_tm, x_cm):
-        return (*jrwkv.wkv_chunked(tm, x_tm, jc),
-                *jrwkv.channel_mix(cm, x_cm))
+        def mixes(tm, cm, x_tm, x_cm, jc=jc):
+            return (*jrwkv.wkv_chunked(tm, x_tm, jc),
+                    *jrwkv.channel_mix(cm, x_cm))
 
-    @jax.jit
-    def with_grads(tm, cm, x_tm, x_cm, ct_tm, ct_cm):
-        outs, vjp = jax.vjp(mixes, tm, cm, x_tm, x_cm)
-        cts = [jnp.zeros_like(o) for o in outs]
-        cts[0], cts[3] = ct_tm, ct_cm
-        return outs, vjp(tuple(cts))
-    outs, (g_tm, g_cm, g_xtm, g_xcm) = with_grads(
-        tm, cm, *(jnp.asarray(inp[f"rwkv/{n}"])
-                  for n in ("x_tm", "x_cm", "ct_tm", "ct_cm")))
-    out = {f"rwkv/out/{n}": np.asarray(o) for n, o in zip(
-        ("tm", "state", "tm_last", "cm", "cm_last"), outs)}
-    out.update({"rwkv/grad/x_tm": np.asarray(g_xtm),
-                "rwkv/grad/x_cm": np.asarray(g_xcm)})
-    for m, g in (("tm", g_tm), ("cm", g_cm)):
-        out.update({f"rwkv/grad/{m}.{n}": np.asarray(v)
-                    for n, v in g.items()})
+        @jax.jit
+        def with_grads(tm, cm, x_tm, x_cm, ct_tm, ct_cm, mixes=mixes):
+            outs, vjp = jax.vjp(mixes, tm, cm, x_tm, x_cm)
+            cts = [jnp.zeros_like(o) for o in outs]
+            cts[0], cts[3] = ct_tm, ct_cm
+            return outs, vjp(tuple(cts))
+        outs, (g_tm, g_cm, g_xtm, g_xcm) = with_grads(
+            tm, cm, *(jnp.asarray(inp[f"{tag}/{n}"])
+                      for n in ("x_tm", "x_cm", "ct_tm", "ct_cm")))
+        out.update({f"{tag}/out/{n}": np.asarray(o) for n, o in zip(
+            ("tm", "state", "tm_last", "cm", "cm_last"), outs)})
+        out.update({f"{tag}/grad/x_tm": np.asarray(g_xtm),
+                    f"{tag}/grad/x_cm": np.asarray(g_xcm)})
+        for m, g in (("tm", g_tm), ("cm", g_cm)):
+            out.update({f"{tag}/grad/{m}.{n}": np.asarray(v)
+                        for n, v in g.items()})
     return out
 
 
@@ -695,10 +724,16 @@ def _moe_dense_jax(inp):
     return out
 
 
+def _reduce_inputs():
+    """``reduce/g``: 8 blocks of partial sums (``worker.run_reduce``)."""
+    return {"reduce/g": np.random.default_rng(17).standard_normal(
+        (8, 8, 6)).astype(np.float32)}
+
+
 def _inputs():
     inp = {"cells": np.array(",".join(CELLS)), **_kernel_inputs(),
            **_xent_inputs(), **_moe_dense_inputs(), **_rwkv_inputs(),
-           **_group_layer_inputs()}
+           **_group_layer_inputs(), **_reduce_inputs()}
     for cell, (arch, kinds, kv_quant, accum) in CELLS.items():
         inp[f"{cell}/arch"] = np.array(arch)
         inp[f"{cell}/kinds"] = np.array(kinds)
@@ -1055,7 +1090,7 @@ def test_moe_fallback_matches_reference(sharded, arch):
 
 @pytest.mark.parametrize("tag", ["flash", "flashq", "flashr", "plainp",
                                  "plainb", "plainx", "plainc", "plainh",
-                                 *GROUP_TAGS, "scan", "wkv6"])
+                                 *GROUP_TAGS, *HEAD_TAGS, "scan", "wkv6"])
 def test_kernel_routes_on_eight_ranks(sharded, tag):
     """Each wrapper's DTensor route on the 2 x 4 mesh (some inputs cut
     locally, u's gradient a Partial over ``data``): its outputs and the
@@ -1081,7 +1116,11 @@ def test_kernel_routes_on_eight_ranks(sharded, tag):
     the 4 ranks, 2 groups of 3, each group's 16 rows split 2 ways, against
     1 kv head (a group inside it) and 6 (3 whole ones a group); flash under
     a causal mask with a window of 6 (``flashg*``), the plain dispatch
-    under the bidirectional one (``plaing*``)."""
+    under the bidirectional one (``plaing*``).  The ``HEAD_TAGS`` are the
+    plain dispatch's q-heads route (C11, ``attention_q_heads``): 2 flat q
+    heads cut over the 2 ``data`` ranks, 1 kv head whole there, under the
+    prefix mask over 5 positions and the bidirectional one; k's and v's
+    gradients summed over ``data``, the output cut on its heads."""
     res, port, _ = sharded
     want = port["kernels"]
     keys = [k for k in want if k.startswith(f"kern/{tag}/")]
@@ -1097,6 +1136,7 @@ def test_kernel_routes_on_eight_ranks(sharded, tag):
              "plainc": ["(Shard(dim=0), Replicate())"],
              "plainh": ["(Shard(dim=0), Replicate())"],
              **dict.fromkeys(GROUP_TAGS, ["(Shard(dim=0), Replicate())"]),
+             **dict.fromkeys(HEAD_TAGS, ["(Shard(dim=2), Shard(dim=0))"]),
              "scan": ["(Shard(dim=0), Shard(dim=2))"],
              "wkv6": ["(Shard(dim=0), Shard(dim=2))",
                       "(Shard(dim=0), Shard(dim=1))"]}[tag]
@@ -1128,7 +1168,7 @@ def test_q_rows_route_matches_the_reference(sharded):
 
 
 @pytest.mark.parametrize("tag", ["plainp", "plainb", "plainx", "plainc",
-                                 "plainh"])
+                                 "plainh", *HEAD_TAGS])
 def test_plain_q_rows_route_matches_the_reference(sharded, tag):
     """C6's route on 8 ranks against the reference's branch of its
     dispatch on the whole tensors (``_qblock_scan`` under the prefix mask,
@@ -1136,13 +1176,14 @@ def test_plain_q_rows_route_matches_the_reference(sharded, tag):
     the causal mask with a window, ``_sdpa`` under it for the
     ``plain_attention`` hook; f32) and its
     ``jax.vjp``: the output and q's, k's and v's gradients to the model
-    tolerance."""
+    tolerance.  The same for C11's q-heads route (``HEAD_TAGS``: the
+    prefix and bidirectional branches)."""
     import torch_dist_worker as worker
 
     from repro.models import attention as jattn
     res, _, _ = sharded
     inp = _kernel_inputs()
-    names = worker.PLAIN_ROWS[tag][0]
+    names = {**worker.PLAIN_ROWS, **worker.PLAIN_HEADS}[tag][0]
     o, vjp = jax.vjp(functools.partial(_whole_rows_case, jattn, jnp, tag),
                      *(jnp.asarray(inp[f"kern/{n}"]) for n in names))
     grads = vjp(jnp.asarray(inp[f"kern/{tag}/ct0"]))
@@ -1210,23 +1251,29 @@ def test_group_rows_layer_matches_reference(sharded, tag):
                                    rtol=MODEL_TOL, err_msg=k)
 
 
-def _rwkv_keys(want):
-    keys = sorted(k for k in want if k.startswith("rwkv/"))
-    assert {"rwkv/out/tm", "rwkv/out/cm", "rwkv/grad/x_tm",
-            "rwkv/grad/tm.wr", "rwkv/grad/tm.tm_w1", "rwkv/grad/cm.wr",
-            "rwkv/grad/cm.wk"} <= set(keys), keys
+def _rwkv_keys(want, tag):
+    keys = sorted(k for k in want if k.startswith(f"{tag}/"))
+    assert {f"{tag}/{k}" for k in (
+        "out/tm", "out/state", "out/cm", "grad/x_tm", "grad/tm.wr",
+        "grad/tm.tm_w1", "grad/tm.u", "grad/cm.wr", "grad/cm.wk")} <= \
+        set(keys), keys
     return keys
 
 
-def test_rwkv_mixes_on_rows_match_unsharded_port(sharded):
+@pytest.mark.parametrize("tag", RWKV_TAGS)
+def test_rwkv_mixes_on_rows_match_unsharded_port(sharded, tag):
     """C9: rwkv6-7b's time mix and channel mix on x laid out as the
     residual stream (its rows cut over the 4 ``model`` ranks, each rank's
     LoRAs and d x d products on its own rows, the token shift across the
     ranks' blocks, the wkv6 by heads): the outputs, the final state, the
     last rows and the gradients of x and of every weight equal the
-    unsharded port's to 1e-5 relative."""
+    unsharded port's to 1e-5 relative.  C13 (``rwkv2``): 2 heads, which
+    the 4 ranks do not divide: each rank the wkv6 of its own block of
+    rows from a zero state, the blocks' final states and summed logw
+    gathered, the state carried into each block added; the same
+    tolerance."""
     res, port, _ = sharded
-    for k in _rwkv_keys(port["rwkv"]):
+    for k in _rwkv_keys(port["rwkv"], tag):
         assert res[k].shape == port["rwkv"][k].shape, k
         assert _rel(res[k], port["rwkv"][k]) <= DIST_F32_TOL, \
             (k, _rel(res[k], port["rwkv"][k]))
@@ -1236,15 +1283,16 @@ RWKV_TOL = 1e-4             # tests/test_torch_rwkv.py's f32 blocks
 RWKV_GRAD_TOL = 5e-4        # tests/test_torch_train.py's rwkv6-7b grads
 
 
-def test_rwkv_mixes_on_rows_match_reference(sharded):
+@pytest.mark.parametrize("tag", RWKV_TAGS)
+def test_rwkv_mixes_on_rows_match_reference(sharded, tag):
     """The same against the reference's ``wkv_chunked`` and
     ``channel_mix`` and their ``jax.vjp``: the values to the rwkv tests' f32
     tolerance (1e-4, elementwise), the gradients to the train test's for
     rwkv6-7b's chunked path (5e-4 in relative norm: the plain chunked wkv
     rounds in another order, which the per-head group norm amplifies)."""
     res, _, ref = sharded
-    for k in _rwkv_keys(ref["rwkv"]):
-        if k.startswith("rwkv/out/"):
+    for k in _rwkv_keys(ref["rwkv"], tag):
+        if "/out/" in k:
             np.testing.assert_allclose(res[k], ref["rwkv"][k], atol=RWKV_TOL,
                                        rtol=RWKV_TOL, err_msg=k)
         else:
@@ -1266,6 +1314,31 @@ def test_rwkv_products_run_on_the_ranks_rows(sharded):
     assert dd and all(rows in p[0] + p[1] for p in dd), dd
     assert all(shard_rows not in p[0] + p[1] for p in dd), dd
     assert any(shard_rows in p[0] + p[1] for p in prods)
+
+
+@pytest.mark.parametrize("case", ["rr", "zero", "all"])
+def test_partial_sums_reduce_in_one_collective(sharded, case):
+    """C15 on a (2, 2, 2) ("pod", "data", "model") mesh of the 8 ranks
+    (``worker.REDUCE_CASES``): partial sums over ``pod`` and ``data`` (2 x
+    2), reduced to replicated, to a ZeRO shard over ``data``, and, partial
+    over ``model`` too, to shards over ``data`` and ``model``.
+    ``context.redistribute`` issues one all-reduce over the partial dims
+    flattened (4 ranks, or 8), where DTensor's own issues one collective a
+    mesh dim, one of them over ``pod`` alone (2 ranks); both equal the sum
+    of the ranks' blocks, and each other to 1e-6 in f32."""
+    import torch_dist_worker as worker
+    res, _, _ = sharded
+    g = _reduce_inputs()["reduce/g"].astype(np.float64)
+    held = worker.REDUCE_CASES[case][0]
+    want = g.sum(0) if held[2] == "P" else g[:4].sum(0)
+    flat, steps = (res[f"reduce/{case}/{how}"] for how in ("flat", "steps"))
+    assert _rel(flat, steps) <= 1e-6, _rel(flat, steps)
+    assert _rel(flat, want) <= 1e-6, _rel(flat, want)
+    flat_c, steps_c = (json.loads(str(res[f"reduce/{case}/{how}/"
+                                          "collectives"]))
+                       for how in ("flat", "steps"))
+    assert flat_c == [["all-reduce", 8 if held[2] == "P" else 4]], flat_c
+    assert len(steps_c) >= 2 and ["all-reduce", 2] in steps_c, steps_c
 
 
 def test_vocab_parallel_loss_matches_the_full_logits(sharded):

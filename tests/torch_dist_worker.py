@@ -17,8 +17,9 @@ the (2, 4) ("data", "model") mesh, and writes each output in full; the
 MoE whose experts do not split over ``model`` (``run_moe_dense``); the
 kernels' DTensor routes (``run_kernels``), attention by head groups in the
 layer (``run_group_layers``), rwkv6-7b's time mix and channel mix on the
-residual stream's rows (``run_rwkv``) and the vocab-parallel
-cross-entropy (``run_loss``); each cell's q-rows routes and the cut of its
+residual stream's rows (``run_rwkv``), partial sums over two and three
+mesh dims reduced in one collective (``run_reduce``) and the
+vocab-parallel cross-entropy (``run_loss``); each cell's q-rows routes and the cut of its
 k and v projections are noted as it runs (``seeing_q_rows``).  Then
 what the dry-run's fake world is held against (``run_dryrun_checks``):
 ``train.steps._microbatch`` on a batch sharded over 8 data ranks, a
@@ -319,6 +320,16 @@ PLAIN_ROWS = {
                "plain_attention"),
 }
 PLAIN_ROWS_KW = {"scale": 0.25, "q_block": 4, "pack": True}
+# the plain dispatch's q-heads route (C11, ``models.attention.
+# attention_q_heads``): 2 flat q heads cut over the 2 ``data`` ranks (the
+# batch over the 4 ``model`` ranks), 1 kv head whole there, which both
+# read; the prefix mask over 5 positions and the bidirectional one, at
+# ``PLAIN_ROWS_KW``: tag -> (the inputs q, k, v, the route's keywords)
+PLAIN_HEADS = {
+    "plainqp": (("hq", "hk", "hv"), {"mask_mode": "prefix",
+                                     "prefix_len": 5}),
+    "plainqb": (("hq", "hk", "hv"), {"mask_mode": "bidir"}),
+}
 # the q-rows route by head groups: tag -> its k and v inputs (q is ``gq``,
 # 6 heads): flash under a causal mask with a window of 6, the plain
 # dispatch under the bidirectional one (the rectangle scan at q blocks of
@@ -336,7 +347,7 @@ def run_kernels(inp, mesh, res):
     ranks, whole there, each rank one block of one head's rows); the
     outputs, the input gradients of a random cotangent
     and the output placements, in full; and the plain dispatch's q-rows
-    route (``PLAIN_ROWS``)."""
+    route (``PLAIN_ROWS``) and q-heads route (``PLAIN_HEADS``)."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
@@ -400,6 +411,12 @@ def run_kernels(inp, mesh, res):
                                                **PLAIN_ROWS_KW), ins)
     finally:
         tattn.set_attention_impl(hook)
+    for tag, (names, kw) in PLAIN_HEADS.items():
+        ins = dict(zip(names, (dt(names[0], Shard(2), Shard(0)),
+                               dt(names[1], Replicate(), Shard(0)),
+                               dt(names[2], Replicate(), Replicate()))))
+        record(tag, tattn.attention_q_heads(*ins.values(), **kw,
+                                            **PLAIN_ROWS_KW), ins)
     ins = {"a": dt("a", Shard(0), Shard(2)), "b": dt("b", Replicate(),
                                                      Replicate())}
     record("scan", rglru_scan(*ins.values()), ins)
@@ -458,44 +475,104 @@ def run_group_layers(inp, mesh, res):
             res[f"{tag}/grad/{n}"] = full(t.grad).numpy()
 
 
+# rwkv6-7b's one-layer smoke config: tag -> the fields it replaces.  Its 4
+# heads split over the 4 ``model`` ranks (the wkv6 by heads, C9); with a
+# head dim of 32, 2 heads do not (each rank's block of rows from a zero
+# state, the state carried across the blocks, C13)
+RWKV_CONFIG = {"rwkv": {}, "rwkv2": {"rwkv_head_dim": 32}}
+
+
+def rwkv_config(tag, base):
+    """``RWKV_CONFIG[tag]``'s f32 one-layer config from ``base`` (a smoke
+    config getter: the port's or the reference's)."""
+    return dataclasses.replace(base("rwkv6-7b"), n_layers=1,
+                               param_dtype="float32", **RWKV_CONFIG[tag])
+
+
 def run_rwkv(inp, mesh, res):
-    """rwkv6-7b's time mix and channel mix (the smoke config's one layer,
-    f32, its weights ``rwkv/p/*`` placed by the model's rules) on x
-    (``rwkv/x_tm``, ``rwkv/x_cm``) laid out as the residual stream (rows
+    """For each ``RWKV_CONFIG`` tag, rwkv6-7b's time mix and channel mix
+    (its weights ``<tag>/p/*`` placed by the model's rules) on x
+    (``<tag>/x_tm``, ``<tag>/x_cm``) laid out as the residual stream (rows
     cut over ``model``, C9): the outputs, the state and last rows, and the
-    gradients of x and of every weight for the cotangents ``rwkv/ct_*``,
+    gradients of x and of every weight for the cotangents ``<tag>/ct_*``,
     in full; the operand shapes of the rank's products."""
     from torch.distributed.tensor import distribute_tensor
     from repro_torch.distributed.layouts import shard_params
     from repro_torch.models import rwkv as trwkv
     from repro_torch.roofline.trace import OpTrace
-    cfg = dataclasses.replace(get_smoke_config("rwkv6-7b"), n_layers=1,
-                              param_dtype="float32")
-    model = cell_model(inp, "rwkv", cfg)
-    x_tm, x_cm = (torch.from_numpy(inp[f"rwkv/x_{n}"]) for n in ("tm", "cm"))
-    rules = choose_layout(cfg, cell_shape("train", *x_tm.shape[:2]), mesh)
-    shard_params(model, cfg, rules, mesh)
-    layer = model.layers[0].requires_grad_()
-    rows = rules.placements(("batch", "act_seq", None))
-    xs = [distribute_tensor(x, mesh, rows).requires_grad_()
-          for x in (x_tm, x_cm)]
-    cts = [distribute_tensor(torch.from_numpy(inp[f"rwkv/ct_{n}"]), mesh,
-                             rows) for n in ("tm", "cm")]
-    with context.use_rules(rules), context.replicate_made_tensors(
-            layer.tm.wr), context.native_alltoall(), OpTrace() as trace:
-        outs = (*trwkv.time_mix_seq(layer.tm, xs[0], cfg),
-                *trwkv.channel_mix(layer.cm, xs[1]))
-        # the outputs at the residual stream's rows, as x
-        torch.autograd.backward([outs[0], outs[3]], cts)
-    for name, o in zip(("tm", "state", "tm_last", "cm", "cm_last"), outs):
-        res[f"rwkv/out/{name}"] = full(o.detach()).numpy()
-    for n, x in zip(("tm", "cm"), xs):
-        res[f"rwkv/grad/x_{n}"] = full(x.grad).numpy()
-    for n, p in (*layer.tm.named_parameters(prefix="tm"),
-                 *layer.cm.named_parameters(prefix="cm")):
-        res[f"rwkv/grad/{n}"] = full(p.grad).numpy()
-    res["rwkv/products"] = np.array(json.dumps(
-        [op.operands for op in trace.ops if op.operands]))
+    for tag in RWKV_CONFIG:
+        cfg = rwkv_config(tag, get_smoke_config)
+        model = cell_model(inp, tag, cfg)
+        x_tm, x_cm = (torch.from_numpy(inp[f"{tag}/x_{n}"])
+                      for n in ("tm", "cm"))
+        rules = choose_layout(cfg, cell_shape("train", *x_tm.shape[:2]),
+                              mesh)
+        shard_params(model, cfg, rules, mesh)
+        layer = model.layers[0].requires_grad_()
+        rows = rules.placements(("batch", "act_seq", None))
+        xs = [distribute_tensor(x, mesh, rows).requires_grad_()
+              for x in (x_tm, x_cm)]
+        cts = [distribute_tensor(torch.from_numpy(inp[f"{tag}/ct_{n}"]),
+                                 mesh, rows) for n in ("tm", "cm")]
+        with context.use_rules(rules), context.replicate_made_tensors(
+                layer.tm.wr), context.native_alltoall(), \
+                OpTrace() as trace:
+            outs = (*trwkv.time_mix_seq(layer.tm, xs[0], cfg),
+                    *trwkv.channel_mix(layer.cm, xs[1]))
+            # the outputs at the residual stream's rows, as x
+            torch.autograd.backward([outs[0], outs[3]], cts)
+        for name, o in zip(("tm", "state", "tm_last", "cm", "cm_last"),
+                           outs):
+            res[f"{tag}/out/{name}"] = full(o.detach()).numpy()
+        for n, x in zip(("tm", "cm"), xs):
+            res[f"{tag}/grad/x_{n}"] = full(x.grad).numpy()
+        for n, p in (*layer.tm.named_parameters(prefix="tm"),
+                     *layer.cm.named_parameters(prefix="cm")):
+            res[f"{tag}/grad/{n}"] = full(p.grad).numpy()
+        res[f"{tag}/products"] = np.array(json.dumps(
+            [op.operands for op in trace.ops if op.operands]))
+
+
+# C15: partial sums over ``pod`` and ``data`` (2 x 2, and ``model`` 2 more)
+# -> the placements each case reduces them to: tag -> (the partial sums'
+# placements, the target's), on the (2, 2, 2) ("pod", "data", "model")
+# mesh; "P" Partial, "R" Replicate, "S0"/"S1" Shard(0)/Shard(1)
+REDUCE_CASES = {"rr": ("PPR", ("R", "R", "R")),
+                "zero": ("PPR", ("R", "S0", "R")),
+                "all": ("PPP", ("R", "S0", "S1"))}
+
+
+def run_reduce(inp, res):
+    """Each ``REDUCE_CASES`` case on the ranks' partial sums (``reduce/g``,
+    (8, 6) f32 blocks: one a (pod, data) coordinate, or one a rank where
+    ``model`` holds partial sums too): DTensor's own
+    ``redistribute`` (one collective a mesh dim), every case first, then
+    ``context.redistribute`` (one collective over the partial dims
+    flattened, ``reduce_flat``; made second, since DTensor then takes a
+    flattened mesh of its own accord); the results in full and each
+    run's collectives as (kind, ranks) pairs."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.roofline.trace import OpTrace
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    place = {"P": Partial(), "R": Replicate(), "S0": Shard(0),
+             "S1": Shard(1)}
+
+    def partial(tag):
+        # the ranks' own blocks: one a (pod, data) coordinate where the
+        # sums are whole over ``model``, else one a rank
+        held = REDUCE_CASES[tag][0]
+        n = 8 if held[2] == "P" else 4
+        local = torch.from_numpy(inp["reduce/g"][dist.get_rank() * n // 8])
+        return DTensor.from_local(local.clone(), mesh, tuple(
+            place[c] for c in held), run_check=False)
+    for how, fn in (("steps", lambda t, p: t.redistribute(mesh, p)),
+                    ("flat", context.redistribute)):
+        for tag, (_, target) in REDUCE_CASES.items():
+            with OpTrace() as trace:
+                out = fn(partial(tag), tuple(place[c] for c in target))
+            res[f"reduce/{tag}/{how}"] = full(out).numpy()
+            res[f"reduce/{tag}/{how}/collectives"] = np.array(json.dumps(
+                [(c[0], c[4]) for c in trace.collectives]))
 
 
 def run_loss(inp, mesh, res):
@@ -582,7 +659,7 @@ def trace_summary(trace) -> dict:
             "flops": np.array(trace.flops),
             "collectives": json.dumps(collective_stats(trace)),
             "largest_gather": np.array(max(
-                (out for kind, _, out, _ in trace.collectives
+                (out for kind, _, out, _, _ in trace.collectives
                  if kind == "all-gather"), default=0))}
 
 
@@ -648,6 +725,7 @@ def sharded_main(rank, world, store, inputs, out):
     run_kernels(inp, mesh, res)
     run_group_layers(inp, mesh, res)
     run_rwkv(inp, mesh, res)
+    run_reduce(inp, res)
     run_loss(inp, mesh, res)
     run_moe_dense(inp, mesh, res)
     run_dryrun_checks(mesh, res)
