@@ -204,7 +204,9 @@ Phases:
      reference's and the d x d products ran on the rank's S / 16 rows.
      Then whisper-small's cell (rank 15's products beside the
      reference's), gemma2-9b's decode_32k cell (rank 0's products a device
-     beside the reference's; it fails above 1.05 of them) and gemma2-9b's
+     beside the reference's; it fails above 1.05 of them), rwkv6-7b's
+     decode_32k cell (the same, and its attention; it fails above 1.25 of
+     the reference's) and gemma2-9b's
      train_4k cell on ``multipod`` (512 ranks) at the dry-run's grad_accum
      of 4: one ``[dryrun]`` line with its reductions over ``pod`` and
      ``data`` flattened, its parameters and the collectives over ``pod``
@@ -366,6 +368,16 @@ DRYRUN_REDUCE_SLACK = 1.01
 DRYRUN_DECODE_CELL = ("gemma2-9b", "decode_32k", "pod")
 DRYRUN_DECODE_LAYERS = 2
 DRYRUN_DECODE_REFERENCE_PRODUCTS = 1754267648
+# and rwkv6-7b's decode_32k cell at full width and one layer: rank 0's
+# products and attention (the LoRA's second product and the recurrence's
+# r . S, both batched) a device against the reference's compiled record of
+# the same cell (jax 0.9.0 on a CPU host, PERF.md section 7; C17: the
+# LoRAs on each rank's block of the model dim, the recurrence on each
+# rank's rows and heads)
+DRYRUN_RWKV_DECODE_CELL = ("rwkv6-7b", "decode_32k", "pod")
+DRYRUN_RWKV_DECODE_REFERENCE_PRODUCTS = 487718912
+DRYRUN_RWKV_DECODE_REFERENCE_ATTENTION = 917504
+DRYRUN_ATTENTION_SLACK = 1.25
 # and gemma2-9b's train_4k cell on ``multipod`` at the dry-run's grad_accum:
 # each parameter's gradient reduced in one collective over ``pod`` and
 # ``data`` flattened (32 ranks, 512 with ``model``), none over ``pod``
@@ -2986,12 +2998,14 @@ def dryrun_path(card) -> dict:
     beside the reference's and their largest shapes; fails unless they
     are within ``DRYRUN_PRODUCTS_SLACK`` of it (C14: the head on each
     rank's rows).  Then ``DRYRUN_DECODE_CELL``'s the same way, against
-    ``DRYRUN_DECODE_REFERENCE_PRODUCTS`` (C16).  Then
+    ``DRYRUN_DECODE_REFERENCE_PRODUCTS`` (C16), and
+    ``DRYRUN_RWKV_DECODE_CELL``'s, against the reference's products and
+    attention (C17; ``dryrun_decode_row``).  Then
     ``DRYRUN_MULTIPOD_CELL``'s: prints its reductions
     (``multipod_reductions``); fails unless every parameter's gradient and
     every microbatch's token count took one collective over ``pod`` and
     ``data`` flattened and no all-reduce ran over ``pod`` alone (C15;
-    ``DeviceMesh._flatten`` under the card machine's torch).  The eight
+    ``DeviceMesh._flatten`` under the card machine's torch).  The nine
     cells run at once (``dryrun_records``); each line gives its
     subprocess's wall seconds: these are the runs of the routes under the
     card machine's torch."""
@@ -3006,6 +3020,7 @@ def dryrun_path(card) -> dict:
         "rwkv": (DRYRUN_RWKV_CELL, DRYRUN_LAYERS),
         "whisper": (DRYRUN_WHISPER_CELL, DRYRUN_LAYERS),
         "decode": (DRYRUN_DECODE_CELL, DRYRUN_DECODE_LAYERS),
+        "rwkv_decode": (DRYRUN_RWKV_DECODE_CELL, DRYRUN_LAYERS),
         "multipod": (DRYRUN_MULTIPOD_CELL, DRYRUN_LAYERS)})
     arch, shape, mesh = DRYRUN_CELL
     rec, wall = runs["dryrun"]
@@ -3149,24 +3164,12 @@ def dryrun_path(card) -> dict:
           f"[dryrun] {arch}: rank {rec['rank_traced']}'s {products} product "
           f"flops a device against the reference's "
           f"{DRYRUN_WHISPER_REFERENCE_PRODUCTS}")
-    arch, shape, mesh = DRYRUN_DECODE_CELL
-    rec, wall = runs["decode"]
-    work = rec[rec["cost"]["split"]]
-    products = work["op_flops"].get("aten.mm", 0)
-    decode_row = {
-        "cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
-        "rank_traced": rec["rank_traced"],
-        "flops_per_device": rec["cost"]["flops_per_device"],
-        "product_flops_per_device": products,
-        "reference_product_flops": DRYRUN_DECODE_REFERENCE_PRODUCTS,
-        "largest_products": dict(list(work["product_shapes"].items())[:4]),
-        "collectives": rec["collectives"], "trace_s": rec["lower_s"],
-        "wall_s": wall, "card": card}
-    print("[dryrun] " + json.dumps(decode_row), flush=True)
-    check(0 < products <= DRYRUN_PRODUCTS_SLACK *
-          DRYRUN_DECODE_REFERENCE_PRODUCTS,
-          f"[dryrun] {arch} {shape}: {products} product flops a device "
-          f"against the reference's {DRYRUN_DECODE_REFERENCE_PRODUCTS}")
+    decode_row = dryrun_decode_row(DRYRUN_DECODE_CELL, runs["decode"],
+                                   DRYRUN_DECODE_REFERENCE_PRODUCTS, card)
+    rwkv_decode_row = dryrun_decode_row(
+        DRYRUN_RWKV_DECODE_CELL, runs["rwkv_decode"],
+        DRYRUN_RWKV_DECODE_REFERENCE_PRODUCTS, card,
+        DRYRUN_RWKV_DECODE_REFERENCE_ATTENTION)
 
     arch, shape, mesh = DRYRUN_MULTIPOD_CELL
     rec, wall = runs["multipod"]
@@ -3186,7 +3189,43 @@ def dryrun_path(card) -> dict:
           f"pod alone")
     return {"dryrun": row, "heads": heads_row, "rows": rows_row,
             "groups": groups_row, "rwkv": rwkv_row, "whisper": whisper_row,
-            "decode": decode_row, "multipod": multipod_row}
+            "decode": decode_row, "rwkv_decode": rwkv_decode_row,
+            "multipod": multipod_row}
+
+
+def dryrun_decode_row(cell, run, reference_products: int, card,
+                      reference_attention: int = 0) -> dict:
+    """A ``[dryrun]`` decode cell's line: the traced rank's products (and,
+    where ``reference_attention`` is given, its attention: ``bmm`` and
+    flash) a device beside the reference's and their largest shapes; fails
+    unless the products are within ``DRYRUN_PRODUCTS_SLACK`` of the
+    reference's and the attention within ``DRYRUN_ATTENTION_SLACK``."""
+    arch, shape, mesh = cell
+    rec, wall = run
+    work = rec[rec["cost"]["split"]]
+    ops = work["op_flops"]
+    products = ops.get("aten.mm", 0)
+    attention = ops.get("aten.bmm", 0) + ops.get("flash_attention", 0)
+    row = {
+        "cell": f"{arch} {shape} {mesh}", "layers": rec["layers"],
+        "rank_traced": rec["rank_traced"],
+        "flops_per_device": rec["cost"]["flops_per_device"],
+        "product_flops_per_device": products,
+        "reference_product_flops": reference_products,
+        "attention_flops_per_device": attention,
+        "reference_attention_flops": reference_attention or None,
+        "largest_products": dict(list(work["product_shapes"].items())[:4]),
+        "collectives": rec["collectives"], "trace_s": rec["lower_s"],
+        "wall_s": wall, "card": card}
+    print("[dryrun] " + json.dumps(row), flush=True)
+    check(0 < products <= DRYRUN_PRODUCTS_SLACK * reference_products,
+          f"[dryrun] {arch} {shape}: {products} product flops a device "
+          f"against the reference's {reference_products}")
+    check(not reference_attention or 0 < attention <=
+          DRYRUN_ATTENTION_SLACK * reference_attention,
+          f"[dryrun] {arch} {shape}: {attention} attention flops a device "
+          f"against the reference's {reference_attention}")
+    return row
 
 
 def multipod_reductions(rec) -> dict:

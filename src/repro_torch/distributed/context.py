@@ -28,7 +28,9 @@ DTensor's mesh) where the model holds DTensors and nothing otherwise.
 ``local_placements`` is what a kernel wrapper's DTensor route checks
 before it runs its kernel on the local shards (``local_map``); ``on_rows``
 runs any function so on each rank's rows of an activation whose rows
-stay cut (``rows_cut``), against weights gathered whole.
+stay cut (``rows_cut``), against weights gathered whole; ``cut_as`` cuts
+a small weight as an activation is cut, so that a product runs on each
+rank's block, and ``reduced`` sums its partial result.
 ``unflatten``/``flatten``, ``replicate_dim``, ``grad_like`` and
 ``native_alltoall`` keep a DTensor's layout where DTensor's own rules would
 refuse a reshape, scatter a gradient onto strided rows, or gather a whole
@@ -466,6 +468,32 @@ def replicated(t):
         return t
     from torch.distributed.tensor import Replicate
     return weight_at(t, (Replicate(),) * t.device_mesh.ndim)
+
+
+def cut_as(w, dim: int, t, t_dim: int):
+    """The DTensor weight ``w`` cut on its dim ``dim`` over the mesh dims
+    that cut the DTensor ``t``'s dim ``t_dim``, whole on the others
+    (``weight_at``: a local cut where ``w`` is whole).  A product of ``t``
+    that contracts, or makes, that dim then runs on each rank's block of
+    it, as the reference's partitioner runs a small replicated weight
+    against an activation cut over ``model``.  A plain ``w`` or ``t``
+    leaves ``w`` as it is."""
+    if not (is_dtensor(w) and is_dtensor(t)):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    on = _sharding(t, t_dim)
+    return weight_at(w, tuple(Shard(dim % w.dim()) if m in on else
+                              Replicate() for m in range(w.device_mesh.ndim)))
+
+
+def reduced(t):
+    """The DTensor ``t`` with its partial sums reduced (``redistribute``),
+    its shards kept; a plain ``t`` as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return redistribute(t, tuple(Replicate() if p.is_partial() else p
+                                 for p in t.placements))
 
 
 def weight_at(w, place):

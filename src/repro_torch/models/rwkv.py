@@ -19,7 +19,11 @@ weight (``context.on_rows``: the time mix's LoRAs and its five d x d
 projections, the channel mix's receptance); only the wkv6 lays its
 inputs out by heads, and its output comes back to the rows.  The channel
 mix's ``wk`` and ``wv`` stay split on ``ff`` over all rows (Megatron), as
-in the reference.
+in the reference.  A decode step's token is whole over ``model`` and its
+cached shift cut on the model dim: the LoRAs run on each rank's block of
+that dim against the small weights cut the same way (``context.cut_as``,
+their partial sums reduced by ``context.reduced``), and the recurrence on
+each rank's rows and heads (``run_local``).
 
 Recurrence (per head, k/v/r in R^hd):
     y_t = r_t^T (S_{t-1} + diag(u*k_t) v_t^T)
@@ -35,10 +39,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.context import (ROWS, axis_size, constrain,
-                                             flatten, grad_like, on_rows,
-                                             redistribute, replicate_dim,
-                                             replicated, row_block, rows_cut,
-                                             run_local, unflatten)
+                                             cut_as, flatten, grad_like,
+                                             is_dtensor, on_rows,
+                                             redistribute, reduced,
+                                             replicate_dim, replicated,
+                                             row_block, rows_cut, run_local,
+                                             unflatten)
 from repro_torch.kernels.rwkv6_chunk import wkv6
 from repro_torch.models.modules import (ParamModule, group_norm_heads, normal,
                                         pdtype)
@@ -102,9 +108,9 @@ def _ddlerp(p: TimeMix, x, xs):
     diff = (xs - x).float()
     xf = x.float()
     xxx = xf + diff * p.mu_x
-    a = torch.tanh(grad_like(xxx @ p.tm_w1))
-    a = a.reshape(*a.shape[:-1], 5, _LORA_MIX)
-    m = torch.einsum("...fl,fld->...fd", a, p.tm_w2)
+    a = reduced(xxx @ cut_as(p.tm_w1, 0, xxx, -1))
+    a = torch.tanh(grad_like(a)).reshape(*a.shape[:-1], 5, _LORA_MIX)
+    m = torch.einsum("...fl,fld->...fd", a, cut_as(p.tm_w2, 2, diff, -1))
     mixed = xf[..., None, :] + diff[..., None, :] * (p.mu + m)
     return [mixed[..., i, :].to(x.dtype) for i in range(5)]
 
@@ -116,7 +122,9 @@ def _projections(p: TimeMix, x, xs, n_heads: int, hd: int):
     k = unflatten(xk @ p.wk, nd, (n_heads, hd))
     v = unflatten(xv @ p.wv, nd, (n_heads, hd))
     g = F.silu((xg @ p.wg).float())
-    logw = -torch.exp(grad_like(xw.float() @ p.dw1) @ p.dw2 + p.w0)
+    xw = xw.float()
+    lora = grad_like(reduced(xw @ cut_as(p.dw1, 0, xw, -1)))
+    logw = -torch.exp(lora @ cut_as(p.dw2, 1, xw, -1) + p.w0)
     logw = torch.clamp(logw, _LOGW_MIN, _LOGW_MAX)
     logw = unflatten(logw, nd, (n_heads, hd))
     return r, k, v, g, logw
@@ -307,6 +315,15 @@ def init_rwkv_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
     }
 
 
+def _decode_step(r, k, v, logw, u, state):
+    """One step of the recurrence: r, k, v, logw (B,H,hd), the state
+    (B,H,hd,hd) f32 -> (y (B,H,hd), the new state)."""
+    rf, kf, vf = (t.float() for t in (r, k, v))
+    kv = kf[..., :, None] * vf[..., None, :]
+    y = torch.einsum("bhi,bhij->bhj", rf, state + u[:, :, None] * kv)
+    return y, torch.exp(logw)[..., :, None] * state + kv
+
+
 def time_mix_decode(p: TimeMix, x, cfg: ModelConfig, cache: dict):
     """x: (B,1,D) single step; cache: {'state', 'tm_x', ...}.
 
@@ -318,11 +335,26 @@ def time_mix_decode(p: TimeMix, x, cfg: ModelConfig, cache: dict):
     H = D // hd
     xt = x[:, 0]
     r, k, v, g, logw = _projections(p, xt, cache["tm_x"], H, hd)
-    rf, kf, vf = (t.float() for t in (r, k, v))
-    kv = kf[..., :, None] * vf[..., None, :]
     st = cache["state"]
-    y = torch.einsum("bhi,bhij->bhj", rf, st + p.u[:, :, None] * kv)
-    cache["state"].copy_(torch.exp(logw)[..., :, None] * st + kv)
+    if is_dtensor(st):
+        # each rank its own rows and heads (``run_local``; every head where
+        # ``model`` does not divide them): DTensor's einsum would flatten a
+        # batch and heads cut over three mesh dims (``multipod``) into
+        # strided shards, minutes an op to propagate.  The new state goes
+        # back to the cache's placements, which an in-place copy keeps
+        heads = {"batch": 0, "heads": 1}
+        y, new = run_local(
+            "rwkv decode step", _decode_step,
+            {n: constrain(t, ("batch", "heads", None)) for n, t in
+             (("r", r), ("k", k), ("v", v), ("logw", logw))} |
+            {"u": p.u,
+             "state": constrain(st, ("batch", "heads", None, None))},
+            dict.fromkeys(("r", "k", "v", "logw", "state"), heads) |
+            {"u": {"heads": 0}}, (heads, heads))
+        new = redistribute(new, st.placements)
+    else:
+        y, new = _decode_step(r, k, v, logw, p.u, st)
+    st.copy_(new)
     cache["tm_x"].copy_(xt)
     return _finish(p, y[:, None], g[:, None], x.dtype, H), cache
 

@@ -19,7 +19,10 @@ N, ``...~V`` (``whisper-small~515``) a vocab of V tokens (C14's cell: a
 vocab that the 16 ``model`` ranks do not divide, so the head is not cut
 on it), and ``...+SHAPE[:SxB]`` (``gemma3-1b/6+decode_32k``) its own
 shape, at S x B tokens where given, so that one process compiles cells of
-several shapes: the reference's compiled as its ``run_cell`` does
+several shapes, and ``...#WIDTH[.MESH]``
+(``rwkv6-7b/1+decode_32k#full.multipod``) its own width and mesh, at
+its shape's own tokens (or its ``:SxB``), so that one process compiles
+smoke and full-width cells on both meshes: the reference's compiled as its ``run_cell`` does
 (``repro.launch.dryrun.build_cell``, XLA's cost analysis and HLO), the
 port's traced as rank R (default 0) of a fake world
 (``repro_torch.launch.dryrun.run_step``).  XLA compiles one program for
@@ -193,9 +196,11 @@ def port(arch, width, mesh_name, layers=0, seq=0, batch=0, accum=1,
 
 
 def parse_cell(cell: str) -> tuple:
-    """``ARCH[@HxK[:PACK]][/L][~V][+SHAPE[:SxB]]`` -> (ARCH, "HxK[:PACK]",
-    L, V, SHAPE, S, B); an absent L, V, S or B is 0, an absent SHAPE
-    ""."""
+    """``ARCH[@HxK[:PACK]][/L][~V][+SHAPE[:SxB]][#WIDTH[.MESH]]`` -> (ARCH,
+    "HxK[:PACK]", L, V, SHAPE, S, B, WIDTH, MESH); an absent L, V, S or B
+    is 0, an absent SHAPE, WIDTH or MESH ""."""
+    cell, _, place = cell.partition("#")
+    width, _, mesh = place.partition(".")
     cell, _, shape = cell.partition("+")
     shape, _, size = shape.partition(":")
     seq, _, batch = size.partition("x")
@@ -203,7 +208,7 @@ def parse_cell(cell: str) -> tuple:
     name, _, layers = name.partition("/")
     arch, _, heads = name.partition("@")
     return (arch, heads, int(layers or 0), int(vocab or 0), shape,
-            int(seq or 0), int(batch or 0))
+            int(seq or 0), int(batch or 0), width, mesh)
 
 
 def main():
@@ -221,14 +226,19 @@ def main():
     a = ap.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
     for cell in a.arch.split(","):
-        arch, heads, layers, vocab, shape, seq, batch = parse_cell(cell)
+        arch, heads, layers, vocab, shape, seq, batch, width, mesh = \
+            parse_cell(cell)
         shape = shape or a.shape
-        args = (arch, a.width, a.mesh, layers or a.layers, seq or a.seq,
-                batch or a.batch, a.accum, heads, vocab)
+        if not width:
+            # the process's width, mesh and tokens; a cell that names its
+            # width takes its shape's own tokens, or its ``:SxB``
+            width, seq, batch = a.width, seq or a.seq, batch or a.batch
+        args = (arch, width, mesh or a.mesh, layers or a.layers, seq, batch,
+                a.accum, heads, vocab)
         rec = reference(*args, shape_name=shape) if a.side == "reference" \
             else port(*args, rank=a.rank, shape_name=shape)
-        print(json.dumps({"cell": cell, "arch": arch, "width": a.width,
-                          "mesh": a.mesh, "accum": a.accum,
+        print(json.dumps({"cell": cell, "arch": arch, "width": args[1],
+                          "mesh": args[2], "accum": a.accum,
                           "heads": heads, **rec}),
               flush=True)
 

@@ -52,7 +52,10 @@ meta device), on the CPU.
   superblock, and a ``long_500k`` decode step at a batch of 1): a decode
   step's products at most 1.05 times the reference's and its attention at
   most 1.25 times (the residual stream reduced over ``model`` after each
-  sublayer), a prefill step's products equal.
+  sublayer), a prefill step's products equal; and the same bounds on
+  twelve full-width decode steps (``FULL_DECODE_CELLS``), rwkv6-7b's on
+  both meshes among them (C17: its LoRAs on each rank's block of the
+  model dim, its recurrence on each rank's rows and heads).
 * C11 and C13 beside the reference's own records: 16 q heads over 8 kv
   heads under the prefix-LM and bidirectional masks and cross-attention
   (each rank the plain dispatch on its own q head), rwkv6-7b's 4 heads on
@@ -507,6 +510,24 @@ SERVING_ARCHS = ("h2o-danube-1.8b", "internlm2-20b", "gemma2-9b/2",
 # whole), whose ring-free cache the reference splits over all 256 ranks
 SERVING_CELLS = [f"{a}+{s}" for s in ("decode_32k", "prefill_32k")
                  for a in SERVING_ARCHS] + ["internlm2-20b+long_500k:4096x1"]
+# C12's and C17's full-width decode steps at their own tokens (128
+# sequences; 8 a ``data`` rank on ``pod``, 4 on ``multipod``), at one
+# superblock: rwkv6-7b on both meshes (C17: it could not decode where
+# ``model`` has more than one rank), internlm2-20b and the two MoEs on
+# ``pod``, and every other arch's decode on ``multipod``
+FULL_DECODE_CELLS = [
+    f"{a}+decode_32k#full.{m}" for a, m in (
+        ("rwkv6-7b/1", "pod"), ("rwkv6-7b/1", "multipod"),
+        ("internlm2-20b/1", "pod"), ("qwen3-moe-235b-a22b/1", "pod"),
+        ("arctic-480b/1", "pod"), ("gemma3-1b/6", "multipod"),
+        ("gemma2-9b/2", "multipod"), ("recurrentgemma-2b/3", "multipod"),
+        ("whisper-small/1", "multipod"), ("paligemma-3b/1", "multipod"),
+        ("qwen3-moe-235b-a22b/1", "multipod"),
+        ("arctic-480b/1", "multipod"))]
+# C17's smoke cells, which the reference cannot compile (its state's 4
+# heads do not split over 16 ``model`` ranks): rwkv6-7b's decode steps at
+# 64 x 256 (4 rows a rank) and at ``long_500k``'s batch of 1
+RWKV_SMOKE_SERVING_CELLS = ("rwkv6-7b+decode_32k", "rwkv6-7b+long_500k:4096x1")
 # C11's cells: 16 q heads and 8 kv heads on the 16 ``model`` ranks (the
 # q-heads route) under the prefix-LM mask (paligemma-3b) and the
 # bidirectional encoder and cross-attention (whisper-small), off flash
@@ -517,12 +538,15 @@ def heads_port_record(cell: str = HEADS_CELL, rank: int = 0) -> dict:
     """The port's side of a smoke cell on ``pod`` at 64 x 256 tokens,
     traced as ``rank`` (tests/dryrun_records_worker.py): one layer, or the
     cell's ``/L``; the train step, or the cell's ``+SHAPE`` (at its
-    ``:SxB`` tokens, where it has them)."""
+    ``:SxB`` tokens, where it has them); a cell's ``#WIDTH.MESH`` at its
+    shape's own tokens."""
     import dryrun_records_worker as worker
-    arch, heads, layers, vocab, shape, seq, batch = worker.parse_cell(cell)
-    return worker.port(arch, "smoke", "pod", layers or 1, seq or 256,
-                       batch or 64, 1, heads, vocab, rank=rank,
-                       shape_name=shape or "train_4k")
+    arch, heads, layers, vocab, shape, seq, batch, width, mesh = \
+        worker.parse_cell(cell)
+    if not width:
+        width, mesh, seq, batch = "smoke", "pod", seq or 256, batch or 64
+    return worker.port(arch, width, mesh, layers or 1, seq, batch, 1, heads,
+                       vocab, rank=rank, shape_name=shape or "train_4k")
 
 
 def accum_port_record(arch: str, accum: int) -> dict:
@@ -554,7 +578,9 @@ def smoke_records():
         futures[VOCAB_CELL] = pool.submit(heads_port_record, VOCAB_CELL,
                                           VOCAB_RANK)
         futures.update({c: pool.submit(heads_port_record, c)
-                        for c in (*SERVING_CELLS, *Q_HEADS_CELLS)})
+                        for c in (*SERVING_CELLS, *FULL_DECODE_CELLS,
+                                  *RWKV_SMOKE_SERVING_CELLS,
+                                  *Q_HEADS_CELLS)})
         futures.update({("accum", a, n): pool.submit(accum_port_record, a, n)
                         for a in ACCUM_ARCHS for n in ACCUMS})
         futures.update({(a, mp): pool.submit(smoke_train_record, a, mp)
@@ -655,7 +681,7 @@ def reference_records():
         [sys.executable, str(WORKER), "reference",
          ",".join(REFERENCE_ARCHS + [HEADS_CELL, PACKED_CELL, GROUPS_CELL,
                                      VOCAB_CELL, *SERVING_CELLS,
-                                     *Q_HEADS_CELLS]),
+                                     *FULL_DECODE_CELLS, *Q_HEADS_CELLS]),
          "smoke", "pod",
          "--layers", "1", "--seq", "256", "--batch", "64"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -841,24 +867,29 @@ def test_unembedding_runs_on_each_ranks_rows(smoke_records,
                                          ref["products_by_shape"])
 
 
-@pytest.mark.parametrize("cell", SERVING_CELLS)
+@pytest.mark.parametrize("cell", SERVING_CELLS + FULL_DECODE_CELLS)
 def test_serving_records_hold_the_reference(smoke_records,
                                             reference_records, cell):
-    """C12 and C16 beside the reference's own records of the smoke serving
-    cells on ``pod`` (64 x 256, 4 sequences a rank): a decode step's
-    products at most 1.05 times the reference's a device (1.000; 2.87-5.89
-    times when its residual stream was left ``Partial`` over ``model``,
-    and DTensor gathered the MLP's gate and up weights whole onto every
-    rank), its attention at most 1.25 times (1.000; 7.67-7.92 times where
-    a layer after a local one gathered the cache's slots); a prefill
-    step's products equal to the reference's.  The ``long_500k`` step
-    (1.000 and 1.000) did not trace: DTensor cut its one row over the 16
-    ``data`` ranks and refused to view it flat."""
+    """C12, C16 and C17 beside the reference's own records of the smoke
+    serving cells on ``pod`` (64 x 256, 4 sequences a rank) and the
+    full-width decode steps (``FULL_DECODE_CELLS``): a decode step's
+    products at most 1.05 times the reference's a device (1.000, whisper-
+    small's 0.999; 2.87-5.89 times when its residual stream was left
+    ``Partial`` over ``model``, and DTensor gathered the MLP's gate and up
+    weights whole onto every rank), its attention at most 1.25 times
+    (1.000, whisper-small's 1.009; 7.67-7.92 times where a layer after a
+    local one gathered the cache's slots); a prefill step's products equal
+    to the reference's.  The ``long_500k`` step (1.000 and 1.000) did not
+    trace: DTensor cut its one row over the 16 ``data`` ranks and refused
+    to view it flat.  rwkv6-7b's decode (1.000 and 1.000 on both meshes)
+    did not trace: DTensor left its LoRA's 160 columns cut over ``model``
+    and refused to view them as 5 groups of 32."""
     ref = reference_records(cell)
     port = smoke_records[cell].result(timeout=SMOKE_JOIN_S)
     assert ref["shape"] == port["shape"] == \
-        cell.split("+")[1].split(":")[0]
-    assert (ref["layers"], ref["n_chips"]) == (port["layers"], 256)
+        cell.split("+")[1].split(":")[0].split("#")[0]
+    chips = 512 if cell.endswith(".multipod") else 256
+    assert (ref["layers"], ref["n_chips"]) == (port["layers"], chips)
     if port["shape"] == "prefill_32k":
         assert port["product_flops"] == ref["product_flops"] > 0
         return
@@ -866,6 +897,25 @@ def test_serving_records_hold_the_reference(smoke_records,
         (port["products_by_shape"], ref["products_by_shape"])
     assert 0 < port["attention_flops"] <= 1.25 * ref["attention_flops"], \
         (port["attention_flops"], ref["attention_flops"])
+
+
+@pytest.mark.parametrize("cell", RWKV_SMOKE_SERVING_CELLS)
+def test_rwkv_smoke_decode_runs_each_ranks_block(smoke_records, cell):
+    """C17 where the reference has no record: rwkv6-7b's smoke decode
+    steps on ``pod`` trace (the parent raised in the LoRA's reshape and in
+    the state's in-place write), and a rank's batched products are its
+    rows' LoRA second product on its D / 16 block of the model dim and the
+    recurrence's r . S on every one of the 4 heads, which 16 ranks do not
+    split."""
+    rec = smoke_records[cell].result(timeout=SMOKE_JOIN_S)
+    cfg = get_smoke_config("rwkv6-7b")
+    shape = cell.split("+")[1].split(":")[0]
+    rows = 64 // 16 if shape == "decode_32k" else 1
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    assert (rec["shape"], rec["n_chips"]) == (shape, 256)
+    assert rec["attention_flops"] == rows * (2 * 5 * 32 * d // 16 +
+                                             2 * d * hd)
+    assert rec["product_flops"] > 0
 
 
 @pytest.mark.parametrize("cell", [*Q_HEADS_CELLS, "rwkv6-7b"])

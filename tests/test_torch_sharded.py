@@ -19,8 +19,12 @@ sequence 32, global batch 8.  The cells:
   AdamW with ``grad_shardings`` and ``update_constraint`` from
   ``opt_pspecs`` (ZeRO);
 * ``rg``: recurrentgemma-2b prefill (the RG-LRU's ``constrain`` and the
-  scan under ``local_map``); ``rgt`` its train step (``grad_accum=1``);
-* ``rw``: rwkv6-7b prefill (the wkv6 under ``local_map``);
+  scan under ``local_map``), then decode; ``rgt`` its train step
+  (``grad_accum=1``);
+* ``rw``: rwkv6-7b prefill (the wkv6 under ``local_map``), then decode;
+  ``rw2`` the same at a global batch of 4 (``CELL_BATCH``), whose decode
+  DTensor could not run until the LoRAs ran on each rank's block of the
+  model dim and the recurrence under ``local_map`` (C17);
 * ``qw``: qwen3-moe-235b-a22b, one train step with Adafactor and
   ``moe_sharded`` inside the DTensor model;
 * ``pg``: paligemma-3b prefill and ``pgt`` its train step, with 2 q heads
@@ -165,9 +169,9 @@ CELLS = {
     "g2": ("gemma2-9b", "prefill,decode", False, 0),
     "g2q": ("gemma2-9b", "prefill,decode", True, 0),
     "g2t": ("gemma2-9b", "train", False, 2),
-    "rg": ("recurrentgemma-2b", "prefill", False, 0),
+    "rg": ("recurrentgemma-2b", "prefill,decode", False, 0),
     "rgt": ("recurrentgemma-2b", "train", False, 1),
-    "rw": ("rwkv6-7b", "prefill", False, 0),
+    "rw": ("rwkv6-7b", "prefill,decode", False, 0),
     "qw": ("qwen3-moe-235b-a22b", "train", False, 1),
     "pg": ("paligemma-3b", "prefill", False, 0),
     "pgt": ("paligemma-3b", "train", False, 1),
@@ -176,7 +180,13 @@ CELLS = {
     "wh6t": ("whisper-small", "train", False, 1),
     "whv": ("whisper-small", "train", False, 2),
     "rwt": ("rwkv6-7b", "train", False, 2),
+    "rw2": ("rwkv6-7b", "prefill,decode", False, 0),
 }
+# cell -> its global batch, where it is not B: ``rw2``'s decode step at 2
+# rows a ``data`` rank, where DTensor left the LoRA's 160 columns cut over
+# ``model`` and refused to view them as 5 groups of 32 (C17), as it did at
+# the production meshes' 8 rows a rank over 16 ``model`` ranks
+CELL_BATCH = {"rw2": 4}
 # cell -> the config fields it replaces: the q-rows cells (C6, C7), whose
 # 2 q heads spread over the 4 ``model`` ranks, each head's rows over 2;
 # a q block of 8, so that paligemma's 32 positions take the prefix mask's
@@ -247,7 +257,7 @@ def _tokens(cell):
     cfg = _cfgs(cell)[1]
     seed = list(CELLS).index(cell)
     return np.random.default_rng(seed).integers(
-        2, cfg.vocab_size, (B, S + 1)).astype(np.int64)
+        2, cfg.vocab_size, (CELL_BATCH.get(cell, B), S + 1)).astype(np.int64)
 
 
 def _batch(cell, kind) -> dict:
