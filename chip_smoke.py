@@ -213,6 +213,25 @@ Phases:
      alone; it fails unless each parameter's gradient and each
      microbatch's token count took one reduction there and no all-reduce
      ran over ``pod`` alone.  Each line gives its wall seconds.
+  13. multirank, a host check like dryrun, started beside it: the sharded
+     model's multi-rank cells under this machine's torch, 8 gloo ranks of
+     ``tests/torch_dist_worker.py ... sharded`` on the host's CPU (one
+     thread each, a (2, 4) ("data", "model") mesh from a FileStore in a temp
+     dir) on inputs built without JAX (``multirank_inputs``: the port's own
+     weights from seeded generators, the test's numpy draws): the 15 cells of
+     tests/test_torch_sharded.py (prefill and decode, train steps, the
+     q-rows and q-heads routes, head groups, the MoE, the vocab-parallel
+     loss; smoke configs in f32) and rwkv6-7b at full width cut to one layer
+     (prefill 8 x 32, one decode step), the kernels' DTensor routes, the
+     head-group layers, rwkv6-7b's mixes on the rows, the reductions over
+     flattened mesh dims, the vocab-parallel loss, the MoE fallback,
+     ``_microbatch`` and the all-to-all; each output, cache leaf, parameter,
+     gradient, loss and grad norm held to the unsharded port computed here
+     meanwhile on the same inputs, to 1e-5 relative (tests/
+     test_torch_sharded.py's rules).  One ``[multirank]`` line a cell or
+     part, one JSON line with the torch version, gloo, the world and mesh,
+     each one's largest relative error and the wall seconds; it fails on a
+     rank's non-zero exit, its time limit or any mismatch.
   Phase 2 also holds each kernel's autograd function (the kernel forward, the
   plain version's autograd backward) against autograd of the plain version
   over the kernel's sweep, at the kernel's tolerance.
@@ -392,6 +411,16 @@ DRYRUN_CPU = {"torch": "2.13.0+cpu", "ops": 10971,
               "collective_counts": {"all-gather": 106, "all-reduce": 110,
                                     "reduce-scatter": 47, "all-to-all": 8,
                                     "collective-permute": 0}}
+# [multirank]: the sharded model's multi-rank cells (tests/torch_dist_worker.py
+# ``sharded``, tests/test_torch_sharded.py's cells) on the host: WORLD gloo
+# ranks on CPU tensors, a (2, 4) ("data", "model") mesh, every output held to
+# the unsharded port in this process to DIST_F32_TOL, under its own limit
+MULTIRANK_WORLD = 8
+MULTIRANK_TIMEOUT_S = 300
+# and one cell at full width: rwkv6-7b cut to one layer, prefill 8 x 32 and
+# one decode step (C17's family, whose collectives torch 2.11 chose
+# otherwise); the CPU rehearsal runs it at smoke width
+MULTIRANK_FULL_CELL = ("rwf", "rwkv6-7b", 1)
 NO_LIBRARY = ("no single PyTorch call computes the RG-LRU scan or the wkv6 "
               "recurrence, so their library_ms is null")
 
@@ -3280,6 +3309,273 @@ def check_reductions(row):
           f"{want} at 1")
 
 
+def multirank_worker():
+    """tests/torch_dist_worker.py, which holds the cells, the inputs'
+    layout and the unsharded port they are held to (no JAX)."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_dist_worker
+    return torch_dist_worker
+
+
+def multirank_inputs(width: str | None = "full") -> dict:
+    """The ranks' INPUTS (``torch_dist_worker.build_inputs``) on the
+    port's own weights: each cell's model and rwkv6-7b's mixes from
+    ``seeded_model`` (a seeded ``torch.Generator``, the zero leaves given
+    numpy draws), the attention layers' and MoEs' weights from the port's
+    ``init_attention`` / ``init_moe``, whisper's and paligemma's batches
+    from ``data.SyntheticTokens``; with ``width``, ``MULTIRANK_FULL_CELL``
+    at that width (``"full"`` or ``"smoke"``), its weights drawn by each
+    rank from its seed.  Imports no JAX and nothing of the reference."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import moe as tmoe
+    worker = multirank_worker()
+    cpu = torch.device("cpu")
+
+    def attention(i, tag):
+        cfg = worker.group_layer_config(tag, get_smoke_config)
+        p = tattn.init_attention(cfg, torch.Generator().manual_seed(30 + i),
+                                 cpu)
+        return {n: t.detach().numpy() for n, t in p.named_parameters()}
+
+    def moe(i, arch):
+        cfg = worker.moe_dense_config(arch, get_smoke_config)
+        p = tmoe.init_moe(cfg, torch.Generator().manual_seed(i), cpu)
+        return {n.replace(".", "/"): t.detach().numpy()
+                for n, t in p.named_parameters()}
+    inp = worker.build_inputs(types.SimpleNamespace(
+        cell=lambda cell: worker.seeded_model(worker.table_config(cell), 0),
+        batch=lambda cell: SyntheticTokens(
+            worker.table_config(cell), worker.B, worker.S,
+            seed=0).batch_for_step(0),
+        rwkv=lambda tag: worker.seeded_model(
+            worker.rwkv_config(tag, get_smoke_config), 5),
+        attention=attention, moe=moe))
+    if width:
+        cell, arch, layers = MULTIRANK_FULL_CELL
+        base = get_config if width == "full" else get_smoke_config
+        inp["cells"] = np.array(f"{inp['cells']},{cell}")
+        inp.update({f"{cell}/{k}": np.array(v) for k, v in (
+            ("arch", arch), ("kinds", "prefill,decode"), ("kv_quant", False),
+            ("accum", 0), ("width", width), ("seed", SEED),
+            ("config", json.dumps({"n_layers": layers})))})
+        inp[f"{cell}/tokens"] = np.random.default_rng(SEED).integers(
+            2, base(arch).vocab_size, (worker.B, worker.S + 1))
+    return inp
+
+
+def multirank_compare(np, res, want, inp) -> list:
+    """Rank 0's results (``res``) against the unsharded port's (``want``,
+    ``torch_dist_worker.unsharded``), by tests/test_torch_sharded.py's
+    rules: every output, cache leaf, parameter, gradient, loss and grad
+    norm to ``DIST_F32_TOL`` relative (an int8 cache leaf at most one step
+    off in under 1e-3 of its elements; AdamW's m and v to
+    ``torch_dist_worker.GRAD_TOL`` where it names the cell, each new weight
+    to 1e-5 of itself plus lr times the two runs' step directions'
+    difference); the vocab-parallel loss and the reductions to 1e-6;
+    ``_microbatch``'s rows and the all-to-all's shard exactly.  -> one row
+    a cell or part: its largest relative error, the quantity, how many
+    were held, and what failed."""
+    worker = multirank_worker()
+
+    def rel(g, w):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        if g.shape != w.shape:
+            return math.inf
+        return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+
+    rows = []
+
+    def row(part, pairs, tol=DIST_F32_TOL, failed=(), **extra):
+        errs = {k: rel(g, w) for k, (g, w) in pairs.items()}
+        worst = max(errs, key=errs.get)
+        rows.append({"part": part, "max_rel_err": errs[worst], "tol": tol,
+                     "worst": worst, "held": len(errs), **extra,
+                     "failed": [*(k for k, e in errs.items()
+                                  if not e <= tol), *failed]})
+
+    for cell in str(inp["cells"]).split(","):
+        kinds = str(inp[f"{cell}/kinds"])
+        w = want[cell]
+        if kinds != "train":
+            pairs, int8, failed = {}, [], []
+            for kind in kinds.split(","):
+                n = sum(1 for k in res if k.startswith(f"{cell}/{kind}/cache"))
+                got = [res[f"{cell}/{kind}/logits"]] + [
+                    res[f"{cell}/{kind}/cache{i}"] for i in range(n)]
+                if len(got) != len(w[kind]):
+                    failed.append(f"{kind}: {len(got)} outputs, the port "
+                                  f"{len(w[kind])}")
+                for i, (g, x) in enumerate(zip(got, w[kind])):
+                    if x.dtype == np.int8:
+                        off = np.abs(g.astype(np.int32) - x)
+                        int8.append(float((g != x).mean()))
+                        if g.shape != x.shape or off.max() > 1 or \
+                                int8[-1] >= 1e-3:
+                            failed.append(f"{kind}/cache{i - 1} (int8)")
+                    else:
+                        name = "logits" if i == 0 else f"cache{i - 1}"
+                        pairs[f"{kind}/{name}"] = (g, x)
+            row(cell, pairs, kinds=kinds, failed=failed,
+                **({"int8_mismatch_share": max(int8)} if int8 else {}))
+            continue
+        pairs = {k: (res[f"{cell}/{k}"], w[k]) for k in ("loss", "grad_norm")}
+        failed, extra = [], {"kinds": kinds}
+        if "m" not in w:
+            pairs.update({f"new/{n}": (res[f"{cell}/new/{n}"], x)
+                          for n, x in w["new"].items()})
+        else:
+            tol = worker.GRAD_TOL.get(cell, DIST_F32_TOL)
+            mv = {f"{k}/{n}": rel(res[f"{cell}/{k}/{n}"], w[k][n])
+                  for n in w["new"] for k in ("m", "v")}
+            failed += sorted(k for k, e in mv.items() if not e <= tol)
+            extra.update({"m_v_max_rel_err": max(mv.values()),
+                          "m_v_tol": tol})
+            if tol == DIST_F32_TOL:
+                pairs.update({k: (res[f"{cell}/{k}"], w[k[0]][k[2:]])
+                              for k in mv})
+            lr = worker.LR
+            params = []
+            for n, x in w["new"].items():
+                moved = lr * np.abs(
+                    worker.adamw_ratio(res[f"{cell}/m/{n}"],
+                                       res[f"{cell}/v/{n}"])
+                    - worker.adamw_ratio(w["m"][n], w["v"][n]))
+                got = res[f"{cell}/new/{n}"].astype(np.float64)
+                if not np.all(np.abs(got - x) <= DIST_F32_TOL * np.abs(x) +
+                              moved + 1e-9):
+                    failed.append(f"new/{n}")
+                params.append(rel(got, x))
+            extra["adamw_params_max_rel_err"] = max(params)
+        row(cell, pairs, failed=failed, **extra)
+    for part in ("kernels", "layers", "rwkv", "moed"):
+        row(part, {k: (res[k], x) for k, x in want[part].items()})
+    row("loss", {k: (res[k], want["xent"][k])
+                 for k in ("xent/loss", "xent/grad")}, tol=1e-6,
+        failed=[] if int(res["xent/n"]) == int(want["xent"]["xent/n"])
+        else ["xent/n"])
+    g = inp["reduce/g"].astype(np.float64)
+    pairs = {}
+    for case, (held, _) in worker.REDUCE_CASES.items():
+        total = g.sum(0) if held[2] == "P" else g[:4].sum(0)
+        for how in ("flat", "steps"):
+            pairs[f"reduce/{case}/{how}"] = (res[f"reduce/{case}/{how}"],
+                                             total)
+    row("reduce", pairs, tol=1e-6)
+    rows_of = np.arange(64 * 4).reshape(4, 16, 4)
+    exact = {f"mb/{i}": (res[f"mb/{i}"], rows_of[i]) for i in range(4)}
+    exact["a2a/local"] = (res["a2a/local"], np.arange(
+        8 * 12, dtype=np.float32).reshape(8, 12)[:, :6])
+    row("microbatch, all-to-all", exact, tol=0.0)
+    return rows
+
+
+def multirank_path(card, beside=None, width: str = "full") -> dict:
+    """Phase 13, a host check like ``[dryrun]`` (no card, and no fallback
+    for one): ``MULTIRANK_WORLD`` gloo ranks of ``tests/torch_dist_worker.py
+    ... sharded`` on the host's CPU under this machine's torch, a (2, 4)
+    ("data", "model") mesh from a FileStore in a temp dir, one thread
+    each, run every cell of tests/test_torch_sharded.py (the smoke configs
+    in f32) and ``MULTIRANK_FULL_CELL`` at ``width``, and every part whose
+    oracle is the unsharded port (the kernels' DTensor routes, the
+    head-group layers, rwkv6-7b's mixes on the rows, the reductions, the
+    vocab-parallel loss, the MoE fallback, ``_microbatch`` and the
+    all-to-all) on ``multirank_inputs``; meanwhile this process runs
+    ``beside`` (the ``[dryrun]`` phase) in a thread and computes the
+    unsharded port on the same inputs (``torch_dist_worker.unsharded``,
+    the ranks' attention hook), then joins the ranks under
+    ``MULTIRANK_TIMEOUT_S``.  One ``[multirank]`` line a cell or part
+    (``multirank_compare``), one JSON line with the torch version, the
+    backend, the world, the mesh, each one's largest relative error and
+    the phase's wall seconds; fails on a rank's non-zero exit, the limit,
+    or any mismatch.  -> (the JSON line's object, ``beside``'s result)."""
+    import concurrent.futures
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention as tattn
+    worker = multirank_worker()
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        inp = multirank_inputs(width)
+        np.savez(d / "inputs.npz", **inp)
+        env = dict(os.environ, PYTHONPATH=str(root / "src"),
+                   OMP_NUM_THREADS="1")
+        logs = [open(d / f"log{r}.txt", "w+") for r in
+                range(MULTIRANK_WORLD)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(root / "tests" / "torch_dist_worker.py"),
+             str(r), str(MULTIRANK_WORLD), str(d / "store"),
+             str(d / "inputs.npz"), str(d / f"out{r}.npz"), "sharded"],
+            cwd=root, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(MULTIRANK_WORLD)]
+        deadline = time.monotonic() + MULTIRANK_TIMEOUT_S
+        try:
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                side = pool.submit(beside) if beside else None
+                threads, hook = torch.get_num_threads(), tattn._ATTN_IMPL
+                torch.set_num_threads(1)
+                tattn.set_attention_impl(flash_attention)
+                try:
+                    want = worker.unsharded(inp)
+                finally:
+                    torch.set_num_threads(threads)
+                    tattn.set_attention_impl(hook)
+                beside_out = side.result() if side else None
+            for p in procs:
+                try:
+                    p.wait(timeout=max(deadline - time.monotonic(), 1))
+                except subprocess.TimeoutExpired:
+                    check(False, f"[multirank] the {MULTIRANK_WORLD} gloo "
+                          f"ranks did not finish in {MULTIRANK_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        bad = []
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            if p.returncode != 0:
+                bad.append(f"rank {r} exited {p.returncode}: "
+                           f"{log.read()[-3000:]}")
+            log.close()
+        check(not bad, "[multirank] " + "\n".join(bad[:2]))
+        res = dict(np.load(d / "out0.npz"))
+    rows = multirank_compare(np, res, want, inp)
+    host = ("a host check like [dryrun]: gloo ranks on the host's CPU, "
+            "no card")
+    for row in rows:
+        print("[multirank] " + json.dumps({**row, "check": host}),
+              flush=True)
+    out = {"check": host, "torch": torch.__version__, "backend": "gloo",
+           "device": "cpu", "world": MULTIRANK_WORLD, "mesh": [2, 4],
+           "full_cell": f"{MULTIRANK_FULL_CELL[1]} at {width} width, "
+                        f"{MULTIRANK_FULL_CELL[2]} layer, prefill "
+                        f"{worker.B} x {worker.S} and one decode step",
+           "max_rel_err": {r["part"]: r["max_rel_err"] for r in rows},
+           "failed": {r["part"]: r["failed"] for r in rows if r["failed"]},
+           "wall_s": wall, "card": card}
+    print(json.dumps({"multirank": out}), flush=True)
+    check(not out["failed"], f"[multirank] against the unsharded port: "
+          f"{out['failed']}")
+    return out, beside_out
+
+
 def train_launches(cfg, kernel) -> int:
     """Launches of ``kernel`` in one train step: once a layer of its kind, and
     once more in each checkpointed superblock's recompute under remat."""
@@ -3377,8 +3673,8 @@ def main() -> int:
     # ---- 11. every timed step against its roofline -----------------------
     roofline_path(torch, roofline_steps(serving, train_out), card)
 
-    # ---- 12. a production cell's dry-run record --------------------------
-    dryrun_path(card)
+    # ---- 12, 13. the dry-run records, beside the multi-rank cells --------
+    multirank_path(card, beside=lambda: dryrun_path(card))
 
     def path_launches(name):
         by_path = {arch: n.get(name, 0) for arch, n in launches.items()

@@ -329,7 +329,7 @@ def _moe_sharded_dtensor(p: MoE, x, cfg: ModelConfig, decode: bool):
     y = _to_dtensor(y, mesh, x_pl)
     aux = _to_dtensor(aux, mesh, (Replicate(),) * mesh.ndim)
     if hasattr(p, "dense"):
-        y = y + mlp(p.dense, x, cfg.act)
+        y = y + _dense_ffn(p, x, cfg, y.placements)
     return y, aux
 
 
@@ -351,8 +351,23 @@ def _moe_dense_dtensor(p: MoE, x, cfg: ModelConfig):
         mesh, x.placements)
     aux = DTensor.from_local(aux, mesh, whole, run_check=False)
     if hasattr(p, "dense"):
-        y = y + mlp(p.dense, x, cfg.act)
+        y = y + _dense_ffn(p, x, cfg, y.placements)
     return y, aux
+
+
+def _dense_ffn(p: MoE, x, cfg: ModelConfig, place):
+    """arctic's parallel dense FFN on the DTensor ``x``, its rows gathered
+    over ``act_seq`` first, as the layer gathers every sublayer's input
+    (``transformer._gathered``; a no-op on the layer's own input), its
+    output laid out at ``place`` (the experts' output, which it is added
+    to) by a redistribution of its own, whose backward gathers the
+    gradient's rows again.  torch 2.11's DTensor refuses to view a
+    (B, S, D) tensor cut on its sequence as one dim of rows for a product,
+    in the forward (x) and in the backward (the gradient that the add's
+    own redistribution would hand the product), where 2.13 lays the view
+    out itself (C18)."""
+    o = mlp(p.dense, context.constrain(x, ("batch", "seq", None)), cfg.act)
+    return context.redistribute(o, place)
 
 
 def moe_layer(p: MoE, x, cfg: ModelConfig, decode: bool = False):

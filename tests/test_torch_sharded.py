@@ -26,7 +26,10 @@ sequence 32, global batch 8.  The cells:
   DTensor could not run until the LoRAs ran on each rank's block of the
   model dim and the recurrence under ``local_map`` (C17);
 * ``qw``: qwen3-moe-235b-a22b, one train step with Adafactor and
-  ``moe_sharded`` inside the DTensor model;
+  ``moe_sharded`` inside the DTensor model; ``art`` arctic-480b's, its
+  dense FFN beside the experts, whose output is laid out as theirs before
+  the sum, so that the FFN's products take rows whole over the sequence
+  in the backward too (C18: torch 2.11 refused the view otherwise);
 * ``pg``: paligemma-3b prefill and ``pgt`` its train step, with 2 q heads
   and 1 kv head; ``wh``: whisper-small's train step, with 2 q heads and 2
   kv heads (``CELL_CONFIG``; the reference's synthetic batches, with
@@ -74,14 +77,20 @@ unsharded port's and the reference's ``moe_dense`` (``jax.vjp``).
 
 Weights are the reference's own (``init_params``, every norm and zero
 vector given random values, as tests/test_torch_train.py does), carried
-across by ``params_from_jax``; tokens are numpy draws.
+across by ``params_from_jax``; tokens are numpy draws.  The cells, the
+inputs' layout (``worker.build_inputs``) and the unsharded port's runs
+(``worker.unsharded``) are the worker's, which ``chip_smoke.py``
+``[multirank]`` runs on the port's own weights without JAX; this module
+checks that its ``multirank_inputs`` writes the same inputs and that the
+shared oracle gives ``_port_run``'s outputs bit for bit.
 
 The sharded MoE routes each data shard's tokens with a capacity of its
 own, and its aux loss is the mean of the shards' (the reference's
 ``moe_sharded`` does the same), so the unsharded run it is held to
 computes the same semantics: each data shard's rows through the unsharded
 model on their own, the logits joined for one cross-entropy, the aux the
-shards' mean (``_per_shard_step``), in the port and in the reference alike.
+shards' mean (``worker.per_shard_step``), in the port and in the
+reference alike.
 
 Tolerances, with reasons:
 * against the unsharded port: 1e-5 relative (each output, cache leaf and
@@ -119,6 +128,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import jax
@@ -128,6 +138,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_dist_worker as worker  # noqa: E402
 from repro.configs.base import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
@@ -141,10 +152,7 @@ from repro_torch.distributed import context  # noqa: E402
 from repro_torch.distributed import layouts  # noqa: E402
 from repro_torch.launch.mesh import AbstractMesh, make_mesh  # noqa: E402
 from repro_torch.models import (forward_decode, forward_prefill,  # noqa: E402
-                                forward_train, init_params)
-from repro_torch.models import moe as tmoe  # noqa: E402
-from repro_torch.models.losses import softmax_xent  # noqa: E402
-from repro_torch.models.modules import MLP  # noqa: E402
+                                init_params)
 from repro_torch.models.weights import (params_from_jax,  # noqa: E402
                                         params_to_numpy)
 from repro_torch.optim import make_optimizer  # noqa: E402
@@ -156,56 +164,17 @@ WORLD = 8
 # spawn and the unsharded runs beside it took 227 s of 240, and 305 s of
 # 360 once the ``whv`` and ``rwt`` train cells were in
 JOIN_S = 480
-B, S = 8, 32
-LR = 1e-3
+# the cells, their inputs and the unsharded port they are held to are the
+# worker's, which ``chip_smoke.py`` ``[multirank]`` runs on the card
+# machine's host without JAX
+B, S = worker.B, worker.S
+LR = worker.LR
 DIST_F32_TOL = 1e-5
 MODEL_TOL = 2e-4
 LOSS_TOL, GNORM_TOL = 1e-5, 1e-4
-NORMAL = {"ln1", "ln2", "post_ln1", "post_ln2", "final_norm", "q_norm",
-          "k_norm", "lnx_b", "ba", "bi", "conv_b", "mu_x", "mu", "mu_k",
-          "mu_r"}
-# cell -> (arch, kinds, kv_quant, grad_accum)
-CELLS = {
-    "g2": ("gemma2-9b", "prefill,decode", False, 0),
-    "g2q": ("gemma2-9b", "prefill,decode", True, 0),
-    "g2t": ("gemma2-9b", "train", False, 2),
-    "rg": ("recurrentgemma-2b", "prefill,decode", False, 0),
-    "rgt": ("recurrentgemma-2b", "train", False, 1),
-    "rw": ("rwkv6-7b", "prefill,decode", False, 0),
-    "qw": ("qwen3-moe-235b-a22b", "train", False, 1),
-    "pg": ("paligemma-3b", "prefill", False, 0),
-    "pgt": ("paligemma-3b", "train", False, 1),
-    "wh": ("whisper-small", "train", False, 1),
-    "rg6t": ("recurrentgemma-2b", "train", False, 1),
-    "wh6t": ("whisper-small", "train", False, 1),
-    "whv": ("whisper-small", "train", False, 2),
-    "rwt": ("rwkv6-7b", "train", False, 2),
-    "rw2": ("rwkv6-7b", "prefill,decode", False, 0),
-}
-# cell -> its global batch, where it is not B: ``rw2``'s decode step at 2
-# rows a ``data`` rank, where DTensor left the LoRA's 160 columns cut over
-# ``model`` and refused to view them as 5 groups of 32 (C17), as it did at
-# the production meshes' 8 rows a rank over 16 ``model`` ranks
-CELL_BATCH = {"rw2": 4}
-# cell -> the config fields it replaces: the q-rows cells (C6, C7), whose
-# 2 q heads spread over the 4 ``model`` ranks, each head's rows over 2;
-# a q block of 8, so that paligemma's 32 positions take the prefix mask's
-# q-block scan and whisper's 32 encoder positions the bidirectional scan
-CELL_CONFIG = {
-    "pg": {"n_heads": 2, "n_kv_heads": 1, "attn_q_block": 8},
-    "pgt": {"n_heads": 2, "n_kv_heads": 1, "attn_q_block": 8},
-    "wh": {"n_heads": 2, "n_kv_heads": 2, "attn_q_block": 8},
-    # C10: 6 q heads on the 4 ``model`` ranks, 2 groups of 3, each group's
-    # rows over 2: recurrentgemma-2b's one kv head (each group inside it),
-    # its local attention through flash; whisper-small's 6 kv heads (each
-    # group 3 whole ones), its encoder and cross-attention through the
-    # plain dispatch, its decoder self-attention through flash
-    "rg6t": {"n_heads": 6, "n_kv_heads": 1},
-    "wh6t": {"n_heads": 6, "n_kv_heads": 6, "attn_q_block": 8},
-    # C14: a vocab that the 4 ``model`` ranks do not divide, so the tied
-    # table is whole on every rank and its head runs on each rank's rows
-    "whv": {"vocab_size": 514},
-}
+NORMAL = worker.NORMAL
+CELLS, CELL_BATCH, CELL_CONFIG = worker.CELLS, worker.CELL_BATCH, \
+    worker.CELL_CONFIG
 TRAIN = [c for c, v in CELLS.items() if v[1] == "train"]
 SERVE = [c for c, v in CELLS.items() if v[1] != "train"]
 
@@ -224,11 +193,7 @@ def _rel(t, j) -> float:
 
 
 def _cfgs(cell):
-    arch, _, kv_quant, _ = CELLS[cell]
-    kw = {"param_dtype": "float32", "attn_q_block": 16,
-          "kv_quant": kv_quant, **CELL_CONFIG.get(cell, {})}
-    return (dataclasses.replace(jax_smoke(arch), **kw),
-            dataclasses.replace(get_smoke_config(arch), **kw))
+    return worker.table_config(cell, jax_smoke), worker.table_config(cell)
 
 
 def _heads(cell) -> tuple:
@@ -253,11 +218,7 @@ def _jax_params(arch, seed=0, heads=()):
     return jax.tree_util.tree_map_with_path(perturb, params)
 
 
-def _tokens(cell):
-    cfg = _cfgs(cell)[1]
-    seed = list(CELLS).index(cell)
-    return np.random.default_rng(seed).integers(
-        2, cfg.vocab_size, (CELL_BATCH.get(cell, B), S + 1)).astype(np.int64)
+_tokens = worker.cell_tokens
 
 
 def _batch(cell, kind) -> dict:
@@ -282,215 +243,28 @@ def _port_model(cell):
         CELLS[cell][0], heads=_heads(cell))), tc, device="cpu")
 
 
-KERNEL_SHAPES = {"q": (8, 16, 4, 2, 16), "k": (8, 16, 4, 16),
-                 "v": (8, 16, 4, 16), "qf": (8, 16, 8, 16),
-                 "kf": (8, 16, 2, 16), "vf": (8, 16, 2, 16),
-                 "qr": (8, 16, 2, 16), "kr": (8, 16, 2, 16),
-                 "vr": (8, 16, 2, 16),
-                 "pq": (8, 16, 2, 16), "pk": (8, 16, 1, 16),
-                 "pv": (8, 16, 1, 16), "bq": (8, 16, 2, 16),
-                 "bk": (8, 16, 2, 16), "bv": (8, 16, 2, 16),
-                 "xq": (8, 16, 2, 16), "xk": (8, 24, 2, 16),
-                 "xv": (8, 24, 2, 16), "cq": (8, 16, 2, 16),
-                 "ck": (8, 16, 2, 16), "cv": (8, 16, 2, 16),
-                 "gq": (8, 16, 6, 16), "gk1": (8, 16, 1, 16),
-                 "gv1": (8, 16, 1, 16), "gk6": (8, 16, 6, 16),
-                 "gv6": (8, 16, 6, 16),
-                 "hq": (8, 16, 2, 16), "hk": (8, 16, 1, 16),
-                 "hv": (8, 16, 1, 16),
-                 "a": (8, 16, 8), "b": (8, 16, 8),
-                 "r": (8, 16, 4, 16), "wk": (8, 16, 4, 16),
-                 "wv": (8, 16, 4, 16), "logw": (8, 16, 4, 16), "u": (4, 16)}
-
-
-def _kernel_inputs():
-    rng = np.random.default_rng(7)
-    inp = {f"kern/{n}": rng.standard_normal(s).astype(np.float32)
-           for n, s in KERNEL_SHAPES.items()}
-    inp["kern/a"] = rng.uniform(0.5, 1.0, KERNEL_SHAPES["a"]).astype(
-        np.float32)
-    inp["kern/logw"] = -rng.uniform(1e-3, 2.0, KERNEL_SHAPES["logw"]).astype(
-        np.float32)
-    for tag, shapes in (("flash", [KERNEL_SHAPES["q"]]),
-                        ("flashq", [KERNEL_SHAPES["qf"]]),
-                        ("flashr", [KERNEL_SHAPES["qr"]]),
-                        ("plainp", [KERNEL_SHAPES["pq"]]),
-                        ("plainb", [KERNEL_SHAPES["bq"]]),
-                        ("plainx", [KERNEL_SHAPES["xq"]]),
-                        ("plainc", [KERNEL_SHAPES["cq"]]),
-                        ("scan", [KERNEL_SHAPES["a"]]),
-                        ("wkv6", [KERNEL_SHAPES["r"], (8, 4, 16, 16)]),
-                        ("plainh", [KERNEL_SHAPES["cq"]]),
-                        *((tag, [KERNEL_SHAPES["gq"]])
-                          for tag in GROUP_TAGS),
-                        *((tag, [KERNEL_SHAPES["hq"]])
-                          for tag in HEAD_TAGS)):
-        for i, shape in enumerate(shapes):
-            inp[f"kern/{tag}/ct{i}"] = rng.standard_normal(shape).astype(
-                np.float32)
-    return inp
-
-
-def _whole_rows_case(attn, xp, tag, q, k, v):
-    """The dispatch branch that ``tag`` of ``worker.PLAIN_ROWS`` (or of
-    ``worker.PLAIN_HEADS``, the same masks) takes, on whole tensors: flat q (B,S,H,hd) -> (B,S,H,hd) through ``attn``'s
-    ``_qblock_scan`` under the prefix mask, ``_rect_scan``, ``_sdpa``
-    (cross) or ``_qblock_scan`` under the causal mask with its window (no
-    packing with a window) at q blocks of 4, or with ``plain_attention``
-    as the hook, ``_sdpa`` under that mask; ``attn``, ``xp``: the port's
-    attention module and torch, or the reference's and ``jax.numpy``."""
-    import torch_dist_worker as worker
-    kw = {**worker.PLAIN_ROWS, **worker.PLAIN_HEADS}[tag][1]
-    B_, S_, H, hd = q.shape
-    Kh = k.shape[2]
-    q5 = q.reshape(B_, S_, Kh, H // Kh, hd)
-    qb, scale = worker.PLAIN_ROWS_KW["q_block"], \
-        worker.PLAIN_ROWS_KW["scale"]
-    if tag in ("plainp", "plainqp"):
-        o = attn._qblock_scan(q5, k, v, attn.make_mask_fn(
-            "prefix", 0, kw["prefix_len"]), 0.0, scale, qb, 0)
-    elif tag in ("plainb", "plainqb"):
-        o = attn._rect_scan(q5, k, v, 0.0, scale, qb)[0]
-    elif tag == "plainc":
-        o = attn._qblock_scan(q5, k, v, attn.make_mask_fn(
-            "causal", kw["window"]), 0.0, scale, qb, kw["window"])
-    elif tag == "plainh":
-        mask = attn.make_mask_fn("causal", kw["window"])(xp.arange(S_),
-                                                         xp.arange(S_))
-        o = attn._sdpa(q5, k, v, mask, 0.0, scale)
-    else:
-        mask = attn.make_mask_fn("bidir")(xp.arange(S_),
-                                          xp.arange(k.shape[1]))
-        o = attn._sdpa(q5, k, v, mask, 0.0, scale)
-    return o.reshape(B_, S_, H, hd)
-
-
+KERNEL_SHAPES = worker.KERNEL_SHAPES
+_kernel_inputs = worker.kernel_inputs
+_whole_rows_case = worker.whole_rows_case
+_whole_group_case = worker.whole_group_case
 # the q-rows route by head groups (``worker.GROUP_ROWS``)
 GROUP_TAGS = ["flashg1", "flashg6", "plaing1", "plaing6"]
 # the plain dispatch's q-heads route (``worker.PLAIN_HEADS``)
 HEAD_TAGS = ["plainqp", "plainqb"]
 
 
-def _whole_group_case(attn, xp, tag, q, k, v):
-    """What ``tag`` of ``worker.GROUP_ROWS`` computes, on whole tensors:
-    flat q (B,S,6,hd) -> (B,S,6,hd) under the causal mask with a window of 6
-    (``_sdpa``: the flash tags) or the bidirectional one (``_rect_scan`` at
-    q blocks of 4: the plain dispatch's branch); ``attn``, ``xp``: the
-    port's attention module and torch, or the reference's and
-    ``jax.numpy``."""
-    import torch_dist_worker as worker
-    B_, S_, H, hd = q.shape
-    q5 = q.reshape(B_, S_, k.shape[2], H // k.shape[2], hd)
-    scale = worker.PLAIN_ROWS_KW["scale"]
-    if tag.startswith("flash"):
-        mask = attn.make_mask_fn("causal", 6)(xp.arange(S_), xp.arange(S_))
-        o = attn._sdpa(q5, k, v, mask, 0.0, scale)
-    else:
-        o = attn._rect_scan(q5, k, v, 0.0, scale,
-                            worker.PLAIN_ROWS_KW["q_block"])[0]
-    return o.reshape(B_, S_, H, hd)
-
-
-def _flash_groups(q, k, v):
-    """Flash's plain version on whole tensors: flat q (B,S,6,hd) folded
-    over k's kv heads, a window of 6."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    K = k.shape[2]
-    return flash_attention(q.unflatten(2, (K, q.shape[2] // K)), k, v,
-                           scale=0.25, window=6, q_block=512,
-                           pack=True).flatten(2, 3)
-
-
-def _kernel_plain(inp):
-    """Each kernel wrapper on plain tensors: outputs and input grads; and
-    the plain dispatch's branches on whole tensors."""
-    import torch_dist_worker as worker
-
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rglru_scan import rglru_scan
-    from repro_torch.kernels.rwkv6_chunk import wkv6
-    from repro_torch.models import attention as tattn
-    def flat_q(qf, kf, vf):         # 8 q heads, 2 kv heads: G = 4
-        return flash_attention(qf.unflatten(2, (2, 4)), kf, vf, scale=0.25,
-                               q_block=512, pack=True).flatten(2, 3)
-
-    def flat_r(qr, kr, vr):         # 2 q heads, 2 kv heads: G = 1
-        return flash_attention(qr.unflatten(2, (2, 1)), kr, vr, scale=0.25,
-                               window=6, q_block=512, pack=True).flatten(2, 3)
-    out = {}
-    for tag, fn, names in (
-            ("flash", functools.partial(flash_attention, scale=0.25,
-                                        q_block=512, pack=True), "qkv"),
-            ("flashq", flat_q, ("qf", "kf", "vf")),
-            ("flashr", flat_r, ("qr", "kr", "vr")),
-            *((tag, functools.partial(_whole_rows_case, tattn, torch, tag),
-               names) for tag, (names, *_) in (*worker.PLAIN_ROWS.items(),
-                                               *worker.PLAIN_HEADS.items())),
-            *((tag, _flash_groups if tag.startswith("flash") else
-               functools.partial(_whole_group_case, tattn, torch, tag),
-               ("gq", *kv)) for tag, kv in worker.GROUP_ROWS.items()),
-            ("scan", rglru_scan, "ab"),
-            ("wkv6", wkv6, ("r", "wk", "wv", "logw", "u"))):
-        ins = {n: torch.from_numpy(inp[f"kern/{n}"]).requires_grad_()
-               for n in names}
-        outs = fn(*ins.values())
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        torch.autograd.backward(outs, [torch.from_numpy(
-            inp[f"kern/{tag}/ct{i}"]) for i in range(len(outs))])
-        for i, o in enumerate(outs):
-            out[f"kern/{tag}/out{i}"] = o.detach().numpy()
-        for n, t in ins.items():
-            out[f"kern/{tag}/grad/{n}"] = t.grad.numpy()
-    return out
-
-
-def _group_layer_inputs():
-    """``<tag>/*`` of ``worker.GROUP_LAYERS``: the reference's
-    ``init_attention`` weights, x and the output's cotangent."""
-    import torch_dist_worker as worker
-
+def _group_layer_weights(i, tag):
+    """``worker.GROUP_LAYERS[tag]``'s weights: the reference's
+    ``init_attention``."""
     from repro.models import attention as jattn
-    inp = {}
-    for i, tag in enumerate(worker.GROUP_LAYERS):
-        jc = worker.group_layer_config(tag, jax_smoke)
-        inp.update({f"{tag}/{n}": np.array(v) for n, v in
-                    jattn.init_attention(jax.random.PRNGKey(30 + i),
-                                         jc).items()})
-        rng = np.random.default_rng(30 + i)
-        for n in ("x", "ct"):
-            inp[f"{tag}/{n}"] = rng.standard_normal(
-                (B, 16, jc.d_model)).astype(np.float32)
-    return inp
-
-
-def _group_layer_port(inp):
-    """The unsharded port's ``attention_seq``: outputs and gradients,
-    keyed as ``worker.run_group_layers``'s."""
-    import torch_dist_worker as worker
-
-    from repro_torch.models import attention as tattn
-    out = {}
-    for tag, (_, _, kind, mask) in worker.GROUP_LAYERS.items():
-        cfg = worker.group_layer_config(tag, get_smoke_config)
-        p = tattn.Attention({n: torch.from_numpy(inp[f"{tag}/{n}"])
-                             for n in ("wq", "wk", "wv", "wo")})
-        p.requires_grad_()
-        x = torch.from_numpy(inp[f"{tag}/x"]).requires_grad_()
-        pos = torch.arange(x.shape[1]).expand(x.shape[:2])
-        o, _ = tattn.attention_seq(p, x, cfg, kind, pos, mask)
-        o.backward(torch.from_numpy(inp[f"{tag}/ct"]))
-        out[f"{tag}/out"] = o.detach().numpy()
-        out[f"{tag}/grad/x"] = x.grad.numpy()
-        out.update({f"{tag}/grad/{n}": t.grad.numpy()
-                    for n, t in p.named_parameters()})
-    return out
+    jc = worker.group_layer_config(tag, jax_smoke)
+    return {n: np.array(v) for n, v in
+            jattn.init_attention(jax.random.PRNGKey(30 + i), jc).items()}
 
 
 def _group_layer_jax(inp):
     """The reference's ``attention_seq`` (its plain dispatch, f32) and its
-    ``jax.vjp``, keyed as ``_group_layer_port``'s."""
-    import torch_dist_worker as worker
-
+    ``jax.vjp``, keyed as ``worker.group_layer_port``'s."""
     from repro.models import attention as jattn
     out = {}
     for tag, (_, _, kind, mask) in worker.GROUP_LAYERS.items():
@@ -519,7 +293,6 @@ RWKV_TAGS = ["rwkv", "rwkv2"]
 
 
 def _rwkv_cfgs(tag):
-    import torch_dist_worker as worker
     return tuple(worker.rwkv_config(tag, base)
                  for base in (jax_smoke, get_smoke_config))
 
@@ -527,60 +300,20 @@ def _rwkv_cfgs(tag):
 def _rwkv_params(tag):
     """The reference's weights of ``tag``'s config (its fields that shape
     them given as ``heads``)."""
-    import torch_dist_worker as worker
     return _jax_params("rwkv6-7b", seed=5, heads=(
         ("n_layers", 1), *worker.RWKV_CONFIG[tag].items()))
 
 
-def _rwkv_inputs():
-    """``<tag>/p/*``: the port's one-layer model from the reference's
-    weights; x for each mix and the cotangents of their outputs."""
-    inp = {}
-    for i, tag in enumerate(RWKV_TAGS):
-        _, tc = _rwkv_cfgs(tag)
-        model = params_from_jax(jax.tree.map(np.asarray, _rwkv_params(tag)),
-                                tc, device="cpu")
-        inp.update({f"{tag}/p/{n}": p.detach().numpy()
-                    for n, p in model.named_parameters()})
-        rng = np.random.default_rng(13 + i)
-        for n in ("x_tm", "x_cm", "ct_tm", "ct_cm"):
-            inp[f"{tag}/{n}"] = rng.standard_normal(
-                (B, S, tc.d_model)).astype(np.float32)
-    return inp
-
-
-def _rwkv_port(inp):
-    """The unsharded port's time mix and channel mix: outputs and
-    gradients, keyed as ``worker.run_rwkv``'s."""
-    from repro_torch.models import rwkv as trwkv
-    out = {}
-    for tag in RWKV_TAGS:
-        _, tc = _rwkv_cfgs(tag)
-        model = init_params(tc, None, device="meta")
-        pre = f"{tag}/p/"
-        model.load_state_dict({k[len(pre):]: torch.from_numpy(v)
-                               for k, v in inp.items()
-                               if k.startswith(pre)}, assign=True)
-        layer = model.layers[0].requires_grad_()
-        xs = [torch.from_numpy(inp[f"{tag}/x_{n}"]).requires_grad_()
-              for n in ("tm", "cm")]
-        outs = (*trwkv.time_mix_seq(layer.tm, xs[0], tc),
-                *trwkv.channel_mix(layer.cm, xs[1]))
-        torch.autograd.backward([outs[0], outs[3]], [
-            torch.from_numpy(inp[f"{tag}/ct_{n}"]) for n in ("tm", "cm")])
-        out.update({f"{tag}/out/{n}": o.detach().numpy() for n, o in zip(
-            ("tm", "state", "tm_last", "cm", "cm_last"), outs)})
-        out.update({f"{tag}/grad/x_{n}": x.grad.numpy()
-                    for n, x in zip(("tm", "cm"), xs)})
-        out.update({f"{tag}/grad/{n}": p.grad.numpy() for n, p in (
-            *layer.tm.named_parameters(prefix="tm"),
-            *layer.cm.named_parameters(prefix="cm"))})
-    return out
+def _rwkv_model(tag):
+    """The port's one-layer model of ``tag`` from the reference's
+    weights."""
+    return params_from_jax(jax.tree.map(np.asarray, _rwkv_params(tag)),
+                           _rwkv_cfgs(tag)[1], device="cpu")
 
 
 def _rwkv_jax(inp):
     """The reference's ``wkv_chunked`` and ``channel_mix`` on the same
-    weights and x, and their ``jax.vjp``: keyed as ``_rwkv_port``'s."""
+    weights and x, and their ``jax.vjp``: keyed as ``worker.rwkv_port``'s."""
     from repro.models import rwkv as jrwkv
     out = {}
     for tag in RWKV_TAGS:
@@ -612,96 +345,27 @@ def _rwkv_jax(inp):
     return out
 
 
-XENT_B, XENT_S, XENT_V = 8, 6, 512      # the vocab: 128 columns a rank
-
-
-def _xent_inputs():
-    """f32 logits and labels: every shard's first and last column among
-    the labels, and ignored (-1) labels."""
-    rng = np.random.default_rng(11)
-    labels = rng.integers(0, XENT_V, (XENT_B, XENT_S))
-    edges = [c for r in range(4) for c in (128 * r, 128 * r + 127)]
-    labels.flat[:len(edges)] = edges
-    labels.flat[-5:] = -1
-    return {"xent/logits": 3 * rng.standard_normal(
-        (XENT_B, XENT_S, XENT_V)).astype(np.float32),
-            "xent/labels": labels}
-
-
-def _xent_plain(inp):
-    """``softmax_xent`` on the full plain logits: loss, count, gradient."""
-    logits = torch.from_numpy(inp["xent/logits"]).requires_grad_()
-    loss, n = softmax_xent(logits, torch.from_numpy(inp["xent/labels"]))
-    loss.backward()
-    return {"xent/loss": loss.detach().numpy(), "xent/n": n.numpy(),
-            "xent/grad": logits.grad.numpy()}
-
-
+XENT_B, XENT_S, XENT_V = worker.XENT_B, worker.XENT_S, worker.XENT_V
+_xent_inputs = worker.xent_inputs
 # arch -> an expert count that does not divide the 4 ``model`` ranks
-MOE_DENSE = {"qwen3-moe-235b-a22b": 6, "arctic-480b": 6}
+MOE_DENSE = worker.MOE_DENSE
 
 
 def _moe_dense_cfgs(arch):
-    out = []
-    for cfg in (jax_smoke(arch), get_smoke_config(arch)):
-        cfg = dataclasses.replace(cfg, param_dtype="float32")
-        out.append(dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, n_experts=MOE_DENSE[arch])))
-    return out
+    return [worker.moe_dense_config(arch, base)
+            for base in (jax_smoke, get_smoke_config)]
 
 
-def _moe_dense_inputs():
-    """``moed/<arch>/*``: the reference's ``init_moe`` weights (the dense
-    FFN's under ``dense/``), x, the cotangents of y and aux."""
-    inp = {"moed/archs": np.array(",".join(MOE_DENSE))}
-    for i, arch in enumerate(MOE_DENSE):
-        jc, _ = _moe_dense_cfgs(arch)
-        pre = f"moed/{arch}/"
-        jp = jmoe.init_moe(jax.random.PRNGKey(i), jc)
-        for n, v in jp.items():
-            if n == "dense":
-                inp.update({f"{pre}dense/{k}": np.array(w)
-                            for k, w in v.items()})
-            else:
-                inp[pre + n] = np.array(v)
-        rng = np.random.default_rng(20 + i)
-        inp[pre + "x"] = rng.standard_normal((B, S, jc.d_model)).astype(
-            np.float32)
-        inp[pre + "ct"] = rng.standard_normal((B, S, jc.d_model)).astype(
-            np.float32)
-        inp[pre + "ct_aux"] = np.array(rng.standard_normal(), np.float32)
-        inp[pre + "experts"] = np.array(MOE_DENSE[arch])
-    return inp
-
-
-def _moe_dense_weights(inp, pre):
-    return {n[len(pre):]: v for n, v in inp.items() if n.startswith(pre)
-            and n[len(pre):] not in ("x", "ct", "ct_aux", "experts")}
-
-
-def _moe_dense_port(inp):
-    """The unsharded port's ``moe_dense``: y, aux, the gradients."""
+def _moe_weights(i, arch):
+    """``MOE_DENSE[arch]``'s weights: the reference's ``init_moe`` (the
+    dense FFN's under ``dense/``)."""
+    jc, _ = _moe_dense_cfgs(arch)
     out = {}
-    for arch in MOE_DENSE:
-        _, tc = _moe_dense_cfgs(arch)
-        pre = f"moed/{arch}/"
-        w = {n: torch.from_numpy(v)
-             for n, v in _moe_dense_weights(inp, pre).items()}
-        dense = {n[len("dense/"):]: t for n, t in w.items()
-                 if n.startswith("dense/")}
-        p = tmoe.MoE({n: w[n] for n in ("router", "w_gate", "w_up",
-                                        "w_down")},
-                     MLP(dense) if dense else None).requires_grad_()
-        ins = {n.replace(".", "/"): t for n, t in p.named_parameters()}
-        ins["x"] = torch.from_numpy(inp[pre + "x"]).requires_grad_()
-        y, aux = tmoe.moe_dense(p, ins["x"], tc)
-        torch.autograd.backward([y, aux], [
-            torch.from_numpy(inp[pre + "ct"]),
-            torch.from_numpy(inp[pre + "ct_aux"])])
-        out[pre + "y"], out[pre + "aux"] = y.detach().numpy(), \
-            aux.detach().numpy()
-        out.update({f"{pre}grad/{n}": t.grad.numpy()
-                    for n, t in ins.items()})
+    for n, v in jmoe.init_moe(jax.random.PRNGKey(i), jc).items():
+        if n == "dense":
+            out.update({f"dense/{k}": np.array(w) for k, w in v.items()})
+        else:
+            out[n] = np.array(v)
     return out
 
 
@@ -714,7 +378,7 @@ def _moe_dense_jax(inp):
         jc, _ = _moe_dense_cfgs(arch)
         pre = f"moed/{arch}/"
         w = {n: jnp.asarray(v)
-             for n, v in _moe_dense_weights(inp, pre).items()}
+             for n, v in worker.moe_dense_weights(inp, pre).items()}
         params = {n: v for n, v in w.items() if "/" not in n}
         if any(n.startswith("dense/") for n in w):
             params["dense"] = {n[len("dense/"):]: v for n, v in w.items()
@@ -734,100 +398,34 @@ def _moe_dense_jax(inp):
     return out
 
 
-def _reduce_inputs():
-    """``reduce/g``: 8 blocks of partial sums (``worker.run_reduce``)."""
-    return {"reduce/g": np.random.default_rng(17).standard_normal(
-        (8, 8, 6)).astype(np.float32)}
+_reduce_inputs = worker.reduce_inputs
+# the reference's weights, for ``worker.build_inputs``
+JAX_WEIGHTS = types.SimpleNamespace(
+    cell=_port_model, batch=lambda cell: _batch(cell, "train"),
+    rwkv=_rwkv_model, attention=_group_layer_weights, moe=_moe_weights)
 
 
+@functools.cache
 def _inputs():
-    inp = {"cells": np.array(",".join(CELLS)), **_kernel_inputs(),
-           **_xent_inputs(), **_moe_dense_inputs(), **_rwkv_inputs(),
-           **_group_layer_inputs(), **_reduce_inputs()}
-    for cell, (arch, kinds, kv_quant, accum) in CELLS.items():
-        inp[f"{cell}/arch"] = np.array(arch)
-        inp[f"{cell}/kinds"] = np.array(kinds)
-        inp[f"{cell}/kv_quant"] = np.array(kv_quant)
-        inp[f"{cell}/accum"] = np.array(accum)
-        inp[f"{cell}/tokens"] = _tokens(cell)
-        if cell in CELL_CONFIG:
-            inp[f"{cell}/config"] = np.array(json.dumps(CELL_CONFIG[cell]))
-            inp.update({f"{cell}/batch/{k}": v
-                        for k, v in _batch(cell, kinds).items()})
-        for n, p in _port_model(cell).named_parameters():
-            inp[f"{cell}/p/{n}"] = p.detach().numpy()
-    return inp
+    """The ranks' inputs on the reference's weights (read only)."""
+    return worker.build_inputs(JAX_WEIGHTS)
 
 
-def _leaves(cache):
-    return [e[n] for part in ("blocks", "tail") for e in cache[part]
-            for n in sorted(e)]
+_leaves = worker.cache_leaves
 
 
 # ---------------------------------------------------------------------------
 # the unsharded runs: the port and the reference
 # ---------------------------------------------------------------------------
-def _split(batch, n=2):
-    """The data shards of a (micro)batch: n contiguous row blocks."""
-    return [{k: v[i * len(v) // n:(i + 1) * len(v) // n]
-             for k, v in batch.items()} for i in range(n)]
-
-
-def _per_shard_step(cfg, model, opt, batch, grad_accum):
-    """One step of the port, plain, with the sharded MoE's semantics: each
-    data shard's rows through the model on their own, one cross-entropy
-    over their logits, the aux the shards' mean."""
-    state = tsteps.init_train_state(None, cfg, opt, params=model)
-    params = dict(model.named_parameters())
-    loss = 0.0
-    for mb in _split(batch, grad_accum):
-        outs = [forward_train(model, cfg, {"tokens": s["tokens"]})
-                for s in _split(mb)]
-        xent, _ = softmax_xent(torch.cat([o[0] for o in outs]), mb["labels"])
-        (xent + tsteps.AUX_COEF * (outs[0][1] + outs[1][1]) / 2).backward()
-        loss = loss + xent.detach() / grad_accum
-    for p in params.values():
-        p.grad.div_(grad_accum)
-    _, _, gn = opt.update({n: p.grad for n, p in params.items()},
-                          state["opt"], params, torch.tensor(LR))
-    return {"loss": loss, "grad_norm": gn}
-
-
 def _port_run(cell):
-    """The unsharded port's outputs, keyed as the worker's."""
+    """The unsharded port's outputs, keyed as the worker's, on the
+    reference's weights, tokens and batches as this module makes them."""
     _, tc = _cfgs(cell)
     _, kinds, _, accum = CELLS[cell]
-    tokens = torch.from_numpy(_tokens(cell))
-    model = _port_model(cell)
-    out = {}
-    if kinds == "train":
-        batch = {k: torch.from_numpy(v)
-                 for k, v in _batch(cell, "train").items()}
-        opt = make_optimizer(tc.optimizer, cfg=tc)
-        if tc.moe is not None:
-            metrics = _per_shard_step(tc, model, opt, batch, accum)
-        else:
-            state = tsteps.init_train_state(None, tc, opt, params=model)
-            step = tsteps.build_train_step(tc, opt, lambda s: LR,
-                                           grad_accum=accum)
-            _, metrics = step(state, batch)
-        out.update({k: float(metrics[k]) for k in ("loss", "grad_norm")})
-        out["new"] = {n: p.detach().numpy()
-                      for n, p in model.named_parameters()}
-        if opt.name == "adamw":
-            for k in ("m", "v"):
-                out[k] = {n: t.numpy() for n, t in state["opt"][k].items()}
-        return out
-    logits, cache = forward_prefill(model, tc, {
-        k: torch.from_numpy(v) for k, v in _batch(cell, "prefill").items()})
-    # copies: decode writes into the cache in place
-    out["prefill"] = [logits.numpy()] + [t.numpy().copy()
-                                         for t in _leaves(cache)]
-    if "decode" in kinds:
-        logits, cache = forward_decode(model, tc, cache, tokens[:, -1:], S)
-        out["decode"] = [logits.numpy()] + [t.numpy() for t in
-                                            _leaves(cache)]
-    return out
+    return worker.port_outputs(
+        tc, _port_model(cell), kinds, accum, torch.from_numpy(_tokens(cell)),
+        lambda kind: {k: torch.from_numpy(v)
+                      for k, v in _batch(cell, kind).items()})
 
 
 def _jax_run(cell):
@@ -849,7 +447,7 @@ def _jax_run(cell):
         else:
             def loss(p, mb):
                 outs = [jtf.forward_train(p, jc, {"tokens": s["tokens"]})
-                        for s in _split(mb)]
+                        for s in worker.split(mb)]
                 xent, _ = jax_xent(jnp.concatenate([o[0] for o in outs]),
                                    mb["labels"])
                 return xent + jsteps.AUX_COEF * (outs[0][1] + outs[1][1]) \
@@ -884,10 +482,11 @@ def _jax_run(cell):
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
     """Starts the 8 ranks, computes the unsharded runs meanwhile, joins the
-    ranks; -> (rank 0's results, {cell: port run}, {cell: reference
-    run})."""
+    ranks; -> (rank 0's results, {cell: port run} with the parts'
+    (``worker.unsharded``), {cell: reference run})."""
     d = tmp_path_factory.mktemp("sharded")
-    np.savez(d / "inputs.npz", **_inputs())
+    inp = _inputs()
+    np.savez(d / "inputs.npz", **inp)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]),
         OMP_NUM_THREADS="1")
@@ -899,16 +498,11 @@ def sharded(tmp_path_factory):
     deadline = time.monotonic() + JOIN_S
     logs = []
     try:
-        port = {c: _port_run(c) for c in CELLS}
-        port["kernels"] = _kernel_plain(_kernel_inputs())
-        port["xent"] = _xent_plain(_xent_inputs())
-        port["rwkv"] = _rwkv_port(_rwkv_inputs())
-        port["layers"] = _group_layer_port(_group_layer_inputs())
+        port = worker.unsharded(inp)
         ref = {c: _jax_run(c) for c in CELLS}
-        port["moed"] = _moe_dense_port(_moe_dense_inputs())
-        ref["moed"] = _moe_dense_jax(_moe_dense_inputs())
-        ref["rwkv"] = _rwkv_jax(_rwkv_inputs())
-        ref["layers"] = _group_layer_jax(_group_layer_inputs())
+        ref["moed"] = _moe_dense_jax(inp)
+        ref["rwkv"] = _rwkv_jax(inp)
+        ref["layers"] = _group_layer_jax(inp)
         for p in procs:
             out, _ = p.communicate(timeout=max(deadline - time.monotonic(),
                                                1))
@@ -992,20 +586,12 @@ def test_q_rows_cells_take_the_route(sharded, cell):
             (other, seen)
 
 
-# cell -> the relative tolerance of AdamW's m and v (the grads) where it is
-# not DIST_F32_TOL: rwkv6-7b's two layers run the chunked wkv on each
-# rank's batch and heads and the mixes' products on each rank's rows,
-# which round in another order than the whole tensors' and which the
-# per-head group norm amplifies (3.8e-5 at most, the same whether the
-# gradients are reduced once a step or once a microbatch); the rwkv
-# tests' f32 tolerance
-GRAD_TOL = {"rwt": 1e-4}
+# cell -> the relative tolerance of AdamW's m and v where it is not
+# DIST_F32_TOL (rwkv6-7b's, with its reasons: ``worker.GRAD_TOL``)
+GRAD_TOL = worker.GRAD_TOL
 
 
-def _adamw_ratio(m, v, count=1, b1=0.9, b2=0.95, eps=1e-8):
-    """AdamW's step direction from its state (optimizers.adamw)."""
-    m, v = np.asarray(m, np.float64), np.asarray(v, np.float64)
-    return (m / (1 - b1 ** count)) / (np.sqrt(v / (1 - b2 ** count)) + eps)
+_adamw_ratio = worker.adamw_ratio
 
 
 @pytest.mark.parametrize("cell", TRAIN)
@@ -1820,3 +1406,152 @@ def test_layer_spec_moves_the_layer_axis():
         counts[arch] = (on_r, moved)
     assert counts == {"gemma2-9b": (22, 22), "recurrentgemma-2b": (39, 31),
                       "qwen3-moe-235b-a22b": (9, 9)}
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's [multirank] inputs and the shared oracle (no spawn)
+# ---------------------------------------------------------------------------
+def _chip_smoke():
+    import importlib
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    return importlib.import_module("chip_smoke")
+
+
+def _weights(inp) -> set:
+    """The keys of the inputs whose arrays are weights: the reference's in
+    ``_inputs``, the port's own in ``chip_smoke.multirank_inputs``."""
+    keys = {k for k in inp if "/p/" in k}
+    keys |= {f"{tag}/{n}" for tag in worker.GROUP_LAYERS
+             for n in ("wq", "wk", "wv", "wo")}
+    for arch in MOE_DENSE:
+        pre = f"moed/{arch}/"
+        keys |= {pre + n for n in worker.moe_dense_weights(inp, pre)}
+    return keys
+
+
+def test_chip_smoke_builds_the_inputs_the_test_writes():
+    """``chip_smoke.multirank_inputs`` (no JAX: the port's own weights from
+    seeded generators) writes the keys, shapes and dtypes of ``_inputs``
+    (the reference's weights), and every array that is not a weight
+    (tokens, whisper's and paligemma's batches, the parts' x, cotangents
+    and draws) equal."""
+    got, want = _chip_smoke().multirank_inputs(None), _inputs()
+    assert set(got) == set(want), set(got) ^ set(want)
+    weights = _weights(want)
+    for k, w in want.items():
+        assert (got[k].shape, got[k].dtype) == (w.shape, w.dtype), k
+        if k not in weights:
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
+    assert any(not np.array_equal(got[k], want[k]) for k in weights)
+
+
+def _same_tree(got, want, what):
+    if isinstance(want, dict):
+        assert set(got) == set(want), what
+        for k in want:
+            _same_tree(got[k], want[k], f"{what}/{k}")
+    elif isinstance(want, list):
+        assert len(got) == len(want), what
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_tree(g, w, f"{what}/{i}")
+    else:
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
+                                      err_msg=what)
+
+
+@pytest.mark.parametrize("cell", ["g2", "g2t"])
+def test_shared_oracle_is_port_run_bit_for_bit(cell):
+    """``worker.port_run`` (the cell's config, weights, tokens and batches
+    as the ranks read them from the inputs) gives ``_port_run``'s outputs
+    (the reference's weights carried across, this module's batches) bit
+    for bit: gemma2-9b's prefill and decode, and its train step at
+    ``grad_accum=2``."""
+    _same_tree(worker.port_run(_inputs(), cell), _port_run(cell), cell)
+
+
+def test_full_width_cell_reads_its_config_and_seed():
+    """``chip_smoke.MULTIRANK_FULL_CELL`` at full width: rwkv6-7b's full
+    config cut to one layer in f32, its weights drawn by each rank from
+    its seed (none in the inputs), 8 x 33 tokens in the full vocab; and
+    ``seeded_model`` draws the same weights twice, its zero leaves given
+    values."""
+    cs = _chip_smoke()
+    inp = cs.multirank_inputs("full")
+    cell, arch, layers = cs.MULTIRANK_FULL_CELL
+    assert str(inp["cells"]).split(",")[-1] == cell
+    assert not any(k.startswith(f"{cell}/p/") for k in inp)
+    cfg = worker.cell_config(inp, cell)
+    full = get_config(arch)
+    assert (cfg.n_layers, cfg.param_dtype, cfg.d_model, cfg.vocab_size) \
+        == (layers, "float32", full.d_model, full.vocab_size)
+    assert inp[f"{cell}/tokens"].shape == (B, S + 1)
+    assert 2 <= inp[f"{cell}/tokens"].min() and \
+        inp[f"{cell}/tokens"].max() < full.vocab_size
+    small = worker.rwkv_config("rwkv", get_smoke_config)
+    a, b = (dict(worker.seeded_model(small, 3).named_parameters())
+            for _ in range(2))
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
+    assert all(a[n].abs().sum() > 0 for n in a
+               if n.rpartition(".")[2] in NORMAL)
+
+
+@pytest.mark.parametrize("experts", [6, 8])
+def test_moe_dense_ffn_takes_the_rows_gathered(experts):
+    """C18: arctic's parallel dense FFN in the DTensor ``moe_layer`` takes
+    its input gathered over ``act_seq`` (batch over ``data``, the
+    sequence whole), as the layer's sublayers do, where x comes cut on its
+    sequence, and its output's gradient comes back gathered too: torch
+    2.11 refused to view either, cut on the sequence, as rows for the
+    products.  On rank 0 of a fake 2 x 4 world, meta tensors, forward and
+    backward: the fallback (6 experts on 4 ``model`` ranks) and
+    ``moe_sharded`` (8); the output keeps x's layout."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.modules import MLP
+    from repro_torch.roofline.trace import OpTrace
+    cfg = dataclasses.replace(get_smoke_config("arctic-480b"),
+                              param_dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=experts))
+    seen, grads, mlp = [], [], tmoe.mlp
+
+    def spy(p, x, act):
+        seen.append(tuple(x.placements))
+        o = mlp(p, x, act)
+        o.register_hook(lambda g: grads.append(tuple(g.placements)))
+        return o
+    p = tmoe.init_moe(cfg, None, torch.device("meta"))
+    with fake_mesh(AbstractMesh(("data", "model"), (2, 4))) as mesh:
+        rules = layouts.choose_layout(cfg, dataclasses.replace(
+            LM_SHAPES["train_4k"], seq_len=S, global_batch=B), mesh)
+
+        def dt(t, logical):
+            return distribute_tensor(t.detach(), mesh,
+                                     rules.placements(logical))
+        q = tmoe.MoE({n: dt(getattr(p, n), lg) for n, lg in (
+            ("router", (None, None)), ("w_gate", ("experts", None, "moe_ff")),
+            ("w_up", ("experts", None, "moe_ff")),
+            ("w_down", ("experts", "moe_ff", None)))}, MLP({
+                n: dt(getattr(p.dense, n), lg) for n, lg in (
+                    ("w_gate", (None, "ff")), ("w_up", (None, "ff")),
+                    ("w_down", ("ff", None)))}))
+        rows = rules.placements(("batch", "act_seq", None))
+        x = distribute_tensor(torch.empty(B, S, cfg.d_model, device="meta"),
+                              mesh, rows).requires_grad_()
+        tmoe.mlp = spy
+        try:
+            with context.use_rules(rules), OpTrace():
+                y, _ = tmoe.moe_layer(q, x, cfg)
+                y.backward(distribute_tensor(torch.empty(y.shape,
+                                                         device="meta"),
+                                             mesh, y.placements))
+        finally:
+            tmoe.mlp = mlp
+        gathered = rules.placements(("batch", "seq", None))
+    assert rows != gathered
+    assert seen == grads == [gathered], (seen, grads)
+    assert y.placements == rows

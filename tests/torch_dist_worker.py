@@ -25,7 +25,17 @@ what the dry-run's fake world is held against (``run_dryrun_checks``):
 ``train.steps._microbatch`` on a batch sharded over 8 data ranks, a
 shard-to-shard ``redistribute`` under ``native_alltoall`` (gloo's
 all-to-all, values and trace), and rank 0's ``OpTrace`` of one sharded
-train step (``launch.dryrun.run_step`` on CPU tensors).
+train step (``launch.dryrun.run_step`` on CPU tensors).  A cell with
+``<cell>/seed`` and no weights in INPUTS draws them itself
+(``seeded_model``), at full width where ``<cell>/width`` says so.
+
+The module also holds what the sharded model's cells are and what they
+are held to, without JAX, for tests/test_torch_sharded.py and for
+``chip_smoke.py`` ``[multirank]``: the cell table (``CELLS``,
+``CELL_BATCH``, ``CELL_CONFIG``, ``B``, ``S``, ``LR``), the layout of
+INPUTS (``build_inputs``, given the weights), and the unsharded port on
+the same INPUTS (``unsharded``: ``port_run`` a cell, ``kernel_plain``,
+``xent_plain``, ``rwkv_port``, ``group_layer_port``, ``moe_dense_port``).
 """
 import collections
 import contextlib
@@ -37,7 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import LM_SHAPES, get_smoke_config
+from repro_torch.configs.base import LM_SHAPES, get_config, get_smoke_config
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import context
 from repro_torch.distributed.compression import compressed_psum
@@ -144,13 +154,252 @@ def main(rank, world, store, inputs, out):
 
 
 # ---------------------------------------------------------------------------
-# the sharded model
+# the sharded model's cells and their inputs
 # ---------------------------------------------------------------------------
+# The cells' global batch and sequence (the reference's TRAIN_LOWERS mesh
+# test) and the train cells' learning rate
+B, S = 8, 32
+LR = 1e-3
+# the leaves the reference initialises to zeros (norms, biases, the rwkv
+# interpolations), given random values so that every one of them matters
+NORMAL = {"ln1", "ln2", "post_ln1", "post_ln2", "final_norm", "q_norm",
+          "k_norm", "lnx_b", "ba", "bi", "conv_b", "mu_x", "mu", "mu_k",
+          "mu_r"}
+# cell -> (arch, kinds, kv_quant, grad_accum)
+CELLS = {
+    "g2": ("gemma2-9b", "prefill,decode", False, 0),
+    "g2q": ("gemma2-9b", "prefill,decode", True, 0),
+    "g2t": ("gemma2-9b", "train", False, 2),
+    "rg": ("recurrentgemma-2b", "prefill,decode", False, 0),
+    "rgt": ("recurrentgemma-2b", "train", False, 1),
+    "rw": ("rwkv6-7b", "prefill,decode", False, 0),
+    "qw": ("qwen3-moe-235b-a22b", "train", False, 1),
+    "pg": ("paligemma-3b", "prefill", False, 0),
+    "pgt": ("paligemma-3b", "train", False, 1),
+    "wh": ("whisper-small", "train", False, 1),
+    "rg6t": ("recurrentgemma-2b", "train", False, 1),
+    "wh6t": ("whisper-small", "train", False, 1),
+    "whv": ("whisper-small", "train", False, 2),
+    "rwt": ("rwkv6-7b", "train", False, 2),
+    "rw2": ("rwkv6-7b", "prefill,decode", False, 0),
+    # arctic-480b's step (Adafactor), its dense FFN beside the experts: the
+    # gradient its output hands the FFN's product comes back cut on the
+    # sequence unless the FFN's output is laid out as the experts' (C18)
+    "art": ("arctic-480b", "train", False, 1),
+}
+# cell -> its global batch, where it is not B: ``rw2``'s decode step at 2
+# rows a ``data`` rank, where DTensor left the LoRA's 160 columns cut over
+# ``model`` and refused to view them as 5 groups of 32 (C17), as it did at
+# the production meshes' 8 rows a rank over 16 ``model`` ranks
+CELL_BATCH = {"rw2": 4}
+# cell -> the config fields it replaces: the q-rows cells (C6, C7), whose
+# 2 q heads spread over the 4 ``model`` ranks, each head's rows over 2;
+# a q block of 8, so that paligemma's 32 positions take the prefix mask's
+# q-block scan and whisper's 32 encoder positions the bidirectional scan
+CELL_CONFIG = {
+    "pg": {"n_heads": 2, "n_kv_heads": 1, "attn_q_block": 8},
+    "pgt": {"n_heads": 2, "n_kv_heads": 1, "attn_q_block": 8},
+    "wh": {"n_heads": 2, "n_kv_heads": 2, "attn_q_block": 8},
+    # C10: 6 q heads on the 4 ``model`` ranks, 2 groups of 3, each group's
+    # rows over 2: recurrentgemma-2b's one kv head (each group inside it),
+    # its local attention through flash; whisper-small's 6 kv heads (each
+    # group 3 whole ones), its encoder and cross-attention through the
+    # plain dispatch, its decoder self-attention through flash
+    "rg6t": {"n_heads": 6, "n_kv_heads": 1},
+    "wh6t": {"n_heads": 6, "n_kv_heads": 6, "attn_q_block": 8},
+    # C14: a vocab that the 4 ``model`` ranks do not divide, so the tied
+    # table is whole on every rank and its head runs on each rank's rows
+    "whv": {"vocab_size": 514},
+}
+# cell -> the relative tolerance of AdamW's m and v (the grads) against the
+# unsharded port where it is not 1e-5: rwkv6-7b's two layers run the
+# chunked wkv on each rank's batch and heads and the mixes' products on
+# each rank's rows, which round in another order than the whole tensors'
+# and which the per-head group norm amplifies (3.8e-5 at most, the same
+# whether the gradients are reduced once a step or once a microbatch); the
+# rwkv tests' f32 tolerance
+GRAD_TOL = {"rwt": 1e-4}
+
+
+def table_config(cell, base=get_smoke_config):
+    """``CELLS[cell]``'s f32 config from ``base`` (a smoke config getter:
+    the port's or the reference's), as ``cell_config`` reads it back."""
+    arch, _, kv_quant, _ = CELLS[cell]
+    return dataclasses.replace(base(arch), **{
+        "param_dtype": "float32", "attn_q_block": 16, "kv_quant": kv_quant,
+        **CELL_CONFIG.get(cell, {})})
+
+
+def cell_tokens(cell) -> np.ndarray:
+    """The cell's tokens, (batch, S + 1) int64: numpy draws."""
+    return np.random.default_rng(list(CELLS).index(cell)).integers(
+        2, table_config(cell).vocab_size,
+        (CELL_BATCH.get(cell, B), S + 1)).astype(np.int64)
+
+
+def seeded_model(cfg, seed: int):
+    """The port's model of ``cfg`` on the CPU from a seeded
+    ``torch.Generator``, each ``NORMAL`` leaf given numpy draws (the same
+    on every process)."""
+    from repro_torch.models import init_params
+    model = init_params(cfg, torch.Generator().manual_seed(seed),
+                        device="cpu")
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.rpartition(".")[2] in NORMAL:
+                p.add_(torch.from_numpy(rng.standard_normal(
+                    tuple(p.shape)) * 0.3).to(p.dtype))
+    return model
+
+
+KERNEL_SHAPES = {"q": (8, 16, 4, 2, 16), "k": (8, 16, 4, 16),
+                 "v": (8, 16, 4, 16), "qf": (8, 16, 8, 16),
+                 "kf": (8, 16, 2, 16), "vf": (8, 16, 2, 16),
+                 "qr": (8, 16, 2, 16), "kr": (8, 16, 2, 16),
+                 "vr": (8, 16, 2, 16),
+                 "pq": (8, 16, 2, 16), "pk": (8, 16, 1, 16),
+                 "pv": (8, 16, 1, 16), "bq": (8, 16, 2, 16),
+                 "bk": (8, 16, 2, 16), "bv": (8, 16, 2, 16),
+                 "xq": (8, 16, 2, 16), "xk": (8, 24, 2, 16),
+                 "xv": (8, 24, 2, 16), "cq": (8, 16, 2, 16),
+                 "ck": (8, 16, 2, 16), "cv": (8, 16, 2, 16),
+                 "gq": (8, 16, 6, 16), "gk1": (8, 16, 1, 16),
+                 "gv1": (8, 16, 1, 16), "gk6": (8, 16, 6, 16),
+                 "gv6": (8, 16, 6, 16),
+                 "hq": (8, 16, 2, 16), "hk": (8, 16, 1, 16),
+                 "hv": (8, 16, 1, 16),
+                 "a": (8, 16, 8), "b": (8, 16, 8),
+                 "r": (8, 16, 4, 16), "wk": (8, 16, 4, 16),
+                 "wv": (8, 16, 4, 16), "logw": (8, 16, 4, 16), "u": (4, 16)}
+
+
+def kernel_inputs() -> dict:
+    """``kern/*``: each kernel route's inputs and its outputs'
+    cotangents (``kern/<tag>/ct<i>``), numpy draws."""
+    rng = np.random.default_rng(7)
+    inp = {f"kern/{n}": rng.standard_normal(s).astype(np.float32)
+           for n, s in KERNEL_SHAPES.items()}
+    inp["kern/a"] = rng.uniform(0.5, 1.0, KERNEL_SHAPES["a"]).astype(
+        np.float32)
+    inp["kern/logw"] = -rng.uniform(1e-3, 2.0, KERNEL_SHAPES["logw"]).astype(
+        np.float32)
+    for tag, shapes in (("flash", [KERNEL_SHAPES["q"]]),
+                        ("flashq", [KERNEL_SHAPES["qf"]]),
+                        ("flashr", [KERNEL_SHAPES["qr"]]),
+                        ("plainp", [KERNEL_SHAPES["pq"]]),
+                        ("plainb", [KERNEL_SHAPES["bq"]]),
+                        ("plainx", [KERNEL_SHAPES["xq"]]),
+                        ("plainc", [KERNEL_SHAPES["cq"]]),
+                        ("scan", [KERNEL_SHAPES["a"]]),
+                        ("wkv6", [KERNEL_SHAPES["r"], (8, 4, 16, 16)]),
+                        ("plainh", [KERNEL_SHAPES["cq"]]),
+                        *((tag, [KERNEL_SHAPES["gq"]])
+                          for tag in GROUP_ROWS),
+                        *((tag, [KERNEL_SHAPES["hq"]])
+                          for tag in PLAIN_HEADS)):
+        for i, shape in enumerate(shapes):
+            inp[f"kern/{tag}/ct{i}"] = rng.standard_normal(shape).astype(
+                np.float32)
+    return inp
+
+
+XENT_B, XENT_S, XENT_V = 8, 6, 512      # the vocab: 128 columns a rank
+
+
+def xent_inputs() -> dict:
+    """f32 logits and labels: every shard's first and last column among
+    the labels, and ignored (-1) labels."""
+    rng = np.random.default_rng(11)
+    labels = rng.integers(0, XENT_V, (XENT_B, XENT_S))
+    edges = [c for r in range(4) for c in (128 * r, 128 * r + 127)]
+    labels.flat[:len(edges)] = edges
+    labels.flat[-5:] = -1
+    return {"xent/logits": 3 * rng.standard_normal(
+        (XENT_B, XENT_S, XENT_V)).astype(np.float32),
+            "xent/labels": labels}
+
+
+def reduce_inputs() -> dict:
+    """``reduce/g``: 8 blocks of partial sums (``run_reduce``)."""
+    return {"reduce/g": np.random.default_rng(17).standard_normal(
+        (8, 8, 6)).astype(np.float32)}
+
+
+# arch -> an expert count that does not divide the 4 ``model`` ranks
+MOE_DENSE = {"qwen3-moe-235b-a22b": 6, "arctic-480b": 6}
+
+
+def moe_dense_config(arch, base):
+    """``MOE_DENSE[arch]``'s f32 config from ``base`` (a smoke config
+    getter: the port's or the reference's)."""
+    cfg = dataclasses.replace(base(arch), param_dtype="float32")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=MOE_DENSE[arch]))
+
+
+def build_inputs(weights) -> dict:
+    """The ranks' INPUTS for ``sharded_main``: every cell of ``CELLS`` and
+    every part's, numpy.  ``weights`` gives what differs between the
+    reference's weights and the port's own: ``cell(cell)`` (the cell's
+    model), ``batch(cell)`` (a ``CELL_CONFIG`` cell's synthetic train
+    batch, numpy), ``rwkv(tag)`` (``RWKV_CONFIG[tag]``'s model),
+    ``attention(i, tag)`` ({wq, wk, wv, wo} of ``GROUP_LAYERS[tag]``) and
+    ``moe(i, arch)`` (``MOE_DENSE[arch]``'s MoE weights, the dense FFN's
+    under ``dense/``); tokens, x and cotangents are numpy draws."""
+    inp = {"cells": np.array(",".join(CELLS)), **kernel_inputs(),
+           **xent_inputs(), **reduce_inputs()}
+    for cell, (arch, kinds, kv_quant, accum) in CELLS.items():
+        inp[f"{cell}/arch"] = np.array(arch)
+        inp[f"{cell}/kinds"] = np.array(kinds)
+        inp[f"{cell}/kv_quant"] = np.array(kv_quant)
+        inp[f"{cell}/accum"] = np.array(accum)
+        inp[f"{cell}/tokens"] = cell_tokens(cell)
+        if cell in CELL_CONFIG:
+            inp[f"{cell}/config"] = np.array(json.dumps(CELL_CONFIG[cell]))
+            batch = weights.batch(cell)
+            inp.update({f"{cell}/batch/{k}": v for k, v in batch.items()
+                        if kinds == "train" or k != "labels"})
+        for n, p in weights.cell(cell).named_parameters():
+            inp[f"{cell}/p/{n}"] = p.detach().numpy()
+    for i, tag in enumerate(RWKV_CONFIG):
+        model = weights.rwkv(tag)
+        inp.update({f"{tag}/p/{n}": p.detach().numpy()
+                    for n, p in model.named_parameters()})
+        rng = np.random.default_rng(13 + i)
+        d = rwkv_config(tag, get_smoke_config).d_model
+        for n in ("x_tm", "x_cm", "ct_tm", "ct_cm"):
+            inp[f"{tag}/{n}"] = rng.standard_normal((B, S, d)).astype(
+                np.float32)
+    for i, tag in enumerate(GROUP_LAYERS):
+        inp.update({f"{tag}/{n}": v
+                    for n, v in weights.attention(i, tag).items()})
+        rng = np.random.default_rng(30 + i)
+        d = group_layer_config(tag, get_smoke_config).d_model
+        for n in ("x", "ct"):
+            inp[f"{tag}/{n}"] = rng.standard_normal((B, 16, d)).astype(
+                np.float32)
+    inp["moed/archs"] = np.array(",".join(MOE_DENSE))
+    for i, arch in enumerate(MOE_DENSE):
+        pre = f"moed/{arch}/"
+        inp.update({pre + n: v for n, v in weights.moe(i, arch).items()})
+        rng = np.random.default_rng(20 + i)
+        d = moe_dense_config(arch, get_smoke_config).d_model
+        inp[pre + "x"] = rng.standard_normal((B, S, d)).astype(np.float32)
+        inp[pre + "ct"] = rng.standard_normal((B, S, d)).astype(np.float32)
+        inp[pre + "ct_aux"] = np.array(rng.standard_normal(), np.float32)
+        inp[pre + "experts"] = np.array(MOE_DENSE[arch])
+    return inp
+
+
 def cell_config(inp, cell):
-    """The f32 smoke config of a cell (``<cell>/arch``, ``<cell>/kv_quant``)
-    with the reference's ``attn_q_block=16`` of TRAIN_LOWERS, and the
-    fields ``<cell>/config`` (JSON) replaces, where the cell has it."""
-    cfg = get_smoke_config(str(inp[f"{cell}/arch"]))
+    """The f32 config of a cell (``<cell>/arch``, ``<cell>/kv_quant``) with
+    the reference's ``attn_q_block=16`` of TRAIN_LOWERS, and the fields
+    ``<cell>/config`` (JSON) replaces, where the cell has it: the smoke
+    config, or the full one where ``<cell>/width`` is ``full``."""
+    arch = str(inp[f"{cell}/arch"])
+    full = str(inp.get(f"{cell}/width", "smoke")) == "full"
+    cfg = get_config(arch) if full else get_smoke_config(arch)
     over = json.loads(str(inp.get(f"{cell}/config", "{}")))
     return dataclasses.replace(cfg, **{
         "param_dtype": "float32", "attn_q_block": 16,
@@ -173,11 +422,15 @@ def cell_batch(inp, cell, tokens, kind):
 
 
 def cell_model(inp, cell, cfg):
-    """The port's model from the cell's weights, keyed by parameter name."""
+    """The port's model from (copies of) the cell's weights, keyed by
+    parameter name, or, where INPUTS holds none, ``seeded_model`` of
+    ``<cell>/seed``; a train step leaves INPUTS as they were."""
     from repro_torch.models import init_params
-    model = init_params(cfg, None, device="meta")
     pre = f"{cell}/p/"
-    model.load_state_dict({k[len(pre):]: torch.from_numpy(v)
+    if f"{cell}/seed" in inp:
+        return seeded_model(cfg, int(inp[f"{cell}/seed"]))
+    model = init_params(cfg, None, device="meta")
+    model.load_state_dict({k[len(pre):]: torch.from_numpy(v).clone()
                            for k, v in inp.items() if k.startswith(pre)},
                           assign=True)
     return model
@@ -711,6 +964,304 @@ def run_dryrun_checks(mesh, res):
     with context.native_alltoall():
         for k, v in traced_train_step(mesh).items():
             res[f"trace/{k}"] = np.array(v)
+
+
+# ---------------------------------------------------------------------------
+# the unsharded port, which the ranks' results are held to
+# ---------------------------------------------------------------------------
+def adamw_ratio(m, v, count=1, b1=0.9, b2=0.95, eps=1e-8):
+    """AdamW's step direction from its state (optimizers.adamw), f64."""
+    m, v = np.asarray(m, np.float64), np.asarray(v, np.float64)
+    return (m / (1 - b1 ** count)) / (np.sqrt(v / (1 - b2 ** count)) + eps)
+
+
+def split(batch, n=2):
+    """The data shards of a (micro)batch: n contiguous row blocks."""
+    return [{k: v[i * len(v) // n:(i + 1) * len(v) // n]
+             for k, v in batch.items()} for i in range(n)]
+
+
+def per_shard_step(cfg, model, opt, batch, grad_accum, lr=LR):
+    """One step of the port, plain, with the sharded MoE's semantics: each
+    data shard's rows through the model on their own, one cross-entropy
+    over their logits, the aux the shards' mean."""
+    from repro_torch.models import forward_train
+    from repro_torch.models.losses import softmax_xent
+    from repro_torch.train import steps as tsteps
+    state = tsteps.init_train_state(None, cfg, opt, params=model)
+    params = dict(model.named_parameters())
+    loss = 0.0
+    for mb in split(batch, grad_accum):
+        outs = [forward_train(model, cfg, {"tokens": s["tokens"]})
+                for s in split(mb)]
+        xent, _ = softmax_xent(torch.cat([o[0] for o in outs]), mb["labels"])
+        (xent + tsteps.AUX_COEF * (outs[0][1] + outs[1][1]) / 2).backward()
+        loss = loss + xent.detach() / grad_accum
+    for p in params.values():
+        p.grad.div_(grad_accum)
+    _, _, gn = opt.update({n: p.grad for n, p in params.items()},
+                          state["opt"], params, torch.tensor(lr))
+    return {"loss": loss, "grad_norm": gn}
+
+
+def port_outputs(cfg, model, kinds, accum, tokens, batch_of, lr=LR):
+    """The unsharded port's outputs of a cell, keyed as ``run_cell``'s:
+    prefill (and decode at the next position) -> {"prefill": [logits,
+    *cache leaves], "decode": [...]}; or one train step (the MoE's with
+    ``per_shard_step``) -> loss, grad norm, the new parameters and AdamW's
+    m and v.  ``tokens``: (batch, S + 1); ``batch_of(kind)``: the train
+    or prefill batch, tensors."""
+    from repro_torch.models import forward_decode, forward_prefill
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import steps as tsteps
+    out = {}
+    if kinds == "train":
+        batch = batch_of("train")
+        opt = make_optimizer(cfg.optimizer, cfg=cfg)
+        if cfg.moe is not None:
+            metrics = per_shard_step(cfg, model, opt, batch, accum, lr)
+        else:
+            state = tsteps.init_train_state(None, cfg, opt, params=model)
+            step = tsteps.build_train_step(cfg, opt, lambda s: lr,
+                                           grad_accum=accum)
+            _, metrics = step(state, batch)
+        out.update({k: float(metrics[k]) for k in ("loss", "grad_norm")})
+        out["new"] = {n: p.detach().numpy()
+                      for n, p in model.named_parameters()}
+        if opt.name == "adamw":
+            for k in ("m", "v"):
+                out[k] = {n: t.numpy() for n, t in state["opt"][k].items()}
+        return out
+    logits, cache = forward_prefill(model, cfg, batch_of("prefill"))
+    # copies: decode writes into the cache in place
+    out["prefill"] = [logits.numpy()] + [t.numpy().copy()
+                                         for t in cache_leaves(cache)]
+    if "decode" in kinds:
+        logits, cache = forward_decode(model, cfg, cache, tokens[:, -1:],
+                                       tokens.shape[1] - 1)
+        out["decode"] = [logits.numpy()] + [t.numpy() for t in
+                                            cache_leaves(cache)]
+    return out
+
+
+def port_run(inp, cell):
+    """``port_outputs`` of a cell of INPUTS: its config, weights, tokens
+    and batches as the ranks read them."""
+    cfg = cell_config(inp, cell)
+    tokens = torch.from_numpy(inp[f"{cell}/tokens"])
+    return port_outputs(cfg, cell_model(inp, cell, cfg),
+                        str(inp[f"{cell}/kinds"]), int(inp[f"{cell}/accum"]),
+                        tokens, lambda kind: cell_batch(inp, cell, tokens,
+                                                        kind))
+
+
+def whole_rows_case(attn, xp, tag, q, k, v):
+    """The dispatch branch that ``tag`` of ``PLAIN_ROWS`` (or of
+    ``PLAIN_HEADS``, the same masks) takes, on whole tensors: flat q
+    (B,S,H,hd) -> (B,S,H,hd) through ``attn``'s ``_qblock_scan`` under the
+    prefix mask, ``_rect_scan``, ``_sdpa`` (cross) or ``_qblock_scan``
+    under the causal mask with its window (no packing with a window) at q
+    blocks of 4, or with ``plain_attention`` as the hook, ``_sdpa`` under
+    that mask; ``attn``, ``xp``: the port's attention module and torch, or
+    the reference's and ``jax.numpy``."""
+    kw = {**PLAIN_ROWS, **PLAIN_HEADS}[tag][1]
+    B_, S_, H, hd = q.shape
+    Kh = k.shape[2]
+    q5 = q.reshape(B_, S_, Kh, H // Kh, hd)
+    qb, scale = PLAIN_ROWS_KW["q_block"], PLAIN_ROWS_KW["scale"]
+    if tag in ("plainp", "plainqp"):
+        o = attn._qblock_scan(q5, k, v, attn.make_mask_fn(
+            "prefix", 0, kw["prefix_len"]), 0.0, scale, qb, 0)
+    elif tag in ("plainb", "plainqb"):
+        o = attn._rect_scan(q5, k, v, 0.0, scale, qb)[0]
+    elif tag == "plainc":
+        o = attn._qblock_scan(q5, k, v, attn.make_mask_fn(
+            "causal", kw["window"]), 0.0, scale, qb, kw["window"])
+    elif tag == "plainh":
+        mask = attn.make_mask_fn("causal", kw["window"])(xp.arange(S_),
+                                                         xp.arange(S_))
+        o = attn._sdpa(q5, k, v, mask, 0.0, scale)
+    else:
+        mask = attn.make_mask_fn("bidir")(xp.arange(S_),
+                                          xp.arange(k.shape[1]))
+        o = attn._sdpa(q5, k, v, mask, 0.0, scale)
+    return o.reshape(B_, S_, H, hd)
+
+
+def whole_group_case(attn, xp, tag, q, k, v):
+    """What ``tag`` of ``GROUP_ROWS`` computes, on whole tensors: flat q
+    (B,S,6,hd) -> (B,S,6,hd) under the causal mask with a window of 6
+    (``_sdpa``: the flash tags) or the bidirectional one (``_rect_scan``
+    at q blocks of 4: the plain dispatch's branch); ``attn``, ``xp``: the
+    port's attention module and torch, or the reference's and
+    ``jax.numpy``."""
+    B_, S_, H, hd = q.shape
+    q5 = q.reshape(B_, S_, k.shape[2], H // k.shape[2], hd)
+    scale = PLAIN_ROWS_KW["scale"]
+    if tag.startswith("flash"):
+        mask = attn.make_mask_fn("causal", 6)(xp.arange(S_), xp.arange(S_))
+        o = attn._sdpa(q5, k, v, mask, 0.0, scale)
+    else:
+        o = attn._rect_scan(q5, k, v, 0.0, scale,
+                            PLAIN_ROWS_KW["q_block"])[0]
+    return o.reshape(B_, S_, H, hd)
+
+
+def flash_groups(q, k, v):
+    """Flash's plain version on whole tensors: flat q (B,S,6,hd) folded
+    over k's kv heads, a window of 6."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    K = k.shape[2]
+    return flash_attention(q.unflatten(2, (K, q.shape[2] // K)), k, v,
+                           scale=0.25, window=6, q_block=512,
+                           pack=True).flatten(2, 3)
+
+
+def kernel_plain(inp):
+    """Each kernel wrapper on plain tensors: outputs and input grads; and
+    the plain dispatch's branches on whole tensors (``run_kernels``'
+    keys)."""
+    import functools
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_chunk import wkv6
+    from repro_torch.models import attention as tattn
+
+    def flat_q(qf, kf, vf):         # 8 q heads, 2 kv heads: G = 4
+        return flash_attention(qf.unflatten(2, (2, 4)), kf, vf, scale=0.25,
+                               q_block=512, pack=True).flatten(2, 3)
+
+    def flat_r(qr, kr, vr):         # 2 q heads, 2 kv heads: G = 1
+        return flash_attention(qr.unflatten(2, (2, 1)), kr, vr, scale=0.25,
+                               window=6, q_block=512, pack=True).flatten(2, 3)
+    out = {}
+    for tag, fn, names in (
+            ("flash", functools.partial(flash_attention, scale=0.25,
+                                        q_block=512, pack=True), "qkv"),
+            ("flashq", flat_q, ("qf", "kf", "vf")),
+            ("flashr", flat_r, ("qr", "kr", "vr")),
+            *((tag, functools.partial(whole_rows_case, tattn, torch, tag),
+               names) for tag, (names, *_) in (*PLAIN_ROWS.items(),
+                                               *PLAIN_HEADS.items())),
+            *((tag, flash_groups if tag.startswith("flash") else
+               functools.partial(whole_group_case, tattn, torch, tag),
+               ("gq", *kv)) for tag, kv in GROUP_ROWS.items()),
+            ("scan", rglru_scan, "ab"),
+            ("wkv6", wkv6, ("r", "wk", "wv", "logw", "u"))):
+        ins = {n: torch.from_numpy(inp[f"kern/{n}"]).requires_grad_()
+               for n in names}
+        outs = fn(*ins.values())
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        torch.autograd.backward(outs, [torch.from_numpy(
+            inp[f"kern/{tag}/ct{i}"]) for i in range(len(outs))])
+        for i, o in enumerate(outs):
+            out[f"kern/{tag}/out{i}"] = o.detach().numpy()
+        for n, t in ins.items():
+            out[f"kern/{tag}/grad/{n}"] = t.grad.numpy()
+    return out
+
+
+def xent_plain(inp):
+    """``softmax_xent`` on the full plain logits: loss, count, gradient."""
+    from repro_torch.models.losses import softmax_xent
+    logits = torch.from_numpy(inp["xent/logits"]).requires_grad_()
+    loss, n = softmax_xent(logits, torch.from_numpy(inp["xent/labels"]))
+    loss.backward()
+    return {"xent/loss": loss.detach().numpy(), "xent/n": n.numpy(),
+            "xent/grad": logits.grad.numpy()}
+
+
+def rwkv_port(inp):
+    """The unsharded port's time mix and channel mix: outputs and
+    gradients, keyed as ``run_rwkv``'s."""
+    from repro_torch.models import rwkv as trwkv
+    out = {}
+    for tag in RWKV_CONFIG:
+        cfg = rwkv_config(tag, get_smoke_config)
+        layer = cell_model(inp, tag, cfg).layers[0].requires_grad_()
+        xs = [torch.from_numpy(inp[f"{tag}/x_{n}"]).requires_grad_()
+              for n in ("tm", "cm")]
+        outs = (*trwkv.time_mix_seq(layer.tm, xs[0], cfg),
+                *trwkv.channel_mix(layer.cm, xs[1]))
+        torch.autograd.backward([outs[0], outs[3]], [
+            torch.from_numpy(inp[f"{tag}/ct_{n}"]) for n in ("tm", "cm")])
+        out.update({f"{tag}/out/{n}": o.detach().numpy() for n, o in zip(
+            ("tm", "state", "tm_last", "cm", "cm_last"), outs)})
+        out.update({f"{tag}/grad/x_{n}": x.grad.numpy()
+                    for n, x in zip(("tm", "cm"), xs)})
+        out.update({f"{tag}/grad/{n}": p.grad.numpy() for n, p in (
+            *layer.tm.named_parameters(prefix="tm"),
+            *layer.cm.named_parameters(prefix="cm"))})
+    return out
+
+
+def group_layer_port(inp):
+    """The unsharded port's ``attention_seq``: outputs and gradients,
+    keyed as ``run_group_layers``'s."""
+    from repro_torch.models import attention as tattn
+    out = {}
+    for tag, (_, _, kind, mask) in GROUP_LAYERS.items():
+        cfg = group_layer_config(tag, get_smoke_config)
+        p = tattn.Attention({n: torch.from_numpy(inp[f"{tag}/{n}"])
+                             for n in ("wq", "wk", "wv", "wo")})
+        p.requires_grad_()
+        x = torch.from_numpy(inp[f"{tag}/x"]).requires_grad_()
+        pos = torch.arange(x.shape[1]).expand(x.shape[:2])
+        o, _ = tattn.attention_seq(p, x, cfg, kind, pos, mask)
+        o.backward(torch.from_numpy(inp[f"{tag}/ct"]))
+        out[f"{tag}/out"] = o.detach().numpy()
+        out[f"{tag}/grad/x"] = x.grad.numpy()
+        out.update({f"{tag}/grad/{n}": t.grad.numpy()
+                    for n, t in p.named_parameters()})
+    return out
+
+
+def moe_dense_weights(inp, pre):
+    """The MoE weights under ``pre`` (``moed/<arch>/``), by name."""
+    return {n[len(pre):]: v for n, v in inp.items() if n.startswith(pre)
+            and n[len(pre):] not in ("x", "ct", "ct_aux", "experts")}
+
+
+def moe_dense_port(inp):
+    """The unsharded port's ``moe_dense``: y, aux, the gradients, keyed as
+    ``run_moe_dense``'s."""
+    out = {}
+    for arch in MOE_DENSE:
+        cfg = moe_dense_config(arch, get_smoke_config)
+        pre = f"moed/{arch}/"
+        w = {n: torch.from_numpy(v)
+             for n, v in moe_dense_weights(inp, pre).items()}
+        dense = {n[len("dense/"):]: t for n, t in w.items()
+                 if n.startswith("dense/")}
+        p = tmoe.MoE({n: w[n] for n in ("router", "w_gate", "w_up",
+                                        "w_down")},
+                     MLP(dense) if dense else None).requires_grad_()
+        ins = {n.replace(".", "/"): t for n, t in p.named_parameters()}
+        ins["x"] = torch.from_numpy(inp[pre + "x"]).requires_grad_()
+        y, aux = tmoe.moe_dense(p, ins["x"], cfg)
+        torch.autograd.backward([y, aux], [
+            torch.from_numpy(inp[pre + "ct"]),
+            torch.from_numpy(inp[pre + "ct_aux"])])
+        out[pre + "y"], out[pre + "aux"] = y.detach().numpy(), \
+            aux.detach().numpy()
+        out.update({f"{pre}grad/{n}": t.grad.numpy()
+                    for n, t in ins.items()})
+    return out
+
+
+def unsharded(inp) -> dict:
+    """Everything ``sharded_main`` runs on INPUTS that the unsharded port
+    computes: {cell: ``port_run``} for each of ``cells``, and
+    ``kernel_plain``, ``xent_plain``, ``rwkv_port``, ``group_layer_port``
+    and ``moe_dense_port`` under ``kernels``, ``xent``, ``rwkv``,
+    ``layers`` and ``moed``."""
+    want = {c: port_run(inp, c) for c in str(inp["cells"]).split(",")}
+    for name, fn in (("kernels", kernel_plain), ("xent", xent_plain),
+                     ("rwkv", rwkv_port), ("layers", group_layer_port),
+                     ("moed", moe_dense_port)):
+        want[name] = fn(inp)
+    return want
 
 
 def sharded_main(rank, world, store, inputs, out):
