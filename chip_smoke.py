@@ -26,8 +26,11 @@ Phases:
        arctic's (G=7, hd 128) and whisper's decoder (G=1, hd 64, 256
        positions), each also beside one PyTorch library
        call (scaled_dot_product_attention with an explicit boolean mask, a
-       yardstick the port never calls) and beside the CUDA-core kernel on
-       the same bf16 inputs (the earlier design);
+       yardstick the port never calls; on the unwindowed shapes also the
+       fastest causal call, ``is_causal=True`` on each backend in turn, k/v
+       one head with ``enable_gqa`` or expanded beforehand, and which
+       backend it was) and beside the CUDA-core kernel on the same bf16
+       inputs (the earlier design);
      - the RG-LRU scan: the channel-group TMA kernel (the wrappers' route)
        and the earlier one-thread-per-channel kernel, over test_rglru_kernel's
        sweep, ragged C, a near 1 (also at the prefill shape) and
@@ -77,6 +80,23 @@ Phases:
   steps each (timed), logits within 0.5 of the bf16 cache's (the reference's
   bound), and the smoke config's prefill and decode card vs CPU.  One JSON
   line holds the serving numbers.
+  6b. golden: the cells of ``repro_torch.launch.golden`` (ten published
+     configs at every published width, cut only in depth and the MoEs in
+     experts; batch 1; gemma3-1b, h2o-danube-1.8b and recurrentgemma-2b
+     also in bf16) on the card, tf32 off, against the JAX reference's own
+     outputs in ``tests/golden/full_width.npz``: each cell's weights
+     (``BlockDraws``, drawn on the host) checked against the file's
+     checksums, its prefill (every position's logits) and 8 teacher-forced
+     decode steps held to the file (the logits' projections on 16
+     directions in relative norm, each logsumexp, the argmax where the
+     reference's top-two gap is clear) at 2e-4 in f32 (rwkv6-7b 1e-3) and
+     5e-2 in bf16, and its launches counted from 0: flash once a causal
+     self-attention layer (f32: the CUDA-core kernel; bf16: ``wgmma``;
+     paligemma-3b none), the scan 2 (recurrentgemma-2b), the wkv6 1
+     (rwkv6-7b).  Where a cell is out of tolerance, it is run again with
+     each of its kernels swapped for its plain version, to name the one at
+     fault, and the phase fails.  One ``[golden]`` line a cell, one JSON
+     line for all.
   7. workflow: the flood-disaster workflow (``repro_torch.serverless``),
      which launches no kernel of the port (its convolutions are cuDNN's),
      with cuDNN's TF32 at PyTorch's default (the bodies pin their own
@@ -252,6 +272,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 SEED = 0
@@ -588,6 +609,9 @@ def check_flash(torch, F, randn, dev):
             "variant": "fma", "max_abs_err": fma_err,
             "ms": time_ms(torch, lambda: flash_attention_fma(q, k, v, **kw)),
         }
+        if not win:
+            row["library_causal"] = sdpa_causal(torch, F, q, k, v, kw["scale"],
+                                                ref)
         rows[label] = row
         print(f"[kernels] flash {cfg.name} {label}: {row['shape']}: {which} "
               f"kernel max abs err {err:.3g} (vs its numerics' plain version "
@@ -598,7 +622,59 @@ def check_flash(torch, F, randn, dev):
               f"({bound_by}), {bound_ms / row['ms']:.1%} of bound; CUDA-core "
               f"kernel {row['earlier_design']['ms']:.4f} ms (max abs err "
               f"{fma_err:.3g})")
+        if "library_causal" in row:
+            lc = row["library_causal"]
+            print(f"[kernels] flash {cfg.name} {label}: the fastest causal "
+                  f"SDPA call ({lc['backend']}, {lc['kv']}) {lc['ms']:.4f} ms "
+                  f"(max abs err {lc['max_abs_err']:.3g}), kernel_ms / that "
+                  f"{row['ms'] / lc['ms']:.3f}; each backend tried: "
+                  f"{lc['tried']}")
     return sweep_err, rows
+
+
+def sdpa_causal(torch, F, q, k, v, scale, ref) -> dict:
+    """The fastest single ``scaled_dot_product_attention`` call with
+    ``is_causal=True`` on one flash shape (q (BK, S, G, hd), one kv head a
+    row of BK), each backend forced in turn: k/v as one head with
+    ``enable_gqa=True``, or, where the backend refuses that, expanded to
+    the G heads and made contiguous outside the timed region.  q is made
+    contiguous in SDPA's layout outside it too.  A yardstick: the port
+    never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    BK, Sq, G, hd = q.shape
+    qs = q.permute(0, 2, 1, 3).contiguous()
+    forms = {"enable_gqa": (k[:, None].contiguous(), v[:, None].contiguous(),
+                            True),
+             "k/v expanded": (k[:, None].expand(BK, G, Sq, hd).contiguous(),
+                              v[:, None].expand(BK, G, Sq, hd).contiguous(),
+                              False)}
+    best, tried = None, {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        for form, (ks, vs, gqa) in forms.items():
+            def call():
+                return F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, scale=scale, enable_gqa=gqa)
+            try:
+                # a refusing backend warns why before it raises
+                with sdpa_kernel([backend]), warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)
+                    o = call()
+                    torch.cuda.synchronize()
+                    ms = time_ms(torch, call)
+            except RuntimeError as e:
+                tried[f"{backend.name} {form}"] = \
+                    f"refused: {str(e).splitlines()[0][:80]}"
+                continue
+            err = (o.permute(0, 2, 1, 3).float() - ref.float()).abs().max()
+            r = {"ms": ms, "backend": backend.name, "kv": form,
+                 "max_abs_err": err.item()}
+            tried[f"{backend.name} {form}"] = round(ms, 4)
+            if best is None or ms < best["ms"]:
+                best = r
+            break
+    check(best is not None, f"no SDPA backend ran causal attention: {tried}")
+    return {**best, "tried": tried}
 
 
 def check_rglru(torch, randn):
@@ -959,19 +1035,13 @@ def path_config(arch):
     return cfg
 
 
-def decode_start(cfg, batch) -> int:
-    """The position right after a prefill of ``batch`` (the length of its
-    self-attention cache)."""
-    n = batch["tokens"].shape[1]
-    return n + cfg.n_prefix_tokens if cfg.frontend == "vision" else n
-
-
 def serve_path(torch, np, dev, arch):
     """Prefill, decode, engine and reference of one architecture at full
     width.  Returns the launches its main path made, by kernel, and a row
     of its numbers."""
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.golden import decode_start
     from repro_torch.models import forward_decode, forward_prefill, init_params
     from repro_torch.models.io import make_batch
     from repro_torch.serving.engine import Request, ServingEngine
@@ -1121,6 +1191,110 @@ def serve_path(torch, np, dev, arch):
           f"(kernels) vs CPU (plain): logits max abs err {small_err:.3g}, "
           f"cache relative error {cache_err:.3g} (tol {MODEL_TOL})")
     return main_launches, row
+
+
+def golden_launches(cfg, dtype: str) -> dict:
+    """The kernels one golden cell's prefill launches (its decode none):
+    flash once a causal self-attention layer (none under paligemma's
+    prefix-LM mask; whisper's encoder and cross-attention run the plain
+    path), on the CUDA-core kernel in f32 and ``wgmma`` in bf16; the scan
+    and the wkv6 once a layer of theirs."""
+    kinds = cfg.layer_kinds()
+    n_flash = 0 if cfg.frontend == "vision" else \
+        sum(k in ("local", "global") for k in kinds)
+    variant = "wgmma" if dtype == "bfloat16" else "fma"
+    want = {}
+    for name, n in (("flash_attention", n_flash),
+                    (f"flash_attention:{variant}", n_flash),
+                    ("rglru_scan", kinds.count("rglru")),
+                    ("rglru_scan:grouped", kinds.count("rglru")),
+                    ("wkv6", kinds.count("rwkv")),
+                    ("wkv6:chunk", kinds.count("rwkv"))):
+        if n:
+            want[name] = n
+    return want
+
+
+def golden_path(torch, dev, card) -> dict:
+    """Phase 6b: every golden cell on the card against the reference's
+    outputs (``repro_torch.launch.golden.run_cell``), tf32 off, launches
+    counted from 0 a cell.  A cell out of tolerance is run again with each
+    of its kernels swapped for its plain version, then the phase fails."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import golden
+
+    stored = golden.load()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, t_phase, f32 = {}, time.perf_counter(), None
+    try:
+        for name, dtype in golden.runs():
+            cfg = golden.cell_config(name, dtype)
+            want = golden_launches(cfg, dtype)
+            # a cell's bf16 weights are its f32 ones cast (the file's
+            # checksums hold them all the same): one host draw a cell
+            t0 = time.perf_counter()
+            if dtype == "float32":
+                f32 = None
+                gc.collect()
+                f32 = golden.model(cfg, golden.SEED, dev)
+                m = f32
+            else:
+                m = golden.cast(f32, cfg)
+            drawn = time.perf_counter() - t0
+            cuda_lib.launches.clear()
+            r = golden.run_cell(name, dtype, dev, stored, m)
+            r["weights_s"] += drawn
+            del m
+            got = {k: n for k, n in cuda_lib.launches.items() if n}
+            check(got == want, f"[golden] {name} {dtype} launched {got}, "
+                               f"want {want}")
+            e = r["errors"]
+            rows[f"{name} {dtype}"] = {**r, "launches": got}
+            print(f"[golden] {name} {dtype} ({cfg.n_layers} layers, "
+                  f"{golden.CELLS[name].seq} positions): prefill sketch "
+                  f"{e['prefill']['sketch_rel']:.3g}, logsumexp "
+                  f"{e['prefill']['lse_in_sizes']:.3g} sizes, argmax "
+                  f"{e['prefill']['argmax_differs']} of "
+                  f"{e['prefill']['argmax_checked']} differ; decode sketch "
+                  f"{e['decode']['sketch_rel']:.3g}, logsumexp "
+                  f"{e['decode']['lse_in_sizes']:.3g}, argmax "
+                  f"{e['decode']['argmax_differs']} of "
+                  f"{e['decode']['argmax_checked']} (tol {r['tol']}); "
+                  f"launches {got}; weights {r['weights_s']:.1f} s, run "
+                  f"{r['run_s']:.1f} s", flush=True)
+            if not e["ok"]:
+                golden_diagnosis(torch, dev, stored, name, dtype, want)
+            check(e["ok"], f"[golden] {name} {dtype} against the "
+                           f"reference's outputs: {e}")
+    finally:
+        del f32
+        torch.cuda.empty_cache()
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    seconds = time.perf_counter() - t_phase
+    print(f"[golden] {len(rows)} cells within tolerance on {card} in "
+          f"{seconds:.1f} s")
+    return {"card": card, "seconds": seconds, "cells": rows}
+
+
+def golden_diagnosis(torch, dev, stored, name, dtype, want):
+    """Run a failing golden cell again with each of its kernels swapped for
+    its plain version, and print each run's errors."""
+    from repro_torch.launch import golden
+    arch = golden.CELLS[name].arch
+    for kernel in ("flash_attention", "rglru_scan", "wkv6"):
+        if kernel not in want:
+            continue
+        restore = swap_for_plain(arch, kernel)
+        try:
+            r = golden.run_cell(name, dtype, dev, stored)
+        finally:
+            restore()
+        print(f"[golden] {name} {dtype} with {kernel} swapped for its plain "
+              f"version: {json.dumps(r['errors'])}", flush=True)
 
 
 def reference_full_width(torch, dev, arch, cfg, model, batch, want, row):
@@ -3650,6 +3824,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(json.dumps({"serving": serving}))
 
+    # ---- 6b. the full-width cells against the reference's outputs -------
+    print(json.dumps({"golden": golden_path(torch, dev, card)}))
+
     # ---- 7. the Databelt workflow path -----------------------------------
     print(json.dumps({"workflow": workflow_path(torch, dev)}))
 
@@ -3701,6 +3878,7 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows.values()),
         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+        "library_causal": g["library_causal"],
         "shape": g["shape"], "earlier_design": {
             **g["earlier_design"], "source":
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"},

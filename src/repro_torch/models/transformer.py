@@ -70,9 +70,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.modules import (ParamModule, init_mlp, init_norm, mlp,
-                                        normal, pdtype, rms_norm,
-                                        sinusoidal_pos_emb)
+from repro_torch.models.modules import (BlockDraws, ParamModule, init_mlp,
+                                        init_norm, mlp, normal, pdtype,
+                                        rms_norm, sinusoidal_pos_emb)
 
 
 class Layer(ParamModule):
@@ -139,10 +139,11 @@ def _init_layer(cfg: ModelConfig, kind: str, generator, device,
     return Layer(kind, norms, blocks)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+def init_params(cfg: ModelConfig, generator: torch.Generator | BlockDraws,
                 device="cuda") -> Transformer:
     """Random weights with the reference's shapes, scales and zero norms,
-    drawn from ``generator`` (on its own device) and placed on ``device``."""
+    drawn from ``generator`` (on its own device; a ``BlockDraws`` on the
+    host) and placed on ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = pdtype(cfg)
@@ -544,13 +545,15 @@ def forward_train(model: Transformer, cfg: ModelConfig, batch,
 
 
 @_entry
-def forward_prefill(model: Transformer, cfg: ModelConfig, batch):
-    """-> (last-position logits (B,1,V), cache)."""
+def forward_prefill(model: Transformer, cfg: ModelConfig, batch,
+                    all_positions: bool = False):
+    """-> (last-position logits (B,1,V), cache); with ``all_positions``, the
+    logits of every position (B,S,V) (a prompt's own scores)."""
     x, positions, mask_mode, prefix_len, enc_out = _prep_inputs(model, cfg,
                                                                 batch)
     x, cache = _run_stack(model, x, cfg, positions, mask_mode, prefix_len,
                           enc_out)
-    return _unembed(model, cfg, x[:, -1:]), cache
+    return _unembed(model, cfg, x if all_positions else x[:, -1:]), cache
 
 
 def _sin_at(pos: int, d: int, dtype, device):
