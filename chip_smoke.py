@@ -44,12 +44,17 @@ Phases:
        plain version (``wkv6_chunk_ref``).
      Each kept earlier design is timed on the same inputs beside the new one.
   Then, for gemma3-1b, recurrentgemma-2b, rwkv6-7b, qwen3-moe-235b-a22b,
-  arctic-480b, whisper-small and paligemma-3b in turn, at full width (random
-  weights from a seeded torch.Generator) and full depth, except the MoE
-  configs, cut to 8 and 2 layers (``DEPTH``), each model freed before the
-  next:
-  3. prefill: 4 x 1024 positions from models.io.make_batch (whisper: 1024
-     frames and 256 decoder tokens; paligemma: 256 patches and 768 tokens)
+  arctic-480b, whisper-small and paligemma-3b in turn, at full width and
+  full depth, except the MoE configs, cut to 8 and 2 layers (``DEPTH``),
+  each model freed before the next.  The non-MoE paths take the weights and
+  inputs of their record in ``repro_torch.launch.golden.TIMED`` (the JAX
+  reference's outputs at this shape, ``tests/golden/timed.npz``): the f32
+  model drawn on the host from a ``BlockDraws`` (``golden.model``) and
+  kept there, the timed bf16 model cast from it on the card, the numpy
+  tokens, frames and patches of the record; the MoE paths random weights
+  from a seeded torch.Generator and ``models.io.make_batch``:
+  3. prefill: 4 x 1024 positions (whisper: 1024 frames and 256 decoder
+     tokens; paligemma: 256 patches and 768 tokens)
      through build_prefill_step; every kernel must launch exactly once per
      layer that runs it (gemma3-1b: flash 26; recurrentgemma-2b: rglru_scan
      18, flash 8; rwkv6-7b: wkv6 32; qwen3-moe: flash 8; arctic: flash 2;
@@ -58,7 +63,22 @@ Phases:
      launch must be the new design's (flash: tensor cores; the scan: channel
      groups; the wkv6: chunked), never an earlier one's.
   4. decode: 8 steps of build_decode_step from the prefill cache.
-  5. engine: a full-width ServingEngine answers 4 requests.
+  5. engine: a full-width ServingEngine answers 4 requests (the record's
+     prompts, ``golden.engine_prompts``).
+  5b. golden: the timed bf16 model, the same object, held to its record
+     (``golden_cell``, tf32 off): its checksums on the card, a prefill with
+     every position's logits and 8 teacher-forced decode steps at batch 4,
+     the launches counted from 0 (``golden_launches``), at the cell's
+     ``golden.tolerance`` (5e-2 a measure), its drift from the f32 record
+     within 1.5x either way of the reference's own bf16; after phase 6 the
+     f32 model, moved to the card, the same way (2e-4), and its serving
+     engine's rows against the reference's engine (each request up to its
+     first near-tie); then the path's cells cut in depth
+     (``golden.cut_cells``: rwkv6-7b at 2 layers, at the standard limits)
+     on a model of their own (``golden_cut_cell``).  Full-depth rwkv6-7b
+     and the int8 cache's f32 decode take the limits measured for them
+     (``golden.TOL_CELL``).  A miss runs ``golden_diagnosis`` (each kernel
+     swapped for its plain version) and fails the run.
   6. reference: the full-width prefill with the path's kernel swapped for its
      plain version (flash, or the recurrent kernel on the recurrent paths),
      and the smoke config on the card against the port on the CPU, agree
@@ -76,11 +96,13 @@ Phases:
      swapped for its plain version (the tensor-core kernel on, in bf16: f32
      weights would route flash to the CUDA-core kernel).
   Then the int8 KV cache: gemma3-1b at full width with ``kv_quant=True``
-  beside the bf16 cache on the same weights: prefill launches, 8 decode
-  steps each (timed), logits within 0.5 of the bf16 cache's (the reference's
-  bound), and the smoke config's prefill and decode card vs CPU.  One JSON
-  line holds the serving numbers.
-  6b. golden: the cells of ``repro_torch.launch.golden`` (ten published
+  beside the bf16 cache on the same weights (its record's, as above):
+  prefill launches, 8 decode steps each (timed), logits within 0.5 of the
+  bf16 cache's (the reference's bound), its record held in bf16 on the
+  timed model and in f32 (``golden_cell``), and the smoke config's
+  prefill and decode card vs CPU.  One JSON line holds the serving
+  numbers.
+  6b. golden: the cells of ``golden.CELLS`` (ten published
      configs at every published width, cut only in depth and the MoEs in
      experts; batch 1; gemma3-1b, h2o-danube-1.8b and recurrentgemma-2b
      also in bf16) on the card, tf32 off, against the JAX reference's own
@@ -255,10 +277,10 @@ Phases:
   Phase 2 also holds each kernel's autograd function (the kernel forward, the
   plain version's autograd backward) against autograd of the plain version
   over the kernel's sweep, at the kernel's tolerance.
-Then one JSON line describing each kernel (its launches summed over the
-serving paths, the int8 cache's included, serve_pipeline, the training
-paths and the sharded paths, each counted from 0 just before its run), and
-last the device line.
+Then a ``[wall]`` line (the run's wall seconds so far), one JSON line
+describing each kernel (its launches summed over the serving paths, the int8
+cache's included, serve_pipeline, the training paths and the sharded paths,
+each counted from 0 just before its run), and last the device line.
 """
 from __future__ import annotations
 
@@ -1041,7 +1063,7 @@ def serve_path(torch, np, dev, arch):
     of its numbers."""
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.kernels import cuda_lib
-    from repro_torch.launch.golden import decode_start
+    from repro_torch.launch import golden
     from repro_torch.models import forward_decode, forward_prefill, init_params
     from repro_torch.models.io import make_batch
     from repro_torch.serving.engine import Request, ServingEngine
@@ -1054,16 +1076,26 @@ def serve_path(torch, np, dev, arch):
     gc.collect()                # earlier paths' models in reference cycles
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                        device=dev)
+    if arch in MOE:
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+        batch = make_batch(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           B, S)
+        model32 = None
+    else:
+        # the timed record's weights and inputs: the f32 model drawn on the
+        # host (kept there while the bf16 model is timed), the bf16 one cast
+        # from it
+        name = golden.timed_name(arch)
+        model32, model, inp = timed_models(torch, dev, name, cfg)
+        batch = golden.batch_of(inp, dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[prefill] {arch} full width, {cfg.n_layers} layers: "
           f"{n_params / 1e9:.3f} B params ({n_params * 2 / 1e9:.2f} GB bf16), "
-          f"init {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(SEED)
-    batch = make_batch(cfg, torch.Generator(device=dev).manual_seed(SEED), B, S)
-    n_pos = decode_start(cfg, batch)
+          f"init {time.perf_counter() - t0:.1f} s ("
+          f"{'seeded generator' if arch in MOE else 'the timed record'})")
+    n_pos = golden.decode_start(cfg, batch)
     prefill = build_prefill_step(cfg)
     prefill(model, batch)                         # warm-up
     torch.cuda.synchronize()
@@ -1128,10 +1160,9 @@ def serve_path(torch, np, dev, arch):
     del cache, logits
 
     # ---- 5. engine ------------------------------------------------------------
-    eng = ServingEngine(cfg, model, n_slots=4, max_len=128, device=dev)
-    for i in range(4):
-        prompt = rng.integers(2, cfg.vocab_size, size=int(rng.integers(3, 9)))
-        eng.submit(Request(i, prompt.astype(np.int32), max_new=8))
+    eng = ServingEngine(cfg, model, n_slots=golden.ENGINE["n_slots"],
+                        max_len=golden.ENGINE["max_len"], device=dev)
+    golden.submit(eng, Request, golden.engine_prompts(arch, cfg))
     t0 = time.perf_counter()
     done = eng.run_until_done()
     torch.cuda.synchronize()
@@ -1139,7 +1170,7 @@ def serve_path(torch, np, dev, arch):
     n_tok = sum(len(r.tokens_out) for r in done)
     check(sorted(r.req_id for r in done) == [0, 1, 2, 3],
           "engine completed every request")
-    check(all(1 <= len(r.tokens_out) <= 8 and
+    check(all(1 <= len(r.tokens_out) <= golden.ENGINE["max_new"] and
               all(0 <= t < cfg.vocab_size for t in r.tokens_out) for r in done),
           "engine tokens")
     main_launches = {name: n for name, n in cuda_lib.launches.items() if n}
@@ -1152,6 +1183,12 @@ def serve_path(torch, np, dev, arch):
           f"token by token)")
     del eng
 
+    # ---- 5b. the timed path against the reference's own outputs ---------------
+    if model32 is not None:
+        stored = golden.load(golden.TIMED_GOLDEN)
+        row["golden"] = {"bfloat16": golden_cell(torch, dev, stored, name,
+                                                 "bfloat16", model)}
+
     # ---- 6. against the plain version -----------------------------------------
     if arch not in SWAPPED:
         kernel_logits, _ = forward_prefill(model, cfg, batch)
@@ -1159,13 +1196,24 @@ def serve_path(torch, np, dev, arch):
               f"{arch} full-width logits finite")
         print(f"[reference] {arch}: no kernel of the port lies on this path "
               f"(prefix-LM attention is the plain path, as in the reference)")
-        del model, kernel_logits
+        del kernel_logits
     else:
         reference_full_width(torch, dev, arch, cfg, model, batch, want, row)
-        del model
     row["peak_gb"] = max(phase_peak, torch.cuda.max_memory_allocated(dev)) / 1e9
     print(f"[reference] {arch}: peak memory of the phase "
           f"{row['peak_gb']:.2f} GB")
+
+    # ---- 6a. its f32 record (prefill, decode, engine), then its cut cells -----
+    if model32 is not None:
+        model.to("meta")
+        torch.cuda.empty_cache()
+        row["golden"]["float32"] = golden_cell(torch, dev, stored, name,
+                                               "float32", model32.to(dev))
+        model32.to("meta")
+        torch.cuda.empty_cache()
+        for cut in golden.cut_cells(name):
+            row["golden"][cut] = golden_cut_cell(torch, dev, stored, cut)
+    del model, model32, batch
 
     small = get_smoke_config(arch)
     if arch in MOE:
@@ -1193,6 +1241,117 @@ def serve_path(torch, np, dev, arch):
     return main_launches, row
 
 
+def timed_models(torch, dev, name, cfg):
+    """(f32 model on the host, bf16 model on the card, numpy inputs) of a
+    ``golden.TIMED`` cell: the record's weights (``golden.model``, a
+    ``BlockDraws`` draw; the bf16 leaves cast from the f32 ones) and
+    inputs.  ``cfg``: the timed path's config, which must be the cell's."""
+    from repro_torch.launch import golden
+    check(golden.cell_config(name, cfg.param_dtype) == cfg,
+          f"{name}: the timed config is not the record's")
+    model32 = golden.model(golden.cell_config(name, "float32"), golden.SEED,
+                           "cpu")
+    model = golden.cast(model32, cfg).to(dev)
+    return model32, model, golden.inputs(name, cfg)
+
+
+@contextlib.contextmanager
+def tf32_off(torch):
+    """Full f32 products (matmul and cuDNN) for the block's duration."""
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before
+
+
+def golden_cell(torch, dev, stored, name, dtype, m) -> dict:
+    """One golden record on the card (``golden.run_cell`` on ``m``, built
+    already: its checksums, its inputs, its prefill, decode and engine
+    against the file's), tf32 off, launches counted from 0 and held to
+    ``golden_launches``; one ``[golden]`` line.  A record out of tolerance
+    is run again with each of its kernels swapped for its plain version
+    (``golden_diagnosis``), then the run fails."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import golden
+    cfg = golden.cell_config(name, dtype)
+    c = golden.cell(name)
+    want = golden_launches(cfg, dtype)
+    with tf32_off(torch):
+        cuda_lib.launches.clear()
+        r = golden.run_cell(name, dtype, dev, stored, m)
+        got = {k: n for k, n in cuda_lib.launches.items() if n}
+    check(got == want, f"[golden] {name} {dtype} launched {got}, want {want}")
+    e = r["errors"]
+    line = (f"[golden] {name} {dtype} ({cfg.n_layers} layers, {c.batch} x "
+            f"{c.seq} positions): prefill sketch "
+            f"{e['prefill']['sketch_rel']:.3g}, logsumexp "
+            f"{e['prefill']['lse_in_sizes']:.3g} sizes, argmax "
+            f"{e['prefill']['argmax_differs']} of "
+            f"{e['prefill']['argmax_checked']} differ; decode sketch "
+            f"{e['decode']['sketch_rel']:.3g}, logsumexp "
+            f"{e['decode']['lse_in_sizes']:.3g}, argmax "
+            f"{e['decode']['argmax_differs']} of "
+            f"{e['decode']['argmax_checked']}")
+    if "engine" in e:
+        g = e["engine"]
+        line += (f"; engine {g['steps_checked']} of {g['steps']} steps "
+                 f"checked, sketch {g.get('sketch_rel', float('nan')):.3g}, "
+                 f"logsumexp {g.get('lse_in_sizes', float('nan')):.3g}, "
+                 f"argmax {g.get('argmax_differs')} of "
+                 f"{g.get('argmax_checked')}, rows differ {g['rows_differ']}")
+    if "drift" in r:
+        d = r["drift"]
+        line += (f"; prefill sketch from the f32 record: port "
+                 f"{d['port_vs_f32']['prefill']:.3g}, reference "
+                 f"{d['reference_vs_f32']['prefill']:.3g} (ratio "
+                 f"{d['ratio']:.3g}, within {golden.DRIFT_RATIO}x of 1)")
+    print(line + f" (tol {tol_text(r['tol'])}); launches {got}; weights "
+          f"{r['weights_s']:.1f} s, run {r['run_s']:.1f} s", flush=True)
+    if not e["ok"]:
+        with tf32_off(torch):
+            golden_diagnosis(torch, dev, stored, name, dtype, want, m)
+    check(e["ok"], f"[golden] {name} {dtype} against the reference's "
+                   f"outputs: {e}")
+    return {**r, "launches": got}
+
+
+def tol_text(tol: dict) -> str:
+    """``golden.tolerance``'s limits, one number where all are alike."""
+    flat = {f"{p}:{m}": v for p, ms in tol.items() for m, v in ms.items()}
+    if len(set(flat.values())) == 1:
+        return str(next(iter(flat.values())))
+    common = {}
+    for m in {k.split(":")[1] for k in flat}:
+        vals = {flat[k] for k in flat if k.endswith(":" + m)}
+        if len(vals) == 1:
+            common[m] = vals.pop()
+    return ", ".join([f"{m} {v}" for m, v in sorted(common.items())] +
+                     [f"{k} {v}" for k, v in sorted(flat.items())
+                      if k.split(":")[1] not in common])
+
+
+def golden_cut_cell(torch, dev, stored, name) -> dict:
+    """A ``TIMED`` cell cut in depth, on a model of its own: its f32
+    weights drawn on the card, then cast to bf16, each held to its record
+    (``golden_cell``)."""
+    from repro_torch.launch import golden
+    out = {}
+    m = golden.model(golden.cell_config(name, "float32"), golden.SEED, dev)
+    for dtype in golden.cell(name).dtypes:
+        cfg = golden.cell_config(name, dtype)
+        out[dtype] = golden_cell(torch, dev, stored, name, dtype,
+                                 m if dtype == "float32" else
+                                 golden.cast(m, cfg))
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
 def golden_launches(cfg, dtype: str) -> dict:
     """The kernels one golden cell's prefill launches (its decode none):
     flash once a causal self-attention layer (none under paligemma's
@@ -1216,25 +1375,17 @@ def golden_launches(cfg, dtype: str) -> dict:
 
 
 def golden_path(torch, dev, card) -> dict:
-    """Phase 6b: every golden cell on the card against the reference's
-    outputs (``repro_torch.launch.golden.run_cell``), tf32 off, launches
-    counted from 0 a cell.  A cell out of tolerance is run again with each
-    of its kernels swapped for its plain version, then the phase fails."""
-    from repro_torch.kernels import cuda_lib
+    """Phase 6b: every full-width golden cell on the card against the
+    reference's outputs (``golden_cell``).  A cell's bf16 weights are its
+    f32 ones cast (the file's checksums hold them all the same): one host
+    draw a cell."""
     from repro_torch.launch import golden
 
     stored = golden.load()
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     rows, t_phase, f32 = {}, time.perf_counter(), None
     try:
         for name, dtype in golden.runs():
             cfg = golden.cell_config(name, dtype)
-            want = golden_launches(cfg, dtype)
-            # a cell's bf16 weights are its f32 ones cast (the file's
-            # checksums hold them all the same): one host draw a cell
             t0 = time.perf_counter()
             if dtype == "float32":
                 f32 = None
@@ -1244,53 +1395,30 @@ def golden_path(torch, dev, card) -> dict:
             else:
                 m = golden.cast(f32, cfg)
             drawn = time.perf_counter() - t0
-            cuda_lib.launches.clear()
-            r = golden.run_cell(name, dtype, dev, stored, m)
+            r = golden_cell(torch, dev, stored, name, dtype, m)
             r["weights_s"] += drawn
             del m
-            got = {k: n for k, n in cuda_lib.launches.items() if n}
-            check(got == want, f"[golden] {name} {dtype} launched {got}, "
-                               f"want {want}")
-            e = r["errors"]
-            rows[f"{name} {dtype}"] = {**r, "launches": got}
-            print(f"[golden] {name} {dtype} ({cfg.n_layers} layers, "
-                  f"{golden.CELLS[name].seq} positions): prefill sketch "
-                  f"{e['prefill']['sketch_rel']:.3g}, logsumexp "
-                  f"{e['prefill']['lse_in_sizes']:.3g} sizes, argmax "
-                  f"{e['prefill']['argmax_differs']} of "
-                  f"{e['prefill']['argmax_checked']} differ; decode sketch "
-                  f"{e['decode']['sketch_rel']:.3g}, logsumexp "
-                  f"{e['decode']['lse_in_sizes']:.3g}, argmax "
-                  f"{e['decode']['argmax_differs']} of "
-                  f"{e['decode']['argmax_checked']} (tol {r['tol']}); "
-                  f"launches {got}; weights {r['weights_s']:.1f} s, run "
-                  f"{r['run_s']:.1f} s", flush=True)
-            if not e["ok"]:
-                golden_diagnosis(torch, dev, stored, name, dtype, want)
-            check(e["ok"], f"[golden] {name} {dtype} against the "
-                           f"reference's outputs: {e}")
+            rows[f"{name} {dtype}"] = r
     finally:
         del f32
         torch.cuda.empty_cache()
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
     seconds = time.perf_counter() - t_phase
     print(f"[golden] {len(rows)} cells within tolerance on {card} in "
           f"{seconds:.1f} s")
     return {"card": card, "seconds": seconds, "cells": rows}
 
 
-def golden_diagnosis(torch, dev, stored, name, dtype, want):
-    """Run a failing golden cell again with each of its kernels swapped for
-    its plain version, and print each run's errors."""
+def golden_diagnosis(torch, dev, stored, name, dtype, want, m):
+    """Run a failing golden cell again on its model ``m`` with each of its
+    kernels swapped for its plain version, and print each run's errors."""
     from repro_torch.launch import golden
-    arch = golden.CELLS[name].arch
+    arch = golden.cell(name).arch
     for kernel in ("flash_attention", "rglru_scan", "wkv6"):
         if kernel not in want:
             continue
         restore = swap_for_plain(arch, kernel)
         try:
-            r = golden.run_cell(name, dtype, dev, stored)
+            r = golden.run_cell(name, dtype, dev, stored, m)
         finally:
             restore()
         print(f"[golden] {name} {dtype} with {kernel} swapped for its plain "
@@ -1428,15 +1556,16 @@ def kv_quant_path(torch, np, dev):
     the int8 run and a row of its numbers."""
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import golden
     from repro_torch.models import forward_decode, forward_prefill, init_params
     from repro_torch.models.io import make_batch
 
     arch = "gemma3-1b"
     cfg = path_config(arch)
     cfgq = dataclasses.replace(cfg, kv_quant=True)
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                        device=dev)
-    batch = make_batch(cfg, torch.Generator(device=dev).manual_seed(SEED), B, S)
+    record = golden.timed_name(arch, kv_quant=True)
+    model32, model, inp = timed_models(torch, dev, record, cfgq)
+    batch = golden.batch_of(inp, dev)
     runs, toks, launches = {}, [], {}
     for name, c in (("bf16", cfg), ("int8", cfgq)):
         forward_prefill(model, c, batch)                   # warm-up
@@ -1486,7 +1615,17 @@ def kv_quant_path(torch, np, dev):
           f"{runs['bf16']['decode_ms']:.2f} ms/step with the bf16 cache "
           f"({runs['bf16']['cache_mb']:.1f} MB); logits max abs diff {err:.3g} "
           f"(bound {KV_QUANT_BOUND})")
-    del model, runs
+    del runs
+    # the timed model against the int8 cache's records, then its f32 twin
+    stored = golden.load(golden.TIMED_GOLDEN)
+    row["golden"] = {"bfloat16": golden_cell(torch, dev, stored, record,
+                                             "bfloat16", model)}
+    model.to("meta")
+    del model
+    torch.cuda.empty_cache()
+    row["golden"]["float32"] = golden_cell(torch, dev, stored, record,
+                                           "float32", model32.to(dev))
+    del model32
 
     small = dataclasses.replace(get_smoke_config(arch), kv_quant=True)
     cpu_model = init_params(small, torch.Generator().manual_seed(SEED),
@@ -3767,6 +3906,7 @@ def tsteps_lr():
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import numpy as np
     import torch
 
@@ -3869,6 +4009,8 @@ def main() -> int:
     check(n_wkv6 == path_launches("wkv6")[0],
           "every wkv6 launch of the main paths is the tensor-core kernel's")
     rec = "src/repro_torch/kernels/"
+    print(f"[wall] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
+          f"to its last phase on {card}")
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda", "variant": g["variant"],
         "source":
