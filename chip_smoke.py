@@ -78,7 +78,11 @@ Phases:
      on a model of their own (``golden_cut_cell``).  Full-depth rwkv6-7b
      and the int8 cache's f32 decode take the limits measured for them
      (``golden.TOL_CELL``).  A miss runs ``golden_diagnosis`` (each kernel
-     swapped for its plain version) and fails the run.
+     swapped for its plain version) and fails the run.  A MoE path, whose
+     timed model keeps all 128 experts, is held instead through its record
+     in ``golden.MOE_TIMED`` (``tests/golden/timed_moe.npz``: its depth and
+     shape, f32, qwen3-moe's experts cut to 16, arctic's to 8), on a model
+     of its own after the timed one is freed.
   6. reference: the full-width prefill with the path's kernel swapped for its
      plain version (flash, or the recurrent kernel on the recurrent paths),
      and the smoke config on the card against the port on the CPU, agree
@@ -174,7 +178,30 @@ Phases:
      configs' train step of all seven trained archs in f32 on the card
      against the CPU (loss 1e-4, each grad leaf 1e-3 in relative norm; new
      params: AdamW's within 2 lr (1 + wd |p|), Adafactor's steps to 1e-3).
-     One JSON line holds it.
+     The timed non-MoE steps take the weights and batches of their record
+     in ``golden.TRAIN`` (the JAX reference's own step at this shape,
+     ``tests/golden/train.npz``): the f32 ``BlockDraws`` draw cast to bf16
+     on the card (``golden.train_model``), ``SyntheticTokens`` batches
+     (h2o-danube-1.8b, the recurrent pair) or the record's numpy tokens,
+     frames and patches (whisper-small, paligemma-3b); the MoEs keep all
+     128 experts, a CUDA generator's draws and ``make_batch``.  golden:
+     each timed bf16 step 1 is held to its record (``golden.TrainSampler``
+     samples the f32 master before it and each parameter's clipped grad,
+     its norm and its update after it, outside the timed region; the loss
+     of the next step, on batch 1, is the loss after the update): the
+     loss, aux, grad norm and loss after within 5e-2, each leaf's grad norm
+     and 256 samples within 5e-2 in relative norm, AdamW's update within
+     5e-2 where the reference's |g| clears the limit times the leaf's RMS
+     (and ten eps) and within 2 lr (1 + wd |p|) elsewhere, the grads'
+     drift from the f32 record within 1.5x either way of the reference's
+     own bf16; its launches as ``train_golden_launches``.  Before each,
+     the same cell in f32 on a model of its own, tf32 off, at 2e-4, its
+     launches counted from 0 (flash the CUDA-core kernel); after each
+     timed MoE step, its record's expert cut (16 and 8
+     of 128, Adafactor, f32) on a model of its own.  ``golden.TOL_CELL``
+     sets any other limit.  A miss runs ``golden_train_diagnosis`` (each
+     kernel swapped for its plain version) and fails the run.  One
+     ``[golden]`` line a record.  One JSON line holds it.
   10. distributed: one NCCL rank (a FileStore in a temp dir, no network) and
      a 1 x 1 mesh from launch.mesh.make_mesh; moe_sharded on one full-width
      qwen3-moe-235b-a22b layer against moe_dense, f32 (to 1e-5) and bf16
@@ -1215,6 +1242,19 @@ def serve_path(torch, np, dev, arch):
             row["golden"][cut] = golden_cut_cell(torch, dev, stored, cut)
     del model, model32, batch
 
+    # ---- 6b. a MoE path's record: its experts cut, on a model of its own ------
+    if arch in MOE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        stored = golden.load(golden.MOE_GOLDEN)
+        cells = [n for n, c in golden.MOE_TIMED.items() if c.arch == arch]
+        check(len(cells) == 1 and golden.cell_config(cells[0], "bfloat16") ==
+              dataclasses.replace(cfg, moe=golden.cell_config(
+                  cells[0], "bfloat16").moe),
+              f"{arch}: the record {cells} is not the timed path's cut")
+        row["golden"] = {cells[0]: golden_cut_cell(torch, dev, stored,
+                                                   cells[0])}
+
     small = get_smoke_config(arch)
     if arch in MOE:
         # in bf16 a near-tie in a router's top-k, moved by rounding, picks
@@ -2253,8 +2293,9 @@ def train_path(torch, np, dev, card):
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.flash_attention import (flash_attention_bkg,
                                                      flash_attention_ref)
+    from repro_torch.launch import golden
     from repro_torch.models import init_params
-    from repro_torch.optim import adamw, global_norm, make_optimizer
+    from repro_torch.optim import global_norm, make_optimizer
     from repro_torch.roofline.bounds import flash_bound
     from repro_torch.train import steps as tsteps
 
@@ -2267,22 +2308,36 @@ def train_path(torch, np, dev, card):
     # ---- 8a. h2o-danube-1.8b at full width ----------------------------------
     arch = "h2o-danube-1.8b"
     cfg = get_config(arch)
+    stored = golden.load(golden.TRAIN_GOLDEN)
+    name = train_record_name(arch)
+    # its f32 record, on a model of its own, before the timed one
+    out["golden"] = {f"{name} float32": golden_train_f32(torch, dev, stored,
+                                                         name)}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    opt = adamw()
-    state = tsteps.init_train_state(torch.Generator(device=dev).manual_seed(SEED),
-                                    cfg, opt, device=dev)
+    opt, state = train_state_of_record(torch, dev, name, cfg, stored)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in state["params"].parameters())
+    # steps 1 and 2 on the record's batches (SyntheticTokens' on the
+    # reference's host: its zipf draws differ under another numpy), the
+    # rest on this host's SyntheticTokens
     data = SyntheticTokens(cfg, TRAIN_B, TRAIN_S, seed=SEED)
-    batches = [on_dev(data.batch_for_step(i)) for i in range(TRAIN_STEPS + 1)]
+    record = [golden.train_batch(name, cfg, s, stored) for s in (0, 1)]
+    golden.check_train_inputs(stored, name, record)
+    same = all(np.array_equal(b["tokens"], data.batch_for_step(s)["tokens"])
+               for s, b in enumerate(record))
+    batches = [on_dev(b) for b in record] + [
+        on_dev(data.batch_for_step(i)) for i in range(2, TRAIN_STEPS + 1)]
+    print(f"[train] {arch}: numpy {np.__version__}'s SyntheticTokens "
+          f"{'draws' if same else 'does not draw'} the record's batches "
+          f"(the reference's host's); steps 1 and 2 take the record's")
     print(f"[train] {arch} full width ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, hd "
           f"{cfg.head_dim}, window {cfg.window_size}, remat {cfg.remat}): "
           f"{n_params / 1e9:.4f} B params, AdamW with f32 master, batch "
-          f"{TRAIN_B} x seq {TRAIN_S}; init {time.perf_counter() - t0:.1f} s; "
-          f"{card}")
+          f"{TRAIN_B} x seq {TRAIN_S}, the weights and batches of its record "
+          f"{name}; init {time.perf_counter() - t0:.1f} s; {card}")
     # 8b. the first step twice from the same state: kernel, then plain
     out["kernel_vs_plain"] = {arch: kernel_vs_plain_step(
         torch, tsteps, global_norm, state, cfg, batches[0], ["flash_attention"],
@@ -2294,12 +2349,22 @@ def train_path(torch, np, dev, card):
     cuda_lib.launches.clear()                    # the training path starts here
     for i in range(TRAIN_STEPS):
         before = dict(cuda_lib.launches)
+        if i == 0:      # the record's step: its base sampled before it
+            sampler = golden.TrainSampler(state)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batches[i])
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        if i == 0:      # outside the timed region: its grads and update
+            rec = sampler.after(state, metrics)
+            rec_launches = {n: c - before.get(n, 0)
+                            for n, c in cuda_lib.launches.items()
+                            if c - before.get(n, 0)}
+            del sampler
+        elif i == 1:    # the loss of batch 1 on the updated weights
+            rec["scalars"]["loss_after"] = loss
         flash = cuda_lib.launches["flash_attention"] - before.get(
             "flash_attention", 0)
         rows.append({"step": i + 1, "ms": ms, "loss": loss, "grad_norm": gn,
@@ -2355,60 +2420,12 @@ def train_path(torch, np, dev, card):
           f"bound; {card}")
     del state, batches, q, k, v
     torch.cuda.empty_cache()
+    out["golden"][f"{name} bfloat16"] = judge_train_record(
+        torch, dev, stored, name, "bfloat16", cfg, rec, rec_launches,
+        "the timed model's step 1, its loss after on step 2")
 
     # ---- 8c. recurrentgemma-2b and rwkv6-7b, full width, one superblock -----
-    for arch, kernels in (("recurrentgemma-2b", ["rglru_scan", "flash_attention"]),
-                          ("rwkv6-7b", ["wkv6"])):
-        full = get_config(arch)
-        cfg = dataclasses.replace(full, n_layers=full.pattern_len)
-        torch.cuda.reset_peak_memory_stats(dev)
-        opt = adamw()
-        state = tsteps.init_train_state(
-            torch.Generator(device=dev).manual_seed(SEED), cfg, opt, device=dev)
-        batch = on_dev(SyntheticTokens(cfg, REC_TRAIN_B, REC_TRAIN_S,
-                                       seed=SEED).batch_for_step(0))
-        out["kernel_vs_plain"][arch] = kernel_vs_plain_step(
-            torch, tsteps, global_norm, state, cfg, batch, kernels,
-            f"{arch} full width, {cfg.n_layers} layers")
-        step = tsteps.build_train_step(cfg, opt, tsteps_lr())
-        step(state, batch)                                  # warm-up
-        torch.cuda.synchronize()
-        phase_peak = torch.cuda.max_memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)  # the train step's own peak
-        cuda_lib.launches.clear()              # this path's train step starts
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
-        ms = (time.perf_counter() - t0) * 1e3
-        step_peak = torch.cuda.max_memory_allocated(dev)
-        launches["train:" + arch] = {n: c for n, c in cuda_lib.launches.items()
-                                     if c}
-        for kernel in kernels:
-            n = train_launches(cfg, kernel)
-            check(launches["train:" + arch].get(kernel, 0) == n,
-                  f"{arch} train step launched {launches['train:' + arch]}, "
-                  f"want {kernel} {n}")
-        missing = [n for n, p in state["params"].named_parameters()
-                   if p.grad is None or not bool(torch.isfinite(p.grad).all())]
-        check(math.isfinite(loss) and math.isfinite(gn) and not missing,
-              f"{arch} train step: loss {loss}, grad norm {gn}, no grad for "
-              f"{missing}")
-        n_params = sum(p.numel() for p in state["params"].parameters())
-        out[arch] = {"params": n_params, "layers": cfg.n_layers,
-                     "batch": REC_TRAIN_B, "seq": REC_TRAIN_S, "ms": ms,
-                     "loss": loss, "grad_norm": gn,
-                     "peak_memory_gb": max(phase_peak, step_peak) / 1e9,
-                     "step_peak_gb": step_peak / 1e9,
-                     "profile": profile_step(torch, step, state, batch, RANGES)}
-        print(f"[train] {arch} full width, {cfg.n_layers} layers "
-              f"({n_params / 1e9:.4f} B params), batch {REC_TRAIN_B} x seq "
-              f"{REC_TRAIN_S}: one step {ms:.1f} ms, loss {loss:.6f}, grad norm "
-              f"{gn:.6f}, launches {launches['train:' + arch]}, peak memory "
-              f"{out[arch]['peak_memory_gb']:.2f} GB; every parameter has a "
-              f"finite grad; {card}")
-        print_profile(arch, out[arch]["profile"], card)
-        del state, batch
-        torch.cuda.empty_cache()
+    recurrent_train_path(torch, dev, card, stored, out, launches)
 
     # ---- 8d. [train_moe]: the MoE, whisper and paligemma configs ----------
     out["train_moe"] = train_moe_path(torch, np, dev, card, launches)
@@ -2466,6 +2483,87 @@ def train_path(torch, np, dev, card):
     return launches, out
 
 
+def recurrent_train_path(torch, dev, card, stored, out, launches):
+    """Phase 9c: recurrentgemma-2b and rwkv6-7b at full width and one
+    superblock, each on its record's weights and batches: the f32 record
+    first, then the kernels against their plain versions, the record's
+    step (a warm-up, held to the bf16 record), one timed step on batch 1
+    (its launches counted from 0) and a profiled one.  Adds to ``out`` and
+    ``launches``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import golden
+    from repro_torch.optim import global_norm
+    from repro_torch.train import steps as tsteps
+
+    for arch, kernels in (("recurrentgemma-2b", ["rglru_scan", "flash_attention"]),
+                          ("rwkv6-7b", ["wkv6"])):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=full.pattern_len)
+        name = train_record_name(arch)
+        out["golden"][f"{name} float32"] = golden_train_f32(torch, dev,
+                                                            stored, name)
+        torch.cuda.reset_peak_memory_stats(dev)
+        opt, state = train_state_of_record(torch, dev, name, cfg, stored)
+        check(golden.cell(name).synthetic and (golden.cell(name).batch,
+                                               golden.cell(name).seq) ==
+              (REC_TRAIN_B, REC_TRAIN_S), f"{name}: not the timed batches")
+        batch, batch1 = record_batches(torch, dev, name, cfg, stored)
+        out["kernel_vs_plain"][arch] = kernel_vs_plain_step(
+            torch, tsteps, global_norm, state, cfg, batch, kernels,
+            f"{arch} full width, {cfg.n_layers} layers")
+        step = tsteps.build_train_step(cfg, opt, tsteps_lr())
+        sampler = golden.TrainSampler(state)
+        cuda_lib.launches.clear()
+        metrics = step(state, batch)[1]       # warm-up: the record's step
+        rec_launches = {n: c for n, c in cuda_lib.launches.items() if c}
+        rec = sampler.after(state, metrics)
+        del sampler
+        torch.cuda.synchronize()
+        phase_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)  # the train step's own peak
+        cuda_lib.launches.clear()              # this path's train step starts
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch1)
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        ms = (time.perf_counter() - t0) * 1e3
+        rec["scalars"]["loss_after"] = loss
+        step_peak = torch.cuda.max_memory_allocated(dev)
+        launches["train:" + arch] = {n: c for n, c in cuda_lib.launches.items()
+                                     if c}
+        for kernel in kernels:
+            n = train_launches(cfg, kernel)
+            check(launches["train:" + arch].get(kernel, 0) == n,
+                  f"{arch} train step launched {launches['train:' + arch]}, "
+                  f"want {kernel} {n}")
+        missing = [n for n, p in state["params"].named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        check(math.isfinite(loss) and math.isfinite(gn) and not missing,
+              f"{arch} train step: loss {loss}, grad norm {gn}, no grad for "
+              f"{missing}")
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        out[arch] = {"params": n_params, "layers": cfg.n_layers,
+                     "batch": REC_TRAIN_B, "seq": REC_TRAIN_S, "ms": ms,
+                     "loss": loss, "grad_norm": gn,
+                     "peak_memory_gb": max(phase_peak, step_peak) / 1e9,
+                     "step_peak_gb": step_peak / 1e9,
+                     "profile": profile_step(torch, step, state, batch1,
+                                             RANGES)}
+        print(f"[train] {arch} full width, {cfg.n_layers} layers "
+              f"({n_params / 1e9:.4f} B params), batch {REC_TRAIN_B} x seq "
+              f"{REC_TRAIN_S}: one step {ms:.1f} ms, loss {loss:.6f}, grad norm "
+              f"{gn:.6f}, launches {launches['train:' + arch]}, peak memory "
+              f"{out[arch]['peak_memory_gb']:.2f} GB; every parameter has a "
+              f"finite grad; {card}")
+        print_profile(arch, out[arch]["profile"], card)
+        del state, batch, batch1
+        torch.cuda.empty_cache()
+        out["golden"][f"{name} bfloat16"] = judge_train_record(
+            torch, dev, stored, name, "bfloat16", cfg, rec, rec_launches,
+            "the timed model's warm-up step, its loss after on the timed "
+            "step")
+
+
 def train_moe_path(torch, np, dev, card, launches):
     """[train_moe]: one train step at full width of qwen3-moe-235b-a22b and
     arctic-480b (Adafactor over the stacked leaves, the MoE aux in the loss;
@@ -2476,28 +2574,44 @@ def train_moe_path(torch, np, dev, card, launches):
     Returns the rows."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import golden
     from repro_torch.models.io import make_batch
     from repro_torch.optim import global_norm, make_optimizer
     from repro_torch.train import steps as tsteps
 
     rows = {}
+    stored = golden.load(golden.TRAIN_GOLDEN)
     for arch, depth in TRAIN_MOE_DEPTH.items():
         cfg = get_config(arch)
         if depth:
             cfg = dataclasses.replace(cfg, n_layers=depth)
+        name = train_record_name(arch)
+        moe = cfg.moe is not None
+        check((golden.cell(name).batch, golden.cell(name).seq) ==
+              (TRAIN_MOE_B, TRAIN_MOE_S), f"{name}: not the timed shape")
+        records = {}
         # earlier phases' models may sit in reference cycles (autograd,
         # checkpointing) until the cyclic collector runs
         gc.collect()
         torch.cuda.empty_cache()
+        if not moe:     # its f32 record, on a model of its own, first
+            records["float32"] = golden_train_f32(torch, dev, stored, name)
         held = torch.cuda.memory_allocated(dev) / 1e9
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        opt = make_optimizer(cfg.optimizer, cfg=cfg)
-        state = tsteps.init_train_state(
-            torch.Generator(device=dev).manual_seed(SEED), cfg, opt,
-            device=dev)
-        batch = make_batch(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                           TRAIN_MOE_B, TRAIN_MOE_S)
+        if moe:
+            # all 128 experts and a CUDA generator's draws; the record's
+            # expert cut is built apart below
+            opt = make_optimizer(cfg.optimizer, cfg=cfg)
+            state = tsteps.init_train_state(
+                torch.Generator(device=dev).manual_seed(SEED), cfg, opt,
+                device=dev)
+            batch = make_batch(cfg, torch.Generator(device=dev).manual_seed(
+                SEED), TRAIN_MOE_B, TRAIN_MOE_S)
+            batch1 = batch
+        else:
+            opt, state = train_state_of_record(torch, dev, name, cfg, stored)
+            batch, batch1 = record_batches(torch, dev, name, cfg, stored)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in state["params"].parameters())
         print(f"[train_moe] {arch} full width, {cfg.n_layers} layers "
@@ -2516,17 +2630,25 @@ def train_moe_path(torch, np, dev, card, launches):
             dev) / 1e9}
         step = tsteps.build_train_step(cfg, opt, tsteps_lr())
         torch.cuda.reset_peak_memory_stats(dev)
-        step(state, batch)                                  # warm-up
+        sampler = None if moe else golden.TrainSampler(state)
+        cuda_lib.launches.clear()
+        metrics = step(state, batch)[1]     # warm-up: the record's step
+        if sampler is not None:
+            rec_launches = {n: c for n, c in cuda_lib.launches.items() if c}
+            rec = sampler.after(state, metrics)
+            del sampler
         torch.cuda.synchronize()
         peaks["warm-up step"] = torch.cuda.max_memory_allocated(dev) / 1e9
         torch.cuda.reset_peak_memory_stats(dev)
         cuda_lib.launches.clear()              # this path's train step starts
         t0 = time.perf_counter()
-        state, metrics = step(state, batch)
+        state, metrics = step(state, batch1)
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
         aux = float(metrics["aux"])
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        if not moe:     # the loss of batch 1 on the updated weights
+            rec["scalars"]["loss_after"] = loss
         # the train step's peak, from just before it to its end
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         launches["train:" + arch] = {n: c for n, c in cuda_lib.launches.items()
@@ -2549,7 +2671,7 @@ def train_moe_path(torch, np, dev, card, launches):
         check((aux > 0) == (cfg.moe is not None), f"{arch} aux {aux}")
         check(peak <= PEAK_GB_LIMIT, f"{arch} train step peak {peak:.2f} GB "
               f"(other peaks {peaks})")
-        prof = profile_step(torch, step, state, batch, RANGES)
+        prof = profile_step(torch, step, state, batch1, RANGES)
         row.update(ms=ms, positions_per_s=TRAIN_MOE_B * TRAIN_MOE_S / ms * 1e3,
                    loss=loss, aux=aux, grad_norm=gn, peak_memory_gb=peak,
                    other_peaks_gb=peaks, flash_launches_per_step=got,
@@ -2564,9 +2686,171 @@ def train_moe_path(torch, np, dev, card, launches):
               f"device idle {prof['idle_share']:.2%} over "
               f"the profiled step; every parameter has a finite grad; {card}")
         print_profile(arch, prof, card)
-        del state, batch, opt, step
+        del state, batch, batch1, opt, step
+        gc.collect()
         torch.cuda.empty_cache()
+        if moe:         # the record's expert cut, on a model of its own
+            records["float32"] = golden_train_f32(torch, dev, stored, name)
+        else:
+            records["bfloat16"] = judge_train_record(
+                torch, dev, stored, name, "bfloat16", cfg, rec,
+                rec_launches, "the timed model's warm-up step, its loss "
+                "after on the timed step")
+        row["golden"] = records
     return rows
+
+
+def train_golden_launches(cfg, dtype: str) -> dict:
+    """The kernels one train step of a golden train cell launches: each
+    kernel of ``golden_launches`` ``train_launches`` times (the forward and
+    the remat recompute)."""
+    return {name: train_launches(cfg, name.split(":")[0]) for name in
+            golden_launches(cfg, dtype)}
+
+
+def train_record_name(arch: str) -> str:
+    """The ``golden.TRAIN`` cell of a timed train path: at its timed shape
+    and depth (the MoEs: their experts cut, built apart from the timed
+    model)."""
+    from repro_torch.launch import golden
+    names = [n for n, c in golden.TRAIN.items()
+             if c.arch == arch and n != golden.REGENERATED_TRAIN]
+    check(len(names) == 1, f"{arch}: train records {names}")
+    return names[0]
+
+
+def train_state_of_record(torch, dev, name, cfg, stored):
+    """(AdamW, its state) of a timed train path on the bf16 weights of its
+    record (``golden.train_model``: the f32 ``BlockDraws`` draw on the card,
+    cast), checked against the record's checksums.  ``cfg``: the path's
+    config, which must be the record's."""
+    from repro_torch.launch import golden
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as tsteps
+    check(golden.cell_config(name, cfg.param_dtype) == cfg and
+          LR_TRAIN == golden.LR,
+          f"{name}: the timed config or rate is not the record's")
+    model = golden.train_model(name, cfg.param_dtype, dev)
+    golden.check_weights(model, name, cfg.param_dtype, {
+        "names": [str(n) for n in stored[f"{name}/{cfg.param_dtype}/names"]],
+        "sums": stored[f"{name}/{cfg.param_dtype}/checksums"]})
+    opt = adamw()
+    return opt, tsteps.init_train_state(None, cfg, opt, params=model)
+
+
+def record_batches(torch, dev, name, cfg, stored) -> list:
+    """The two batches of a train record (step 0: the step held; step 1:
+    the forward after its update) on ``dev``, checked against the file."""
+    from repro_torch.launch import golden
+    batches = [golden.train_batch(name, cfg, s, stored) for s in (0, 1)]
+    golden.check_train_inputs(stored, name, batches)
+    return [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            for b in batches]
+
+
+def golden_train_line(name, dtype, cfg, r, launches, what) -> str:
+    """One ``[golden]`` line of a train record."""
+    from repro_torch.launch import golden
+    e, c = r["errors"], golden.cell(name)
+    u = e["update"]
+    line = (f"[golden] {name} {dtype} ({what}; {cfg.n_layers} layers"
+            f"{', ' + str(cfg.moe.n_experts) + ' experts' if cfg.moe else ''}"
+            f", {c.batch} x {c.seq} positions, {cfg.optimizer}): "
+            f"checksums equal; " +
+            ", ".join(f"{k} {v:.3g}" for k, v in e["scalars"].items()) +
+            f"; grads {e['grad']['worst']:.3g} nearest its limit "
+            f"{e['grad']['worst_limit']:.3g} ({e['grad']['worst_leaf']}; "
+            f"{e['grad']['limits_widened']} limits widened to "
+            f"{golden.SPREAD}x the reference's own error from f32; "
+            f"largest "
+            f"{e['grad']['largest_error']:.3g}) over {e['leaves']} leaves, "
+            f"{e['indices']} indices; update {u['worst']:.3g} at worst "
+            f"({u['worst_leaf']})")
+    if "indices_cleared" in u:
+        line += (f", {u['indices_cleared']} indices past {u['clear']:.3g}"
+                 f" RMS grads (a grad's sign differs up to "
+                 f"{u['sign_flip_in_rms']:.3g} RMS), {u['indices_bounded']} "
+                 f"held to 2 lr (1 + wd |p|) (used {u['bound_used']:.3g} of "
+                 f"it)")
+    if "drift" in r:
+        d = r["drift"]
+        line += (f"; grads from the f32 record: port "
+                 f"{d['port_vs_f32']:.3g}, reference "
+                 f"{d['reference_vs_f32']:.3g} (ratio {d['ratio']:.3g}, "
+                 f"within {golden.DRIFT_RATIO}x of 1)")
+    return line + f" (tol {r['tol']}); launches {launches}"
+
+
+def judge_train_record(torch, dev, stored, name, dtype, cfg, rec, launches,
+                       what) -> dict:
+    """A train record sampled on the card (``golden.TrainSampler``) against
+    the file: one ``[golden]`` line; the launches of its step held to
+    ``train_golden_launches``; a miss runs ``golden_train_diagnosis``, then
+    fails the run."""
+    from repro_torch.launch import golden
+    want = train_golden_launches(cfg, dtype)
+    check(launches == want, f"[golden] {name} {dtype} step launched "
+                            f"{launches}, want {want}")
+    r = golden.judge_train(name, dtype, rec, stored)
+    print(golden_train_line(name, dtype, cfg, r, launches, what), flush=True)
+    if not r["errors"]["ok"]:
+        golden_train_diagnosis(torch, dev, stored, name, dtype, want)
+    check(r["errors"]["ok"], f"[golden] {name} {dtype} against the "
+                             f"reference's step: {r['errors']}")
+    return {**r, "launches": launches}
+
+
+def golden_train_f32(torch, dev, stored, name) -> dict:
+    """The f32 record of a train cell on a model of its own, built and freed
+    here, tf32 off: ``golden.run_train_cell``, its launches counted from 0
+    (the step's ``train_golden_launches`` and the forward after it,
+    ``golden_launches``); held as ``judge_train_record`` holds it."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import golden
+    cfg = golden.cell_config(name, "float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tf32_off(torch):
+        cuda_lib.launches.clear()
+        r = golden.run_train_cell(name, "float32", dev, stored)
+        got = {k: n for k, n in cuda_lib.launches.items() if n}
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = train_golden_launches(cfg, "float32")
+    forward = golden_launches(cfg, "float32")
+    want = {k: want[k] + forward[k] for k in want}
+    check(got == want, f"[golden] {name} float32 step and forward after it "
+                       f"launched {got}, want {want}")
+    print(golden_train_line(name, "float32", cfg, r, got,
+                            f"its own model, peak {peak:.2f} GB, weights "
+                            f"{r['weights_s']:.1f} s, step {r['run_s']:.1f} "
+                            f"s"), flush=True)
+    if not r["errors"]["ok"]:
+        golden_train_diagnosis(torch, dev, stored, name, "float32", want)
+    check(r["errors"]["ok"], f"[golden] {name} float32 against the "
+                             f"reference's step: {r['errors']}")
+    return {**r, "launches": got, "peak_gb": peak}
+
+
+def golden_train_diagnosis(torch, dev, stored, name, dtype, want):
+    """A train record out of its limits, run again on a fresh model with
+    each of its kernels swapped for its plain version (``plain_for_
+    training``), tf32 off; each run's errors printed."""
+    from repro_torch.launch import golden
+    for kernel in ("flash_attention", "rglru_scan", "wkv6"):
+        if kernel not in want:
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        restore = plain_for_training(kernel)
+        try:
+            with tf32_off(torch):
+                r = golden.run_train_cell(name, dtype, dev, stored)
+        finally:
+            restore()
+        print(f"[golden] {name} {dtype} with {kernel} swapped for its plain "
+              f"version: {json.dumps(r['errors'])}", flush=True)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,17 @@
 """The port at full width against the reference's own outputs.
 
     PYTHONPATH=src python -m repro_torch.launch.golden [--device cuda|cpu]
-        [--cells gemma3-1b,whisper-small@4x1024 | --cells timed] [--golden PATH]
+        [--cells gemma3-1b,whisper-small@4x1024 | --cells timed|moe|train]
+        [--golden PATH]
     PYTHONPATH=src python -m repro_torch.launch.golden --int8-flips PATH
 
-Runs each cell through the port's prefill and 8 teacher-forced decode
-steps (and, for a cell with an engine record, the f32 serving engine),
-and holds what it computes to the records that ``tests/reference_golden.py``
-writes from the JAX reference on the same weights and inputs.  One line a
-cell; exit 1 where a cell is out of its tolerance.  Two files:
+Runs each serving cell through the port's prefill and 8 teacher-forced
+decode steps (and, for a cell with an engine record, the f32 serving
+engine), each train cell through one train step and a forward pass after
+it, and holds what it computes to the records that
+``tests/reference_golden.py`` writes from the JAX reference on the same
+weights and inputs.  One line a cell; exit 1 where a cell is out of its
+tolerance.  Four files:
 
 * ``tests/golden/full_width.npz``: ``CELLS``, a published config at every
   published width, cut only in depth, and the MoEs in experts; batch 1.
@@ -28,6 +31,36 @@ cell; exit 1 where a cell is out of its tolerance.  Two files:
   own serving engine, 4 slots, ``max_len`` 128, 4 requests of 3-8 prompt
   tokens from ``engine_prompts``, 8 new tokens each).  Every position is
   kept.
+* ``tests/golden/timed_moe.npz``: ``MOE_TIMED``, the MoE serving paths at
+  their timed shape and depth (4 x 1024; qwen3-moe-235b-a22b at 8 layers,
+  arctic-480b at 2), f32, no engine record, their experts cut as
+  ``CELLS`` cuts them (``cut``: 16 and 8 of 128; all 128 hold ~20 B and
+  ~27 B values, past what the reference holds on a 62 GB host).
+* ``tests/golden/train.npz``: ``TRAIN``, the train steps ``chip_smoke.py``
+  times, at their shape and depth: h2o-danube-1.8b (24 layers, 4 x 2048),
+  recurrentgemma-2b and rwkv6-7b at one superblock (``cut``: 3 and 1
+  layers), whisper-small (1024 frames, 256 tokens) and paligemma-3b (256
+  patches, 768 tokens) at full depth, each 4 x 1024, AdamW, f32 and bf16;
+  qwen3-moe-235b-a22b at 4 layers and arctic-480b at 1, Adafactor, f32,
+  their experts cut (16 and 8 of 128); and ``REGENERATED_TRAIN``
+  (whisper-small at 1 + 1 layers, 4 x 256), which the CPU test writes
+  again through the reference.  Each record is one step of the config's
+  optimizer at ``LR`` on batch 0 (``train_batch``: ``SyntheticTokens``'
+  for h2o-danube-1.8b and the recurrent pair, else numpy draws of
+  ``TRAIN_INPUT_SEED``, the arch's name and the step; the file keeps a
+  synthetic cell's tokens): its loss, aux and
+  grad norm; each parameter's grad as the update takes it (clipped to
+  the global norm ``MAX_GRAD_NORM``), its norm and its values at ``K``
+  indices (``train_indices``: drawn from ``INDEX_SEED`` and the port's
+  parameter name), and its update (new - old; AdamW's f32 master) there;
+  and the loss of batch 1 on the updated weights (``SCALARS``).
+  ``compare_train`` holds a run to it (``train_tolerance``: each scalar,
+  each leaf's grad norm and samples, the update: AdamW's by its sign rule,
+  Adafactor's in norm; a bf16 record's limits widened to ``SPREAD`` times
+  the reference's own distance from its f32 record); a bf16 run's grads
+  also lie from the f32 record within ``DRIFT_RATIO`` of the reference's
+  own bf16 (``train_drift``).  rwkv6-7b's records are the reference under
+  ``EXACT_BF16`` (``TrainCell.xla_flags``).
 
 The weights are the port's own (``model``): ``init_params`` drawing from a
 ``BlockDraws`` seeded with ``SEED``, then the leaves the reference
@@ -37,8 +70,9 @@ them matters.  The file holds each leaf's f64 sum and sum of squares
 (``checksums``), and every consumer checks them before it compares
 anything.  The inputs are numpy draws (``inputs``: ``INPUT_SEED`` with
 the cell's arch's name, so that the variants of a timed cell share them;
-the cells of the two files differ in shape): the file holds the tokens; whisper's frames and paligemma's patches are drawn
-again from the cell's seed and checked against their sums.
+the cells of the files differ in shape): a serving file holds the tokens;
+whisper's frames and paligemma's patches are drawn again from the cell's
+seed and checked against their sums, as are a train cell's batches.
 
 What is kept of the logits (``summarize``), at every prefill position of
 every row and every decode step of every row: their projection onto 16
@@ -92,10 +126,14 @@ from repro_torch.models.modules import BlockDraws
 GOLDEN = Path(__file__).resolve().parents[3] / "tests" / "golden" / \
     "full_width.npz"
 TIMED_GOLDEN = GOLDEN.parent / "timed.npz"
+MOE_GOLDEN = GOLDEN.parent / "timed_moe.npz"
+TRAIN_GOLDEN = GOLDEN.parent / "train.npz"
 SEED = 0                      # the weights' BlockDraws
 DIRECTIONS_SEED = 1           # the 16 directions
 INPUT_SEED = 2                # with the arch's name: a cell's inputs
 ENGINE_SEED = 4               # with the arch's name: the engine's prompts
+TRAIN_INPUT_SEED = 5          # with the arch's name and the step: a batch
+INDEX_SEED = 6                # with a parameter's name: its sampled indices
 N_DIRECTIONS = 16
 DECODE_STEPS = 8
 NORMAL_SCALE = 0.3
@@ -141,7 +179,30 @@ TOL_CELL = {
     # reference's bf16 on the CPU and the card (logsumexp within the
     # default 5e-2: 9.0e-3; ``drift`` 0.96-1.00)
     ("rwkv6-7b@4x1024", "bfloat16"): {"sketch": 0.75, "argmax": None},
+    # a train cell's: {"scalars", "grad", "update"}
+    # (``train_tolerance``).  rwkv6-7b's step at full width: the
+    # reference's own chunked wkv lies 3.94e-3 from its exact sequential
+    # one at its worst leaf (``tests/reference_golden.py --sensitivity
+    # rwkv6-7b@train --layers 1``: exact_vs_reference; median 8.0e-5), one
+    # f32 ulp of its embedding moves it 8.6e-4; the port lies 3.92e-3 (CPU)
+    # and 3.94e-3 (card) from the chunked record and 8.4e-4 (CPU) and
+    # 2.4e-4 (card) from the exact form; its AdamW update 1.9e-3, its grad
+    # norm 2.5e-4 (CPU) and 2.3e-4 (card)
+    ("rwkv6-7b@train", "float32"): {"scalars": 1e-3, "grad": 1e-2,
+                                    "update": 5e-3},
+    # qwen3-moe at 4 x 1024: one route of 16384 (layer 2, token 1817) has
+    # its 8th and 9th probabilities 2.2e-5 apart (relative), and on the card
+    # the f32 hidden states, 3.4e-6 from the CPU's, order them the other way
+    # (``python -m repro_torch.launch.golden --routes``); that token's other
+    # expert moves every grad leaf 1e-3-7e-3 from the record and Adafactor's
+    # update of the experts it feeds up to 2.4e-2; on the CPU, where the
+    # routes are the reference's, 6.0e-6 and 6.4e-5
+    ("qwen3-moe-235b-a22b@train@16E", "float32"): {"grad": 1e-2,
+                                                   "update": 5e-2},
 }
+# a narrower train record's limits widen to this multiple of the
+# reference's own distance from its f32 record (tests/test_torch_train_bf16.py)
+SPREAD = 2
 # a run in a narrower dtype lies from the f32 record within this factor,
 # either way, of the reference's own run in that dtype (``drift``): no
 # farther (a fault), and no nearer (a run in a wider dtype)
@@ -215,8 +276,85 @@ ENGINE = {"n_slots": 4, "max_len": 128, "requests": 4, "prompt_len": (3, 9),
           "max_new": 8}
 
 
-def cell(name: str) -> Cell:
-    return CELLS[name] if name in CELLS else TIMED[name]
+# the MoE serving paths at chip_smoke.py's timed shape and depth (8 and 2
+# layers, ``DEPTH``), f32, the experts cut as ``CELLS`` cuts them (all 128
+# hold ~20 B and ~27 B values, past what the reference holds on a 62 GB
+# host); ``tests/golden/timed_moe.npz``
+MOE_TIMED = {
+    "qwen3-moe-235b-a22b@4x1024@16E": _timed(
+        "qwen3-moe-235b-a22b", ("float32",), engine=False,
+        cut={"n_layers": 8, "n_experts": 16}),
+    "arctic-480b@4x1024@8E": _timed("arctic-480b", ("float32",), engine=False,
+                                    cut={"n_layers": 2, "n_experts": 8}),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainCell:
+    """A train step's cell: ``seq`` positions a row as ``Cell``'s, ``cut``
+    what differs from the published config besides ``param_dtype``;
+    ``synthetic``: its batches are ``SyntheticTokens(cfg, batch, seq,
+    seed=SEED)``'s (else ``train_batch``'s numpy draws); ``xla_flags``:
+    the reference's XLA flags for its records (``tests/reference_golden.py``
+    sets them in a process of the cell's own)."""
+    arch: str
+    seq: int
+    dtypes: tuple
+    cut: dict
+    batch: int = 4
+    synthetic: bool = False
+    options: dict = dataclasses.field(default_factory=dict)
+    xla_flags: str = ""
+
+
+F32_BF16 = ("float32", "bfloat16")
+# XLA rounds a bf16 program's every op to bf16, as PyTorch does, where by
+# default it may keep an intermediate wider: rwkv6-7b's backward, through
+# the group norm of heads of small spread, then lies up to 1.72 (a leaf's
+# samples; its norms 20% lower, median 0.018) from the same program
+# rounded at each op, which the port lies 0.042 (median 0.011) from on the
+# card (its f32 program is the same either way)
+EXACT_BF16 = "--xla_allow_excess_precision=false"
+# the train steps chip_smoke.py times, at their shape and depth (the
+# recurrent archs at one superblock), the MoEs with their experts cut as
+# ``CELLS`` cuts them and f32 only (in bf16 a router's near-tie, moved by
+# rounding, picks another expert); and one small cell that the CPU test
+# writes again through the reference (``REGENERATED_TRAIN``)
+TRAIN = {
+    "h2o-danube-1.8b@train": TrainCell("h2o-danube-1.8b", 2048, F32_BF16, {},
+                                       synthetic=True),
+    "recurrentgemma-2b@train": TrainCell("recurrentgemma-2b", 1024, F32_BF16,
+                                         {"n_layers": 3}, synthetic=True),
+    "rwkv6-7b@train": TrainCell("rwkv6-7b", 1024, F32_BF16, {"n_layers": 1},
+                                synthetic=True, xla_flags=EXACT_BF16),
+    "whisper-small@train": TrainCell("whisper-small", 1024, F32_BF16, {}),
+    "paligemma-3b@train": TrainCell("paligemma-3b", 1024, F32_BF16, {}),
+    "qwen3-moe-235b-a22b@train@16E": TrainCell(
+        "qwen3-moe-235b-a22b", 1024, ("float32",),
+        {"n_layers": 4, "n_experts": 16}),
+    "arctic-480b@train@8E": TrainCell("arctic-480b", 1024, ("float32",),
+                                      {"n_layers": 1, "n_experts": 8}),
+    "whisper-small@train@1+1L": TrainCell(
+        "whisper-small", 256, ("float32",),
+        {"n_layers": 1, "n_enc_layers": 1}),
+}
+REGENERATED_TRAIN = "whisper-small@train@1+1L"
+
+
+# each table with the file of its records
+FILES = ((CELLS, GOLDEN), (TIMED, TIMED_GOLDEN), (MOE_TIMED, MOE_GOLDEN),
+         (TRAIN, TRAIN_GOLDEN))
+
+
+def table_of(name: str) -> dict:
+    for table, _ in FILES:
+        if name in table:
+            return table
+    raise KeyError(name)
+
+
+def cell(name: str):
+    return table_of(name)[name]
 
 
 def timed_name(arch: str, kv_quant: bool = False) -> str:
@@ -240,7 +378,7 @@ def runs(cells=None) -> list:
 
 
 def file_of(name: str) -> Path:
-    return GOLDEN if name in CELLS else TIMED_GOLDEN
+    return next(f for t, f in FILES if t is table_of(name))
 
 
 def tolerance(name: str, dtype: str) -> dict:
@@ -638,7 +776,7 @@ def pack(records: dict, meta: dict) -> dict:
         arrays[f"{name}/decode"] = inp["decode"]
         arrays[f"{name}/input_sums"] = input_sums(inp)
         arrays[f"{name}/cut"] = _json(cell(name).cut)
-        if name in TIMED:
+        if name not in CELLS:
             arrays[f"{name}/options"] = _json(cell(name).options)
         if "prompts" in inp:
             arrays[f"{name}/prompts"] = np.concatenate(inp["prompts"])
@@ -830,34 +968,514 @@ def int8_flips(path, device, golden: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the train records (``TRAIN``, ``tests/golden/train.npz``):
+# "<cell>/<dtype>/names" and "/checksums" (the weights), "/scalars"
+# (``SCALARS``, f64), "/grad_norms" (f64, one a parameter), "/grad" and
+# "/update" (f32, each parameter's samples one after another);
+# "<cell>/input_sums" (each step's batch, its keys sorted), "/numels" and
+# "/index_sums" (each parameter's), "<cell>/cut", a synthetic cell's
+# "<cell>/tokens" (its two steps'), "meta"
+# ---------------------------------------------------------------------------
+K = 256                       # sampled elements a parameter (all, below K)
+LR = 1e-4                     # chip_smoke.py's LR_TRAIN: a constant rate
+WEIGHT_DECAY = 0.1            # AdamW's, in both packages
+MAX_GRAD_NORM = 1.0           # both optimizers' clip, in both packages
+SCALARS = ("loss", "aux", "grad_norm", "loss_after")
+TRAIN_MEASURES = ("scalars", "grad", "update")
+# AdamW's first step is lr (g / (|g| + eps) + wd p): about lr sign(g) where
+# |g| is well past eps, and linear in g below it
+ADAMW_EPS = 1e-8
+CLEAR_EPS = 10
+# AdamW's first step in bf16 grads: (1 - b1) g and (1 - b2) g^2 round in
+# bf16, which moves m / sqrt(v) up to 2^-7 past 1 (tests/test_torch_train.py)
+BF16_STEP_SLACK = 2.0 ** -7
+
+
+def train_batch(name: str, cfg, step: int, golden: dict | None = None
+                ) -> dict:
+    """The numpy batch of a train cell's ``step`` (0: the step held, 1: the
+    forward after its update): ``SyntheticTokens``' where the cell says so
+    (the reference's draws, bit for bit), else tokens (and whisper's frames
+    or paligemma's patches) drawn from ``TRAIN_INPUT_SEED``, the arch's name
+    and the step, labels as ``models.io.make_batch`` makes them.  Given
+    the file (``golden``), a synthetic cell's tokens are the file's:
+    ``SyntheticTokens`` draws from ``Generator.zipf``, which other numpy
+    versions draw otherwise."""
+    c = cell(name)
+    if c.synthetic:
+        if golden is not None:
+            tok = golden[f"{name}/tokens"][step]
+            return {"tokens": tok, "labels": np.roll(tok, -1, axis=1)}
+        from repro_torch.data import SyntheticTokens
+        return SyntheticTokens(cfg, c.batch, c.seq,
+                               seed=SEED).batch_for_step(step)
+    rng = np.random.default_rng([TRAIN_INPUT_SEED,
+                                 zlib.crc32(c.arch.encode()), step])
+    b, out, prefix = c.batch, {}, 0
+    if cfg.encoder_decoder:
+        out["frames"] = rng.standard_normal((b, c.seq, cfg.d_model),
+                                            dtype=np.float32)
+        n = c.seq // cfg.dec_len_ratio
+    elif cfg.frontend == "vision":
+        prefix = cfg.n_prefix_tokens
+        out["patches"] = rng.standard_normal((b, prefix, cfg.d_model),
+                                             dtype=np.float32)
+        n = c.seq - prefix
+    else:
+        n = c.seq
+    tok = rng.integers(0, cfg.vocab_size, (b, n), dtype=np.int32)
+    out["tokens"] = tok
+    out["labels"] = np.concatenate([np.full((b, prefix), -1, np.int32),
+                                    np.roll(tok, -1, axis=1)], axis=1)
+    return out
+
+
+def batch_sums(batch: dict) -> np.ndarray:
+    """(keys, 2): ``array_sums`` of each array of a batch, keys sorted."""
+    return np.stack([array_sums(batch[k]) for k in sorted(batch)])
+
+
+def train_indices(pname: str, numel: int) -> np.ndarray:
+    """The flat indices sampled of parameter ``pname``: K drawn without
+    replacement from ``INDEX_SEED`` and the name, sorted; all below K."""
+    if numel <= K:
+        return np.arange(numel, dtype=np.int64)
+    rng = np.random.default_rng([INDEX_SEED, zlib.crc32(pname.encode())])
+    return np.sort(rng.choice(numel, K, replace=False)).astype(np.int64)
+
+
+def squares(t: torch.Tensor) -> float:
+    """The f64 sum of squares of ``t`` (on the host by numpy in chunks on a
+    thread pool, on a card in chunks)."""
+    flat = t.detach().reshape(-1)
+    if flat.device.type != "cpu":
+        return sum(_device_sums(c)[1] for c in flat.split(1 << 24))
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        return sum(s for _, s in pool.map(_host_sums, flat.split(1 << 20)))
+
+
+def _take(t: torch.Tensor, idx: torch.Tensor) -> np.ndarray:
+    return t.detach().reshape(-1)[idx].double().cpu().numpy()
+
+
+class TrainSampler:
+    """What a record keeps of one train step of the port on the model of
+    ``state`` (``train.steps.init_train_state``'s): built before the step,
+    it samples each parameter's f32 base (AdamW's master copy where there
+    is one, else the parameter) at its ``train_indices``; ``after`` the
+    step, each parameter's grad (its norm and its samples: the grad the
+    update took, clipped in place to the global norm ``MAX_GRAD_NORM``),
+    the base's change (the update) and the step's metrics."""
+
+    def __init__(self, state: dict):
+        self.params = dict(state["params"].named_parameters())
+        self.idx = {n: torch.from_numpy(train_indices(n, p.numel())).to(
+            p.device) for n, p in self.params.items()}
+        self.before = self.base(state)
+
+    def base(self, state: dict) -> dict:
+        master = state["opt"].get("master")
+        return {n: _take(master[n] if master else p, self.idx[n])
+                for n, p in self.params.items()}
+
+    def after(self, state: dict, metrics: dict) -> dict:
+        now = self.base(state)
+        grads = {n: p.grad for n, p in self.params.items()}
+        return {"names": list(self.params),
+                "numels": [p.numel() for p in self.params.values()],
+                "scalars": {k: float(metrics[k]) for k in SCALARS[:3]},
+                "grad_norms": np.sqrt([squares(g) for g in grads.values()]),
+                "grad": [_take(g, self.idx[n]) for n, g in grads.items()],
+                "update": [now[n] - self.before[n] for n in self.params],
+                "base": [self.before[n] for n in self.params]}
+
+
+def train_step_record(m, cfg, batches: list, device) -> dict:
+    """One train step of the port (``build_train_step``, the config's
+    optimizer, ``LR``) on model ``m`` from batch 0, then the loss of a
+    forward pass on batch 1 (the updated weights in use): ``TrainSampler``'s
+    record."""
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import steps as tsteps
+    opt = make_optimizer(cfg.optimizer, cfg=cfg)
+    state = tsteps.init_train_state(None, cfg, opt, params=m)
+    dev = torch.device(device)
+    b0, b1 = ({k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+              for b in batches)
+    sampler = TrainSampler(state)
+    state, metrics = tsteps.build_train_step(cfg, opt, lambda s: LR)(state,
+                                                                      b0)
+    rec = sampler.after(state, metrics)
+    del state, sampler
+    for p in m.parameters():
+        p.grad = None
+    with torch.no_grad(), tsteps.full_bf16_reductions():
+        _, met = tsteps.loss_fn(m, cfg, b1)
+    rec["scalars"]["loss_after"] = float(met["loss"])
+    return rec
+
+
+def train_tolerance(name: str, dtype: str) -> dict:
+    """{measure of ``TRAIN_MEASURES``: limit}: ``TOL_CELL``'s where it sets
+    one, else ``TOL[dtype]``."""
+    tol = TOL_CELL.get((name, dtype), TOL[dtype])
+    if not isinstance(tol, dict):
+        return dict.fromkeys(TRAIN_MEASURES, tol)
+    return {m: tol.get(m, TOL[dtype]) for m in TRAIN_MEASURES}
+
+
+def rel(a, b) -> float:
+    """||a - b|| / ||b|` (0 where both are 0, inf where only b is)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d, n = float(np.linalg.norm(a - b)), float(np.linalg.norm(b))
+    return d / n if n else (0.0 if d == 0 else math.inf)
+
+
+def _worst(errs: dict) -> dict:
+    name = max(errs, key=errs.get) if errs else None
+    return {"worst": errs.get(name, 0.0), "worst_leaf": name}
+
+
+def leaf_errors(got: dict, want: dict) -> list:
+    """Each parameter's grad error of ``got`` against ``want``: the larger
+    of its norm's and its samples' relative error, both records
+    ``unclipped`` (the clip's scale is the grad norm scalar's)."""
+    norms = [np.asarray(r["grad_norms"]) * clip_scale(r) for r in (got, want)]
+    return [max(rel(gn, wn), rel(g, w)) for g, w, gn, wn in
+            zip(unclipped(got), unclipped(want), *norms)]
+
+
+def sign_flips(got: dict, want: dict) -> float:
+    """The largest |g| of ``want``'s, in units of its parameter's RMS grad,
+    at an index where ``got``'s grad has the other sign."""
+    out = 0.0
+    for g, w, n, k in zip(got["grad"], want["grad"], want["grad_norms"],
+                          want["numels"]):
+        flipped = np.sign(g) != np.sign(w)
+        if n and flipped.any():
+            out = max(out, float(np.max(np.abs(w[flipped]))) /
+                      (n / math.sqrt(k)))
+    return out
+
+
+def compare_train(got: dict, want: dict, lim: dict, adamw: bool,
+                  dtype: str, f32: dict | None = None) -> dict:
+    """Errors of a train record ``got`` against ``want`` (the file's) at
+    ``lim`` (``train_tolerance``): each scalar relative to the file's; each
+    parameter's grad (``leaf_errors``); its update's samples relative in
+    norm (Adafactor, continuous in the grads), or, under AdamW, whose first
+    step is about lr sign(g), relative in norm at the indices where the
+    file's |g| exceeds "clear" (the grad limit) times the parameter's RMS
+    grad and
+    its clipped |g| exceeds ``CLEAR_EPS`` times AdamW's eps (below that the
+    step is linear in g, g / eps, and a grad error within its limit moves
+    it past any relative one), and within 2 lr (1 + wd |p|) elsewhere
+    (``p``: ``got``'s base; 2^-7 more in bf16).  Given the file's f32
+    record of the cell (``f32``, for a narrower ``want``), the reference's
+    own rounding widens the limits as tests/test_torch_train_bf16.py's
+    do: a parameter's grad limit is at least ``SPREAD`` times its ``want``
+    - ``f32`` error, and "clear" at least ``SPREAD`` times the reference's
+    own ``sign_flips`` against its f32 record (``sign_flip_in_rms``:
+    ``got``'s against ``want``).  How many parameters and indices each
+    measure checked; ``ok``."""
+    if got["names"] != want["names"]:
+        raise ValueError("the record's parameters are not the file's")
+    names = want["names"]
+    sc = {k: rel(got["scalars"][k], want["scalars"][k]) for k in SCALARS}
+    errs = leaf_errors(got, want)
+    own = leaf_errors(want, f32) if f32 else [0.0] * len(names)
+    limits = [max(lim["grad"], SPREAD * s) for s in own]
+    clear_at = max(lim["grad"], SPREAD * sign_flips(want, f32)) \
+        if f32 and adamw else lim["grad"]
+    update, held, excess, cleared, n_idx = {}, 0, 0.0, 0, 0
+    slack = 1 + (BF16_STEP_SLACK if dtype == "bfloat16" else 0.0)
+    want_g = unclipped(want)
+    for i, n in enumerate(names):
+        gu, wu = got["update"][i], want["update"][i]
+        n_idx += len(wu)
+        if not adamw:
+            update[n] = rel(gu, wu)
+            continue
+        rms = want["grad_norms"][i] * clip_scale(want) / math.sqrt(
+            want["numels"][i])
+        clear = (np.abs(want_g[i]) > clear_at * rms) & \
+            (np.abs(want["grad"][i]) > CLEAR_EPS * ADAMW_EPS)
+        cleared += int(clear.sum())
+        if clear.any():
+            update[n] = rel(gu[clear], wu[clear])
+        if (~clear).any():
+            bound = 2 * LR * (1 + WEIGHT_DECAY * np.abs(got["base"][i]))
+            excess = max(excess, float(np.max((np.abs(gu - wu) / (
+                bound * slack))[~clear])))
+            held += int((~clear).sum())
+    over = [e / m for e, m in zip(errs, limits)]
+    worst = int(np.argmax(over))
+    out = {"scalars": sc,
+           "grad": {"worst": errs[worst], "worst_leaf": names[worst],
+                    "worst_limit": limits[worst], "largest_error":
+                    max(errs), "limits_widened": sum(m > lim["grad"]
+                                                     for m in limits)},
+           "update": _worst(update), "leaves": len(names), "indices": n_idx}
+    if adamw:
+        out["update"].update(clear=clear_at, indices_cleared=cleared,
+                             indices_bounded=held, bound_used=excess,
+                             sign_flip_in_rms=sign_flips(got, want))
+    out["ok"] = bool(max(sc.values()) <= lim["scalars"] and
+                     over[worst] <= 1.0 and
+                     out["update"]["worst"] <= lim["update"] and
+                     excess <= 1.0)
+    return out
+
+
+def clip_scale(r: dict) -> float:
+    """The factor that undoes a record's clip: its grad norm over
+    ``MAX_GRAD_NORM``, at least 1."""
+    return max(r["scalars"]["grad_norm"], MAX_GRAD_NORM) / MAX_GRAD_NORM
+
+
+def unclipped(r: dict) -> list:
+    """A record's grad samples before the clip (``clip_scale``), so that a
+    leaf is compared apart from the global norm every leaf was divided
+    by, which the grad norm scalar holds."""
+    s = clip_scale(r)
+    return [g * s for g in r["grad"]]
+
+
+def train_drift(got: dict, want: dict, f32: dict) -> dict:
+    """How far a bf16 train record (``got``, the port's) and the file's
+    bf16 record (``want``) each lie from the file's f32 record of the same
+    cell: the grad samples' (``unclipped``) relative distance in norm a
+    parameter, their root mean square over the parameters, and the ratio,
+    port over reference, which ``judge_train`` holds within
+    ``DRIFT_RATIO`` of 1."""
+    base = unclipped(f32)
+
+    def dist(r):
+        return float(np.sqrt(np.mean([rel(a, b) ** 2 for a, b in
+                                      zip(unclipped(r), base)])))
+    port, ref = dist(got), dist(want)
+    return {"port_vs_f32": port, "reference_vs_f32": ref,
+            "ratio": port / ref}
+
+
+def stored_train(golden: dict, name: str, dtype: str) -> dict:
+    """One train record in the file, each parameter's samples apart."""
+    pre = f"{name}/{dtype}"
+    names = [str(n) for n in golden[f"{pre}/names"]]
+    numels = golden[f"{name}/numels"].tolist()
+    cuts = np.cumsum([min(n, K) for n in numels])[:-1]
+    return {"names": names, "numels": numels,
+            "sums": golden[f"{pre}/checksums"],
+            "scalars": dict(zip(SCALARS, golden[f"{pre}/scalars"].tolist())),
+            "grad_norms": golden[f"{pre}/grad_norms"],
+            "grad": np.split(golden[f"{pre}/grad"].astype(np.float64), cuts),
+            "update": np.split(golden[f"{pre}/update"].astype(np.float64),
+                               cuts)}
+
+
+def pack_train(records: dict, meta: dict) -> dict:
+    """records: {(cell, dtype): {"names", "sums", "numels", "batches" (the
+    two steps' numpy batches), "scalars", "grad_norms", "grad", "update"}}
+    -> the file's arrays."""
+    arrays = {"meta": _json(meta)}
+    for (name, dt), r in records.items():
+        arrays[f"{name}/input_sums"] = np.stack([batch_sums(b)
+                                                 for b in r["batches"]])
+        arrays[f"{name}/numels"] = np.asarray(r["numels"], np.int64)
+        arrays[f"{name}/index_sums"] = np.array(
+            [train_indices(n, k).sum() for n, k in
+             zip(r["names"], r["numels"])], np.int64)
+        arrays[f"{name}/cut"] = _json(cell(name).cut)
+        arrays[f"{name}/xla_flags"] = np.array(cell(name).xla_flags)
+        if cell(name).synthetic:
+            arrays[f"{name}/tokens"] = np.stack([b["tokens"]
+                                                 for b in r["batches"]])
+        pre = f"{name}/{dt}"
+        arrays[f"{pre}/names"] = np.array(r["names"])
+        arrays[f"{pre}/checksums"] = r["sums"]
+        arrays[f"{pre}/scalars"] = np.array([r["scalars"][k]
+                                             for k in SCALARS], np.float64)
+        arrays[f"{pre}/grad_norms"] = np.asarray(r["grad_norms"], np.float64)
+        for k in ("grad", "update"):
+            arrays[f"{pre}/{k}"] = np.concatenate(r[k]).astype(np.float32)
+    return arrays
+
+
+def check_train_inputs(golden: dict, name: str, batches: list,
+                       names=None, numels=None):
+    """A train cell's batches, cut, and (given the model's parameter names
+    and sizes) its parameters' sizes and index sets against the file's."""
+    want = golden[f"{name}/input_sums"]
+    got = np.stack([batch_sums(b) for b in batches])
+    if got.shape != want.shape or not np.allclose(got, want, rtol=1e-12,
+                                                  atol=1e-9):
+        raise ValueError(f"{name}: the batches drawn here sum to {got}, the "
+                         f"file's to {want}")
+    there = json.loads(str(golden[f"{name}/cut"]))
+    if there != cell(name).cut:
+        raise ValueError(f"{name}: the file's cut {there}, here "
+                         f"{cell(name).cut}")
+    if str(golden[f"{name}/xla_flags"]) != cell(name).xla_flags:
+        raise ValueError(f"{name}: the file's reference ran under XLA flags "
+                         f"{golden[f'{name}/xla_flags']!r}, here "
+                         f"{cell(name).xla_flags!r}")
+    if numels is not None:
+        if list(numels) != golden[f"{name}/numels"].tolist():
+            raise ValueError(f"{name}: parameter sizes differ from the file's")
+        sums = [train_indices(n, k).sum() for n, k in zip(names, numels)]
+        if sums != golden[f"{name}/index_sums"].tolist():
+            raise ValueError(f"{name}: index sets differ from the file's")
+
+
+def judge_train(name: str, dtype: str, got: dict, golden: dict) -> dict:
+    """``got`` (``TrainSampler.after``'s record, its "loss_after" set)
+    against the file's: {"errors": compare_train(...), "tol"[, "drift"]}."""
+    want = stored_train(golden, name, dtype)
+    tol = train_tolerance(name, dtype)
+    cfg = cell_config(name, dtype)
+    f32 = stored_train(golden, name, "float32") if dtype != "float32" and \
+        f"{name}/float32/names" in golden else None
+    out = {"errors": compare_train(got, want, tol, cfg.optimizer == "adamw",
+                                   dtype, f32), "tol": tol}
+    if f32 is not None:
+        out["drift"] = d = train_drift(got, want, f32)
+        out["errors"]["ok"] &= 1 / DRIFT_RATIO <= d["ratio"] <= DRIFT_RATIO
+    return out
+
+
+def train_model(name: str, dtype: str, device):
+    """A train cell's model in ``dtype`` on ``device``: its f32 draw
+    (``model``), cast where ``dtype`` is narrower."""
+    m = model(cell_config(name, "float32"), SEED, device)
+    return m if dtype == "float32" else cast(m, cell_config(name, dtype))
+
+
+def run_train_cell(name: str, dtype: str, device, golden: dict,
+                   m=None) -> dict:
+    """Build a train cell's model on ``device`` (or take ``m``), check its
+    checksums and its batches against the file, take the port's step
+    (``train_step_record``) and compare (``judge_train``).  Raises on a
+    weight or input mismatch; returns {"errors", "tol"[, "drift"],
+    "weights_s", "run_s"}."""
+    cfg = cell_config(name, dtype)
+    batches = [train_batch(name, cfg, s, golden) for s in (0, 1)]
+    t0 = time.perf_counter()  # repro: allow(DB001): the report's wall time
+    if m is None:
+        m = train_model(name, dtype, device)
+    want = {"names": [str(n) for n in golden[f"{name}/{dtype}/names"]],
+            "sums": golden[f"{name}/{dtype}/checksums"]}
+    check_weights(m, name, dtype, want)
+    check_train_inputs(golden, name, batches,
+                       *zip(*[(n, p.numel()) for n, p in
+                              m.named_parameters()]))
+    t1 = time.perf_counter()  # repro: allow(DB001): as above
+    got = train_step_record(m, cfg, batches, device)
+    del m
+    t2 = time.perf_counter()  # repro: allow(DB001): as above
+    return {**judge_train(name, dtype, got, golden), "weights_s": t1 - t0,
+            "run_s": t2 - t1}
+
+
+def routes(name: str, device, golden: dict) -> dict:
+    """A MoE train cell's routing in the forward pass of its batch 0 on
+    ``device`` (its model in f32): each MoE call's expert set of each
+    token, sorted ("<call>/experts"), and the gap between the token's k-th
+    and (k+1)-th probabilities relative to the k-th ("<call>/margin"): a
+    route whose margin is within the devices' rounding may differ from
+    another device's, or from the reference's."""
+    from repro_torch.models import moe
+    from repro_torch.train import steps as tsteps
+    cfg = cell_config(name, "float32")
+    dev = torch.device(device)
+    b0 = {k: torch.from_numpy(v).to(dev)
+          for k, v in train_batch(name, cfg, 0, golden).items()}
+    m = train_model(name, "float32", dev)
+    route, out = moe._route, {}
+
+    def recorded(x, router, k):
+        gate, idx, probs = route(x, router, k)
+        p = probs.detach().sort(dim=-1, descending=True).values
+        i = len(out) // 2
+        out[f"{i}/experts"] = idx.sort(dim=-1).values.cpu().numpy()
+        out[f"{i}/margin"] = ((p[:, k - 1] - p[:, k]) / p[:, k - 1]).cpu(
+            ).numpy()
+        return gate, idx, probs
+    moe._route = recorded
+    try:
+        with torch.no_grad():
+            tsteps.loss_fn(m, cfg, b0)
+    finally:
+        moe._route = route
+    return out
+
+
+def compare_routes(here: dict, there: dict) -> dict:
+    """The (call, token) routes whose expert sets differ between two
+    ``routes`` records, with their margins in each, and the smallest
+    margin of each call here."""
+    calls = sorted({int(k.split("/")[0]) for k in here})
+    differ = []
+    for c in calls:
+        a, b = here[f"{c}/experts"], there[f"{c}/experts"]
+        for t in np.flatnonzero((a != b).any(axis=1)):
+            differ.append({"call": c, "token": int(t), "margin_here": float(
+                here[f"{c}/margin"][t]), "margin_there": float(
+                there[f"{c}/margin"][t])})
+    return {"routes": int(sum(len(here[f"{c}/margin"]) for c in calls)),
+            "differ": differ, "smallest_margin": [
+                float(here[f"{c}/margin"].min()) for c in calls]}
+
+
+GROUPS = {"timed": TIMED, "moe": MOE_TIMED, "train": TRAIN}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--cells", default=",".join(CELLS),
-                    help="cells of CELLS and TIMED, comma-separated; "
-                         "'timed' for all of TIMED")
+                    help="cells of CELLS, TIMED, MOE_TIMED and TRAIN, "
+                         "comma-separated; 'timed', 'moe' or 'train' for "
+                         "all of TIMED, MOE_TIMED or TRAIN")
     ap.add_argument("--golden", default=None,
                     help="the records' file (default: each cell's own)")
     ap.add_argument("--int8-flips", metavar="PATH", default=None,
                     help="compare the int8 cell's cache with the "
                          "reference's in PATH instead (int8_flips)")
+    ap.add_argument("--routes", metavar="PATH", default=None,
+                    help="write the MoE train cell's (--cells) routes on "
+                         "this device to PATH instead (routes)")
+    ap.add_argument("--routes-against", metavar="PATH", default=None,
+                    help="compare the MoE train cell's routes on this "
+                         "device with those in PATH instead")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":           # the f32 tolerance is full f32's
         torch.backends.cuda.matmul.allow_tf32 = False
+    if args.routes or args.routes_against:
+        here = routes(args.cells, device, load(TRAIN_GOLDEN))
+        if args.routes:
+            Path(args.routes).parent.mkdir(parents=True, exist_ok=True)
+            np.savez_compressed(args.routes, **here)
+        if args.routes_against:
+            print("[golden] routes: " + json.dumps(compare_routes(
+                here, load(args.routes_against))), flush=True)
+        return 0
     if args.int8_flips:
         r = int8_flips(args.int8_flips, device,
                        load(args.golden or TIMED_GOLDEN))
         print("[golden] int8 flips: " + json.dumps(r), flush=True)
         return 0
-    names = list(TIMED) if args.cells == "timed" else args.cells.split(",")
+    names = list(GROUPS[args.cells]) if args.cells in GROUPS \
+        else args.cells.split(",")
     files, ok = {}, True
     for name in names:
         path = args.golden or file_of(name)
         if path not in files:
             files[path] = load(path)
         for dt in cell(name).dtypes:
-            r = run_cell(name, dt, device, files[path])
+            r = (run_train_cell if name in TRAIN else run_cell)(
+                name, dt, device, files[path])
             ok &= r["errors"]["ok"]
             print(f"[golden] {name} {dt}: " + json.dumps(r), flush=True)
     return 0 if ok else 1

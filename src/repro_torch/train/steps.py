@@ -29,8 +29,18 @@ where they lie.  The sum is then reduced once, to ``grad_shardings``
 does, so that the update runs at the optimizer state's sharding (a
 reduce-scatter of ``Partial`` grads), or without them to each
 parameter's own placements; on plain grads nothing changes.
+
+The step runs with cuBLAS's reduced-precision bf16 reductions off
+(``full_bf16_reductions``; C19): left on (PyTorch's default), cuBLAS may
+add a bf16 product's split-K partial sums in bf16, where the reference's
+products reduce in f32, and at whisper-small's timed training shape every
+bf16 grad leaf then lay ~6% from the reference's bf16 grads, four times
+the reference's own bf16 distance from its f32 grads (1.1% with them off,
+its distance 1.4%, as the reference's).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -42,6 +52,19 @@ from repro_torch.models.losses import softmax_xent
 from repro_torch.optim import Optimizer
 
 AUX_COEF = 0.01  # MoE load-balance coefficient
+
+
+@contextlib.contextmanager
+def full_bf16_reductions():
+    """cuBLAS's bf16 products reduce in f32 within the block (module
+    docstring); the caller's setting is restored after it."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
 
 
 def init_train_state(generator, cfg: ModelConfig, optimizer: Optimizer,
@@ -92,7 +115,8 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, lr_fn,
         return {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state, batch):
-        with context.replicate_made_tensors(state["params"].embed):
+        with context.replicate_made_tensors(state["params"].embed), \
+                full_bf16_reductions():
             return step(state, batch)
 
     def step(state, batch):

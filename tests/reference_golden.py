@@ -44,9 +44,13 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
+import os
 import sys
 import time
+import warnings
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -146,6 +150,150 @@ def reference_run(name: str, dtype: str) -> dict:
     else:
         inp.pop("prompts", None)
     return out
+
+
+def _sample(leaf, r, idx) -> tuple:
+    """(f64 sum of squares, f64 samples at ``idx``) of layer ``r`` of a
+    reference leaf (``r`` None: the leaf), through a view of its buffer."""
+    import torch
+
+    from repro_torch.launch import golden
+    a = np.asarray(leaf)
+    a = np.ascontiguousarray(a if r is None else a[r])
+    with warnings.catch_warnings():   # a read-only buffer, only read here
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            if a.dtype.name == "bfloat16" else torch.from_numpy(a)
+    return golden.squares(t), t.reshape(-1)[torch.from_numpy(idx)].double(
+        ).numpy()
+
+
+def reference_train(name: str, dtype: str, layers=None, nudge=False,
+                    seq_exact=False) -> dict:
+    """One train cell of ``golden.TRAIN`` in ``dtype`` through the
+    reference: its loss and grads on batch 0 (one jitted
+    ``value_and_grad`` of ``repro.train.steps.loss_fn``), clipped as its
+    optimizers clip them (``clip_by_global_norm``, the grads donated), its
+    optimizer's first update (``make_optimizer(cfg.optimizer)``: its own
+    ``init`` and ``update`` in one jit, the params donated, its clip then
+    by inf: a scale of 1), and its loss on batch 1 after the update; each
+    parameter's grad norm and samples (the clipped grads, which the port's
+    ``.grad`` holds after its step) and update samples (new - old, AdamW's
+    f32 master) at
+    ``golden.train_indices`` under the port's parameter names.  Returns
+    {"names", "sums", "numels", "batches", "scalars", "grad_norms", "grad",
+    "update"} as ``golden.pack_train`` takes it.  ``layers``, ``nudge``,
+    ``seq_exact``: ``--sensitivity``'s (that many layers; the embedding
+    moved one ulp of its dtype; RWKV layers through the reference's exact
+    sequential wkv, ``forward_train(seq_exact=True)``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.base import get_config as jax_config
+    from repro.kernels import disable_flash_attention
+    from repro.models import transformer as jtf
+    from repro.optim import make_optimizer
+    from repro.optim.optimizers import clip_by_global_norm
+    from repro.train import steps as jsteps
+    from repro_torch.launch import golden
+    from repro_torch.models.weights import leaf_of
+
+    disable_flash_attention()
+    cut = {"n_layers": layers} if layers else {}
+    tcfg = dataclasses.replace(golden.cell_config(name, dtype), **cut)
+    jcfg = dataclasses.replace(golden.cell_config(name, dtype, jax_config),
+                               **cut)
+    m = golden.model(dataclasses.replace(tcfg, param_dtype="float32"))
+    if dtype != "float32":
+        m = golden.cast(m, tcfg)
+    names, sums = golden.checksums(m)
+    numels = [p.numel() for p in m.parameters()]
+    params = carry(m, tcfg, jcfg)
+    del m
+    if nudge:                    # one ulp of the embedding's dtype
+        params["embed"] = params["embed"] * (
+            1 + jnp.finfo(params["embed"].dtype).eps)
+    where = [leaf_of(n, tcfg) for n in names]
+    idx = [golden.train_indices(n, k) for n, k in zip(names, numels)]
+
+    def at(tree, i):
+        key, r = where[i]
+        leaf = tree
+        for p in key.split("/"):
+            leaf = leaf[int(p)] if isinstance(leaf, (tuple, list)) else leaf[p]
+        return leaf, r
+
+    batches = [golden.train_batch(name, tcfg, s) for s in (0, 1)]
+    jb = [{k: jnp.asarray(v) for k, v in b.items()} for b in batches]
+    forward = functools.partial(jtf.forward_train, seq_exact=seq_exact)
+    with mock.patch.object(jsteps, "forward_train", forward):
+        loss = jax.jit(lambda p, b: jsteps.loss_fn(p, jcfg, b))
+        (_, metrics), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: jsteps.loss_fn(p, jcfg, b), has_aux=True))(params,
+                                                                   jb[0])
+    # the grads the update takes: its own clip, split out of it (the update
+    # then clips by inf, a scale of exactly 1)
+    grads, gn = jax.jit(lambda g: clip_by_global_norm(g, golden.MAX_GRAD_NORM),
+                        donate_argnums=0)(grads)
+    grad_sq, grad_s, before = [], [], []
+    for i in range(len(names)):
+        sq, s = _sample(*at(grads, i), idx[i])
+        grad_sq.append(sq)
+        grad_s.append(s)
+        before.append(_sample(*at(params, i), idx[i])[1])
+    opt = make_optimizer(jcfg.optimizer, max_grad_norm=math.inf)
+    master = jcfg.optimizer == "adamw" and dtype != "float32"
+
+    def update(p, g):
+        new, st, _ = opt.update(g, opt.init(p), p, golden.LR)
+        return new, st["master"] if master else None
+    new, base = jax.jit(update, donate_argnums=0)(params, grads)
+    del params, grads
+    base = new if base is None else base
+    upd = [_sample(*at(base, i), idx[i])[1] - before[i]
+           for i in range(len(names))]
+    del base
+    with mock.patch.object(jsteps, "forward_train", forward):
+        after = loss(new, jb[1])[1]
+    return {"names": names, "sums": sums, "numels": numels,
+            "batches": batches,
+            "scalars": {"loss": float(metrics["loss"]),
+                        "aux": float(metrics["aux"]), "grad_norm": float(gn),
+                        "loss_after": float(after["loss"])},
+            "grad_norms": np.sqrt(grad_sq), "grad": grad_s, "update": upd}
+
+
+def train_sensitivity(name: str, dtype: str, layers: int) -> dict:
+    """How far rounding alone moves a train cell's grads at ``layers``
+    layers: each parameter's grad (``golden.leaf_errors``) of the port on
+    the CPU (the kernels' plain versions), of the reference, and of the
+    reference with its embedding moved one ulp, each pair's largest and
+    median error over the parameters (as ``sensitivity`` does for the
+    logits); for a config with RWKV layers also the reference's exact
+    sequential wkv (``seq_exact``) against its chunked one and the port."""
+    from repro_torch.launch import golden
+    t0 = time.perf_counter()  # repro: allow(DB001): progress report
+    ref = reference_train(name, dtype, layers)
+    moved = reference_train(name, dtype, layers, nudge=True)
+    cfg = dataclasses.replace(golden.cell_config(name, dtype),
+                              n_layers=layers)
+    m = golden.model(dataclasses.replace(cfg, param_dtype="float32"))
+    if dtype != "float32":
+        m = golden.cast(m, cfg)
+    port = golden.train_step_record(m, cfg, ref["batches"], "cpu")
+
+    def distances(a, b):
+        d = golden.leaf_errors(a, b)
+        return {"grad_worst": max(d), "grad_median": float(np.median(d)),
+                "loss": golden.rel(a["scalars"]["loss"], b["scalars"]["loss"])}
+    out = {"cell": name, "dtype": dtype, "layers": layers,
+           "port_vs_reference": distances(port, ref),
+           "nudged_vs_reference": distances(moved, ref)}
+    if "rwkv" in cfg.layer_kinds():
+        exact = reference_train(name, dtype, layers, seq_exact=True)
+        out.update(exact_vs_reference=distances(exact, ref),
+                   port_vs_exact=distances(port, exact))
+    return {**out, "seconds": time.perf_counter() - t0}
 
 
 def reference_engine(jcfg, params, prompts, dirs) -> dict:
@@ -257,8 +405,6 @@ def sensitivity(name: str, dtype: str, layers: int, rows: int) -> dict:
 
 def main(argv=None):
     sys.path.insert(0, str(ROOT / "src"))
-    import jax
-
     from repro_torch.launch import golden
 
     ap = argparse.ArgumentParser()
@@ -277,38 +423,57 @@ def main(argv=None):
                     help="write the reference's int8 cache after the "
                          "int8 cell's f32 prefill to PATH instead")
     args = ap.parse_args(argv)
+    cells = list(golden.GROUPS[args.cells]) if args.cells in golden.GROUPS \
+        else args.cells.split(",")
+    flags = {getattr(golden.cell(n), "xla_flags", "")
+             for n in ([args.sensitivity] if args.sensitivity else cells)}
+    if len(flags) > 1:
+        raise SystemExit(f"{cells}: cells of other XLA flags, write them "
+                         f"in processes of their own")
+    if flags - {""}:             # read when jax makes its backend
+        os.environ["XLA_FLAGS"] = " ".join(
+            filter(None, (os.environ.get("XLA_FLAGS"), *flags)))
+    import jax
     if args.sensitivity:
         for layers in map(int, args.layers.split(",")):
-            print(json.dumps(sensitivity(args.sensitivity, args.dtype,
-                                         layers, args.rows)), flush=True)
+            print(json.dumps(
+                train_sensitivity(args.sensitivity, args.dtype, layers)
+                if args.sensitivity in golden.TRAIN else
+                sensitivity(args.sensitivity, args.dtype, layers,
+                            args.rows)), flush=True)
         return
     if args.int8_cache:
         int8_cache(args.int8_cache)
         return
-    cells = list(golden.TIMED) if args.cells == "timed" \
-        else args.cells.split(",")
-    table = golden.CELLS if cells[0] in golden.CELLS else golden.TIMED
+    table = golden.table_of(cells[0])
     if any(n not in table for n in cells):
         raise SystemExit(f"{cells}: cells of one file only")
+    train = table is golden.TRAIN
     out = Path(args.out or golden.file_of(cells[0]))
     records = {}
     for name in cells:
         for dt in table[name].dtypes:
             t0 = time.perf_counter()  # repro: allow(DB001): progress report
-            records[(name, dt)] = reference_run(name, dt)
+            records[(name, dt)] = (reference_train if train else
+                                   reference_run)(name, dt)
             print(f"{name} {dt}: done in {time.perf_counter() - t0:.0f} s",
                   flush=True)
-    vocabs = sorted({golden.cell_config(n, "float32").vocab_size
-                     for n in table})
-    dirs = {str(v): golden.array_sums(golden.directions(v)).tolist()
-            for v in vocabs}
     meta = {"jax": jax.__version__, "numpy": np.__version__,
-            "seed": golden.SEED, "directions_seed": golden.DIRECTIONS_SEED,
-            "input_seed": golden.INPUT_SEED, "directions": dirs,
-            "written_by": "tests/reference_golden.py"}
-    if table is golden.TIMED:
-        meta.update(engine_seed=golden.ENGINE_SEED, engine=golden.ENGINE)
-    arrays = golden.pack(records, meta)
+            "seed": golden.SEED, "written_by": "tests/reference_golden.py"}
+    if train:
+        meta.update(train_input_seed=golden.TRAIN_INPUT_SEED,
+                    index_seed=golden.INDEX_SEED, k=golden.K, lr=golden.LR)
+        arrays = golden.pack_train(records, meta)
+    else:
+        vocabs = sorted({golden.cell_config(n, "float32").vocab_size
+                         for n in table})
+        meta.update(directions_seed=golden.DIRECTIONS_SEED,
+                    input_seed=golden.INPUT_SEED,
+                    directions={str(v): golden.array_sums(
+                        golden.directions(v)).tolist() for v in vocabs})
+        if table is golden.TIMED:
+            meta.update(engine_seed=golden.ENGINE_SEED, engine=golden.ENGINE)
+        arrays = golden.pack(records, meta)
     if out.exists() and set(cells) != set(table):
         old = golden.load(out)
         arrays = {**{k: v for k, v in old.items()
@@ -317,7 +482,6 @@ def main(argv=None):
     out.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(out, **arrays)
     print(f"wrote {out} ({out.stat().st_size} bytes)")
-    print(json.dumps(meta["directions"]))
 
 
 if __name__ == "__main__":
