@@ -179,29 +179,39 @@ Phases:
      against the CPU (loss 1e-4, each grad leaf 1e-3 in relative norm; new
      params: AdamW's within 2 lr (1 + wd |p|), Adafactor's steps to 1e-3).
      The timed non-MoE steps take the weights and batches of their record
-     in ``golden.TRAIN`` (the JAX reference's own step at this shape,
-     ``tests/golden/train.npz``): the f32 ``BlockDraws`` draw cast to bf16
-     on the card (``golden.train_model``), ``SyntheticTokens`` batches
-     (h2o-danube-1.8b, the recurrent pair) or the record's numpy tokens,
-     frames and patches (whisper-small, paligemma-3b); the MoEs keep all
-     128 experts, a CUDA generator's draws and ``make_batch``.  golden:
-     each timed bf16 step 1 is held to its record (``golden.TrainSampler``
-     samples the f32 master before it and each parameter's clipped grad,
-     its norm and its update after it, outside the timed region; the loss
-     of the next step, on batch 1, is the loss after the update): the
-     loss, aux, grad norm and loss after within 5e-2, each leaf's grad norm
-     and 256 samples within 5e-2 in relative norm, AdamW's update within
+     in ``golden.TRAIN_STEPS`` (the JAX reference's own three steps at
+     this shape from one carried optimizer state,
+     ``tests/golden/train_steps.npz``): the f32 ``BlockDraws`` draw cast
+     to bf16 on the card (``golden.train_model``), ``SyntheticTokens``
+     batches as the record keeps them (h2o-danube-1.8b, the recurrent
+     pair) or the record's numpy tokens, frames and patches (whisper-small,
+     paligemma-3b); the MoEs keep all 128 experts, a CUDA generator's
+     draws and ``make_batch``.  golden: the record's steps 1-3 are held on
+     the timed bf16 model (paligemma-3b's, which has no bf16 record of
+     the steps, its step 1 against ``train.npz``) (h2o-danube-1.8b: its timed steps 1-3, step 4's
+     loss the loss after; the others: the warm-up, the timed step and an
+     untimed third, a forward pass's loss after it), ``HeldSteps`` sampling
+     outside the timed region (``golden.TrainSampler``: the f32 master
+     before each step; each parameter's clipped grad, its norm and its
+     update after it; the optimizer's state after step 3): the loss, aux,
+     grad norm and loss after within 5e-2, each leaf's grad norm and 256
+     samples within 5e-2 in relative norm; AdamW's step-1 update within
      5e-2 where the reference's |g| clears the limit times the leaf's RMS
-     (and ten eps) and within 2 lr (1 + wd |p|) elsewhere, the grads'
-     drift from the f32 record within 1.5x either way of the reference's
-     own bf16; its launches as ``train_golden_launches``.  Before each,
-     the same cell in f32 on a model of its own, tf32 off, at 2e-4, its
-     launches counted from 0 (flash the CUDA-core kernel); after each
-     timed MoE step, its record's expert cut (16 and 8
-     of 128, Adafactor, f32) on a model of its own.  ``golden.TOL_CELL``
-     sets any other limit.  A miss runs ``golden_train_diagnosis`` (each
-     kernel swapped for its plain version) and fails the run.  One
-     ``[golden]`` line a record.  One JSON line holds it.
+     (and ten eps), its later updates in relative norm where the
+     reference's sqrt(v_hat) clears ten eps, within 2 lr (1 + wd |p|)
+     elsewhere; m and v after step 3 in relative norm, the count exactly;
+     each limit at least twice the reference's own bf16 error from its f32
+     record, each step's grads' drift from the f32 record within 1.5x
+     either way of the reference's own bf16; each step's launches as
+     ``train_golden_launches``.  Before each, the same cell's three steps
+     in f32 on a model of its own, tf32 off, at 2e-4, its launches counted
+     from 0 (flash the CUDA-core kernel); after each timed MoE step, its
+     record's expert cut (16 and 8 of 128, Adafactor, f32: its updates and
+     its factored moments at the sampled rows and columns in relative
+     norm) on a model of its own.  ``golden.TOL_CELL`` sets any other
+     limit.  A miss runs ``golden_train_diagnosis`` (each kernel swapped
+     for its plain version) and fails the run.  One ``[golden]`` line a
+     step of a record, one for its state after.  One JSON line holds it.
   10. distributed: one NCCL rank (a FileStore in a temp dir, no network) and
      a 1 x 1 mesh from launch.mesh.make_mesh; moe_sharded on one full-width
      qwen3-moe-235b-a22b layer against moe_dense, f32 (to 1e-5) and bf16
@@ -2308,30 +2318,34 @@ def train_path(torch, np, dev, card):
     # ---- 8a. h2o-danube-1.8b at full width ----------------------------------
     arch = "h2o-danube-1.8b"
     cfg = get_config(arch)
-    stored = golden.load(golden.TRAIN_GOLDEN)
-    name = train_record_name(arch)
+    stored = golden.load(golden.TRAIN_STEPS_GOLDEN)
+    name = steps_record_name(arch)
     # its f32 record, on a model of its own, before the timed one
     out["golden"] = {f"{name} float32": golden_train_f32(torch, dev, stored,
-                                                         name)}
+                                                         name, card)}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     opt, state = train_state_of_record(torch, dev, name, cfg, stored)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in state["params"].parameters())
-    # steps 1 and 2 on the record's batches (SyntheticTokens' on the
-    # reference's host: its zipf draws differ under another numpy), the
-    # rest on this host's SyntheticTokens
+    # steps 1 .. S + 1 on the record's batches (SyntheticTokens' on the
+    # reference's host: its zipf draws differ under another numpy), steps
+    # 1 .. S held to it, the rest on this host's SyntheticTokens
     data = SyntheticTokens(cfg, TRAIN_B, TRAIN_S, seed=SEED)
-    record = [golden.train_batch(name, cfg, s, stored) for s in (0, 1)]
-    golden.check_train_inputs(stored, name, record)
-    same = all(np.array_equal(b["tokens"], data.batch_for_step(s)["tokens"])
+    record = record_batches(torch, dev, name, cfg, stored)
+    held_steps = len(record) - 1
+    same = all(np.array_equal(b["tokens"].cpu().numpy(),
+                              data.batch_for_step(s)["tokens"])
                for s, b in enumerate(record))
-    batches = [on_dev(b) for b in record] + [
-        on_dev(data.batch_for_step(i)) for i in range(2, TRAIN_STEPS + 1)]
+    batches = record + [on_dev(data.batch_for_step(i))
+                        for i in range(len(record), TRAIN_STEPS + 1)]
     print(f"[train] {arch}: numpy {np.__version__}'s SyntheticTokens "
           f"{'draws' if same else 'does not draw'} the record's batches "
-          f"(the reference's host's); steps 1 and 2 take the record's")
+          f"(the reference's host's); steps 1-{len(record)} take the "
+          f"record's, steps 1-{held_steps} are held to it (step "
+          f"{held_steps + 1}'s loss as the loss after), steps "
+          f"{held_steps + 2}-{TRAIN_STEPS} are not held")
     print(f"[train] {arch} full width ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, hd "
           f"{cfg.head_dim}, window {cfg.window_size}, remat {cfg.remat}): "
@@ -2349,22 +2363,21 @@ def train_path(torch, np, dev, card):
     cuda_lib.launches.clear()                    # the training path starts here
     for i in range(TRAIN_STEPS):
         before = dict(cuda_lib.launches)
-        if i == 0:      # the record's step: its base sampled before it
-            sampler = golden.TrainSampler(state)
+        if i == 0:      # the record's steps: their base sampled before them
+            held = HeldSteps(state)
+        if i < held_steps:
+            held.begin()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batches[i])
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        if i == 0:      # outside the timed region: its grads and update
-            rec = sampler.after(state, metrics)
-            rec_launches = {n: c - before.get(n, 0)
-                            for n, c in cuda_lib.launches.items()
-                            if c - before.get(n, 0)}
-            del sampler
-        elif i == 1:    # the loss of batch 1 on the updated weights
-            rec["scalars"]["loss_after"] = loss
+        if i < held_steps:  # outside the timed region: its grads, update
+            held.after(state, metrics, cfg, i == held_steps - 1)
+        elif i == held_steps:   # the loss of this batch after the held steps
+            rec = held.record(loss)
+            del held
         flash = cuda_lib.launches["flash_attention"] - before.get(
             "flash_attention", 0)
         rows.append({"step": i + 1, "ms": ms, "loss": loss, "grad_norm": gn,
@@ -2421,8 +2434,9 @@ def train_path(torch, np, dev, card):
     del state, batches, q, k, v
     torch.cuda.empty_cache()
     out["golden"][f"{name} bfloat16"] = judge_train_record(
-        torch, dev, stored, name, "bfloat16", cfg, rec, rec_launches,
-        "the timed model's step 1, its loss after on step 2")
+        torch, dev, stored, name, "bfloat16", cfg, rec,
+        f"the timed model's steps 1-{held_steps}, the loss after on step "
+        f"{held_steps + 1}", card)
 
     # ---- 8c. recurrentgemma-2b and rwkv6-7b, full width, one superblock -----
     recurrent_train_path(torch, dev, card, stored, out, launches)
@@ -2487,8 +2501,9 @@ def recurrent_train_path(torch, dev, card, stored, out, launches):
     """Phase 9c: recurrentgemma-2b and rwkv6-7b at full width and one
     superblock, each on its record's weights and batches: the f32 record
     first, then the kernels against their plain versions, the record's
-    step (a warm-up, held to the bf16 record), one timed step on batch 1
-    (its launches counted from 0) and a profiled one.  Adds to ``out`` and
+    step 1 (a warm-up), one timed step on batch 1 (the record's step 2, its
+    launches counted from 0) and the record's step 3 (untimed), the three
+    held to the bf16 record, and a profiled step.  Adds to ``out`` and
     ``launches``."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import cuda_lib
@@ -2500,37 +2515,36 @@ def recurrent_train_path(torch, dev, card, stored, out, launches):
                           ("rwkv6-7b", ["wkv6"])):
         full = get_config(arch)
         cfg = dataclasses.replace(full, n_layers=full.pattern_len)
-        name = train_record_name(arch)
+        name = steps_record_name(arch)
         out["golden"][f"{name} float32"] = golden_train_f32(torch, dev,
-                                                            stored, name)
+                                                            stored, name, card)
         torch.cuda.reset_peak_memory_stats(dev)
         opt, state = train_state_of_record(torch, dev, name, cfg, stored)
         check(golden.cell(name).synthetic and (golden.cell(name).batch,
                                                golden.cell(name).seq) ==
               (REC_TRAIN_B, REC_TRAIN_S), f"{name}: not the timed batches")
-        batch, batch1 = record_batches(torch, dev, name, cfg, stored)
+        batches = record_batches(torch, dev, name, cfg, stored)
         out["kernel_vs_plain"][arch] = kernel_vs_plain_step(
-            torch, tsteps, global_norm, state, cfg, batch, kernels,
+            torch, tsteps, global_norm, state, cfg, batches[0], kernels,
             f"{arch} full width, {cfg.n_layers} layers")
         step = tsteps.build_train_step(cfg, opt, tsteps_lr())
-        sampler = golden.TrainSampler(state)
-        cuda_lib.launches.clear()
-        metrics = step(state, batch)[1]       # warm-up: the record's step
-        rec_launches = {n: c for n, c in cuda_lib.launches.items() if c}
-        rec = sampler.after(state, metrics)
-        del sampler
+        held = HeldSteps(state)
+        held.begin()
+        metrics = step(state, batches[0])[1]    # warm-up: the record's step 1
+        held.after(state, metrics, cfg, False)
         torch.cuda.synchronize()
         phase_peak = torch.cuda.max_memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)  # the train step's own peak
         cuda_lib.launches.clear()              # this path's train step starts
+        held.begin()
         t0 = time.perf_counter()
-        state, metrics = step(state, batch1)
+        state, metrics = step(state, batches[1])    # the record's step 2
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
         ms = (time.perf_counter() - t0) * 1e3
-        rec["scalars"]["loss_after"] = loss
         step_peak = torch.cuda.max_memory_allocated(dev)
         launches["train:" + arch] = {n: c for n, c in cuda_lib.launches.items()
                                      if c}
+        held.after(state, metrics, cfg, len(batches) == 3)
         for kernel in kernels:
             n = train_launches(cfg, kernel)
             check(launches["train:" + arch].get(kernel, 0) == n,
@@ -2541,13 +2555,14 @@ def recurrent_train_path(torch, dev, card, stored, out, launches):
         check(math.isfinite(loss) and math.isfinite(gn) and not missing,
               f"{arch} train step: loss {loss}, grad norm {gn}, no grad for "
               f"{missing}")
+        rec = held_after_timed(state, cfg, step, batches, held)
         n_params = sum(p.numel() for p in state["params"].parameters())
         out[arch] = {"params": n_params, "layers": cfg.n_layers,
                      "batch": REC_TRAIN_B, "seq": REC_TRAIN_S, "ms": ms,
                      "loss": loss, "grad_norm": gn,
                      "peak_memory_gb": max(phase_peak, step_peak) / 1e9,
                      "step_peak_gb": step_peak / 1e9,
-                     "profile": profile_step(torch, step, state, batch1,
+                     "profile": profile_step(torch, step, state, batches[1],
                                              RANGES)}
         print(f"[train] {arch} full width, {cfg.n_layers} layers "
               f"({n_params / 1e9:.4f} B params), batch {REC_TRAIN_B} x seq "
@@ -2556,22 +2571,42 @@ def recurrent_train_path(torch, dev, card, stored, out, launches):
               f"{out[arch]['peak_memory_gb']:.2f} GB; every parameter has a "
               f"finite grad; {card}")
         print_profile(arch, out[arch]["profile"], card)
-        del state, batch, batch1
+        del state, batches
         torch.cuda.empty_cache()
         out["golden"][f"{name} bfloat16"] = judge_train_record(
-            torch, dev, stored, name, "bfloat16", cfg, rec, rec_launches,
-            "the timed model's warm-up step, its loss after on the timed "
-            "step")
+            torch, dev, stored, name, "bfloat16", cfg, rec,
+            HELD_AFTER_WARM_UP, card)
+
+
+# the held steps of a train path whose timed step is step 2
+HELD_AFTER_WARM_UP = ("the timed model's warm-up step 1, timed step 2 and "
+                      "untimed step 3, the loss after them of a forward pass")
+
+
+def held_after_timed(state, cfg, step, batches, held):
+    """The held steps of a train path after its timed step 2: steps 3 ..
+    S on the record's batches, untimed, then the loss of batch S after
+    them (a forward pass): ``HeldSteps.record``."""
+    from repro_torch.launch import golden
+    for i in range(2, len(batches) - 1):
+        held.begin()
+        metrics = step(state, batches[i])[1]
+        held.after(state, metrics, cfg, i == len(batches) - 2)
+    return held.record(golden.forward_loss(state["params"], cfg,
+                                           batches[-1]))
 
 
 def train_moe_path(torch, np, dev, card, launches):
     """[train_moe]: one train step at full width of qwen3-moe-235b-a22b and
     arctic-480b (Adafactor over the stacked leaves, the MoE aux in the loss;
     cut to the depth one card holds), whisper-small and paligemma-3b (AdamW,
-    full depth), 4 x 1024 positions from models.io.make_batch: the first
-    step through the kernels against the plain versions, a warm-up step,
-    the timed step (its launches counted from 0) and a profiled step.
-    Returns the rows."""
+    full depth), 4 x 1024 positions (the MoEs: models.io.make_batch; the
+    others: their record's weights and batches): the first step through
+    the kernels against the plain versions, a warm-up step, the timed step
+    (its launches counted from 0) and a profiled step; whisper-small's and
+    paligemma-3b's warm-up and timed steps and an untimed third are held
+    to their bf16 record, the MoEs' records (their experts cut) on models of
+    their own.  Returns the rows."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import cuda_lib
     from repro_torch.launch import golden
@@ -2580,12 +2615,12 @@ def train_moe_path(torch, np, dev, card, launches):
     from repro_torch.train import steps as tsteps
 
     rows = {}
-    stored = golden.load(golden.TRAIN_GOLDEN)
+    stored = golden.load(golden.TRAIN_STEPS_GOLDEN)
     for arch, depth in TRAIN_MOE_DEPTH.items():
         cfg = get_config(arch)
         if depth:
             cfg = dataclasses.replace(cfg, n_layers=depth)
-        name = train_record_name(arch)
+        name = steps_record_name(arch)
         moe = cfg.moe is not None
         check((golden.cell(name).batch, golden.cell(name).seq) ==
               (TRAIN_MOE_B, TRAIN_MOE_S), f"{name}: not the timed shape")
@@ -2595,7 +2630,8 @@ def train_moe_path(torch, np, dev, card, launches):
         gc.collect()
         torch.cuda.empty_cache()
         if not moe:     # its f32 record, on a model of its own, first
-            records["float32"] = golden_train_f32(torch, dev, stored, name)
+            records["float32"] = golden_train_f32(torch, dev, stored, name,
+                                                  card)
         held = torch.cuda.memory_allocated(dev) / 1e9
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -2608,10 +2644,11 @@ def train_moe_path(torch, np, dev, card, launches):
                 device=dev)
             batch = make_batch(cfg, torch.Generator(device=dev).manual_seed(
                 SEED), TRAIN_MOE_B, TRAIN_MOE_S)
-            batch1 = batch
+            batches = [batch, batch]
         else:
             opt, state = train_state_of_record(torch, dev, name, cfg, stored)
-            batch, batch1 = record_batches(torch, dev, name, cfg, stored)
+            batches = record_batches(torch, dev, name, cfg, stored)
+            batch = batches[0]
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in state["params"].parameters())
         print(f"[train_moe] {arch} full width, {cfg.n_layers} layers "
@@ -2630,27 +2667,29 @@ def train_moe_path(torch, np, dev, card, launches):
             dev) / 1e9}
         step = tsteps.build_train_step(cfg, opt, tsteps_lr())
         torch.cuda.reset_peak_memory_stats(dev)
-        sampler = None if moe else golden.TrainSampler(state)
+        sampled = None if moe else HeldSteps(state)
         cuda_lib.launches.clear()
-        metrics = step(state, batch)[1]     # warm-up: the record's step
-        if sampler is not None:
-            rec_launches = {n: c for n, c in cuda_lib.launches.items() if c}
-            rec = sampler.after(state, metrics)
-            del sampler
+        if sampled:
+            sampled.begin()
+        metrics = step(state, batch)[1]     # warm-up: the record's step 1
+        if sampled:
+            sampled.after(state, metrics, cfg, False)
         torch.cuda.synchronize()
         peaks["warm-up step"] = torch.cuda.max_memory_allocated(dev) / 1e9
         torch.cuda.reset_peak_memory_stats(dev)
         cuda_lib.launches.clear()              # this path's train step starts
+        if sampled:
+            sampled.begin()
         t0 = time.perf_counter()
-        state, metrics = step(state, batch1)
+        state, metrics = step(state, batches[1])    # the record's step 2
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
         aux = float(metrics["aux"])
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        if not moe:     # the loss of batch 1 on the updated weights
-            rec["scalars"]["loss_after"] = loss
         # the train step's peak, from just before it to its end
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        if sampled:
+            sampled.after(state, metrics, cfg, len(batches) == 3)
         launches["train:" + arch] = {n: c for n, c in cuda_lib.launches.items()
                                      if c}
         # causal self-attention runs flash: not paligemma's prefix-LM mask,
@@ -2671,7 +2710,9 @@ def train_moe_path(torch, np, dev, card, launches):
         check((aux > 0) == (cfg.moe is not None), f"{arch} aux {aux}")
         check(peak <= PEAK_GB_LIMIT, f"{arch} train step peak {peak:.2f} GB "
               f"(other peaks {peaks})")
-        prof = profile_step(torch, step, state, batch1, RANGES)
+        if sampled:     # the record's step 3, untimed, and the loss after it
+            rec = held_after_timed(state, cfg, step, batches, sampled)
+        prof = profile_step(torch, step, state, batches[1], RANGES)
         row.update(ms=ms, positions_per_s=TRAIN_MOE_B * TRAIN_MOE_S / ms * 1e3,
                    loss=loss, aux=aux, grad_norm=gn, peak_memory_gb=peak,
                    other_peaks_gb=peaks, flash_launches_per_step=got,
@@ -2686,16 +2727,16 @@ def train_moe_path(torch, np, dev, card, launches):
               f"device idle {prof['idle_share']:.2%} over "
               f"the profiled step; every parameter has a finite grad; {card}")
         print_profile(arch, prof, card)
-        del state, batch, batch1, opt, step
+        del state, batch, batches, opt, step
         gc.collect()
         torch.cuda.empty_cache()
         if moe:         # the record's expert cut, on a model of its own
-            records["float32"] = golden_train_f32(torch, dev, stored, name)
+            records["float32"] = golden_train_f32(torch, dev, stored, name,
+                                                  card)
         else:
             records["bfloat16"] = judge_train_record(
                 torch, dev, stored, name, "bfloat16", cfg, rec,
-                rec_launches, "the timed model's warm-up step, its loss "
-                "after on the timed step")
+                HELD_AFTER_WARM_UP, card)
         row["golden"] = records
     return rows
 
@@ -2719,6 +2760,13 @@ def train_record_name(arch: str) -> str:
     return names[0]
 
 
+def steps_record_name(arch: str) -> str:
+    """The ``golden.TRAIN_STEPS`` cell of a timed train path: its
+    ``TRAIN`` cell's steps past the first."""
+    from repro_torch.launch import golden
+    return golden.steps_name(train_record_name(arch))
+
+
 def train_state_of_record(torch, dev, name, cfg, stored):
     """(AdamW, its state) of a timed train path on the bf16 weights of its
     record (``golden.train_model``: the f32 ``BlockDraws`` draw on the card,
@@ -2739,25 +2787,64 @@ def train_state_of_record(torch, dev, name, cfg, stored):
 
 
 def record_batches(torch, dev, name, cfg, stored) -> list:
-    """The two batches of a train record (step 0: the step held; step 1:
-    the forward after its update) on ``dev``, checked against the file."""
+    """The batches of a train record (0 .. S-1: its steps; S: the forward
+    after the last) on ``dev``, checked against the file."""
     from repro_torch.launch import golden
-    batches = [golden.train_batch(name, cfg, s, stored) for s in (0, 1)]
+    batches = [golden.train_batch(name, cfg, s, stored)
+               for s in range(int(stored[f"{name}/steps"]) + 1)]
     golden.check_train_inputs(stored, name, batches)
     return [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
             for b in batches]
 
 
-def golden_train_line(name, dtype, cfg, r, launches, what) -> str:
-    """One ``[golden]`` line of a train record."""
+class HeldSteps:
+    """The held steps of a timed train path, sampled outside its timers:
+    ``begin()`` just before each held step, ``after(state, metrics, cfg,
+    last)`` right after it (its
+    grads and update, the launches since the last call; after the last,
+    the optimizer's state), ``record(loss_after)`` (the next step's loss,
+    or a forward pass's) -> (the record, each step's launches)."""
+
+    def __init__(self, state):
+        from repro_torch.kernels import cuda_lib
+        from repro_torch.launch import golden
+        self.sampler = golden.TrainSampler(state)
+        self.steps, self.launches, self.opt_state = [], [], None
+        self.counts = cuda_lib.launches
+        self.mark = {}
+
+    def begin(self):
+        """Just before a held step: its launches count from here."""
+        self.mark = dict(self.counts)
+
+    def after(self, state, metrics, cfg, last: bool):
+        self.launches.append({n: c - self.mark.get(n, 0)
+                              for n, c in self.counts.items()
+                              if c - self.mark.get(n, 0)})
+        self.steps.append(self.sampler.after(state, metrics))
+        if last:
+            self.opt_state = self.sampler.state(state, cfg)
+
+    def record(self, loss_after: float) -> tuple:
+        from repro_torch.launch import golden
+        rec = {"names": self.steps[0]["names"],
+               "numels": self.steps[0]["numels"], "steps": self.steps,
+               **self.opt_state}
+        return golden.with_losses_after(rec, loss_after), self.launches
+
+
+def golden_train_line(name, dtype, cfg, k, e, drift, tol, launches, what,
+                      card, band) -> str:
+    """The ``[golden]`` line of step ``k`` (from 1) of a train record:
+    ``e``, its errors (``compare_train``'s or ``compare_later_step``'s)."""
     from repro_torch.launch import golden
-    e, c = r["errors"], golden.cell(name)
+    c = golden.cell(name)
     u = e["update"]
-    line = (f"[golden] {name} {dtype} ({what}; {cfg.n_layers} layers"
+    line = (f"[golden] {name} {dtype} step {k} ({what}; {cfg.n_layers} layers"
             f"{', ' + str(cfg.moe.n_experts) + ' experts' if cfg.moe else ''}"
             f", {c.batch} x {c.seq} positions, {cfg.optimizer}): "
             f"checksums equal; " +
-            ", ".join(f"{k} {v:.3g}" for k, v in e["scalars"].items()) +
+            ", ".join(f"{m} {v:.3g}" for m, v in e["scalars"].items()) +
             f"; grads {e['grad']['worst']:.3g} nearest its limit "
             f"{e['grad']['worst_limit']:.3g} ({e['grad']['worst_leaf']}; "
             f"{e['grad']['limits_widened']} limits widened to "
@@ -2765,71 +2852,111 @@ def golden_train_line(name, dtype, cfg, r, launches, what) -> str:
             f"largest "
             f"{e['grad']['largest_error']:.3g}) over {e['leaves']} leaves, "
             f"{e['indices']} indices; update {u['worst']:.3g} at worst "
-            f"({u['worst_leaf']})")
-    if "indices_cleared" in u:
+            f"({u['worst_leaf']}")
+    line += (f"; limit {u['worst_limit']:.3g}, {u['limits_widened']} "
+             f"widened, largest {u['largest_error']:.3g})"
+             if "worst_limit" in u else ")")
+    if "clear" in u:
         line += (f", {u['indices_cleared']} indices past {u['clear']:.3g}"
                  f" RMS grads (a grad's sign differs up to "
                  f"{u['sign_flip_in_rms']:.3g} RMS), {u['indices_bounded']} "
                  f"held to 2 lr (1 + wd |p|) (used {u['bound_used']:.3g} of "
                  f"it)")
-    if "drift" in r:
-        d = r["drift"]
+    elif "indices_cleared" in u:
+        line += (f", {u['indices_cleared']} indices past sqrt(v_hat) "
+                 f"{golden.CLEAR_EPS} eps, {u['indices_bounded']} held to "
+                 f"2 lr (1 + wd |p|) (used {u['bound_used']:.3g} of it)")
+    if drift:
         line += (f"; grads from the f32 record: port "
-                 f"{d['port_vs_f32']:.3g}, reference "
-                 f"{d['reference_vs_f32']:.3g} (ratio {d['ratio']:.3g}, "
-                 f"within {golden.DRIFT_RATIO}x of 1)")
-    return line + f" (tol {r['tol']}); launches {launches}"
+                 f"{drift['port_vs_f32']:.3g}, reference "
+                 f"{drift['reference_vs_f32']:.3g} (ratio "
+                 f"{drift['ratio']:.3g}, within {band}x of 1)")
+    return line + f" (tol {tol}); launches {launches}; {card}"
 
 
-def judge_train_record(torch, dev, stored, name, dtype, cfg, rec, launches,
-                       what) -> dict:
-    """A train record sampled on the card (``golden.TrainSampler``) against
-    the file: one ``[golden]`` line; the launches of its step held to
+def golden_steps_lines(name, dtype, cfg, r, launches, what, card):
+    """Print a train record's ``[golden]`` lines: one a step (``launches``:
+    each step's), then the optimizer's state after the last."""
+    from repro_torch.launch import golden
+    e = r["errors"]
+    for k, s in enumerate(e["steps"]):
+        drift = r["drift"][k] if "drift" in r else None
+        print(golden_train_line(
+            name, dtype, cfg, k + 1, s, drift,
+            r["later_tol"] if k else r["tol"], launches[k], what, card,
+            golden.drift_ratio(name, dtype) if k else golden.DRIFT_RATIO),
+            flush=True)
+    st = e["state"]
+    print(f"[golden] {name} {dtype} the optimizer's state after step "
+          f"{len(e['steps'])} ({what}): {st['worst']:.3g} nearest its limit "
+          f"{st['worst_limit']:.3g} ({st['worst_leaf']}; largest "
+          f"{st['largest_error']:.3g}), count {st['count']} (the file's "
+          f"{st['want_count']}); {card}", flush=True)
+
+
+def judge_train_record(torch, dev, stored, name, dtype, cfg, held, what,
+                       card) -> dict:
+    """A timed path's held steps (``HeldSteps.finish``'s record) against the
+    file: one ``[golden]`` line a step; each step's launches held to
     ``train_golden_launches``; a miss runs ``golden_train_diagnosis``, then
     fails the run."""
     from repro_torch.launch import golden
+    rec, launches = held
     want = train_golden_launches(cfg, dtype)
-    check(launches == want, f"[golden] {name} {dtype} step launched "
-                            f"{launches}, want {want}")
-    r = golden.judge_train(name, dtype, rec, stored)
-    print(golden_train_line(name, dtype, cfg, r, launches, what), flush=True)
+    check(all(n == want for n in launches),
+          f"[golden] {name} {dtype} steps launched {launches}, want {want} "
+          f"each")
+    if f"{name}/{dtype}/names" not in stored:
+        # no record of the steps in this dtype: step 1 against train.npz's
+        name = golden.train_name(name)
+        r = golden.judge_train(name, dtype, rec["steps"][0],
+                               golden.load(golden.TRAIN_GOLDEN))
+        print(golden_train_line(name, dtype, cfg, 1, r["errors"],
+                                r.get("drift"), r["tol"], launches[0], what,
+                                card, golden.DRIFT_RATIO), flush=True)
+        check(r["errors"]["ok"], f"[golden] {name} {dtype} against the "
+                                 f"reference's step: {r['errors']}")
+        return {**r, "launches": launches}
+    r = golden.judge_train_steps(name, dtype, rec, stored)
+    golden_steps_lines(name, dtype, cfg, r, launches, what, card)
     if not r["errors"]["ok"]:
         golden_train_diagnosis(torch, dev, stored, name, dtype, want)
     check(r["errors"]["ok"], f"[golden] {name} {dtype} against the "
-                             f"reference's step: {r['errors']}")
+                             f"reference's steps: {r['errors']}")
     return {**r, "launches": launches}
 
 
-def golden_train_f32(torch, dev, stored, name) -> dict:
+def golden_train_f32(torch, dev, stored, name, card) -> dict:
     """The f32 record of a train cell on a model of its own, built and freed
-    here, tf32 off: ``golden.run_train_cell``, its launches counted from 0
-    (the step's ``train_golden_launches`` and the forward after it,
-    ``golden_launches``); held as ``judge_train_record`` holds it."""
+    here, tf32 off: ``golden.run_train_steps_cell``, its launches counted
+    from 0 (``train_golden_launches`` a step and the forward after the
+    last, ``golden_launches``); held as ``judge_train_record`` holds it."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.launch import golden
     cfg = golden.cell_config(name, "float32")
+    n_steps = int(stored[f"{name}/steps"])
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     with tf32_off(torch):
         cuda_lib.launches.clear()
-        r = golden.run_train_cell(name, "float32", dev, stored)
+        r = golden.run_train_steps_cell(name, "float32", dev, stored)
         got = {k: n for k, n in cuda_lib.launches.items() if n}
     torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    want = train_golden_launches(cfg, "float32")
+    step = train_golden_launches(cfg, "float32")
     forward = golden_launches(cfg, "float32")
-    want = {k: want[k] + forward[k] for k in want}
-    check(got == want, f"[golden] {name} float32 step and forward after it "
-                       f"launched {got}, want {want}")
-    print(golden_train_line(name, "float32", cfg, r, got,
-                            f"its own model, peak {peak:.2f} GB, weights "
-                            f"{r['weights_s']:.1f} s, step {r['run_s']:.1f} "
-                            f"s"), flush=True)
+    want = {k: n_steps * step[k] + forward[k] for k in step}
+    check(got == want, f"[golden] {name} float32 {n_steps} steps and the "
+                       f"forward after them launched {got}, want {want}")
+    golden_steps_lines(name, "float32", cfg, r, [step] * n_steps,
+                       f"its own model, peak {peak:.2f} GB, weights "
+                       f"{r['weights_s']:.1f} s, {n_steps} steps "
+                       f"{r['run_s']:.1f} s", card)
     if not r["errors"]["ok"]:
         golden_train_diagnosis(torch, dev, stored, name, "float32", want)
     check(r["errors"]["ok"], f"[golden] {name} float32 against the "
-                             f"reference's step: {r['errors']}")
+                             f"reference's steps: {r['errors']}")
     return {**r, "launches": got, "peak_gb": peak}
 
 
@@ -2846,7 +2973,7 @@ def golden_train_diagnosis(torch, dev, stored, name, dtype, want):
         restore = plain_for_training(kernel)
         try:
             with tf32_off(torch):
-                r = golden.run_train_cell(name, dtype, dev, stored)
+                r = golden.run_train_steps_cell(name, dtype, dev, stored)
         finally:
             restore()
         print(f"[golden] {name} {dtype} with {kernel} swapped for its plain "

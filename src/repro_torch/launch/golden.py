@@ -1,17 +1,17 @@
 """The port at full width against the reference's own outputs.
 
     PYTHONPATH=src python -m repro_torch.launch.golden [--device cuda|cpu]
-        [--cells gemma3-1b,whisper-small@4x1024 | --cells timed|moe|train]
-        [--golden PATH]
+        [--cells gemma3-1b,whisper-small@4x1024 |
+         --cells timed|moe|train|train_steps] [--golden PATH]
     PYTHONPATH=src python -m repro_torch.launch.golden --int8-flips PATH
 
 Runs each serving cell through the port's prefill and 8 teacher-forced
 decode steps (and, for a cell with an engine record, the f32 serving
-engine), each train cell through one train step and a forward pass after
-it, and holds what it computes to the records that
+engine), each train cell through its train steps and a forward pass after
+them, and holds what it computes to the records that
 ``tests/reference_golden.py`` writes from the JAX reference on the same
 weights and inputs.  One line a cell; exit 1 where a cell is out of its
-tolerance.  Four files:
+tolerance.  Five files:
 
 * ``tests/golden/full_width.npz``: ``CELLS``, a published config at every
   published width, cut only in depth, and the MoEs in experts; batch 1.
@@ -61,6 +61,20 @@ tolerance.  Four files:
   also lie from the f32 record within ``DRIFT_RATIO`` of the reference's
   own bf16 (``train_drift``).  rwkv6-7b's records are the reference under
   ``EXACT_BF16`` (``TrainCell.xla_flags``).
+* ``tests/golden/train_steps.npz``: ``TRAIN_STEPS``, the cells of ``TRAIN``
+  (``steps_name``: "@train" read "@steps") over ``STEPS`` steps from one
+  optimizer state carried from step to step, on batches 0, 1 and 2, the
+  loss after on batch 3 (``chip_smoke.py`` times steps past the first):
+  each step as ``train.npz``'s (whose step 1 it is, bit for bit), and the
+  optimizer's state after the last at the same indices (AdamW's m and v;
+  Adafactor's ``vr`` and ``vc`` at the sampled indices' rows and columns,
+  ``state_indices``, its ``v`` of a leaf of one dim) and its count.
+  ``compare_train_steps`` holds step 1 by ``compare_train`` and each later
+  step by ``compare_later_step`` (the scalars and grads alike; every
+  update in relative norm, AdamW's where the reference's sqrt(v_hat)
+  clears ``CLEAR_EPS`` eps, within 2 lr (1 + wd |p|) below it), the state
+  by ``compare_state``; a bf16 record's limits widen, and each step's
+  drift is held, against the f32 record as above.
 
 The weights are the port's own (``model``): ``init_params`` drawing from a
 ``BlockDraws`` seeded with ``SEED``, then the leaves the reference
@@ -128,6 +142,7 @@ GOLDEN = Path(__file__).resolve().parents[3] / "tests" / "golden" / \
 TIMED_GOLDEN = GOLDEN.parent / "timed.npz"
 MOE_GOLDEN = GOLDEN.parent / "timed_moe.npz"
 TRAIN_GOLDEN = GOLDEN.parent / "train.npz"
+TRAIN_STEPS_GOLDEN = GOLDEN.parent / "train_steps.npz"
 SEED = 0                      # the weights' BlockDraws
 DIRECTIONS_SEED = 1           # the 16 directions
 INPUT_SEED = 2                # with the arch's name: a cell's inputs
@@ -199,6 +214,40 @@ TOL_CELL = {
     # routes are the reference's, 6.0e-6 and 6.4e-5
     ("qwen3-moe-235b-a22b@train@16E", "float32"): {"grad": 1e-2,
                                                    "update": 5e-2},
+    # a ``TRAIN_STEPS`` cell's: its steps past the first and its state
+    # (step 1 keeps its ``TRAIN`` cell's).  rwkv6-7b at steps 2 and 3:
+    # after AdamW's first step its loss jumps 11.90 -> 16.90, and the
+    # reference's chunked wkv, 3.94e-3 from its own exact sequential form
+    # at step 1, lies 0.57 and 1.25 from it at steps 2 and 3 (its worst
+    # leaf's grads; ``tests/reference_golden.py --sensitivity
+    # rwkv6-7b@steps --layers 1``: exact_vs_reference), where one f32 ulp
+    # of its embedding moves it 0.098 and 0.35; the port lies 0.076 and 0.19
+    # from the exact form (CPU) and 0.51 / 1.33 (CPU), 0.49 / 0.70 (card)
+    # from the chunked record, its updates 0.42 / 0.52 and 0.40 / 0.43,
+    # its state 0.57 (card)
+    ("rwkv6-7b@steps", "float32"): {"scalars": 0.1, "grad": 1.5,
+                                    "update": 0.75, "state": 1.0},
+    # and in bf16, where the reference's own bf16 grads lie 1.35 from its
+    # f32 record at step 2 (the leaf nearest its limit): on the card the
+    # port lies 0.73 / 1.6 (grads), 0.64 / 0.54 (updates) and 1.5 (state)
+    # from the bf16 record at steps 2 / 3, its drift ratio 0.595 at step 2
+    ("rwkv6-7b@steps", "bfloat16"): {"scalars": 0.5, "grad": 3.0,
+                                     "update": 1.0, "state": 3.0,
+                                     "drift": 2.0},
+    # qwen3-moe: the route the card orders the other way at step 1 (above)
+    # moves its expert's grads at step 1 (layer 2's experts, 6.8e-3), and
+    # from there every layer at steps 2 and 3 (card: grads 0.031 / 0.072,
+    # updates 0.038 / 0.070, state 0.040 at ``vc``, scalars 2.8e-4; the CPU,
+    # on the reference's routes, 6.0e-6 at step 1, not measured past it)
+    # paligemma-3b's AdamW update at step 2: a ratio of moments, each
+    # index's error its grads' over its sqrt(v_hat), grads 5.5e-5 from the
+    # record put layers.8.mlp.w_up's update 2.5e-4 from it (card; its
+    # steps 1 and 3 4.0e-5 and 1.3e-4; the CPU cannot hold its f32 state)
+    ("paligemma-3b@steps", "float32"): {"update": 5e-4},
+    ("qwen3-moe-235b-a22b@steps@16E", "float32"): {"scalars": 1e-3,
+                                                   "grad": 0.15,
+                                                   "update": 0.15,
+                                                   "state": 0.1},
 }
 # a narrower train record's limits widen to this multiple of the
 # reference's own distance from its f32 record (tests/test_torch_train_bf16.py)
@@ -341,9 +390,31 @@ TRAIN = {
 REGENERATED_TRAIN = "whisper-small@train@1+1L"
 
 
+def steps_name(name: str) -> str:
+    """The ``TRAIN_STEPS`` cell of the ``TRAIN`` cell ``name``."""
+    return name.replace("@train", "@steps", 1)
+
+
+def train_name(name: str) -> str:
+    """The ``TRAIN`` cell of the ``TRAIN_STEPS`` cell ``name``."""
+    return name.replace("@steps", "@train", 1)
+
+
+# the same cells over ``STEPS`` steps from one carried optimizer state
+# (``tests/golden/train_steps.npz``)
+STEPS = 3
+TRAIN_STEPS = {steps_name(n): c for n, c in TRAIN.items()}
+# paligemma-3b's in f32 alone: the reference's bf16 run carrying its f32
+# master, m and v (~30 GB) was killed past this 62 GB host in step 2 (65
+# GB, in a process of its own); its bf16 step 1 stays ``train.npz``'s
+TRAIN_STEPS["paligemma-3b@steps"] = dataclasses.replace(
+    TRAIN["paligemma-3b@train"], dtypes=("float32",))
+REGENERATED_STEPS = steps_name(REGENERATED_TRAIN)
+
+
 # each table with the file of its records
 FILES = ((CELLS, GOLDEN), (TIMED, TIMED_GOLDEN), (MOE_TIMED, MOE_GOLDEN),
-         (TRAIN, TRAIN_GOLDEN))
+         (TRAIN, TRAIN_GOLDEN), (TRAIN_STEPS, TRAIN_STEPS_GOLDEN))
 
 
 def table_of(name: str) -> dict:
@@ -982,7 +1053,7 @@ LR = 1e-4                     # chip_smoke.py's LR_TRAIN: a constant rate
 WEIGHT_DECAY = 0.1            # AdamW's, in both packages
 MAX_GRAD_NORM = 1.0           # both optimizers' clip, in both packages
 SCALARS = ("loss", "aux", "grad_norm", "loss_after")
-TRAIN_MEASURES = ("scalars", "grad", "update")
+TRAIN_MEASURES = ("scalars", "grad", "update", "state")
 # AdamW's first step is lr (g / (|g| + eps) + wd p): about lr sign(g) where
 # |g| is well past eps, and linear in g below it
 ADAMW_EPS = 1e-8
@@ -1080,49 +1151,53 @@ class TrainSampler:
                 for n, p in self.params.items()}
 
     def after(self, state: dict, metrics: dict) -> dict:
+        """The step's record; the base it leaves is the next step's."""
         now = self.base(state)
         grads = {n: p.grad for n, p in self.params.items()}
-        return {"names": list(self.params),
-                "numels": [p.numel() for p in self.params.values()],
-                "scalars": {k: float(metrics[k]) for k in SCALARS[:3]},
-                "grad_norms": np.sqrt([squares(g) for g in grads.values()]),
-                "grad": [_take(g, self.idx[n]) for n, g in grads.items()],
-                "update": [now[n] - self.before[n] for n in self.params],
-                "base": [self.before[n] for n in self.params]}
+        rec = {"names": list(self.params),
+               "numels": [p.numel() for p in self.params.values()],
+               "scalars": {k: float(metrics[k]) for k in SCALARS[:3]},
+               "grad_norms": np.sqrt([squares(g) for g in grads.values()]),
+               "grad": [_take(g, self.idx[n]) for n, g in grads.items()],
+               "update": [now[n] - self.before[n] for n in self.params],
+               "base": [self.before[n] for n in self.params]}
+        self.before = now
+        return rec
 
-
-def train_step_record(m, cfg, batches: list, device) -> dict:
-    """One train step of the port (``build_train_step``, the config's
-    optimizer, ``LR``) on model ``m`` from batch 0, then the loss of a
-    forward pass on batch 1 (the updated weights in use): ``TrainSampler``'s
-    record."""
-    from repro_torch.optim import make_optimizer
-    from repro_torch.train import steps as tsteps
-    opt = make_optimizer(cfg.optimizer, cfg=cfg)
-    state = tsteps.init_train_state(None, cfg, opt, params=m)
-    dev = torch.device(device)
-    b0, b1 = ({k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-              for b in batches)
-    sampler = TrainSampler(state)
-    state, metrics = tsteps.build_train_step(cfg, opt, lambda s: LR)(state,
-                                                                      b0)
-    rec = sampler.after(state, metrics)
-    del state, sampler
-    for p in m.parameters():
-        p.grad = None
-    with torch.no_grad(), tsteps.full_bf16_reductions():
-        _, met = tsteps.loss_fn(m, cfg, b1)
-    rec["scalars"]["loss_after"] = float(met["loss"])
-    return rec
+    def state(self, state: dict, cfg) -> dict:
+        """The optimizer's state at the sampled indices, under the
+        reference's names: {"state": AdamW's {"m", "v"} or Adafactor's
+        {"vr", "vc", "v"} (``state_indices`` of the layer-stacked moments
+        ``st["vs"][leaf]``; None where a leaf has no such moment), each a
+        list over the parameters, "count"}."""
+        from repro_torch.models.weights import leaf_of
+        st, out = state["opt"], {}
+        for n, p in self.params.items():
+            if "m" in st:
+                for k in ("m", "v"):
+                    out.setdefault(k, []).append(_take(st[k][n], self.idx[n]))
+                continue
+            key, r = leaf_of(n, cfg)
+            ix = state_indices(tuple(p.shape), self.idx[n].cpu().numpy(), r)
+            for k in ("vr", "vc", "v"):
+                out.setdefault(k, []).append(
+                    st["vs"][key][k][tuple(torch.from_numpy(a).to(p.device)
+                                           for a in ix[k])].double().cpu(
+                                               ).numpy() if k in ix else None)
+        return {"state": out, "count": int(st["count"])}
 
 
 def train_tolerance(name: str, dtype: str) -> dict:
     """{measure of ``TRAIN_MEASURES``: limit}: ``TOL_CELL``'s where it sets
-    one, else ``TOL[dtype]``."""
-    tol = TOL_CELL.get((name, dtype), TOL[dtype])
+    one (a ``TRAIN_STEPS`` cell's, which hold its steps past the first,
+    else its ``TRAIN`` cell's), else ``TOL[dtype]``."""
+    tol = TOL_CELL.get((name, dtype), TOL_CELL.get((train_name(name), dtype),
+                                                   TOL[dtype]))
     if not isinstance(tol, dict):
         return dict.fromkeys(TRAIN_MEASURES, tol)
-    return {m: tol.get(m, TOL[dtype]) for m in TRAIN_MEASURES}
+    out = {m: tol.get(m, TOL[dtype]) for m in TRAIN_MEASURES}
+    out["state"] = tol.get("state", out["grad"])  # the moments of the grads
+    return out
 
 
 def rel(a, b) -> float:
@@ -1280,17 +1355,7 @@ def pack_train(records: dict, meta: dict) -> dict:
     -> the file's arrays."""
     arrays = {"meta": _json(meta)}
     for (name, dt), r in records.items():
-        arrays[f"{name}/input_sums"] = np.stack([batch_sums(b)
-                                                 for b in r["batches"]])
-        arrays[f"{name}/numels"] = np.asarray(r["numels"], np.int64)
-        arrays[f"{name}/index_sums"] = np.array(
-            [train_indices(n, k).sum() for n, k in
-             zip(r["names"], r["numels"])], np.int64)
-        arrays[f"{name}/cut"] = _json(cell(name).cut)
-        arrays[f"{name}/xla_flags"] = np.array(cell(name).xla_flags)
-        if cell(name).synthetic:
-            arrays[f"{name}/tokens"] = np.stack([b["tokens"]
-                                                 for b in r["batches"]])
+        arrays.update(_train_cell_arrays(name, r))
         pre = f"{name}/{dt}"
         arrays[f"{pre}/names"] = np.array(r["names"])
         arrays[f"{pre}/checksums"] = r["sums"]
@@ -1299,6 +1364,23 @@ def pack_train(records: dict, meta: dict) -> dict:
         arrays[f"{pre}/grad_norms"] = np.asarray(r["grad_norms"], np.float64)
         for k in ("grad", "update"):
             arrays[f"{pre}/{k}"] = np.concatenate(r[k]).astype(np.float32)
+    return arrays
+
+
+def _train_cell_arrays(name: str, r: dict) -> dict:
+    """A train cell's arrays of either file: its batches' sums, parameter
+    sizes and index sums, cut, XLA flags, a synthetic cell's tokens."""
+    arrays = {f"{name}/input_sums": np.stack([batch_sums(b)
+                                              for b in r["batches"]]),
+              f"{name}/numels": np.asarray(r["numels"], np.int64),
+              f"{name}/index_sums": np.array(
+                  [train_indices(n, k).sum() for n, k in
+                   zip(r["names"], r["numels"])], np.int64),
+              f"{name}/cut": _json(cell(name).cut),
+              f"{name}/xla_flags": np.array(cell(name).xla_flags)}
+    if cell(name).synthetic:
+        arrays[f"{name}/tokens"] = np.stack([b["tokens"]
+                                             for b in r["batches"]])
     return arrays
 
 
@@ -1355,9 +1437,9 @@ def run_train_cell(name: str, dtype: str, device, golden: dict,
                    m=None) -> dict:
     """Build a train cell's model on ``device`` (or take ``m``), check its
     checksums and its batches against the file, take the port's step
-    (``train_step_record``) and compare (``judge_train``).  Raises on a
-    weight or input mismatch; returns {"errors", "tol"[, "drift"],
-    "weights_s", "run_s"}."""
+    (``train_steps_record``' one step) and compare (``judge_train``).
+    Raises on a weight or input mismatch; returns {"errors", "tol"[,
+    "drift"], "weights_s", "run_s"}."""
     cfg = cell_config(name, dtype)
     batches = [train_batch(name, cfg, s, golden) for s in (0, 1)]
     t0 = time.perf_counter()  # repro: allow(DB001): the report's wall time
@@ -1370,11 +1452,453 @@ def run_train_cell(name: str, dtype: str, device, golden: dict,
                        *zip(*[(n, p.numel()) for n, p in
                               m.named_parameters()]))
     t1 = time.perf_counter()  # repro: allow(DB001): as above
-    got = train_step_record(m, cfg, batches, device)
+    got = train_steps_record(m, cfg, batches, device, 1)["steps"][0]
     del m
     t2 = time.perf_counter()  # repro: allow(DB001): as above
     return {**judge_train(name, dtype, got, golden), "weights_s": t1 - t0,
             "run_s": t2 - t1}
+
+
+# ---------------------------------------------------------------------------
+# the train records over ``STEPS`` steps (``TRAIN_STEPS``,
+# ``tests/golden/train_steps.npz``): "<cell>/<dtype>/names" and
+# "/checksums", "/scalars" ((S, 3) f64: each step's ``STEP_SCALARS``),
+# "/loss_after" (batch S's loss after the last step), "/grad_norms" ((S, P)
+# f64), "/grad" (each step's samples), "/count" (the optimizer's after the
+# last step); AdamW: "/base" (the f32 base's samples before step 1) and
+# "/residual" (the base after each step, then m and v after the last, each
+# as its bits' difference from ``adamw_replay``'s); Adafactor: "/update"
+# (each step's) and "/state/<k>" (``state_indices``' samples of ``vr`` and
+# ``vc`` of each factored leaf, of ``v`` of the others) with "/factored"
+# (one a parameter); "/decoded" (the crc32 of each step's update and of
+# each state's samples, as the reader decodes them); every 4-byte array as
+# its byte planes (``planes``).  "<cell>/input_sums", "/numels",
+# "/index_sums", "/cut", "/xla_flags" as in ``train.npz``, "<cell>/steps",
+# a synthetic cell's "/tokens" (its S + 1 batches'), "meta"
+# ---------------------------------------------------------------------------
+STEP_SCALARS = SCALARS[:3]
+ADAMW_B1, ADAMW_B2 = 0.9, 0.95
+
+
+def planes(a: np.ndarray) -> np.ndarray:
+    """A 4-byte array as its (4, n) byte planes: zlib finds the runs of like
+    sign and exponent bytes there, and not between the mantissas' bytes."""
+    a = np.ascontiguousarray(a).reshape(-1)
+    return a.view(np.uint8).reshape(-1, 4).T.copy()
+
+
+def unplanes(p: np.ndarray, dtype) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(p).T).view(dtype).reshape(-1)
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """f32 ``x`` rounded to bf16 (to nearest, ties to even), in f32."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))) & \
+        np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def adamw_replay(base: np.ndarray, grads: list, dtype: str) -> tuple:
+    """AdamW (``ADAMW_B1``, ``ADAMW_B2``, ``ADAMW_EPS``, ``WEIGHT_DECAY`` at
+    ``LR``) on samples, elementwise, in f32 in the reference's order: from
+    the f32 base ``base`` and each step's clipped grads, ([the base after
+    each step], m, v after the last); for a bf16 record, 1 - b1, 1 - b2 and
+    the grads' squares rounded to bf16 (the weakly typed constants take the
+    grads' dtype) and their products in f32 (XLA's excess precision).
+    Basic IEEE operations only (the bias corrections' powers multiplied
+    out in f64), so that every numpy gives the same bits: the prediction a
+    record's AdamW samples are stored against, which the reference's own
+    differ from by a few ulps."""
+    f = np.float32
+    rnd = _bf16 if dtype == "bfloat16" else (lambda x: x)
+    b = np.asarray(base, f)
+    m, v = np.zeros_like(b), np.zeros_like(b)
+    c1, c2 = rnd(f(1 - ADAMW_B1)), rnd(f(1 - ADAMW_B2))
+    p1 = p2 = 1.0
+    out = []
+    for g in grads:
+        g = np.asarray(g, f)
+        p1, p2 = p1 * ADAMW_B1, p2 * ADAMW_B2
+        m = f(ADAMW_B1) * m + c1 * g
+        v = f(ADAMW_B2) * v + c2 * rnd(g * g)
+        step = (m / f(1 - p1)) / (np.sqrt(v / f(1 - p2)) + f(ADAMW_EPS)) + \
+            f(WEIGHT_DECAY) * b
+        b = b - f(LR) * step
+        out.append(b)
+    return out, m, v
+
+
+def _residual(got: np.ndarray, pred: np.ndarray) -> np.ndarray:
+    """``got``'s f32 bits less ``pred``'s, modulo 2^32."""
+    return np.asarray(got, np.float32).view(np.uint32) - pred.view(np.uint32)
+
+
+def _unresidual(res: np.ndarray, pred: np.ndarray) -> np.ndarray:
+    return (pred.view(np.uint32) + res).view(np.float32)
+
+
+def state_indices(shape: tuple, idx: np.ndarray, r: int | None) -> dict:
+    """Where the flat indices ``idx`` of a layer tensor of ``shape`` (layer
+    ``r`` of a stacked leaf, else ``r`` None) fall in Adafactor's moments of
+    its leaf: {"vr": its rows, "vc": its columns} (tuples of index arrays)
+    where the leaf has two dims or more, else {"v": the elements}."""
+    at = tuple(np.unravel_index(np.asarray(idx), tuple(shape)))
+    if r is not None:
+        at = (np.full(len(idx), r, np.int64),) + at
+    if len(at) < 2:
+        return {"v": at}
+    return {"vr": at[:-1], "vc": at[:-2] + at[-1:]}
+
+
+def _crc(a: np.ndarray) -> int:
+    return zlib.crc32(np.ascontiguousarray(a, np.float32).tobytes())
+
+
+def _decoded(updates: list, state: dict) -> np.ndarray:
+    """The crc32 of each step's update samples (f32, concatenated) and of
+    each state's samples, in ``sorted`` order of the state's keys."""
+    return np.array([_crc(np.concatenate(u)) for u in updates] +
+                    [_crc(np.concatenate([x for x in state[k]
+                                          if x is not None] or [[]]))
+                     for k in sorted(state)], np.int64)
+
+
+def pack_train_steps(records: dict, meta: dict) -> dict:
+    """records: {(cell, dtype): ``tests/reference_golden.py``'s
+    ``reference_train_steps``: {"names", "sums", "numels", "batches" (S +
+    1), "steps" (each {"scalars", "grad_norms", "grad", "update"}),
+    "bases" (AdamW: the f32 base's samples before and after each step),
+    "loss_after", "state", "count"}} -> the file's arrays; each record read
+    back (``stored_train_steps``) as it was written, else ValueError."""
+    arrays = {"meta": _json(meta)}
+    f32 = np.float32
+    for (name, dt), r in records.items():
+        arrays.update(_train_cell_arrays(name, r))
+        steps, st = r["steps"], r["state"]
+        arrays[f"{name}/steps"] = np.int64(len(steps))
+        pre = f"{name}/{dt}"
+        arrays[f"{pre}/names"] = np.array(r["names"])
+        arrays[f"{pre}/checksums"] = r["sums"]
+        arrays[f"{pre}/scalars"] = np.array(
+            [[s["scalars"][k] for k in STEP_SCALARS] for s in steps],
+            np.float64)
+        arrays[f"{pre}/loss_after"] = np.float64(r["loss_after"])
+        arrays[f"{pre}/grad_norms"] = np.array([s["grad_norms"]
+                                                for s in steps], np.float64)
+        grads = [np.concatenate(s["grad"]).astype(f32) for s in steps]
+        arrays[f"{pre}/grad"] = planes(np.concatenate(grads))
+        arrays[f"{pre}/count"] = np.int64(r["count"])
+        if "m" in st:
+            bases = [np.concatenate(b).astype(f32) for b in r["bases"]]
+            pred, m, v = adamw_replay(bases[0], grads, dt)
+            got = bases[1:] + [np.concatenate(st[k]).astype(f32)
+                               for k in ("m", "v")]
+            arrays[f"{pre}/base"] = planes(bases[0])
+            arrays[f"{pre}/residual"] = planes(np.concatenate(
+                [_residual(a, p) for a, p in zip(got, pred + [m, v])]))
+        else:
+            arrays[f"{pre}/update"] = planes(np.concatenate(
+                [np.concatenate(s["update"]) for s in steps]).astype(f32))
+            arrays[f"{pre}/factored"] = np.array([x is not None
+                                                  for x in st["vr"]])
+            for k in ("vr", "vc", "v"):
+                arrays[f"{pre}/state/{k}"] = planes(np.concatenate(
+                    [x for x in st[k] if x is not None] or [[]]).astype(f32))
+        arrays[f"{pre}/decoded"] = _decoded(
+            [[np.asarray(u, f32) for u in s["update"]] for s in steps],
+            {k: [None if x is None else np.asarray(x, f32) for x in v]
+             for k, v in st.items()})
+        stored_train_steps(arrays, name, dt)
+    return arrays
+
+
+def stored_train_steps(golden: dict, name: str, dtype: str) -> dict:
+    """One record of ``train_steps.npz``: {"names", "numels", "sums",
+    "steps" (each step as ``compare_train`` takes a record: its scalars
+    with the next step's loss as "loss_after", each parameter's grad norm,
+    grad and update samples, AdamW's base before it), "state" ({key: each
+    parameter's samples, None where its leaf has none}), "count"}.  Raises
+    where the decoded samples are not those written (``/decoded``)."""
+    pre = f"{name}/{dtype}"
+    f32, f64 = np.float32, np.float64
+    names = [str(n) for n in golden[f"{pre}/names"]]
+    numels = golden[f"{name}/numels"].tolist()
+    sizes = [min(n, K) for n in numels]
+    cuts = np.cumsum(sizes)[:-1]
+    sc = golden[f"{pre}/scalars"]
+    n_steps, n = len(sc), sum(sizes)
+    grads = unplanes(golden[f"{pre}/grad"], f32).reshape(n_steps, n)
+    if f"{pre}/base" in golden:
+        b0 = unplanes(golden[f"{pre}/base"], f32)
+        res = unplanes(golden[f"{pre}/residual"], np.uint32).reshape(
+            n_steps + 2, n)
+        pred, m, v = adamw_replay(b0, list(grads), dtype)
+        got = [_unresidual(a, p) for a, p in zip(res, pred + [m, v])]
+        bases = [b0] + got[:n_steps]
+        updates = [(b.astype(f64) - a.astype(f64)).astype(f32)
+                   for a, b in zip(bases, bases[1:])]
+        state = {"m": np.split(got[-2], cuts), "v": np.split(got[-1], cuts)}
+    else:
+        updates = list(unplanes(golden[f"{pre}/update"], f32).reshape(
+            n_steps, n))
+        bases = [None] * n_steps
+        fac = golden[f"{pre}/factored"]
+        state = {}
+        for k, has in (("vr", fac), ("vc", fac), ("v", ~fac)):
+            vals = unplanes(golden[f"{pre}/state/{k}"], f32)
+            parts = iter(np.split(vals, np.cumsum(
+                [s for s, h in zip(sizes, has) if h])[:-1]))
+            state[k] = [next(parts) if h else None for h in has]
+    updates = [np.split(u, cuts) for u in updates]
+    if not np.array_equal(_decoded(updates, state), golden[f"{pre}/decoded"]):
+        raise ValueError(f"{name} {dtype}: the samples read back are not "
+                         f"those written")
+    after = [float(s[0]) for s in sc[1:]] + [
+        float(golden[f"{pre}/loss_after"])]
+    steps = [{"names": names, "numels": numels,
+              "scalars": {**dict(zip(STEP_SCALARS, sc[i].tolist())),
+                          "loss_after": after[i]},
+              "grad_norms": golden[f"{pre}/grad_norms"][i],
+              "grad": [g.astype(f64) for g in np.split(grads[i], cuts)],
+              "update": [u.astype(f64) for u in updates[i]],
+              "base": None if bases[i] is None else
+              [b.astype(f64) for b in np.split(bases[i], cuts)]}
+             for i in range(n_steps)]
+    return {"names": names, "numels": numels,
+            "sums": golden[f"{pre}/checksums"], "steps": steps,
+            "state": {k: [None if x is None else x.astype(f64) for x in v]
+                      for k, v in state.items()},
+            "count": int(golden[f"{pre}/count"])}
+
+
+def train_steps_record(m, cfg, batches: list, device, steps: int = STEPS
+                       ) -> dict:
+    """``steps`` train steps of the port (``build_train_step``, the
+    config's optimizer, ``LR``) on model ``m`` from one fresh state, on
+    batches 0..steps-1, then the loss of a forward pass on batch ``steps``:
+    {"names", "numels", "steps" (``TrainSampler``'s record of each, its
+    "loss_after" the next step's loss), "state", "count"
+    (``TrainSampler.state`` after the last)}."""
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import steps as tsteps
+    opt = make_optimizer(cfg.optimizer, cfg=cfg)
+    state = tsteps.init_train_state(None, cfg, opt, params=m)
+    dev = torch.device(device)
+    bs = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+          for b in batches]
+    step = tsteps.build_train_step(cfg, opt, lambda s: LR)
+    sampler, out = TrainSampler(state), []
+    for b in bs[:steps]:
+        state, metrics = step(state, b)
+        out.append(sampler.after(state, metrics))
+    rec = {"names": out[0]["names"], "numels": out[0]["numels"],
+           "steps": out, **sampler.state(state, cfg)}
+    del state, sampler
+    return with_losses_after(rec, forward_loss(m, cfg, bs[steps]))
+
+
+def forward_loss(m, cfg, batch: dict) -> float:
+    """The loss of a forward pass of ``m`` on ``batch`` (its grads freed
+    first), reduced as the train step reduces: the loss after a step."""
+    from repro_torch.train import steps as tsteps
+    for p in m.parameters():
+        p.grad = None
+    with torch.no_grad(), tsteps.full_bf16_reductions():
+        return float(tsteps.loss_fn(m, cfg, batch)[1]["loss"])
+
+
+def with_losses_after(rec: dict, last: float) -> dict:
+    """Each step's "loss_after": the next step's loss, ``last`` after the
+    last step."""
+    after = [s["scalars"]["loss"] for s in rec["steps"][1:]] + [last]
+    for s, a in zip(rec["steps"], after):
+        s["scalars"]["loss_after"] = a
+    return rec
+
+
+def adamw_v_hat(grads: list) -> list:
+    """AdamW's bias-corrected second moment after each step, f64, from
+    each step's clipped grad samples (a parameter's)."""
+    v, out = 0.0, []
+    for k, g in enumerate(grads, 1):
+        v = ADAMW_B2 * v + (1 - ADAMW_B2) * np.square(g)
+        out.append(v / (1 - ADAMW_B2 ** k))
+    return out
+
+
+def compare_later_step(got: dict, want: dict, lim: dict, adamw: bool,
+                       dtype: str, v_hat: list, f32: dict | None = None
+                       ) -> dict:
+    """A step past the first (whose update is not about lr sign(g) any more)
+    of a train record ``got`` against ``want``: the scalars and each leaf's
+    grad as ``compare_train`` holds them (a leaf's grad limit widened to
+    ``SPREAD`` times the reference's own error from ``f32``); each leaf's
+    update in relative norm, AdamW's where the reference's sqrt(v_hat)
+    (``v_hat``: each parameter's samples at this step) exceeds
+    ``CLEAR_EPS`` eps, and within 2 lr (1 + wd |p|) elsewhere, where the
+    step is linear in the grad; beside ``f32`` a leaf's update limit is at
+    least ``SPREAD`` times the reference's own distance from it there.  An
+    update is the difference of two f32 values of the weight (AdamW's f32
+    master): each index's difference counts past one f32 spacing of the
+    new weight (``ulp_excess``), the rounding of two steps that differ in
+    their last bits."""
+    names = want["names"]
+    first = compare_train(got, want, lim, False, dtype, f32)
+    slack = 1 + (BF16_STEP_SLACK if dtype == "bfloat16" else 0.0)
+    errs, limits, excess, cleared, held = [], [], 0.0, 0, 0
+    for i in range(len(names)):
+        gu, wu = got["update"][i], want["update"][i]
+        clear = np.sqrt(v_hat[i]) > CLEAR_EPS * ADAMW_EPS if adamw else \
+            np.ones(len(wu), bool)
+        cleared += int(clear.sum())
+        new = got["base"][i] + gu
+        errs.append(ulp_excess(gu[clear], wu[clear], new[clear])
+                    if clear.any() else 0.0)
+        own = ulp_excess(wu[clear], f32["update"][i][clear], new[clear]) \
+            if f32 and clear.any() else 0.0
+        limits.append(max(lim["update"], SPREAD * own))
+        if (~clear).any():
+            bound = 2 * LR * (1 + WEIGHT_DECAY * np.abs(got["base"][i]))
+            excess = max(excess, float(np.max((np.abs(gu - wu) / (
+                bound * slack))[~clear])))
+            held += int((~clear).sum())
+    over = [e / m for e, m in zip(errs, limits)]
+    worst = int(np.argmax(over))
+    update = {"worst": errs[worst], "worst_leaf": names[worst],
+              "worst_limit": limits[worst], "largest_error": max(errs),
+              "limits_widened": sum(m > lim["update"] for m in limits)}
+    if adamw:
+        update.update(indices_cleared=cleared, indices_bounded=held,
+                      bound_used=excess)
+    ok = bool(max(first["scalars"].values()) <= lim["scalars"] and
+              first["grad"]["worst"] <= first["grad"]["worst_limit"] and
+              over[worst] <= 1.0 and excess <= 1.0)
+    return {**first, "update": update, "ok": ok}
+
+
+def ulp_excess(a: np.ndarray, b: np.ndarray, at: np.ndarray) -> float:
+    """``rel(a, b)`` of two updates of a weight of values ``at``, each
+    index's difference less one f32 spacing of its weight (0 at most):
+    what is left past the rounding of the f32 weight the update is the
+    change of."""
+    b = np.asarray(b, np.float64)
+    d = np.maximum(np.abs(np.asarray(a, np.float64) - b) - np.spacing(
+        np.abs(np.asarray(at, np.float32))).astype(np.float64), 0.0)
+    n = float(np.linalg.norm(b))
+    return float(np.linalg.norm(d)) / n if n else (
+        0.0 if not d.any() else math.inf)
+
+
+def compare_state(got: dict, want: dict, lim: float,
+                  f32: dict | None = None) -> dict:
+    """The optimizer's state after the last step: each parameter's samples
+    of each moment in relative norm within ``lim`` (beside ``f32``'s state
+    at least ``SPREAD`` times the reference's own distance from it), and
+    the same count."""
+    errs, limits, where = [], [], []
+    for k in sorted(want["state"]):
+        for i, w in enumerate(want["state"][k]):
+            if w is None:
+                continue
+            errs.append(rel(got["state"][k][i], w))
+            own = rel(w, f32["state"][k][i]) if f32 else 0.0
+            limits.append(max(lim, SPREAD * own))
+            where.append(f"{k}:{want['names'][i]}")
+    over = [e / m for e, m in zip(errs, limits)]
+    worst = int(np.argmax(over))
+    return {"worst": errs[worst], "worst_leaf": where[worst],
+            "worst_limit": limits[worst], "largest_error": max(errs),
+            "count": got["count"], "want_count": want["count"],
+            "ok": bool(over[worst] <= 1.0 and got["count"] == want["count"])}
+
+
+def compare_train_steps(got: dict, want: dict, lim: dict, adamw: bool,
+                        dtype: str, f32: dict | None = None,
+                        later: dict | None = None) -> dict:
+    """A record over several steps (``train_steps_record``) against the
+    file's (``stored_train_steps``): step 1 by ``compare_train`` at
+    ``lim``, each later step by ``compare_later_step`` (AdamW's sqrt(v_hat)
+    from the file's grads) and the state after the last by
+    ``compare_state``, both at ``later`` (default ``lim``); ``f32`` (the
+    file's f32 record of the cell, for a narrower ``want``) widens each
+    step's limits as there.  {"steps": each step's errors, "state",
+    "ok"}."""
+    later = later or lim
+    if len(got["steps"]) != len(want["steps"]):
+        raise ValueError(f"{len(got['steps'])} steps, the file's "
+                         f"{len(want['steps'])}")
+    v_hat = list(zip(*[adamw_v_hat(g) for g in zip(
+        *[s["grad"] for s in want["steps"]])])) if adamw else None
+    out = []
+    for k, (g, w) in enumerate(zip(got["steps"], want["steps"])):
+        f = f32["steps"][k] if f32 else None
+        out.append(compare_train(g, w, lim, adamw, dtype, f) if k == 0 else
+                   compare_later_step(g, w, later, adamw, dtype,
+                                      v_hat[k] if adamw else None, f))
+    state = compare_state(got, want, later["state"], f32)
+    return {"steps": out, "state": state,
+            "ok": all(e["ok"] for e in out) and state["ok"]}
+
+
+def judge_train_steps(name: str, dtype: str, got: dict, golden: dict
+                      ) -> dict:
+    """``got`` (``train_steps_record``'s) against the file's record:
+    {"errors": compare_train_steps(...), "tol" (step 1's: its ``TRAIN``
+    cell's), "later_tol" (the later steps' and the state's: the cell's
+    own where ``TOL_CELL`` sets them)[, "drift": each step's]}; a bf16
+    step whose ``train_drift`` lies outside ``DRIFT_RATIO`` fails."""
+    want = stored_train_steps(golden, name, dtype)
+    tol = train_tolerance(train_name(name), dtype)
+    later = train_tolerance(name, dtype)
+    adamw = cell_config(name, dtype).optimizer == "adamw"
+    f32 = stored_train_steps(golden, name, "float32") if dtype != \
+        "float32" and f"{name}/float32/names" in golden else None
+    out = {"errors": compare_train_steps(got, want, tol, adamw, dtype, f32,
+                                         later),
+           "tol": tol, "later_tol": later}
+    if f32 is not None:
+        out["drift"] = [train_drift(g, w, f) for g, w, f in zip(
+            got["steps"], want["steps"], f32["steps"])]
+        bands = [DRIFT_RATIO] + [drift_ratio(name, dtype)] * (
+            len(out["drift"]) - 1)
+        out["errors"]["ok"] &= all(1 / b <= d["ratio"] <= b for d, b in
+                                   zip(out["drift"], bands))
+    return out
+
+
+def drift_ratio(name: str, dtype: str) -> float:
+    """The band of a ``TRAIN_STEPS`` cell's later steps' ``train_drift``
+    ratio: ``TOL_CELL``'s "drift" where the cell's entry sets one, else
+    ``DRIFT_RATIO``."""
+    tol = TOL_CELL.get((name, dtype))
+    return tol.get("drift", DRIFT_RATIO) if isinstance(tol, dict) else \
+        DRIFT_RATIO
+
+
+def run_train_steps_cell(name: str, dtype: str, device, golden: dict,
+                         m=None) -> dict:
+    """``run_train_cell`` over the record's steps: the model built on
+    ``device`` (or ``m``), its checksums and batches checked against the
+    file, ``train_steps_record``, ``judge_train_steps``."""
+    cfg = cell_config(name, dtype)
+    n_steps = int(golden[f"{name}/steps"])
+    batches = [train_batch(name, cfg, s, golden) for s in range(n_steps + 1)]
+    t0 = time.perf_counter()  # repro: allow(DB001): the report's wall time
+    if m is None:
+        m = train_model(name, dtype, device)
+    check_weights(m, name, dtype, {
+        "names": [str(n) for n in golden[f"{name}/{dtype}/names"]],
+        "sums": golden[f"{name}/{dtype}/checksums"]})
+    check_train_inputs(golden, name, batches,
+                       *zip(*[(n, p.numel()) for n, p in
+                              m.named_parameters()]))
+    t1 = time.perf_counter()  # repro: allow(DB001): as above
+    got = train_steps_record(m, cfg, batches, device, n_steps)
+    del m
+    t2 = time.perf_counter()  # repro: allow(DB001): as above
+    return {**judge_train_steps(name, dtype, got, golden),
+            "weights_s": t1 - t0, "run_s": t2 - t1}
 
 
 def routes(name: str, device, golden: dict) -> dict:
@@ -1427,16 +1951,17 @@ def compare_routes(here: dict, there: dict) -> dict:
                 float(here[f"{c}/margin"].min()) for c in calls]}
 
 
-GROUPS = {"timed": TIMED, "moe": MOE_TIMED, "train": TRAIN}
+GROUPS = {"timed": TIMED, "moe": MOE_TIMED, "train": TRAIN,
+          "train_steps": TRAIN_STEPS}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--cells", default=",".join(CELLS),
-                    help="cells of CELLS, TIMED, MOE_TIMED and TRAIN, "
-                         "comma-separated; 'timed', 'moe' or 'train' for "
-                         "all of TIMED, MOE_TIMED or TRAIN")
+                    help="cells of CELLS, TIMED, MOE_TIMED, TRAIN and "
+                         "TRAIN_STEPS, comma-separated; 'timed', 'moe', "
+                         "'train' or 'train_steps' for all of one table")
     ap.add_argument("--golden", default=None,
                     help="the records' file (default: each cell's own)")
     ap.add_argument("--int8-flips", metavar="PATH", default=None,
@@ -1474,7 +1999,8 @@ def main(argv=None) -> int:
         if path not in files:
             files[path] = load(path)
         for dt in cell(name).dtypes:
-            r = (run_train_cell if name in TRAIN else run_cell)(
+            r = (run_train_steps_cell if name in TRAIN_STEPS else
+                 run_train_cell if name in TRAIN else run_cell)(
                 name, dt, device, files[path])
             ok &= r["errors"]["ok"]
             print(f"[golden] {name} {dt}: " + json.dumps(r), flush=True)

@@ -31,6 +31,14 @@ engine with the f32): rwkv6-7b ~25 min and ~40 GB (its 7.6 B f32 weights,
 once), recurrentgemma-2b and paligemma-3b ~8 min and ~20 GB each,
 gemma3-1b ~5 min, its int8 cache ~3 min, whisper-small ~1 min.
 
+The train cells (``reference_train``, ``golden.TRAIN``) go to
+``tests/golden/train.npz``, the same cells over three steps
+(``reference_train_steps``, ``golden.TRAIN_STEPS``, ``--cells
+h2o-danube-1.8b@steps``) to ``tests/golden/train_steps.npz``; ``--dtype``
+writes one dtype's records and keeps the file's others, so that a cell
+whose two dtypes together pass the host's memory (paligemma-3b's) is
+written a dtype a process.
+
 ``--sensitivity`` measures how far rounding alone moves a cell's logits
 at each depth (``sensitivity``; rwkv6-7b at 2-4 layers and 4 rows ~80 s a
 depth), and ``--int8-cache`` writes the reference's int8 KV cache after
@@ -41,11 +49,13 @@ repro_torch.launch.golden --int8-flips PATH`` compares with the port's.
 tests/test_torch_timed_golden.py call to hold the files to the reference.
 """
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
 import math
 import os
+import resource
 import sys
 import time
 import warnings
@@ -171,21 +181,36 @@ def _sample(leaf, r, idx) -> tuple:
 def reference_train(name: str, dtype: str, layers=None, nudge=False,
                     seq_exact=False) -> dict:
     """One train cell of ``golden.TRAIN`` in ``dtype`` through the
-    reference: its loss and grads on batch 0 (one jitted
-    ``value_and_grad`` of ``repro.train.steps.loss_fn``), clipped as its
-    optimizers clip them (``clip_by_global_norm``, the grads donated), its
-    optimizer's first update (``make_optimizer(cfg.optimizer)``: its own
-    ``init`` and ``update`` in one jit, the params donated, its clip then
-    by inf: a scale of 1), and its loss on batch 1 after the update; each
-    parameter's grad norm and samples (the clipped grads, which the port's
-    ``.grad`` holds after its step) and update samples (new - old, AdamW's
-    f32 master) at
-    ``golden.train_indices`` under the port's parameter names.  Returns
-    {"names", "sums", "numels", "batches", "scalars", "grad_norms", "grad",
-    "update"} as ``golden.pack_train`` takes it.  ``layers``, ``nudge``,
-    ``seq_exact``: ``--sensitivity``'s (that many layers; the embedding
-    moved one ulp of its dtype; RWKV layers through the reference's exact
-    sequential wkv, ``forward_train(seq_exact=True)``)."""
+    reference: ``reference_train_steps``' one step (its loss and grads on
+    batch 0, the clipped grads, its optimizer's first update, the loss on
+    batch 1 after it) as ``golden.pack_train`` takes it: {"names", "sums",
+    "numels", "batches", "scalars" (``golden.SCALARS``), "grad_norms",
+    "grad", "update"}."""
+    r = reference_train_steps(name, dtype, 1, layers, nudge, seq_exact)
+    s = r["steps"][0]
+    return {"names": r["names"], "sums": r["sums"], "numels": r["numels"],
+            "batches": r["batches"],
+            "scalars": {**s["scalars"], "loss_after": r["loss_after"]},
+            "grad_norms": s["grad_norms"], "grad": s["grad"],
+            "update": s["update"]}
+
+
+def reference_train_steps(name: str, dtype: str, steps=None, layers=None,
+                          nudge=False, seq_exact=False) -> dict:
+    """One cell of ``golden.TRAIN_STEPS`` in ``dtype`` through the
+    reference over ``steps`` steps (default ``golden.STEPS``) from one
+    optimizer state: its ``init`` once, then on batches 0..steps-1 in turn
+    the jitted ``value_and_grad`` of ``loss_fn``, its clip split out as
+    ``reference_train``'s, and its ``update`` (one jit, compiled once, the
+    grads, the state and the params donated), then the loss on batch
+    ``steps``.  Each step keeps its scalars and each parameter's grad norm
+    and samples (``golden.train_indices``) and update samples (AdamW's f32
+    master); AdamW's f32 base before and after each step is kept too
+    ("bases"); after the last step the state at the same indices (AdamW:
+    m, v; Adafactor: ``golden.state_indices``' ``vr`` and ``vc`` of a
+    factored leaf, ``v`` of the others) and its count.  Returns
+    ``golden.pack_train_steps``' record.  ``layers``, ``nudge``,
+    ``seq_exact``: as ``reference_train``'s, for ``--sensitivity``."""
     import jax
     import jax.numpy as jnp
 
@@ -199,6 +224,10 @@ def reference_train(name: str, dtype: str, layers=None, nudge=False,
     from repro_torch.models.weights import leaf_of
 
     disable_flash_attention()
+    steps = steps or golden.STEPS
+    forward = mock.patch.object(jsteps, "forward_train", functools.partial(
+        jtf.forward_train, seq_exact=True)) if seq_exact else \
+        contextlib.nullcontext()
     cut = {"n_layers": layers} if layers else {}
     tcfg = dataclasses.replace(golden.cell_config(name, dtype), **cut)
     jcfg = dataclasses.replace(golden.cell_config(name, dtype, jax_config),
@@ -208,6 +237,7 @@ def reference_train(name: str, dtype: str, layers=None, nudge=False,
         m = golden.cast(m, tcfg)
     names, sums = golden.checksums(m)
     numels = [p.numel() for p in m.parameters()]
+    shapes = [tuple(p.shape) for p in m.parameters()]
     params = carry(m, tcfg, jcfg)
     del m
     if nudge:                    # one ulp of the embedding's dtype
@@ -223,74 +253,136 @@ def reference_train(name: str, dtype: str, layers=None, nudge=False,
             leaf = leaf[int(p)] if isinstance(leaf, (tuple, list)) else leaf[p]
         return leaf, r
 
-    batches = [golden.train_batch(name, tcfg, s) for s in (0, 1)]
+    batches = [golden.train_batch(name, tcfg, s) for s in range(steps + 1)]
     jb = [{k: jnp.asarray(v) for k, v in b.items()} for b in batches]
-    forward = functools.partial(jtf.forward_train, seq_exact=seq_exact)
-    with mock.patch.object(jsteps, "forward_train", forward):
-        loss = jax.jit(lambda p, b: jsteps.loss_fn(p, jcfg, b))
-        (_, metrics), grads = jax.jit(jax.value_and_grad(
-            lambda p, b: jsteps.loss_fn(p, jcfg, b), has_aux=True))(params,
-                                                                   jb[0])
-    # the grads the update takes: its own clip, split out of it (the update
-    # then clips by inf, a scale of exactly 1)
-    grads, gn = jax.jit(lambda g: clip_by_global_norm(g, golden.MAX_GRAD_NORM),
-                        donate_argnums=0)(grads)
-    grad_sq, grad_s, before = [], [], []
-    for i in range(len(names)):
-        sq, s = _sample(*at(grads, i), idx[i])
-        grad_sq.append(sq)
-        grad_s.append(s)
-        before.append(_sample(*at(params, i), idx[i])[1])
-    opt = make_optimizer(jcfg.optimizer, max_grad_norm=math.inf)
-    master = jcfg.optimizer == "adamw" and dtype != "float32"
 
-    def update(p, g):
-        new, st, _ = opt.update(g, opt.init(p), p, golden.LR)
-        return new, st["master"] if master else None
-    new, base = jax.jit(update, donate_argnums=0)(params, grads)
-    del params, grads
-    base = new if base is None else base
-    upd = [_sample(*at(base, i), idx[i])[1] - before[i]
-           for i in range(len(names))]
-    del base
-    with mock.patch.object(jsteps, "forward_train", forward):
-        after = loss(new, jb[1])[1]
+    loss = jax.jit(lambda p, b: jsteps.loss_fn(p, jcfg, b))
+    value_and_grad = jax.jit(jax.value_and_grad(
+        lambda p, b: jsteps.loss_fn(p, jcfg, b), has_aux=True))
+    clip = jax.jit(lambda g: clip_by_global_norm(g, golden.MAX_GRAD_NORM),
+                   donate_argnums=0)
+    opt = make_optimizer(jcfg.optimizer, max_grad_norm=math.inf)
+    adamw = jcfg.optimizer == "adamw"
+    update = jax.jit(lambda g, st, p: opt.update(g, st, p, golden.LR)[:2],
+                     donate_argnums=(0, 1, 2))
+    # the first step inits the state inside its update, as
+    # ``reference_train`` does: XLA folds the zeros, and its rounding is then
+    # that of train.npz's step bit for bit
+    first = jax.jit(lambda p, g: opt.update(g, opt.init(p), p, golden.LR),
+                    donate_argnums=0)
+    st = None
+
+    def base(tree):
+        return [_sample(*at(tree, i), idx[i])[1] for i in range(len(names))]
+    bases, out = [base(params)], []   # AdamW's master starts as the params
+    for s in range(steps):
+        t0 = time.perf_counter()  # repro: allow(DB001): progress report
+        with forward:
+            (_, metrics), grads = value_and_grad(params, jb[s])
+        grads, gn = clip(grads)
+        sq, gs = zip(*[_sample(*at(grads, i), idx[i])
+                       for i in range(len(names))])
+        params, st = update(grads, st, params) if s else first(params,
+                                                               grads)[:2]
+        del grads
+        bases.append(base(st["master"] if adamw else params))
+        out.append({"scalars": {"loss": float(metrics["loss"]),
+                                "aux": float(metrics["aux"]),
+                                "grad_norm": float(gn)},
+                    "grad_norms": np.sqrt(sq), "grad": list(gs),
+                    "update": [b - a for a, b in zip(bases[-2], bases[-1])]})
+        print(f"  step {s + 1}: {time.perf_counter() - t0:.0f} s", flush=True)
+    state = {}
+    for i in range(len(names)):
+        key, r = where[i]
+        if adamw:
+            for k in ("m", "v"):
+                state.setdefault(k, []).append(
+                    _sample(*at(st[k], i), idx[i])[1])
+            continue
+        leaf, _ = at(st["vs"], i)
+        ix = golden.state_indices(shapes[i], idx[i], r)
+        for k in ("vr", "vc", "v"):
+            state.setdefault(k, []).append(
+                np.asarray(leaf[k])[ix[k]].astype(np.float64) if k in ix
+                else None)
+    with forward:
+        after = loss(params, jb[steps])[1]
     return {"names": names, "sums": sums, "numels": numels,
-            "batches": batches,
-            "scalars": {"loss": float(metrics["loss"]),
-                        "aux": float(metrics["aux"]), "grad_norm": float(gn),
-                        "loss_after": float(after["loss"])},
-            "grad_norms": np.sqrt(grad_sq), "grad": grad_s, "update": upd}
+            "batches": batches, "steps": out,
+            "bases": bases if adamw else None,
+            "loss_after": float(after["loss"]), "state": state,
+            "count": int(st["count"])}
+
+
+def check_first_step(name: str, dtype: str, rec: dict) -> dict:
+    """``reference_train_steps``' first step against ``train.npz``'s record
+    of the same cell as it is stored there (f32 samples): the largest
+    difference of each part (0 where they are the same), and batch 1's loss
+    before step 2 against the file's loss after step 1 (another jit)."""
+    from repro_torch.launch import golden
+    want = golden.stored_train(golden.load(golden.TRAIN_GOLDEN),
+                               golden.train_name(name), dtype)
+    s = rec["steps"][0]
+    f32 = np.float32
+
+    def diff(a, b):
+        return float(np.max(np.abs(np.concatenate(a).astype(f32).astype(
+            np.float64) - np.concatenate(b))))
+    return {"names": rec["names"] == want["names"],
+            "scalars": max(abs(s["scalars"][k] - want["scalars"][k])
+                           for k in golden.STEP_SCALARS),
+            "grad_norms": float(np.max(np.abs(np.asarray(s["grad_norms"]) -
+                                              want["grad_norms"]))),
+            "grad": diff(s["grad"], want["grad"]),
+            "update": diff(s["update"], want["update"]),
+            "loss_after_rel": golden.rel(rec["steps"][1]["scalars"]["loss"]
+                                         if len(rec["steps"]) > 1 else
+                                         rec["loss_after"],
+                                         want["scalars"]["loss_after"])}
 
 
 def train_sensitivity(name: str, dtype: str, layers: int) -> dict:
-    """How far rounding alone moves a train cell's grads at ``layers``
-    layers: each parameter's grad (``golden.leaf_errors``) of the port on
-    the CPU (the kernels' plain versions), of the reference, and of the
-    reference with its embedding moved one ulp, each pair's largest and
-    median error over the parameters (as ``sensitivity`` does for the
-    logits); for a config with RWKV layers also the reference's exact
-    sequential wkv (``seq_exact``) against its chunked one and the port."""
+    """How far rounding alone moves a train cell's steps at ``layers``
+    layers (a ``golden.TRAIN`` cell's one step, a ``golden.TRAIN_STEPS``
+    cell's ``golden.STEPS``): at each step, each parameter's grad
+    (``golden.leaf_errors``) and update (relative in norm over its
+    samples) of the port on the CPU (the kernels' plain versions) and of
+    the reference with its embedding moved one ulp, against the
+    reference, each pair's largest and median error over the parameters
+    (as ``sensitivity`` does for the logits); for a config with RWKV layers
+    also the reference's exact sequential wkv (``seq_exact``) against its
+    chunked one and the port."""
     from repro_torch.launch import golden
     t0 = time.perf_counter()  # repro: allow(DB001): progress report
-    ref = reference_train(name, dtype, layers)
-    moved = reference_train(name, dtype, layers, nudge=True)
+    steps = 1 if name in golden.TRAIN else golden.STEPS
+    ref = reference_train_steps(name, dtype, steps, layers)
+    moved = reference_train_steps(name, dtype, steps, layers, nudge=True)
     cfg = dataclasses.replace(golden.cell_config(name, dtype),
                               n_layers=layers)
     m = golden.model(dataclasses.replace(cfg, param_dtype="float32"))
     if dtype != "float32":
         m = golden.cast(m, cfg)
-    port = golden.train_step_record(m, cfg, ref["batches"], "cpu")
+    port = golden.train_steps_record(m, cfg, ref["batches"], "cpu",
+                                     len(ref["steps"]))
 
     def distances(a, b):
-        d = golden.leaf_errors(a, b)
-        return {"grad_worst": max(d), "grad_median": float(np.median(d)),
-                "loss": golden.rel(a["scalars"]["loss"], b["scalars"]["loss"])}
+        out = []
+        for x, y in zip(a["steps"], b["steps"]):
+            d = golden.leaf_errors(x, y)
+            u = [golden.rel(p, q) for p, q in zip(x["update"], y["update"])]
+            out.append({"grad_worst": max(d), "grad_median": float(
+                np.median(d)), "update_worst": max(u),
+                "update_median": float(np.median(u)),
+                "loss": golden.rel(x["scalars"]["loss"],
+                                   y["scalars"]["loss"])})
+        return out
     out = {"cell": name, "dtype": dtype, "layers": layers,
            "port_vs_reference": distances(port, ref),
            "nudged_vs_reference": distances(moved, ref)}
     if "rwkv" in cfg.layer_kinds():
-        exact = reference_train(name, dtype, layers, seq_exact=True)
+        exact = reference_train_steps(name, dtype, steps, layers,
+                                      seq_exact=True)
         out.update(exact_vs_reference=distances(exact, ref),
                    port_vs_exact=distances(port, exact))
     return {**out, "seconds": time.perf_counter() - t0}
@@ -416,7 +508,10 @@ def main(argv=None):
     ap.add_argument("--sensitivity", metavar="CELL", default=None,
                     help="print how far rounding moves CELL's logits at "
                          "each depth of --layers instead")
-    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--dtype", default=None,
+                    help="--sensitivity's dtype (default float32); else "
+                         "write only this dtype's records, keeping the "
+                         "file's others (a dtype a process)")
     ap.add_argument("--rows", type=int, default=1)
     ap.add_argument("--layers", default="1,2,4,8,16,32")
     ap.add_argument("--int8-cache", metavar="PATH", default=None,
@@ -437,10 +532,12 @@ def main(argv=None):
     if args.sensitivity:
         for layers in map(int, args.layers.split(",")):
             print(json.dumps(
-                train_sensitivity(args.sensitivity, args.dtype, layers)
-                if args.sensitivity in golden.TRAIN else
-                sensitivity(args.sensitivity, args.dtype, layers,
-                            args.rows)), flush=True)
+                train_sensitivity(args.sensitivity, args.dtype or "float32",
+                                  layers)
+                if golden.table_of(args.sensitivity) in (
+                    golden.TRAIN, golden.TRAIN_STEPS) else
+                sensitivity(args.sensitivity, args.dtype or "float32",
+                            layers, args.rows)), flush=True)
         return
     if args.int8_cache:
         int8_cache(args.int8_cache)
@@ -449,21 +546,30 @@ def main(argv=None):
     if any(n not in table for n in cells):
         raise SystemExit(f"{cells}: cells of one file only")
     train = table is golden.TRAIN
+    multi = table is golden.TRAIN_STEPS
     out = Path(args.out or golden.file_of(cells[0]))
     records = {}
     for name in cells:
-        for dt in table[name].dtypes:
+        for dt in [d for d in table[name].dtypes
+                   if args.dtype in (None, d)]:
             t0 = time.perf_counter()  # repro: allow(DB001): progress report
             records[(name, dt)] = (reference_train if train else
+                                   reference_train_steps if multi else
                                    reference_run)(name, dt)
-            print(f"{name} {dt}: done in {time.perf_counter() - t0:.0f} s",
-                  flush=True)
+            peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+            print(f"{name} {dt}: done in {time.perf_counter() - t0:.0f} s, "
+                  f"the process's peak {peak:.1f} GB", flush=True)
+            if multi:
+                print(f"{name} {dt}: step 1 against train.npz: " + json.dumps(
+                    check_first_step(name, dt, records[(name, dt)])),
+                    flush=True)
     meta = {"jax": jax.__version__, "numpy": np.__version__,
             "seed": golden.SEED, "written_by": "tests/reference_golden.py"}
-    if train:
+    if train or multi:
         meta.update(train_input_seed=golden.TRAIN_INPUT_SEED,
                     index_seed=golden.INDEX_SEED, k=golden.K, lr=golden.LR)
-        arrays = golden.pack_train(records, meta)
+        arrays = (golden.pack_train_steps if multi else
+                  golden.pack_train)(records, meta)
     else:
         vocabs = sorted({golden.cell_config(n, "float32").vocab_size
                          for n in table})
@@ -474,10 +580,11 @@ def main(argv=None):
         if table is golden.TIMED:
             meta.update(engine_seed=golden.ENGINE_SEED, engine=golden.ENGINE)
         arrays = golden.pack(records, meta)
-    if out.exists() and set(cells) != set(table):
+    if out.exists() and (set(cells) != set(table) or args.dtype):
         old = golden.load(out)
         arrays = {**{k: v for k, v in old.items()
-                     if k.split("/")[0] not in cells and k != "meta"},
+                     if (k.split("/")[0] not in cells or args.dtype and
+                         k.split("/")[1:2] != [args.dtype]) and k != "meta"},
                   **arrays}
     out.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(out, **arrays)
