@@ -188,8 +188,8 @@ Phases:
      paligemma-3b); the MoEs keep all 128 experts, a CUDA generator's
      draws and ``make_batch``.  golden: the record's steps 1-3 are held on
      the timed bf16 model (paligemma-3b's, which has no bf16 record of
-     the steps, its step 1 against ``train.npz``) (h2o-danube-1.8b: its timed steps 1-3, step 4's
-     loss the loss after; the others: the warm-up, the timed step and an
+     the steps, its step 1 against ``train.npz``) (h2o-danube-1.8b: its
+     timed steps 1-3, step 4's loss the loss after; the others: the warm-up, the timed step and an
      untimed third, a forward pass's loss after it), ``HeldSteps`` sampling
      outside the timed region (``golden.TrainSampler``: the f32 master
      before each step; each parameter's clipped grad, its norm and its
@@ -209,7 +209,8 @@ Phases:
      record's expert cut (16 and 8 of 128, Adafactor, f32: its updates and
      its factored moments at the sampled rows and columns in relative
      norm) on a model of its own.  ``golden.TOL_CELL`` sets any other
-     limit.  A miss runs ``golden_train_diagnosis`` (each kernel swapped
+     limit; ``golden.UNHELD`` records (rwkv6-7b's bf16) are printed past
+     step 1 and not held there.  A miss runs ``golden_train_diagnosis`` (each kernel swapped
      for its plain version) and fails the run.  One ``[golden]`` line a
      step of a record, one for its state after.  One JSON line holds it.
   10. distributed: one NCCL rank (a FileStore in a temp dir, no network) and
@@ -2779,11 +2780,23 @@ def train_state_of_record(torch, dev, name, cfg, stored):
           LR_TRAIN == golden.LR,
           f"{name}: the timed config or rate is not the record's")
     model = golden.train_model(name, cfg.param_dtype, dev)
-    golden.check_weights(model, name, cfg.param_dtype, {
-        "names": [str(n) for n in stored[f"{name}/{cfg.param_dtype}/names"]],
-        "sums": stored[f"{name}/{cfg.param_dtype}/checksums"]})
+    golden.check_weights(model, name, cfg.param_dtype,
+                         record_weights(stored, name, cfg.param_dtype))
     opt = adamw()
     return opt, tsteps.init_train_state(None, cfg, opt, params=model)
+
+
+def record_weights(stored, name, dtype) -> dict:
+    """{"names", "sums"} of a train path's weights in ``dtype``: its steps
+    record's, else (a dtype the steps file holds no record in:
+    paligemma-3b's bf16) its one-step record's in ``train.npz``, which
+    ``judge_train_record`` then holds its step 1 to."""
+    from repro_torch.launch import golden
+    if f"{name}/{dtype}/names" not in stored:
+        name, stored = golden.train_name(name), golden.load(
+            golden.TRAIN_GOLDEN)
+    return {"names": [str(n) for n in stored[f"{name}/{dtype}/names"]],
+            "sums": stored[f"{name}/{dtype}/checksums"]}
 
 
 def record_batches(torch, dev, name, cfg, stored) -> list:
@@ -2834,7 +2847,7 @@ class HeldSteps:
 
 
 def golden_train_line(name, dtype, cfg, k, e, drift, tol, launches, what,
-                      card, band) -> str:
+                      card) -> str:
     """The ``[golden]`` line of step ``k`` (from 1) of a train record:
     ``e``, its errors (``compare_train``'s or ``compare_later_step``'s)."""
     from repro_torch.launch import golden
@@ -2870,7 +2883,8 @@ def golden_train_line(name, dtype, cfg, k, e, drift, tol, launches, what,
         line += (f"; grads from the f32 record: port "
                  f"{drift['port_vs_f32']:.3g}, reference "
                  f"{drift['reference_vs_f32']:.3g} (ratio "
-                 f"{drift['ratio']:.3g}, within {band}x of 1)")
+                 f"{drift['ratio']:.3g}, within {golden.DRIFT_RATIO}x of "
+                 f"1)")
     return line + f" (tol {tol}); launches {launches}; {card}"
 
 
@@ -2881,17 +2895,20 @@ def golden_steps_lines(name, dtype, cfg, r, launches, what, card):
     e = r["errors"]
     for k, s in enumerate(e["steps"]):
         drift = r["drift"][k] if "drift" in r else None
-        print(golden_train_line(
+        line = golden_train_line(
             name, dtype, cfg, k + 1, s, drift,
-            r["later_tol"] if k else r["tol"], launches[k], what, card,
-            golden.drift_ratio(name, dtype) if k else golden.DRIFT_RATIO),
-            flush=True)
+            golden.step_limits(r["later_tol"], k) if k else r["tol"],
+            launches[k], what, card)
+        print(line + (f"; not held: {r['unheld']}" if k and "unheld" in r
+                      else ""), flush=True)
     st = e["state"]
     print(f"[golden] {name} {dtype} the optimizer's state after step "
           f"{len(e['steps'])} ({what}): {st['worst']:.3g} nearest its limit "
           f"{st['worst_limit']:.3g} ({st['worst_leaf']}; largest "
           f"{st['largest_error']:.3g}), count {st['count']} (the file's "
-          f"{st['want_count']}); {card}", flush=True)
+          f"{st['want_count']})"
+          f"{'; not held: ' + r['unheld'] if 'unheld' in r else ''}; {card}",
+          flush=True)
 
 
 def judge_train_record(torch, dev, stored, name, dtype, cfg, held, what,
@@ -2913,7 +2930,7 @@ def judge_train_record(torch, dev, stored, name, dtype, cfg, held, what,
                                golden.load(golden.TRAIN_GOLDEN))
         print(golden_train_line(name, dtype, cfg, 1, r["errors"],
                                 r.get("drift"), r["tol"], launches[0], what,
-                                card, golden.DRIFT_RATIO), flush=True)
+                                card), flush=True)
         check(r["errors"]["ok"], f"[golden] {name} {dtype} against the "
                                  f"reference's step: {r['errors']}")
         return {**r, "launches": launches}

@@ -162,13 +162,17 @@ def reference_run(name: str, dtype: str) -> dict:
     return out
 
 
-def _sample(leaf, r, idx) -> tuple:
-    """(f64 sum of squares, f64 samples at ``idx``) of layer ``r`` of a
-    reference leaf (``r`` None: the leaf), through a view of its buffer."""
+def _sample(leaf, r, idx, norm=True) -> tuple:
+    """(f64 sum of squares, or None without ``norm``; f64 samples at
+    ``idx``) of layer ``r`` of a reference leaf (``r`` None: the leaf),
+    through a view of its buffer."""
     import torch
 
     from repro_torch.launch import golden
     a = np.asarray(leaf)
+    if not norm:
+        a = a if r is None else a[r]
+        return None, a.reshape(-1)[idx].astype(np.float64)
     a = np.ascontiguousarray(a if r is None else a[r])
     with warnings.catch_warnings():   # a read-only buffer, only read here
         warnings.simplefilter("ignore", UserWarning)
@@ -179,7 +183,7 @@ def _sample(leaf, r, idx) -> tuple:
 
 
 def reference_train(name: str, dtype: str, layers=None, nudge=False,
-                    seq_exact=False) -> dict:
+                    seq_exact=None) -> dict:
     """One train cell of ``golden.TRAIN`` in ``dtype`` through the
     reference: ``reference_train_steps``' one step (its loss and grads on
     batch 0, the clipped grads, its optimizer's first update, the loss on
@@ -196,7 +200,7 @@ def reference_train(name: str, dtype: str, layers=None, nudge=False,
 
 
 def reference_train_steps(name: str, dtype: str, steps=None, layers=None,
-                          nudge=False, seq_exact=False) -> dict:
+                          nudge=False, seq_exact=None) -> dict:
     """One cell of ``golden.TRAIN_STEPS`` in ``dtype`` through the
     reference over ``steps`` steps (default ``golden.STEPS``) from one
     optimizer state: its ``init`` once, then on batches 0..steps-1 in turn
@@ -204,13 +208,14 @@ def reference_train_steps(name: str, dtype: str, steps=None, layers=None,
     ``reference_train``'s, and its ``update`` (one jit, compiled once, the
     grads, the state and the params donated), then the loss on batch
     ``steps``.  Each step keeps its scalars and each parameter's grad norm
-    and samples (``golden.train_indices``) and update samples (AdamW's f32
-    master); AdamW's f32 base before and after each step is kept too
-    ("bases"); after the last step the state at the same indices (AdamW:
-    m, v; Adafactor: ``golden.state_indices``' ``vr`` and ``vc`` of a
-    factored leaf, ``v`` of the others) and its count.  Returns
-    ``golden.pack_train_steps``' record.  ``layers``, ``nudge``,
-    ``seq_exact``: as ``reference_train``'s, for ``--sensitivity``."""
+    and samples (``golden.train_indices``; past step 1 ``golden.thinned``)
+    and update samples (AdamW's f32 master); after the last step the
+    state at the thinned indices (AdamW: m, v; Adafactor:
+    ``golden.state_indices``' ``vr`` and ``vc`` of a factored leaf, ``v``
+    of the others) and its count.  Returns ``golden.pack_train_steps``'
+    record.  ``layers``, ``nudge``: as ``reference_train``'s, for
+    ``--sensitivity``; ``seq_exact``: the exact sequential wkv (default:
+    the cell's ``seq_exact``)."""
     import jax
     import jax.numpy as jnp
 
@@ -225,6 +230,8 @@ def reference_train_steps(name: str, dtype: str, steps=None, layers=None,
 
     disable_flash_attention()
     steps = steps or golden.STEPS
+    if seq_exact is None:
+        seq_exact = golden.cell(name).seq_exact
     forward = mock.patch.object(jsteps, "forward_train", functools.partial(
         jtf.forward_train, seq_exact=True)) if seq_exact else \
         contextlib.nullcontext()
@@ -273,8 +280,9 @@ def reference_train_steps(name: str, dtype: str, steps=None, layers=None,
     st = None
 
     def base(tree):
-        return [_sample(*at(tree, i), idx[i])[1] for i in range(len(names))]
-    bases, out = [base(params)], []   # AdamW's master starts as the params
+        return [_sample(*at(tree, i), idx[i], norm=False)[1]
+                for i in range(len(names))]
+    before, out = base(params), []    # AdamW's master starts as the params
     for s in range(steps):
         t0 = time.perf_counter()  # repro: allow(DB001): progress report
         with forward:
@@ -285,23 +293,31 @@ def reference_train_steps(name: str, dtype: str, steps=None, layers=None,
         params, st = update(grads, st, params) if s else first(params,
                                                                grads)[:2]
         del grads
-        bases.append(base(st["master"] if adamw else params))
-        out.append({"scalars": {"loss": float(metrics["loss"]),
+        now = base(st["master"] if adamw else params)
+        out.append({"names": names, "numels": numels,
+                    "scalars": {"loss": float(metrics["loss"]),
                                 "aux": float(metrics["aux"]),
                                 "grad_norm": float(gn)},
-                    "grad_norms": np.sqrt(sq), "grad": list(gs),
-                    "update": [b - a for a, b in zip(bases[-2], bases[-1])]})
+                    "grad_norms": np.sqrt(sq),
+                    "grad": [golden.thinned(g, s, n)
+                             for g, n in zip(gs, names)],
+                    "update": [golden.thinned(b - a, s, n)
+                               for a, b, n in zip(before, now, names)],
+                    "base": [golden.thinned(a, s, n)
+                             for a, n in zip(before, names)]})
+        before = now
         print(f"  step {s + 1}: {time.perf_counter() - t0:.0f} s", flush=True)
     state = {}
     for i in range(len(names)):
         key, r = where[i]
+        thin = golden.thinned(idx[i], golden.STEPS, names[i])
         if adamw:
             for k in ("m", "v"):
                 state.setdefault(k, []).append(
-                    _sample(*at(st[k], i), idx[i])[1])
+                    _sample(*at(st[k], i), thin, norm=False)[1])
             continue
         leaf, _ = at(st["vs"], i)
-        ix = golden.state_indices(shapes[i], idx[i], r)
+        ix = golden.state_indices(shapes[i], thin, r)
         for k in ("vr", "vc", "v"):
             state.setdefault(k, []).append(
                 np.asarray(leaf[k])[ix[k]].astype(np.float64) if k in ix
@@ -310,7 +326,6 @@ def reference_train_steps(name: str, dtype: str, steps=None, layers=None,
         after = loss(params, jb[steps])[1]
     return {"names": names, "sums": sums, "numels": numels,
             "batches": batches, "steps": out,
-            "bases": bases if adamw else None,
             "loss_after": float(after["loss"]), "state": state,
             "count": int(st["count"])}
 
@@ -350,14 +365,17 @@ def train_sensitivity(name: str, dtype: str, layers: int) -> dict:
     samples) of the port on the CPU (the kernels' plain versions) and of
     the reference with its embedding moved one ulp, against the
     reference, each pair's largest and median error over the parameters
-    (as ``sensitivity`` does for the logits); for a config with RWKV layers
-    also the reference's exact sequential wkv (``seq_exact``) against its
-    chunked one and the port."""
+    (as ``sensitivity`` does for the logits), and as the port is held
+    ("held": ``golden.compare_train_steps``' worst grad, update and state
+    at each step, with their leaves); for a cell of the chunked wkv also
+    the reference's exact sequential one (``seq_exact``) against it and
+    the port."""
     from repro_torch.launch import golden
     t0 = time.perf_counter()  # repro: allow(DB001): progress report
     steps = 1 if name in golden.TRAIN else golden.STEPS
-    ref = reference_train_steps(name, dtype, steps, layers)
-    moved = reference_train_steps(name, dtype, steps, layers, nudge=True)
+    ref, moved = (golden.with_losses_after(r, r["loss_after"]) for r in (
+        reference_train_steps(name, dtype, steps, layers),
+        reference_train_steps(name, dtype, steps, layers, nudge=True)))
     cfg = dataclasses.replace(golden.cell_config(name, dtype),
                               n_layers=layers)
     m = golden.model(dataclasses.replace(cfg, param_dtype="float32"))
@@ -377,10 +395,22 @@ def train_sensitivity(name: str, dtype: str, layers: int) -> dict:
                 "loss": golden.rel(x["scalars"]["loss"],
                                    y["scalars"]["loss"])})
         return out
+
+    def held(a, b):
+        e = golden.compare_train_steps(
+            a, b, golden.train_tolerance(golden.train_name(name), dtype),
+            cfg.optimizer == "adamw", dtype, None,
+            golden.train_tolerance(name, dtype))
+        return {"steps": [{k: [s[k]["worst"], s[k]["worst_leaf"]]
+                           for k in ("grad", "update")} |
+                          {"scalars": max(s["scalars"].values())}
+                          for s in e["steps"]],
+                "state": [e["state"]["worst"], e["state"]["worst_leaf"]]}
     out = {"cell": name, "dtype": dtype, "layers": layers,
            "port_vs_reference": distances(port, ref),
-           "nudged_vs_reference": distances(moved, ref)}
-    if "rwkv" in cfg.layer_kinds():
+           "nudged_vs_reference": distances(moved, ref),
+           "held": {"port": held(port, ref), "nudged": held(moved, ref)}}
+    if "rwkv" in cfg.layer_kinds() and not golden.cell(name).seq_exact:
         exact = reference_train_steps(name, dtype, steps, layers,
                                       seq_exact=True)
         out.update(exact_vs_reference=distances(exact, ref),
